@@ -1,0 +1,7 @@
+"""PyTorch/CUDA port of ovmr_tpu for NVIDIA Hopper (H100).
+
+A package of its own beside the JAX reference ``ovmr_tpu``: it imports
+``torch``, ``numpy`` and the standard library, never JAX and nothing of
+``ovmr_tpu``. The serving path (``ovmr_tpu_torch.api.OVMRGenerator``) runs
+the CLIP towers on hand-written Hopper kernels (``ovmr_tpu_torch/csrc``).
+"""

@@ -1,0 +1,633 @@
+// Hopper kernels for the two halves of the CLIP residual block.
+//
+// Replaces the TPU kernels of ovmr_tpu/ops/block_fused.py:
+//   K1 fused_attn_half (_attn_half_kernel :58, _masked_attn_half_kernel :113)
+//      x + out_proj(MHA(LN1(x))), packed QKV, optional additive [L, L] mask;
+//   K2 fused_mlp_half (_mlp_half_kernel :123)
+//      x + c_proj(QuickGELU(c_fc(LN2(x)))).
+//
+// What bounds them on the H100: at ViT-B/16 batch 256 the products are
+// 268 GFLOP (K1) and 476 GFLOP (K2) per layer against ~0.1 GB of
+// activations, far above the ~295 FLOP/byte ridge, so both halves are
+// bound by tensor-core operations (about 0.27 and 0.48 ms at 989 TFLOP/s).
+//
+// Design. The TPU kernels keep a whole tile of images in VMEM (an image's
+// QKV alone is 197 x 2304 bf16 = 908 KB, the MLP hidden of a 64-token tile
+// 393 KB); 227 KB of shared memory holds neither. So each half is a few
+// launches behind one Python wrapper, and the LN output, the QKV, the head
+// outputs and the MLP hidden pass through global memory (keeping them
+// on-chip is later work):
+//   K1 = layer_norm -> gemm(+b_qkv) -> attn_core -> gemm(+b_out, +x)
+//   K2 = layer_norm -> gemm(+c_fc_b, QuickGELU) -> gemm(+c_proj_b, +x)
+// LayerNorm is its own pass: normalizing inside the GEMM's A-tile staging
+// made every column block recompute the row statistics and kept A out of
+// cp.async; the extra pass moves one activation (77 MB at ViT-B/16 batch
+// 256, ~50 us) and lets every GEMM stage both tiles with cp.async. The
+// GEMM is one tiled kernel with two shared-memory stages; its epilogue adds
+// the bias in fp32 and applies the activation or the residual. The
+// attention core keeps a head's K and V and each 16-query tile's fp32
+// scores in shared memory. bf16/fp16 products run on the tensor cores
+// through WMMA with fp32 accumulation; fp32 products are plain FMA (TF32
+// would break the 1e-5 fp32 tolerance). No TMA or wgmma yet.
+//
+// Rounding follows the TPU kernel's contract (block_fused.py:68-149): the
+// LN output is cast to the activation dtype before the QKV / c_fc product;
+// qkv is cast after its bias; scores are scaled after the fp32 product; the
+// mask is added before an fp32 softmax; probs and each head's output are
+// cast; the projection is cast before the residual add in the activation
+// dtype; QuickGELU runs in fp32 and is then cast.
+#include <mma.h>
+
+#include "common.cuh"
+
+using namespace nvcuda;
+
+namespace ovmr {
+
+enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESIDUAL = 2 };
+
+template <typename T, int EPI>
+__device__ __forceinline__ T epilogue_one(float acc, T bias, T resid) {
+  float v = acc + to_f(bias);
+  if (EPI == EPI_BIAS_GELU) v = v * (1.0f / (1.0f + expf(-1.702f * v)));
+  T o = from_f<T>(v);
+  if (EPI == EPI_BIAS_RESIDUAL) o = from_f<T>(to_f(resid) + to_f(o));
+  return o;
+}
+
+// LayerNorm in fp32 (two-pass, eps 1e-5), cast to the activation dtype:
+// y[m] = T((x[m] - mean) * rstd * g + b), one warp per row, 16-byte loads.
+// The cast output is what the products consume (block_fused.py:68, :131).
+constexpr int LN_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(LN_THREADS)
+    layer_norm_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                      const T* __restrict__ b, T* __restrict__ y, int M, int K) {
+  constexpr int VW = 16 / sizeof(T);
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (LN_THREADS / 32) + threadIdx.x / 32;
+  if (row >= M) return;
+  const T* xr = x + (size_t)row * K;
+  float s = 0.f;
+  for (int k = lane * VW; k < K; k += 32 * VW) {
+    const Vec<T, VW> v = *reinterpret_cast<const Vec<T, VW>*>(xr + k);
+#pragma unroll
+    for (int e = 0; e < VW; ++e) s += to_f(v.v[e]);
+  }
+  const float mean = warp_sum(s) / K;
+  float ss = 0.f;
+  for (int k = lane * VW; k < K; k += 32 * VW) {
+    const Vec<T, VW> v = *reinterpret_cast<const Vec<T, VW>*>(xr + k);
+#pragma unroll
+    for (int e = 0; e < VW; ++e) {
+      const float d = to_f(v.v[e]) - mean;
+      ss += d * d;
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(ss) / K + 1e-5f);
+  for (int k = lane * VW; k < K; k += 32 * VW) {
+    const Vec<T, VW> v = *reinterpret_cast<const Vec<T, VW>*>(xr + k);
+    const Vec<T, VW> gv = *reinterpret_cast<const Vec<T, VW>*>(g + k);
+    const Vec<T, VW> bv = *reinterpret_cast<const Vec<T, VW>*>(b + k);
+    Vec<T, VW> o;
+#pragma unroll
+    for (int e = 0; e < VW; ++e)
+      o.v[e] = from_f<T>((to_f(v.v[e]) - mean) * rstd * to_f(gv.v[e]) + to_f(bv.v[e]));
+    *reinterpret_cast<Vec<T, VW>*>(y + (size_t)row * K + k) = o;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// GEMM, bf16/fp16: C[M, N] = epi(A[M, K] @ W[K, N] + bias)
+// 128 x 128 block tile, 8 warps as 4 x 2, each warp 32 x 64 (2 x 4 WMMA
+// 16x16x16 fragments with fp32 accumulators). K and N are multiples of 8.
+// Two shared-memory stages: the next k-tile is copied with cp.async while
+// the warps multiply the current one.
+// ---------------------------------------------------------------------------
+constexpr int TC_BM = 128, TC_BN = 128, TC_BK = 32, TC_THREADS = 256;
+constexpr int TC_LDA = TC_BK + 8;  // padded rows; multiples of 8 for WMMA
+constexpr int TC_LDB = TC_BN + 8;
+
+// 16-byte global -> shared copy; zero-fills when !pred (nothing is read)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// start copying k-tile k0 of A and W into one stage
+template <typename T>
+__device__ __forceinline__ void issue_tile(T* As, T* Bs, const T* A, const T* W, int M,
+                                           int N, int K, int m0, int n0, int k0) {
+  for (int c = threadIdx.x; c < TC_BM * TC_BK / 8; c += TC_THREADS) {
+    const int r = c / (TC_BK / 8), kc = (c % (TC_BK / 8)) * 8;
+    const bool ok = m0 + r < M && k0 + kc < K;
+    cp_async16(&As[r * TC_LDA + kc], ok ? A + (size_t)(m0 + r) * K + k0 + kc : A, ok);
+  }
+  for (int c = threadIdx.x; c < TC_BK * TC_BN / 8; c += TC_THREADS) {
+    const int r = c / (TC_BN / 8), nc = (c % (TC_BN / 8)) * 8;
+    const bool ok = k0 + r < K && n0 + nc < N;
+    cp_async16(&Bs[r * TC_LDB + nc], ok ? W + (size_t)(k0 + r) * N + n0 + nc : W, ok);
+  }
+  cp_async_commit();
+}
+
+template <typename T, int EPI>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+    gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ W,
+                   const T* __restrict__ bias, const T* __restrict__ R, T* __restrict__ C,
+                   int M, int N, int K) {
+  __shared__ __align__(128) T As[2][TC_BM * TC_LDA];
+  __shared__ __align__(128) T Bs[2][TC_BK * TC_LDB];
+  __shared__ __align__(128) float scratch[TC_THREADS / 32][16 * 16];
+
+  const int n0 = blockIdx.x * TC_BN, m0 = blockIdx.y * TC_BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 2, wn = warp % 2;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  issue_tile(As[0], Bs[0], A, W, M, N, K, m0, n0, 0);
+  const int nk = ceil_div(K, TC_BK);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    // the other stage was last read before the previous barrier: safe to fill
+    if (kt + 1 < nk) {
+      issue_tile(As[cur ^ 1], Bs[cur ^ 1], A, W, M, N, K, m0, n0, (kt + 1) * TC_BK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < TC_BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], &As[cur][(wm * 32 + i * 16) * TC_LDA + kk], TC_LDA);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::load_matrix_sync(b[j], &Bs[cur][kk * TC_LDB + wn * 64 + j * 16], TC_LDB);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  // epilogue: each fragment goes through the warp's fp32 scratch, then each
+  // lane finishes 8 consecutive outputs of one row
+  float* sc = scratch[warp];
+  const int r = lane / 2, cc = (lane % 2) * 8;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int gm = m0 + wm * 32 + i * 16 + r, gn = n0 + wn * 64 + j * 16 + cc;
+      if (gm < M && gn < N) {
+        const Vec<T, 8> bv = *reinterpret_cast<const Vec<T, 8>*>(bias + gn);
+        Vec<T, 8> rv;
+        if (EPI == EPI_BIAS_RESIDUAL)
+          rv = *reinterpret_cast<const Vec<T, 8>*>(R + (size_t)gm * N + gn);
+        Vec<T, 8> o;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          o.v[e] = epilogue_one<T, EPI>(sc[r * 16 + cc + e], bv.v[e],
+                                        EPI == EPI_BIAS_RESIDUAL ? rv.v[e] : bv.v[e]);
+        *reinterpret_cast<Vec<T, 8>*>(C + (size_t)gm * N + gn) = o;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// GEMM, fp32: same contract, plain FMA. 64 x 64 block tile, 256 threads,
+// each 4 x 4 outputs. K and N are multiples of 4.
+// ---------------------------------------------------------------------------
+constexpr int F_BM = 64, F_BN = 64, F_BK = 16, F_THREADS = 256;
+
+template <int EPI>
+__global__ void __launch_bounds__(F_THREADS)
+    gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                    const float* __restrict__ bias, const float* __restrict__ R,
+                    float* __restrict__ C, int M, int N, int K) {
+  __shared__ __align__(16) float As[F_BK][F_BM + 4];  // transposed: As[k][m]
+  __shared__ __align__(16) float Bs[F_BK][F_BN + 4];
+
+  const int n0 = blockIdx.x * F_BN, m0 = blockIdx.y * F_BM;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += F_BK) {
+    {
+      const int r = tid / 4, kc = (tid % 4) * 4;
+      const int gm = m0 + r, gk = k0 + kc;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gm < M && gk < K) v = *reinterpret_cast<const float4*>(A + (size_t)gm * K + gk);
+      As[kc + 0][r] = v.x;
+      As[kc + 1][r] = v.y;
+      As[kc + 2][r] = v.z;
+      As[kc + 3][r] = v.w;
+    }
+    {
+      const int r = tid / 16, nc = (tid % 16) * 4;
+      const int gk = k0 + r, gn = n0 + nc;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gk < K && gn < N) v = *reinterpret_cast<const float4*>(W + (size_t)gk * N + gn);
+      *reinterpret_cast<float4*>(&Bs[r][nc]) = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < F_BK; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + ty * 4 + i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx * 4 + j;
+      if (gn >= N) continue;
+      const float rv = EPI == EPI_BIAS_RESIDUAL ? R[(size_t)gm * N + gn] : 0.f;
+      C[(size_t)gm * N + gn] = epilogue_one<float, EPI>(acc[i][j], bias[gn], rv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Attention core of K1: qkv [B, L, 3D] in, head-merged out [B, L, D].
+// ---------------------------------------------------------------------------
+
+// fp32: one block per (query tile of 64, head, image); the head's K and V,
+// the tile's Q and its fp32 scores stay in shared memory; plain FMA.
+constexpr int AF_QT = 64, AF_THREADS = 128;
+
+__host__ __device__ inline size_t attn_f32_smem(int L, int Dh) {
+  return ((size_t)(AF_QT + 2 * L) * (Dh + 1) + (size_t)AF_QT * (L + 1)) * sizeof(float);
+}
+
+__global__ void __launch_bounds__(AF_THREADS)
+    attn_core_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+                         float* __restrict__ out, int L, int D, int Dh, float scale) {
+  constexpr int NW = AF_THREADS / 32;
+  extern __shared__ float fsm[];
+  const int ld = Dh + 1, lds = L + 1;
+  float* Qs = fsm;
+  float* Ks = Qs + AF_QT * ld;
+  float* Vs = Ks + L * ld;
+  float* S = Vs + L * ld;
+  const int q0 = blockIdx.x * AF_QT, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t rs = 3 * (size_t)D;
+  const float* base = qkv + (size_t)b * L * rs + (size_t)h * Dh;
+  const int nq = min(AF_QT, L - q0);
+
+  for (int idx = tid; idx < L * Dh; idx += AF_THREADS) {
+    const int r = idx / Dh, d = idx % Dh;
+    Ks[r * ld + d] = base[r * rs + D + d];
+    Vs[r * ld + d] = base[r * rs + 2 * D + d];
+  }
+  for (int idx = tid; idx < nq * Dh; idx += AF_THREADS) {
+    const int r = idx / Dh, d = idx % Dh;
+    Qs[r * ld + d] = base[(q0 + r) * rs + d];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < nq * L; idx += AF_THREADS) {
+    const int r = idx / L, c = idx % L;
+    float s = 0.f;
+    for (int d = 0; d < Dh; ++d) s = fmaf(Qs[r * ld + d], Ks[c * ld + d], s);
+    S[r * lds + c] = s;
+  }
+  __syncthreads();
+  for (int r = warp; r < nq; r += NW) {  // softmax(scores * scale + mask)
+    float* srow = S + r * lds;
+    const float* mrow = mask ? mask + (size_t)(q0 + r) * L : nullptr;
+    float mx = -INFINITY;
+    for (int c = lane; c < L; c += 32) {
+      float s = srow[c] * scale;
+      if (mrow) s += mrow[c];
+      srow[c] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int c = lane; c < L; c += 32) {
+      const float e = expf(srow[c] - mx);
+      srow[c] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int c = lane; c < L; c += 32) srow[c] = srow[c] / sum;
+  }
+  __syncthreads();
+  float* obase = out + (size_t)b * L * D + (size_t)h * Dh;
+  for (int idx = tid; idx < nq * Dh; idx += AF_THREADS) {
+    const int r = idx / Dh, d = idx % Dh;
+    float o = 0.f;
+    for (int c = 0; c < L; ++c) o = fmaf(S[r * lds + c], Vs[c * ld + d], o);
+    obase[(size_t)(q0 + r) * D + d] = o;
+  }
+}
+
+// bf16/fp16: one block per (head, image) loads the head's K and V once
+// (cp.async, zero-padded to Lp x Dhp, multiples of 16); each warp
+// then walks 16-query tiles on its own: Q tile -> fp32 scores by WMMA into
+// its private shared memory -> softmax row by row in registers (the probs,
+// cast to the activation dtype, overwrite the row's scores in place) ->
+// probs . V by WMMA -> cast and store. Only the K/V load needs the block.
+constexpr int AT_QT = 16, AT_MAX_WARPS = 8, AT_MAX_COLS = 10;  // Lp <= 320
+constexpr int AT_MAX_DT = 8;                                    // Dhp <= 128
+
+template <typename T>
+struct AttnTcLayout {
+  int ldk, lds;  // K/V and Q rows (elements of T); scores rows (floats)
+  size_t off_v, off_warps, off_s, warp_bytes;
+  __host__ __device__ AttnTcLayout(int Lp, int Dhp) {
+    ldk = Dhp + 8;
+    lds = (Lp > Dhp ? Lp : Dhp) + 4;  // the scores double as the output tile
+    off_v = align_up((size_t)Lp * ldk * sizeof(T), 128);
+    off_warps = align_up(off_v + (size_t)Lp * ldk * sizeof(T), 128);
+    off_s = align_up((size_t)AT_QT * ldk * sizeof(T), 128);
+    warp_bytes = align_up(off_s + (size_t)AT_QT * lds * sizeof(float), 128);
+  }
+  __host__ __device__ size_t bytes(int warps) const { return off_warps + warps * warp_bytes; }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(AT_MAX_WARPS * 32)
+    attn_core_tc_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
+                        T* __restrict__ out, int L, int D, int Dh, int Lp, int Dhp,
+                        float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const AttnTcLayout<T> lay(Lp, Dhp);
+  const int ldk = lay.ldk, lds = lay.lds, ldp = 2 * lay.lds;
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = reinterpret_cast<T*>(smem + lay.off_v);
+  const int nwarps = blockDim.x / 32, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  unsigned char* wsm = smem + lay.off_warps + warp * lay.warp_bytes;
+  T* Qs = reinterpret_cast<T*>(wsm);
+  float* S = reinterpret_cast<float*>(wsm + lay.off_s);
+  T* P = reinterpret_cast<T*>(S);  // row r of P overlays row r of S
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t rs = 3 * (size_t)D;
+  const T* base = qkv + (size_t)b * L * rs + (size_t)h * Dh;
+  const int cpr = Dhp / 8;  // 8-element chunks per padded row
+
+  for (int idx = tid; idx < Lp * cpr; idx += blockDim.x) {
+    const int r = idx / cpr, c8 = (idx % cpr) * 8;
+    const bool ok = r < L && c8 < Dh;
+    cp_async16(Ks + r * ldk + c8, ok ? base + r * rs + D + c8 : base, ok);
+    cp_async16(Vs + r * ldk + c8, ok ? base + r * rs + 2 * D + c8 : base, ok);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int ntiles = ceil_div(L, AT_QT), tk = Lp / 16, td = Dhp / 16;
+  for (int t = warp; t < ntiles; t += nwarps) {
+    const int q0 = t * AT_QT;
+    for (int idx = lane; idx < AT_QT * cpr; idx += 32) {
+      const int r = idx / cpr, c8 = (idx % cpr) * 8;
+      const bool ok = q0 + r < L && c8 < Dh;
+      cp_async16(Qs + r * ldk + c8, ok ? base + (q0 + r) * rs + c8 : base, ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncwarp();
+
+    // scores = q . k (fp32 accumulation)
+    for (int tj = 0; tj < tk; ++tj) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+      for (int kk = 0; kk < Dhp; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb;
+        wmma::load_matrix_sync(fa, Qs + kk, ldk);
+        wmma::load_matrix_sync(fb, Ks + tj * 16 * ldk + kk, ldk);
+        wmma::mma_sync(acc, fa, fb, acc);
+      }
+      wmma::store_matrix_sync(S + tj * 16, acc, lds, wmma::mem_row_major);
+    }
+    __syncwarp();
+
+    // probs = softmax(scores * scale + mask), fp32, cast into P in place
+    for (int r = 0; r < AT_QT; ++r) {
+      const int q = q0 + r;
+      const float* srow = S + r * lds;
+      const float* mrow = (mask && q < L) ? mask + (size_t)q * L : nullptr;
+      float vals[AT_MAX_COLS];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < AT_MAX_COLS; ++i) {
+        const int c = lane + 32 * i;
+        float s = -INFINITY;
+        if (q < L && c < L) {
+          s = srow[c] * scale;
+          if (mrow) s += mrow[c];
+        }
+        vals[i] = s;
+        mx = fmaxf(mx, s);
+      }
+      mx = warp_max(mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < AT_MAX_COLS; ++i) {
+        const int c = lane + 32 * i;
+        const float e = (q < L && c < L) ? expf(vals[i] - mx) : 0.f;
+        vals[i] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      __syncwarp();  // every lane has read the row before it is overwritten
+      T* prow = P + r * ldp;
+#pragma unroll
+      for (int i = 0; i < AT_MAX_COLS; ++i) {
+        const int c = lane + 32 * i;
+        if (c < Lp) prow[c] = from_f<T>(q < L && c < L ? vals[i] / sum : 0.f);
+      }
+    }
+    __syncwarp();
+
+    // out = probs . v (fp32 accumulation), staged through S, cast per head
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[AT_MAX_DT];
+#pragma unroll
+    for (int tj = 0; tj < AT_MAX_DT; ++tj)
+      if (tj < td) wmma::fill_fragment(acc[tj], 0.f);
+    for (int kk = 0; kk < Lp; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
+      wmma::load_matrix_sync(fa, P + kk, ldp);
+#pragma unroll
+      for (int tj = 0; tj < AT_MAX_DT; ++tj) {
+        if (tj < td) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb;
+          wmma::load_matrix_sync(fb, Vs + kk * ldk + tj * 16, ldk);
+          wmma::mma_sync(acc[tj], fa, fb, acc[tj]);
+        }
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int tj = 0; tj < AT_MAX_DT; ++tj)
+      if (tj < td) wmma::store_matrix_sync(S + tj * 16, acc[tj], lds, wmma::mem_row_major);
+    __syncwarp();
+    T* obase = out + (size_t)b * L * D + (size_t)h * Dh;
+    const int opr = Dh / 8;
+    for (int idx = lane; idx < AT_QT * opr; idx += 32) {
+      const int r = idx / opr, c8 = (idx % opr) * 8;
+      if (q0 + r >= L) continue;
+      Vec<T, 8> o;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o.v[e] = from_f<T>(S[r * lds + c8 + e]);
+      *reinterpret_cast<Vec<T, 8>*>(obase + (size_t)(q0 + r) * D + c8) = o;
+    }
+    __syncwarp();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host launchers
+// ---------------------------------------------------------------------------
+template <typename T, int EPI>
+static void launch_gemm_t(const void* A, const void* W, const void* bias, const void* R,
+                          void* C, int M, int N, int K, cudaStream_t st) {
+  if constexpr (std::is_same<T, float>::value) {
+    dim3 grid(ceil_div(N, F_BN), ceil_div(M, F_BM));
+    gemm_f32_kernel<EPI><<<grid, F_THREADS, 0, st>>>(
+        (const float*)A, (const float*)W, (const float*)bias, (const float*)R, (float*)C,
+        M, N, K);
+  } else {
+    dim3 grid(ceil_div(N, TC_BN), ceil_div(M, TC_BM));
+    gemm_tc_kernel<T, EPI><<<grid, TC_THREADS, 0, st>>>(
+        (const T*)A, (const T*)W, (const T*)bias, (const T*)R, (T*)C, M, N, K);
+  }
+}
+
+template <typename T>
+static void launch_gemm(const void* A, const void* W, const void* bias, const void* R,
+                        void* C, int M, int N, int K, int epi, cudaStream_t st) {
+  if (epi == EPI_BIAS_GELU)
+    launch_gemm_t<T, EPI_BIAS_GELU>(A, W, bias, R, C, M, N, K, st);
+  else if (epi == EPI_BIAS_RESIDUAL)
+    launch_gemm_t<T, EPI_BIAS_RESIDUAL>(A, W, bias, R, C, M, N, K, st);
+  else
+    launch_gemm_t<T, EPI_BIAS>(A, W, bias, R, C, M, N, K, st);
+}
+
+template <typename T>
+static void launch_layer_norm(const void* x, const void* g, const void* b, void* y, int M,
+                              int K, cudaStream_t st) {
+  layer_norm_kernel<T><<<ceil_div(M, LN_THREADS / 32), LN_THREADS, 0, st>>>(
+      (const T*)x, (const T*)g, (const T*)b, (T*)y, M, K);
+}
+
+static cudaError_t launch_attn_core_f32(const void* qkv, const float* mask, void* out, int B,
+                                        int L, int D, int H, cudaStream_t st) {
+  const int Dh = D / H;
+  const size_t bytes = attn_f32_smem(L, Dh);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_core_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(ceil_div(L, AF_QT), H, B);
+  attn_core_f32_kernel<<<grid, AF_THREADS, bytes, st>>>(
+      (const float*)qkv, mask, (float*)out, L, D, Dh, (float)(1.0 / sqrt((double)Dh)));
+  return cudaSuccess;
+}
+
+template <typename T>
+static cudaError_t launch_attn_core_tc(const void* qkv, const float* mask, void* out, int B,
+                                       int L, int D, int H, cudaStream_t st) {
+  const int Dh = D / H;
+  const int Lp = ceil_div(L, 16) * 16, Dhp = ceil_div(Dh, 16) * 16;
+  if (Lp > 32 * AT_MAX_COLS || Dhp > 16 * AT_MAX_DT) return cudaErrorInvalidValue;
+  const AttnTcLayout<T> lay(Lp, Dhp);
+  // a warp per 16-query tile, up to as many as 227 KB of shared memory holds
+  int warps = min(AT_MAX_WARPS, ceil_div(L, AT_QT));
+  while (warps > 1 && lay.bytes(warps) > 227 * 1024) --warps;
+  cudaError_t err = cudaFuncSetAttribute(attn_core_tc_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)lay.bytes(warps));
+  if (err != cudaSuccess) return err;
+  attn_core_tc_kernel<T><<<dim3(H, B), warps * 32, lay.bytes(warps), st>>>(
+      (const T*)qkv, mask, (T*)out, L, D, Dh, Lp, Dhp, (float)(1.0 / sqrt((double)Dh)));
+  return cudaSuccess;
+}
+
+}  // namespace ovmr
+
+using namespace ovmr;
+
+// y = LayerNorm(x; g, b) over the rows of x [M, K], in x's dtype
+OVMR_EXPORT int ovmr_layer_norm(int dtype, const void* x, const void* g, const void* b,
+                                void* y, int M, int K, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case DT_F32: launch_layer_norm<float>(x, g, b, y, M, K, st); break;
+    case DT_BF16: launch_layer_norm<__nv_bfloat16>(x, g, b, y, M, K, st); break;
+    case DT_F16: launch_layer_norm<__half>(x, g, b, y, M, K, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// C = epilogue(A @ W + bias): 0 cast, 1 QuickGELU then cast, 2 cast then
+// add the residual R
+OVMR_EXPORT int ovmr_gemm(int dtype, const void* A, const void* W, const void* bias,
+                          const void* R, void* C, int M, int N, int K, int epilogue,
+                          void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (epilogue < 0 || epilogue > 2 || (epilogue == EPI_BIAS_RESIDUAL && !R))
+    return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case DT_F32: launch_gemm<float>(A, W, bias, R, C, M, N, K, epilogue, st); break;
+    case DT_BF16: launch_gemm<__nv_bfloat16>(A, W, bias, R, C, M, N, K, epilogue, st); break;
+    case DT_F16: launch_gemm<__half>(A, W, bias, R, C, M, N, K, epilogue, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+OVMR_EXPORT int ovmr_attn_core(int dtype, const void* qkv, const void* mask, void* out,
+                               int B, int L, int D, int H, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mask);
+  cudaError_t err;
+  switch (dtype) {
+    case DT_F32: err = launch_attn_core_f32(qkv, m, out, B, L, D, H, st); break;
+    case DT_BF16: err = launch_attn_core_tc<__nv_bfloat16>(qkv, m, out, B, L, D, H, st); break;
+    case DT_F16: err = launch_attn_core_tc<__half>(qkv, m, out, B, L, D, H, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}

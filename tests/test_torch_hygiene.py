@@ -1,0 +1,60 @@
+"""The port stands alone: no module of ``ovmr_tpu_torch`` and not
+``chip_smoke.py`` imports JAX or anything of ``ovmr_tpu``, nothing imports
+``triton`` or builds a kernel at import time, and every kernel source the
+loader builds exists."""
+
+import ast
+import os
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "ovmr_tpu_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_imports_no_jax_and_nothing_of_ovmr_tpu():
+    files = _port_files()
+    assert len(files) > 15
+    bad = []
+    for path in files:
+        for name in _imports(ast.parse(path.read_text(), str(path))):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "flax", "optax", "ovmr_tpu"):
+                bad.append(f"{path.relative_to(ROOT)}: {name}")
+    assert not bad, bad
+
+
+def test_no_module_level_triton_or_build():
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), str(path))
+        for node in tree.body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = [a.name for a in node.names] + [getattr(node, "module", "") or ""]
+                assert not any(n.split(".")[0] == "triton" for n in names), path
+            if isinstance(node, ast.Expr) and isinstance(node.value, ast.Call):
+                assert "build" not in ast.dump(node.value), path
+
+
+def test_kernel_sources_present():
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    for name in cuda_lib.SOURCES:
+        assert (cuda_lib.CSRC / f"{name}.cu").is_file(), name
+    assert sorted(p.stem for p in cuda_lib.CSRC.glob("*.cu")) == sorted(cuda_lib.SOURCES)
+    assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
+    # the build goes under build/, which .gitignore keeps out of commits
+    assert cuda_lib.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+    assert os.path.isfile(PORT / "text" / "assets" / "bpe_simple_vocab_16e6.txt.gz")
