@@ -9,16 +9,20 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    every kernel from ``ovmr_tpu_torch/csrc`` (one nvcc per source, in
    parallel) into ``build/ovmr_tpu_torch_kernels/``.
 2. Kernels against their plain PyTorch versions on the card, at the shapes
-   the serving path gives them, in bf16 and fp32: K1 (vision, unmasked;
-   text, causal), K2 (both towers), K6 (aggregator). Each is timed beside
-   its plain version, one PyTorch library call computing the same function
-   (a yardstick the port never calls) and its bound on the card.
+   the serving path gives them, in bf16 and fp32: K1 (vision, unmasked, at
+   generate()'s 512 exemplars and classify()'s 256 queries; text, causal,
+   at each 32-class prompt set, and at the three sets as one batch of 96),
+   K2 (both towers, same shapes), K6 (aggregator). Each is timed beside its
+   plain version, one PyTorch library call computing the same function (a
+   yardstick the port never calls) and its bound on the card; a time is the
+   median of five means over back-to-back calls, with their spread.
 3. The serving slice at ViT-B/16 in bf16 with seeded random towers and
    aggregator (n_ctx=2): three ``generate()`` requests of 32 classes x 16
    exemplars at 224x224, ``classify()`` of 256 queries in fusion mode,
    ``export()`` and reload. Launch counts are zeroed just before and read
-   just after; every kernel of the path must have run. Then the time split
-   of one request and a torch.profiler breakdown of another.
+   just after; every kernel of the path must have run, and every launch
+   must have been at a shape that phase 2 checked and timed. Then the time
+   split of one request and a torch.profiler breakdown of another.
 4. The same path at fp32 (4 classes x 4 shots) on the card (kernels) and
    on the CPU (plain versions): classifiers within 1e-4, fusion weights
    within 1e-3.
@@ -55,21 +59,26 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` back-to-back calls
+def cuda_ms(fn, reps: int, rounds: int = 5):
+    """Device milliseconds of one call of ``fn``: the median, least and
+    largest of ``rounds`` means, each over ``reps`` back-to-back calls
     (CUDA events, after one warm-up call)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    means = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / reps)
+    means.sort()
+    return means[len(means) // 2], means[0], means[-1]
 
 
 def tolerance(dtype, ref) -> float:
@@ -95,6 +104,7 @@ def bound_ms(bytes_moved: float, flops: float, peak: float):
 # ---------------------------------------------------------------------------
 
 def kernel_checks(torch, F):
+    from ovmr_tpu_torch.ops import cuda_lib
     from ovmr_tpu_torch.ops.attention import fused_attention, fused_attention_plain
     from ovmr_tpu_torch.ops.block_fused import (
         fused_attn_half,
@@ -129,14 +139,21 @@ def kernel_checks(torch, F):
 
     def library_mlp_half(x, p):
         d = x.shape[-1]
-        hdn = F.gelu(F.linear(F.layer_norm(x, (d,), p["ln_2_scale"], p["ln_2_bias"]),
-                              p["c_fc_w"].t(), p["c_fc_b"]))
+        hdn = F.linear(F.layer_norm(x, (d,), p["ln_2_scale"], p["ln_2_bias"]),
+                       p["c_fc_w"].t(), p["c_fc_b"])
+        hdn = hdn * torch.sigmoid(1.702 * hdn)  # QuickGELU
         return x + F.linear(hdn, p["c_proj_w"].t(), p["c_proj_b"])
 
     cases = []
-    for tower, b, l, d, h, masked in (("vision", 256, 197, 768, 12, False),
-                                      ("text", 96, 77, 512, 8, True)):
-        p32 = layer(d)
+    params = {}
+    # (case, B, L, D, heads, causal): generate()'s exemplar encode (32 x 16
+    # images), classify()'s 256 queries, one 32-class prompt set (text, mm
+    # and v each), and the three sets as one batch (not on the path)
+    for case, b, l, d, h, masked in (("vision-encode", 512, 197, 768, 12, False),
+                                     ("vision-classify", 256, 197, 768, 12, False),
+                                     ("text-prompts", 32, 77, 512, 8, True),
+                                     ("text-3sets", 96, 77, 512, 8, True)):
+        p32 = params.setdefault(d, layer(d))
         x32 = randn(b, l, d)
         mask = causal_mask(l, device="cuda") if masked else None
         name_k1 = "fused_attn_half_masked" if masked else "fused_attn_half"
@@ -153,7 +170,7 @@ def kernel_checks(torch, F):
                       p["ln_2_scale"], p["ln_2_bias"])
             lib_mask = None if mask is None else mask.to(dtype)
             cases.append(dict(
-                name=name_k1, case=tower, dtype=dtype, shape=[b, l, d, h],
+                name=name_k1, case=case, dtype=dtype, shape=[b, l, d, h], x=x,
                 source="ovmr_tpu_torch/csrc/block_fused.cu",
                 replaces=("ovmr_tpu/ops/block_fused.py:113" if masked
                           else "ovmr_tpu/ops/block_fused.py:58"),
@@ -165,7 +182,7 @@ def kernel_checks(torch, F):
                 peak=peak, reps=10 if dtype == torch.bfloat16 else 3,
             ))
             cases.append(dict(
-                name="fused_mlp_half", case=tower, dtype=dtype, shape=[b, l, d, 4 * d],
+                name="fused_mlp_half", case=case, dtype=dtype, shape=[b, l, d, 4 * d], x=x,
                 source="ovmr_tpu_torch/csrc/block_fused.cu",
                 replaces="ovmr_tpu/ops/block_fused.py:123",
                 kernel=lambda a=m_args: fused_mlp_half(*a),
@@ -180,7 +197,7 @@ def kernel_checks(torch, F):
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (t.to(dtype) for t in (q32, k32, v32))
         cases.append(dict(
-            name="fused_attention", case="aggregator", dtype=dtype, shape=[n, h, l, dh],
+            name="fused_attention", case="aggregator", dtype=dtype, shape=[n, h, l, dh], x=q,
             source="ovmr_tpu_torch/csrc/attention.cu",
             replaces="ovmr_tpu/ops/attention.py:28",
             kernel=lambda q=q, k=k, v=v: fused_attention(q, k, v),
@@ -189,7 +206,7 @@ def kernel_checks(torch, F):
             bytes=4 * q.numel() * q.element_size(),
             flops=4 * n * h * l * l * dh,
             peak=PEAK_FP32,  # K6 upcasts Q and K: its products are fp32 FMA
-            reps=50,
+            reps=200,
         ))
 
     results = []
@@ -207,17 +224,20 @@ def kernel_checks(torch, F):
         if not finite or not err <= tol:
             raise AssertionError(f"{label}: kernel disagrees with its plain version "
                                  f"(max_abs_err {err}, tol {tol}, finite {finite})")
-        kernel_ms = cuda_ms(c["kernel"], c["reps"])
-        plain_ms = cuda_ms(c["plain"], c["reps"])
-        library_ms = cuda_ms(c["library"], c["reps"])
+        kernel_ms, k_lo, k_hi = cuda_ms(c["kernel"], c["reps"])
+        plain_ms = cuda_ms(c["plain"], c["reps"])[0]
+        library_ms = cuda_ms(c["library"], c["reps"])[0]
         b_ms, b_by = bound_ms(c["bytes"], c["flops"], c["peak"])
-        print(f"[kernels] {label}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        print(f"[kernels] {label}: kernel {kernel_ms:.4f} ms ({k_lo:.4f}-{k_hi:.4f}), "
+              f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
         results.append(dict(
             name=label, kernel=c["name"], route="cuda", source=c["source"],
             replaces=c["replaces"], case=c["case"], shape=c["shape"], dtype=dt,
+            shape_key=cuda_lib.shape_key(c["name"], c["x"].shape, c["dtype"]),
             max_abs_err=err, tol=tol, ms=kernel_ms, kernel_ms=kernel_ms,
-            plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+            ms_spread=[k_lo, k_hi], plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=b_ms, bound_by=b_by,
         ))
         del got, ref
     return results
@@ -297,12 +317,15 @@ def serving_slice(torch, np):
         loaded = load_exported_classifiers(str(Path(tmp) / "mm_classifiers.pt"))
         vt = torch.load(str(Path(tmp) / "visual_tokens.pt"), weights_only=True)
     launches = dict(cuda_lib.LAUNCHES)
+    shapes = dict(cuda_lib.LAUNCH_SHAPES)
 
     for i, wall in enumerate(walls):
         print(f"[slice] generate request {i}: {n_cls} classes x {shots} shots, "
               f"{wall * 1e3:.1f} ms wall", flush=True)
     print(f"[slice] classify 256 queries (fusion): {classify_s * 1e3:.1f} ms wall", flush=True)
     print(f"[slice] launches during the slice: {launches}", flush=True)
+    for key, count in sorted(shapes.items()):
+        print(f"[slice]   {key[0]} {list(key[1])} {key[2]}: {count}", flush=True)
     for out in outs:
         check_classifiers(np, out, n_cls, cfg.embed_dim, n_ctx, unit_tol=1e-2)
     assert probs.shape == (256, n_cls) and np.isfinite(probs).all()
@@ -345,7 +368,7 @@ def serving_slice(torch, np):
     print(f"[slice] request split: encode {enc_s * 1e3:.1f} ms, text + aggregator + "
           f"fusion {gen_s * 1e3:.1f} ms", flush=True)
     profile_request(torch, gen, names, images)
-    return clip_params, agg_params, launches
+    return clip_params, agg_params, launches, shapes
 
 
 def profile_request(torch, gen, names, images):
@@ -434,10 +457,18 @@ def main() -> int:
     print(f"[device] kernels built in {build_s:.1f} s into {cuda_lib.BUILD_DIR}", flush=True)
 
     kernels = kernel_checks(torch, F)
-    clip_params, agg_params, launches = serving_slice(torch, np)
+    clip_params, agg_params, launches, shapes = serving_slice(torch, np)
+    # every launch of the slice ran at a shape phase 2 held and timed
+    checked = {entry["shape_key"] for entry in kernels}
+    unchecked = {key: n for key, n in shapes.items() if key not in checked}
+    if unchecked:
+        raise AssertionError(f"launches at shapes phase 2 did not check: {unchecked}")
     fp32_path(torch, np, clip_params, agg_params)
     for entry in kernels:
+        # launches: the wrapper's count over the slice; launches_at_shape:
+        # those at this entry's shape and dtype
         entry["launches"] = launches[entry["kernel"]]
+        entry["launches_at_shape"] = shapes.get(entry.pop("shape_key"), 0)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -17,8 +17,9 @@ Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no explicit ``"cpu"`` they raise. On the
 card both CLIP towers run the hand-written kernels K1/K2
 (:func:`ovmr_tpu_torch.ops.block_fused.fused_residual_block`) and the
-aggregator runs K6 (:func:`ovmr_tpu_torch.ops.attention.fused_attention`);
-on the CPU the same wrappers take their plain PyTorch versions.
+aggregator runs K6 (:func:`ovmr_tpu_torch.ops.attention.fused_attention`),
+the models' defaults; on the CPU the same wrappers take their plain
+PyTorch versions.
 """
 
 from __future__ import annotations
@@ -33,8 +34,6 @@ import torch
 from ovmr_tpu_torch.models import clip as tclip
 from ovmr_tpu_torch.models import ovmr
 from ovmr_tpu_torch.models.aggregator import init_aggregator
-from ovmr_tpu_torch.ops.attention import make_attn_fn
-from ovmr_tpu_torch.ops.block_fused import fused_residual_block
 from ovmr_tpu_torch.ops.layers import l2_normalize
 
 
@@ -68,8 +67,6 @@ class OVMRGenerator:
             tclip.tree_to(clip_params, device=self.device), dtype
         )
         self.agg_params = tclip.tree_to(agg_params, device=self.device)
-        self.attn_fn = make_attn_fn(None, self.device)
-        self.block_fn = fused_residual_block
 
     @classmethod
     def from_checkpoints(
@@ -121,7 +118,6 @@ class OVMRGenerator:
                 tclip.encode_image(
                     self.clip_params, self.clip_cfg,
                     images[s : s + batch_size].to(self.device, self.dtype),
-                    attn_fn=self.attn_fn, block_fn=self.block_fn,
                 )
             )
             for s in range(0, images.shape[0], batch_size)
@@ -173,26 +169,24 @@ class OVMRGenerator:
                 f"max_text_classes ({limit}); text_classifier/fusion_weight omitted."
             )
         cp, cfg, ap = self.clip_params, self.clip_cfg, self.agg_params
-        kw = dict(attn_fn=self.attn_fn, block_fn=self.block_fn)
         feats = torch.as_tensor(exemplar_feats, device=self.device).to(self.dtype)
         dev = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
         vtok_dev = dev(vtok)
 
         if n <= chunk_size and include_text:
-            t_cls = ovmr.text_classifier(cp, cfg, dev(ptok), **kw)
+            t_cls = ovmr.text_classifier(cp, cfg, dev(ptok))
             out = ovmr.generate_classifiers_from_feats(
-                cp, cfg, ap, feats, dev(ptok), dev(eot), vtok_dev, t_cls,
-                eval_tau=eval_tau, **kw,
+                cp, cfg, ap, feats, dev(ptok), dev(eot), vtok_dev, t_cls, eval_tau=eval_tau
             )
             return {key: v.float().cpu().numpy() for key, v in out.items()}
 
         def heads_fn(f, pt, et):
             pe, ve = ovmr.prompt_embeddings(cp, f, pt, vtok_dev)
-            return ovmr.classifier_heads(cp, cfg, ap, f, pe, ve, et, **kw)
+            return ovmr.classifier_heads(cp, cfg, ap, f, pe, ve, et)
 
         out = ovmr.generate_classifiers_chunked(
             feats, ptok, eot, vtok, chunk_size, heads_fn,
-            text_fn=(lambda pt: ovmr.text_classifier(cp, cfg, pt, **kw)) if include_text else None,
+            text_fn=(lambda pt: ovmr.text_classifier(cp, cfg, pt)) if include_text else None,
         )
         if include_text:
             out["fusion_weight"] = (

@@ -15,8 +15,8 @@ from typing import Optional
 
 import torch
 
+from ovmr_tpu_torch.ops.attention import fused_attention
 from ovmr_tpu_torch.ops.layers import (
-    attention_plain,
     dense,
     l2_normalize,
     layer_norm,
@@ -68,7 +68,7 @@ def init_aggregator(
 
 
 def _dropout_block(
-    x: torch.Tensor, p: dict, n_head: int, attn_fn=attention_plain
+    x: torch.Tensor, p: dict, n_head: int, attn_fn=fused_attention
 ) -> torch.Tensor:
     """Pre-LN residual block of the reference
     ``ResidualAttentionBlockWithDropout`` at dropout 0."""
@@ -83,7 +83,7 @@ def _dropout_block(
 
 
 def generate_vokens(
-    params: dict, exemplar_feats: torch.Tensor, attn_fn=attention_plain
+    params: dict, exemplar_feats: torch.Tensor, attn_fn=fused_attention
 ) -> torch.Tensor:
     """exemplar_feats [N, K, D] -> vokens [N, n_ctx, D]: prepend the learned
     queries, run the blocks, keep the first n_ctx positions

@@ -26,13 +26,8 @@ from typing import Optional
 
 import torch
 
-from ovmr_tpu_torch.ops.layers import (
-    attention_plain,
-    causal_mask,
-    layer_norm,
-    matmul_f32,
-    residual_attention_block,
-)
+from ovmr_tpu_torch.ops.block_fused import fused_residual_block
+from ovmr_tpu_torch.ops.layers import causal_mask, layer_norm, matmul_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,21 +203,14 @@ def run_blocks(
     blocks: dict,
     n_head: int,
     mask: Optional[torch.Tensor] = None,
-    attn_fn=attention_plain,
-    block_fn=None,
+    block_fn=fused_residual_block,
 ) -> torch.Tensor:
-    """Loop over the stacked transformer blocks ([n_layers, ...] leaves).
-
-    ``block_fn(h, layer_params, n_head, mask)`` replaces the whole residual
-    block (the fused kernels, :mod:`ovmr_tpu_torch.ops.block_fused`);
-    default is the torch-math block parameterized by ``attn_fn``."""
-    n_layers = blocks["w_qkv"].shape[0]
-    for i in range(n_layers):
-        layer = {k: v[i] for k, v in blocks.items()}
-        if block_fn is not None:
-            x = block_fn(x, layer, n_head, mask)
-        else:
-            x = residual_attention_block(x, layer, n_head, mask, attn_fn)
+    """Loop over the stacked transformer blocks ([n_layers, ...] leaves),
+    each one ``block_fn(h, layer_params, n_head, mask)``: the kernels K1 and
+    K2 by default (their plain versions for a CPU tensor), or the
+    torch-math :func:`ovmr_tpu_torch.ops.layers.residual_attention_block`."""
+    for i in range(blocks["w_qkv"].shape[0]):
+        x = block_fn(x, {k: v[i] for k, v in blocks.items()}, n_head, mask)
     return x
 
 
@@ -270,8 +258,7 @@ def encode_image(
     params: dict,
     cfg: CLIPConfig,
     images: torch.Tensor,
-    attn_fn=attention_plain,
-    block_fn=None,
+    block_fn=fused_residual_block,
 ) -> torch.Tensor:
     """Image tower forward: patchify -> +cls/pos -> ln_pre -> blocks ->
     ln_post[0] @ proj (reference ``clip/model.py:411-428``). [B, embed_dim]."""
@@ -285,22 +272,19 @@ def encode_image(
     x = torch.cat([cls, xg.reshape(b, gh * gw, width)], dim=1)
     x = x + resize_pos_embed(v["positional_embedding"], cfg.grid_size, gh, gw).to(dtype)
     x = layer_norm(x, v["ln_pre_scale"], v["ln_pre_bias"])
-    x = run_blocks(
-        x, v["blocks"], cfg.vision_heads, attn_fn=attn_fn, block_fn=block_fn
-    )
+    x = run_blocks(x, v["blocks"], cfg.vision_heads, block_fn=block_fn)
     pooled = layer_norm(x[:, 0, :], v["ln_post_scale"], v["ln_post_bias"])
     return matmul_f32(pooled, v["proj"].to(dtype)).to(dtype)
 
 
 def encode_text(
-    params: dict, cfg: CLIPConfig, tokens: torch.Tensor, attn_fn=attention_plain,
-    block_fn=None,
+    params: dict, cfg: CLIPConfig, tokens: torch.Tensor, block_fn=fused_residual_block
 ) -> torch.Tensor:
     """Text forward on token ids [B, 77]; EOT feature via argmax gather
     (reference ``clip/model.py:820-833``)."""
     x = embed_tokens(params, tokens)
     eos_index = tokens.argmax(dim=-1)
-    return encode_text_embeds(params, cfg, x, eos_index, attn_fn=attn_fn, block_fn=block_fn)
+    return encode_text_embeds(params, cfg, x, eos_index, block_fn=block_fn)
 
 
 def encode_text_embeds(
@@ -308,8 +292,7 @@ def encode_text_embeds(
     cfg: CLIPConfig,
     embeds: torch.Tensor,
     eos_index: torch.Tensor,
-    attn_fn=attention_plain,
-    block_fn=None,
+    block_fn=fused_residual_block,
 ) -> torch.Tensor:
     """Prompt-side text forward on embeddings [B, L, D]: positional
     embedding sliced to L, causal mask, explicit EOT gather index
@@ -319,10 +302,7 @@ def encode_text_embeds(
     length = embeds.shape[1]
     x = embeds + t["positional_embedding"][:length].to(dtype)
     mask = causal_mask(length, device=x.device)
-    x = run_blocks(
-        x, t["blocks"], cfg.transformer_heads, mask=mask, attn_fn=attn_fn,
-        block_fn=block_fn,
-    )
+    x = run_blocks(x, t["blocks"], cfg.transformer_heads, mask=mask, block_fn=block_fn)
     x = layer_norm(x, t["ln_final_scale"], t["ln_final_bias"])
     pooled = x[torch.arange(x.shape[0], device=x.device), eos_index.long()]
     return matmul_f32(pooled, t["text_projection"].to(dtype)).to(dtype)

@@ -33,7 +33,9 @@ from ovmr_tpu_torch.ops.fusion import (
     multiclass_f1,
     streaming_fusion_weights,
 )
-from ovmr_tpu_torch.ops.layers import attention_plain, l2_normalize
+from ovmr_tpu_torch.ops.attention import fused_attention
+from ovmr_tpu_torch.ops.block_fused import fused_residual_block
+from ovmr_tpu_torch.ops.layers import l2_normalize
 
 # The reference skips the frozen zero-shot text classifier at >= 5000
 # classes (``mm_…:118-126``); ``max_text_classes`` overrides it upward.
@@ -74,8 +76,8 @@ def classifier_heads(
     prompt_embeds: torch.Tensor,
     vis_embeds: torch.Tensor,
     eot_idx: torch.Tensor,
-    attn_fn=attention_plain,
-    block_fn=None,
+    attn_fn=fused_attention,
+    block_fn=fused_residual_block,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """L2-normalized exemplar features [N, K, D] -> (mm_classifier [N,D],
     v_classifier [N,D], vokens [N, n_ctx, D])."""
@@ -85,11 +87,11 @@ def classifier_heads(
     v_eos = torch.full_like(mm_eos, 1 + n_ctx)  # reference quirk: last voken
     mm_feats = tclip.encode_text_embeds(
         clip_params, clip_cfg, splice_prompts(prompt_embeds, vokens), mm_eos,
-        attn_fn=attn_fn, block_fn=block_fn,
+        block_fn=block_fn,
     )
     v_feats = tclip.encode_text_embeds(
         clip_params, clip_cfg, splice_prompts(vis_embeds, vokens), v_eos,
-        attn_fn=attn_fn, block_fn=block_fn,
+        block_fn=block_fn,
     )
     return (
         l2_normalize(l2_normalize(mm_feats)),
@@ -102,15 +104,11 @@ def text_classifier(
     clip_params: dict,
     clip_cfg: tclip.CLIPConfig,
     prompt_tokens: torch.Tensor,
-    attn_fn=attention_plain,
-    block_fn=None,
+    block_fn=fused_residual_block,
 ) -> torch.Tensor:
     """Frozen zero-shot text classifier: encode ``"a {name}."`` per class
     and L2-normalize (reference ``mm_…:118-125``)."""
-    return l2_normalize(
-        tclip.encode_text(clip_params, clip_cfg, prompt_tokens, attn_fn=attn_fn,
-                          block_fn=block_fn)
-    )
+    return l2_normalize(tclip.encode_text(clip_params, clip_cfg, prompt_tokens, block_fn=block_fn))
 
 
 def prompt_embeddings(clip_params, feats, prompt_tokens, vis_tokens):
@@ -130,8 +128,8 @@ def generate_classifiers_from_feats(
     zero_shot_classifier: torch.Tensor,
     eval_tau: float,
     class_mask: Optional[torch.Tensor] = None,
-    attn_fn=attention_plain,
-    block_fn=None,
+    attn_fn=fused_attention,
+    block_fn=fused_residual_block,
 ) -> dict:
     """All-class classifier generation + preference fusion. Returns
     ``mm_classifier``/``vision_classifier``/``text_classifier`` [N, D],

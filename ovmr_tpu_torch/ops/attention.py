@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from ovmr_tpu_torch.ops import cuda_lib
-from ovmr_tpu_torch.ops.layers import attention_plain, matmul_f32
+from ovmr_tpu_torch.ops.layers import matmul_f32
 
 
 def fused_attention_plain(q, k, v, mask: Optional[torch.Tensor] = None):
@@ -63,14 +63,6 @@ def fused_attention(q, k, v, mask: Optional[torch.Tensor] = None):
             ),
             what,
         )
-    cuda_lib.LAUNCHES["fused_attention"] += 1
+    cuda_lib.count_launch("fused_attention", q)
     return out
 
-
-def make_attn_fn(use_kernel: Optional[bool] = None, device=None):
-    """Pick the attention implementation. ``use_kernel=None`` selects K6
-    when ``device`` is a CUDA device (as the JAX package picks its Pallas
-    kernel on a TPU) and the plain reference path otherwise."""
-    if use_kernel is None:
-        use_kernel = device is not None and torch.device(device).type == "cuda"
-    return fused_attention if use_kernel else attention_plain

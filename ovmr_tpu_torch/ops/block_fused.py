@@ -176,7 +176,7 @@ def fused_attn_half(
         )
         out = torch.empty_like(x)
         _gemm(lib, code, heads, w_out, b_out, out, _EPI_BIAS_RESIDUAL, stream, resid=x)
-    cuda_lib.LAUNCHES["fused_attn_half_masked" if mask is not None else "fused_attn_half"] += 1
+    cuda_lib.count_launch("fused_attn_half_masked" if mask is not None else "fused_attn_half", x)
     return out
 
 
@@ -210,7 +210,7 @@ def fused_mlp_half(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
         _gemm(lib, code, xln, c_fc_w, c_fc_b, h, _EPI_BIAS_GELU, stream)
         out = torch.empty_like(x)
         _gemm(lib, code, h, c_proj_w, c_proj_b, out, _EPI_BIAS_RESIDUAL, stream, resid=x)
-    cuda_lib.LAUNCHES["fused_mlp_half"] += 1
+    cuda_lib.count_launch("fused_mlp_half", x)
     return out
 
 

@@ -11,9 +11,10 @@ Nothing here runs at import time: the CPU tests import every module, and
 this machine-independent module must not look for ``nvcc`` or a card
 until a kernel is launched.
 
-The launch counts live here too: each kernel wrapper adds one to its entry
-of :data:`LAUNCHES` where it launches its kernel, and nowhere else, so a
-run can show that its main path went through the kernels.
+The launch counts live here too: each kernel wrapper calls
+:func:`count_launch` where it launches its kernel, and nowhere else, so a
+run can show that its main path went through the kernels, and at which
+input shapes (:data:`LAUNCH_SHAPES`).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from collections import Counter
+from typing import Dict, Tuple
 
 import torch
 
@@ -45,6 +47,8 @@ LAUNCHES: Dict[str, int] = {
     "fused_mlp_half": 0,
     "fused_attention": 0,
 }
+# launches by (kernel, shape of its first input, dtype name)
+LAUNCH_SHAPES: Counter = Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,6 +73,16 @@ _libs: Dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+    LAUNCH_SHAPES.clear()
+
+
+def count_launch(name: str, x: torch.Tensor) -> None:
+    LAUNCHES[name] += 1
+    LAUNCH_SHAPES[shape_key(name, x.shape, x.dtype)] += 1
+
+
+def shape_key(name: str, shape, dtype: torch.dtype) -> Tuple[str, Tuple[int, ...], str]:
+    return name, tuple(shape), str(dtype).removeprefix("torch.")
 
 
 def _nvcc() -> str:

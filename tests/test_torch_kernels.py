@@ -25,7 +25,10 @@ from ovmr_tpu.ops.block_fused import (
 )
 from ovmr_tpu_torch.ops import cuda_lib
 from ovmr_tpu_torch.ops import layers as tlayers
-from ovmr_tpu_torch.ops.attention import fused_attention, make_attn_fn
+from ovmr_tpu_torch.models import clip as tclip
+from ovmr_tpu_torch.models import ovmr as tovmr
+from ovmr_tpu_torch.models.aggregator import generate_vokens
+from ovmr_tpu_torch.ops.attention import fused_attention
 from ovmr_tpu_torch.ops.block_fused import (
     fused_attn_half,
     fused_mlp_half,
@@ -140,11 +143,34 @@ def test_wrappers_refuse_other_devices(layer_np):
         fused_attention(*(torch.empty(1, 1, 9, 64, device="meta") for _ in range(3)))
 
 
-def test_make_attn_fn_selects_by_device():
-    assert make_attn_fn(None, "cuda") is fused_attention
-    assert make_attn_fn(None, "cpu") is tlayers.attention_plain
-    assert make_attn_fn(True) is fused_attention
-    assert make_attn_fn(None) is tlayers.attention_plain
+def test_models_default_to_the_kernel_wrappers():
+    """Called without block_fn/attn_fn, the towers, heads and aggregator
+    go through the kernel wrappers, which pick by the tensor's device."""
+    import inspect
+
+    def default(fn, name):
+        return inspect.signature(fn).parameters[name].default
+
+    for fn in (tclip.run_blocks, tclip.encode_image, tclip.encode_text,
+               tclip.encode_text_embeds, tovmr.text_classifier, tovmr.classifier_heads,
+               tovmr.generate_classifiers_from_feats):
+        assert default(fn, "block_fn") is fused_residual_block, fn.__name__
+    for fn in (generate_vokens, tovmr.classifier_heads, tovmr.generate_classifiers_from_feats):
+        assert default(fn, "attn_fn") is fused_attention, fn.__name__
+
+
+def test_launch_counts_by_shape():
+    cuda_lib.reset_launches()
+    x = torch.empty(2, 9, 64, dtype=torch.bfloat16)
+    cuda_lib.count_launch("fused_mlp_half", x)
+    cuda_lib.count_launch("fused_mlp_half", x)
+    cuda_lib.count_launch("fused_attention", torch.empty(1, 2, 9, 64))
+    assert cuda_lib.LAUNCHES["fused_mlp_half"] == 2
+    assert cuda_lib.LAUNCH_SHAPES[
+        cuda_lib.shape_key("fused_mlp_half", (2, 9, 64), torch.bfloat16)] == 2
+    assert cuda_lib.LAUNCH_SHAPES[("fused_attention", (1, 2, 9, 64), "float32")] == 1
+    cuda_lib.reset_launches()
+    assert not cuda_lib.LAUNCH_SHAPES and not any(cuda_lib.LAUNCHES.values())
 
 
 # ---------------------------------------------------------------------------

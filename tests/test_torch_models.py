@@ -38,10 +38,10 @@ from ovmr_tpu_torch.models.import_torch import (
 from ovmr_tpu_torch.ops import fusion as tfusion
 from ovmr_tpu_torch.ops.attention import fused_attention
 from ovmr_tpu_torch.ops.block_fused import fused_residual_block
-from ovmr_tpu_torch.ops.layers import attention_plain
+from ovmr_tpu_torch.ops.layers import attention_plain, residual_attention_block
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
-BLOCK_FNS = {"torch_math": None, "fused": fused_residual_block}
+BLOCK_FNS = {"torch_math": residual_attention_block, "fused": fused_residual_block}
 ATTN_FNS = {"plain": attention_plain, "fused": fused_attention}
 
 
@@ -273,19 +273,19 @@ def test_forward_prompt_golden():
     agg_sd = {k[4:]: data[k] for k in data.files if k.startswith("agg.")}
     params, cfg = clip_params_from_state_dict(clip_sd)
     agg = prompt_learner_params_from_state_dict(agg_sd, n_layers=4)
-    kw = dict(attn_fn=fused_attention, block_fn=fused_residual_block)
     from ovmr_tpu_torch.ops.layers import l2_normalize
 
+    # the models' defaults: the kernel wrappers (their plain versions here)
     feats = l2_normalize(
-        tclip.encode_image(params, cfg, torch.tensor(data["images"]), **kw)
+        tclip.encode_image(params, cfg, torch.tensor(data["images"]))
     ).reshape(4, 4, -1)
     ptok, eot, vtok = tovmr.build_prompt_tokens(
         ["golden retriever", "tabby cat", "sports car", "red panda"]
     )
-    t_cls = tovmr.text_classifier(params, cfg, torch.tensor(ptok), **kw)
+    t_cls = tovmr.text_classifier(params, cfg, torch.tensor(ptok))
     out = tovmr.generate_classifiers_from_feats(
         params, cfg, agg, feats, torch.tensor(ptok), torch.tensor(eot), torch.tensor(vtok),
-        t_cls, eval_tau=10.0, **kw,
+        t_cls, eval_tau=10.0,
     )
     for key in ("text_classifier", "mm_classifier", "vision_classifier"):
         np.testing.assert_allclose(out[key].numpy(), data[key], atol=1e-4, rtol=1e-4)
