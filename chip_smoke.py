@@ -9,13 +9,18 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    every kernel from ``ovmr_tpu_torch/csrc`` (one nvcc per source, in
    parallel) into ``build/ovmr_tpu_torch_kernels/``.
 2. Kernels against their plain PyTorch versions on the card, at the shapes
-   the serving path gives them, in bf16 and fp32: K1 (vision, unmasked, at
-   generate()'s 512 exemplars and classify()'s 256 queries; text, causal,
-   at each 32-class prompt set, and at the three sets as one batch of 96),
-   K2 (both towers, same shapes), K6 (aggregator). Each is timed beside its
-   plain version, one PyTorch library call computing the same function (a
-   yardstick the port never calls) and its bound on the card; a time is the
-   median of five means over back-to-back calls, with their spread.
+   the two main paths give them. Serving, in bf16 and fp32: K1 (vision,
+   unmasked, at generate()'s 512 exemplars and classify()'s 256 queries;
+   text, causal, at each 32-class prompt set, and at the three sets as one
+   batch of 96), K2 (both towers, same shapes), K6 (aggregator). Training:
+   K1 and K2 at the image-tower batches 768, 576 and 960 (bf16), and at the
+   192 prompts of a class-grouped batch K1-causal, K2 and the dx backward
+   kernels K3 (masked and unmasked) and K4, in bf16 and fp32. Each is timed
+   beside its plain version, one PyTorch library call chain computing the
+   same function (a yardstick the port never calls; for K3 and K4
+   ``torch.autograd.grad`` with respect to the input through the library
+   forward) and its bound on the card; a time is the median of five means
+   over back-to-back calls, with their spread.
 3. The serving slice at ViT-B/16 in bf16 with seeded random towers and
    aggregator (n_ctx=2): three ``generate()`` requests of 32 classes x 16
    exemplars at 224x224, ``classify()`` of 256 queries in fusion mode,
@@ -26,6 +31,22 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 4. The same path at fp32 (4 classes x 4 shots) on the card (kernels) and
    on the CPU (plain versions): classifiers within 1e-4, fusion weights
    within 1e-3.
+5. The training slice at ViT-B/16 full width, bf16 towers, the flagship
+   recipe (192 classes x 8 instances, adam, lr 2e-4, aggregator dropout
+   0.1, n_ctx=2): one warm-up step and three timed steps at the split
+   points 4, 3, 5. Per step the launch counts are exact (K1 24, K1-causal
+   24, K2 48, K4 24, K3-masked 24, K6 0), the loss is finite, and on the
+   first step every aggregator leaf has a finite non-zero gradient and
+   changes. A second run from the same seeds, taken apart into image
+   passes, heads forward, backward and optimizer (each ending in a
+   synchronise), must give the same losses. Then a torch.profiler breakdown
+   of one step.
+6. One training step at fp32 (4 classes x 4 instances, split 2, dropout 0)
+   on the card (kernels, K6 through its autograd wrapper) and on the CPU
+   (plain twins): loss within 1e-4, every aggregator gradient within 1e-4
+   of its scale, post-step parameters within 1e-5 on average (median 1e-6;
+   at most 2 x lr for an element whose gradient plus decay is rounding
+   noise, which Adam's normalisation amplifies to a full step).
 
 Prints the kernels JSON line, the nvidia-smi line and, last, the result
 line ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -112,6 +133,12 @@ def kernel_checks(torch, F):
         fused_mlp_half,
         fused_mlp_half_plain,
     )
+    from ovmr_tpu_torch.ops.block_fused_bwd import (
+        attn_half_bwd_dx,
+        attn_half_bwd_dx_plain,
+        mlp_half_bwd_dx,
+        mlp_half_bwd_dx_plain,
+    )
     from ovmr_tpu_torch.ops.layers import causal_mask
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -144,20 +171,37 @@ def kernel_checks(torch, F):
         hdn = hdn * torch.sigmoid(1.702 * hdn)  # QuickGELU
         return x + F.linear(hdn, p["c_proj_w"].t(), p["c_proj_b"])
 
+    def library_dx(half, x, g, *args):
+        """The input cotangent by autograd through the library forward."""
+        x = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = half(x, *args)
+        return torch.autograd.grad(out, x, g)[0]
+
     cases = []
     params = {}
-    # (case, B, L, D, heads, causal): generate()'s exemplar encode (32 x 16
-    # images), classify()'s 256 queries, one 32-class prompt set (text, mm
-    # and v each), and the three sets as one batch (not on the path)
-    for case, b, l, d, h, masked in (("vision-encode", 512, 197, 768, 12, False),
-                                     ("vision-classify", 256, 197, 768, 12, False),
-                                     ("text-prompts", 32, 77, 512, 8, True),
-                                     ("text-3sets", 96, 77, 512, 8, True)):
+    both = (torch.bfloat16, torch.float32)
+    # (case, B, L, D, heads, causal, dtypes, backward too). Serving:
+    # generate()'s exemplar encode (32 x 16 images), classify()'s 256
+    # queries, one 32-class prompt set (text, mm and v each), and the three
+    # sets as one batch (not on the path). Training: the image-tower batches
+    # of 192 classes x 8 instances at the split points 4, 3 and 5, and the
+    # 192 prompts of each set, forward and backward.
+    for case, b, l, d, h, masked, dtypes, bwd in (
+            ("vision-encode", 512, 197, 768, 12, False, both, False),
+            ("vision-classify", 256, 197, 768, 12, False, both, False),
+            ("text-prompts", 32, 77, 512, 8, True, both, False),
+            ("text-3sets", 96, 77, 512, 8, True, both, False),
+            ("vision-train-768", 768, 197, 768, 12, False, both[:1], False),
+            ("vision-train-576", 576, 197, 768, 12, False, both[:1], False),
+            ("vision-train-960", 960, 197, 768, 12, False, both[:1], False),
+            ("text-train", 192, 77, 512, 8, True, both, True)):
         p32 = params.setdefault(d, layer(d))
         x32 = randn(b, l, d)
+        g32 = randn(b, l, d) if bwd else None
         mask = causal_mask(l, device="cuda") if masked else None
         name_k1 = "fused_attn_half_masked" if masked else "fused_attn_half"
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             p = {k: v.to(dtype) for k, v in p32.items()}
             x = x32.to(dtype)
             it = x.element_size()
@@ -190,6 +234,45 @@ def kernel_checks(torch, F):
                 library=lambda x=x, p=p: library_mlp_half(x, p),
                 bytes=(2 * tok * d + 8 * d * d + 7 * d) * it,
                 flops=4 * tok * d * 4 * d,
+                peak=peak, reps=10 if dtype == torch.bfloat16 else 3,
+            ))
+            if not bwd:
+                continue
+            g = g32.to(dtype)
+            # K3 with the causal mask (the text tower's backward) and without
+            for m, lm, pairs in ((mask, lib_mask, attn_pairs), (None, None, l * l)):
+                k3_args = (x, g, p["w_qkv"], p["b_qkv"], p["w_out"],
+                           p["ln_1_scale"], p["ln_1_bias"])
+                cases.append(dict(
+                    name="attn_half_bwd_dx_masked" if m is not None else "attn_half_bwd_dx",
+                    case=case, dtype=dtype, shape=[b, l, d, h], x=x,
+                    source="ovmr_tpu_torch/csrc/block_fused_bwd.cu",
+                    replaces=("ovmr_tpu/ops/block_fused_bwd.py:219" if m is not None
+                              else "ovmr_tpu/ops/block_fused_bwd.py:128"),
+                    kernel=lambda a=k3_args, m=m, h=h: attn_half_bwd_dx(*a, mask=m, n_head=h),
+                    plain=lambda a=k3_args, m=m, h=h: attn_half_bwd_dx_plain(*a, mask=m, n_head=h),
+                    library=lambda x=x, g=g, p=p, m=lm, h=h: library_dx(
+                        library_attn_half, x, g, p, m, h),
+                    # x and g read, dx written, w_qkv, w_out, b_qkv, LN1; the
+                    # QKV, dattn and dxln products plus five [L, L] products a head
+                    bytes=(3 * tok * d + 4 * d * d + 5 * d) * it
+                    + (l * l * 4 if m is not None else 0),
+                    flops=2 * tok * d * 7 * d + 10 * b * pairs * d,
+                    peak=peak, reps=10 if dtype == torch.bfloat16 else 3,
+                ))
+            k4_args = (x, g, p["c_fc_w"], p["c_fc_b"], p["c_proj_w"],
+                       p["ln_2_scale"], p["ln_2_bias"])
+            cases.append(dict(
+                name="mlp_half_bwd_dx", case=case, dtype=dtype, shape=[b, l, d, 4 * d], x=x,
+                source="ovmr_tpu_torch/csrc/block_fused_bwd.cu",
+                replaces="ovmr_tpu/ops/block_fused_bwd.py:57",
+                kernel=lambda a=k4_args: mlp_half_bwd_dx(*a),
+                plain=lambda a=k4_args: mlp_half_bwd_dx_plain(*a),
+                library=lambda x=x, g=g, p=p: library_dx(library_mlp_half, x, g, p),
+                # y and g read, dy written, c_fc_w, c_proj_w, c_fc_b, LN2;
+                # three [tokens, D] x [D, 4D] products
+                bytes=(3 * tok * d + 8 * d * d + 6 * d) * it,
+                flops=3 * 2 * tok * d * 4 * d,
                 peak=peak, reps=10 if dtype == torch.bfloat16 else 3,
             ))
     n, h, l, dh = 32, 8, 18, 64
@@ -367,18 +450,18 @@ def serving_slice(torch, np):
     gen_s = time.perf_counter() - t
     print(f"[slice] request split: encode {enc_s * 1e3:.1f} ms, text + aggregator + "
           f"fusion {gen_s * 1e3:.1f} ms", flush=True)
-    profile_request(torch, gen, names, images)
+    profile_call(torch, "one request", lambda: gen.generate(names, images))
     return clip_params, agg_params, launches, shapes
 
 
-def profile_request(torch, gen, names, images):
-    """Device time by kernel over one generate() request (torch.profiler),
-    and the device's busy share of the request's wall time."""
+def profile_call(torch, what, fn):
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and
+    the device's busy share of the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        gen.generate(names, images)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     rows = []
@@ -392,7 +475,7 @@ def profile_request(torch, gen, names, images):
             rows.append((us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"[profile] one request: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+    print(f"[profile] {what}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%)", flush=True)
     for ms, key, count in rows[:8]:
         print(f"[profile]   {ms:8.2f} ms {100 * ms / busy_ms:5.1f}%  x{count:<4d} {key[:90]}",
@@ -431,6 +514,228 @@ def fp32_path(torch, np, clip_params, agg_params):
         raise AssertionError(f"fp32 classify: card and CPU differ by {err}")
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the training slice
+# ---------------------------------------------------------------------------
+
+class FlagshipOptim:
+    """The OPTIM settings of the flagship recipe
+    (configs/trainers/MM_CLS_OP/vit_b16_c4_ep50_imagenet21k_pretrain.yaml
+    over the defaults)."""
+    NAME = "adam"
+    LR = 2e-4
+    WEIGHT_DECAY = 5e-4
+    MOMENTUM = 0.9
+    SGD_NESTEROV = False
+    RMSPROP_ALPHA = 0.99
+    ADAM_BETA1 = 0.9
+    ADAM_BETA2 = 0.999
+    STAGED_LR = False
+    MAX_EPOCH = 30
+    LR_SCHEDULER = "cosine"
+    STEPSIZE = (-1,)
+    GAMMA = 0.1
+    WARMUP_EPOCH = 1
+    WARMUP_TYPE = "constant"
+    WARMUP_CONS_LR = 1e-5
+    WARMUP_MIN_LR = 1e-5
+    WARMUP_RECOUNT = True
+
+
+def trainable_aggregator(torch, agg_params, device):
+    """A fresh copy of the aggregator on ``device`` whose leaves train."""
+    def leaf(t):
+        return t.detach().clone().to(device).requires_grad_(True)
+
+    return {"blocks": {k: leaf(v) for k, v in agg_params["blocks"].items()},
+            "cls_token": leaf(agg_params["cls_token"])}
+
+
+def prompt_inputs(torch, np, n_cls, device):
+    from ovmr_tpu_torch.models.ovmr import build_prompt_tokens
+
+    nouns = ["retriever", "cat", "car", "panda", "truck", "eagle", "espresso", "lighthouse",
+             "jellyfish", "pretzel", "volcano", "sunflower", "umbrella", "violin", "zebra",
+             "airliner"]
+    adjectives = ["golden", "tabby", "red", "small", "old", "bald", "striped", "tall",
+                  "wild", "salty", "quiet", "bright"]
+    names = [f"{adjectives[i % len(adjectives)]} {nouns[i % len(nouns)]} {i}"
+             for i in range(n_cls)]
+    ptok, eot, vtok = build_prompt_tokens(names)
+    return tuple(torch.as_tensor(np.asarray(a), device=device) for a in (ptok, eot, vtok))
+
+
+def training_slice(torch, np, clip_params, agg_params):
+    from ovmr_tpu_torch.engine.optimizers import build_optimizer, param_leaves, set_lr
+    from ovmr_tpu_torch.engine.schedule import lr_schedule_from_cfg
+    from ovmr_tpu_torch.engine.train_step import (
+        classifier_loss,
+        frozen_features,
+        make_train_step,
+    )
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    cfg = tclip.VIT_B16
+    n_cls, n_ins, dropout = 192, 8, 0.1
+    splits = (4, 4, 3, 5)  # the warm-up step, then the three timed ones
+    towers = tclip.cast_params(tclip.tree_to(clip_params, device="cuda"), torch.bfloat16)
+    images = exemplar_images(torch, n_cls, n_ins, 400, "cuda")
+    ptok, eot, vtok = prompt_inputs(torch, np, n_cls, "cuda")
+    lr = lr_schedule_from_cfg(FlagshipOptim)[1]  # the first epoch after the warm-up: 2e-4
+    step_fn = make_train_step(cfg, dropout=dropout)
+    layers = cfg.transformer_layers
+    expected = {
+        "fused_attn_half": 2 * cfg.vision_layers,   # two image passes
+        "fused_attn_half_masked": 2 * layers,       # the mm and v prompt sets
+        "fused_mlp_half": 2 * cfg.vision_layers + 2 * layers,
+        "attn_half_bwd_dx_masked": 2 * layers,
+        "mlp_half_bwd_dx": 2 * layers,
+        "attn_half_bwd_dx": 0,
+        "fused_attention": 0,                       # dropout expands the attention
+    }
+
+    def fresh():
+        agg = trainable_aggregator(torch, agg_params, "cuda")
+        optimizer = set_lr(build_optimizer(FlagshipOptim, agg), lr)
+        return agg, optimizer, torch.Generator(device="cuda").manual_seed(7)
+
+    # run A: the step as a user calls it, launch counts read per step
+    agg, optimizer, gen = fresh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, shapes, losses, walls = {k: 0 for k in cuda_lib.LAUNCHES}, {}, [], []
+    for i, split in enumerate(splits):
+        before = [leaf.detach().clone() for leaf in param_leaves(agg)]
+        cuda_lib.reset_launches()
+        t = time.perf_counter()
+        loss = step_fn(agg, optimizer, towers, images, ptok, eot, vtok, gen, split)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append(float(loss))
+        got = dict(cuda_lib.LAUNCHES)
+        if got != expected:
+            raise AssertionError(f"train step {i}: launches {got}, expected {expected}")
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"train step {i}: loss {losses[-1]}")
+        if i == 0:
+            for name, leaf, old in zip(leaf_names(agg), param_leaves(agg), before):
+                g = leaf.grad
+                if g is None or not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0:
+                    raise AssertionError(f"train step 0: no finite non-zero gradient for {name}")
+                if torch.equal(leaf.detach(), old):
+                    raise AssertionError(f"train step 0: {name} did not change")
+        else:  # the timed steps are the main path's run
+            for key, n in got.items():
+                launches[key] += n
+            for key, n in cuda_lib.LAUNCH_SHAPES.items():
+                shapes[key] = shapes.get(key, 0) + n
+        tag = "warm-up" if i == 0 else f"timed {i}"
+        print(f"[train] step {i} ({tag}): {n_cls} classes x {n_ins} instances, split {split}, "
+              f"loss {losses[-1]:.4f}, {walls[-1] * 1e3:.1f} ms wall", flush=True)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[train] launches per step: {expected}; peak memory {peak_gib:.2f} GiB", flush=True)
+    for key, count in sorted(shapes.items()):
+        print(f"[train]   {key[0]} {list(key[1])} {key[2]}: {count}", flush=True)
+
+    # run B: the same seeds, the step taken apart and timed part by part
+    agg, optimizer, gen = fresh()
+    for i, split in enumerate(splits):
+        parts = []
+
+        def timed(fn):
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            parts.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        frozen = timed(lambda: frozen_features(towers, cfg, images, ptok, vtok, split))
+        optimizer.zero_grad(set_to_none=True)
+        loss = timed(lambda: classifier_loss(towers, cfg, agg, frozen, eot, dropout=dropout,
+                                             generator=gen))
+        timed(loss.backward)
+        timed(optimizer.step)
+        print(f"[train] step {i} split: image passes {parts[0]:.1f} ms, heads forward "
+              f"{parts[1]:.1f} ms, backward {parts[2]:.1f} ms, optimizer {parts[3]:.1f} ms",
+              flush=True)
+        if float(loss.detach()) != losses[i]:
+            raise AssertionError(f"train step {i}: loss {float(loss.detach())!r} in the second run, "
+                                 f"{losses[i]!r} in the first, from the same seeds")
+    print("[train] two runs from the same seeds gave the same losses", flush=True)
+    profile_call(torch, "one train step", lambda: step_fn(
+        agg, optimizer, towers, images, ptok, eot, vtok, gen, 4))
+    return launches, shapes
+
+
+def leaf_names(agg):
+    """Names in ``param_leaves`` order (sorted keys, depth first)."""
+    return [f"blocks.{k}" for k in sorted(agg["blocks"])] + ["cls_token"]
+
+
+def fp32_train_step(torch, np, clip_params, agg_params):
+    from ovmr_tpu_torch.engine.optimizers import build_optimizer, param_leaves
+    from ovmr_tpu_torch.engine.train_step import make_train_step
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    cfg = tclip.VIT_B16
+    images = exemplar_images(torch, 4, 4, 500, "cpu")
+    step_fn = make_train_step(cfg, dropout=0.0)
+    results = {}
+    for device in ("cuda", "cpu"):
+        towers = tclip.tree_to(clip_params, device=device)
+        agg = trainable_aggregator(torch, agg_params, device)
+        optimizer = build_optimizer(FlagshipOptim, agg)
+        ptok, eot, vtok = prompt_inputs(torch, np, 4, device)
+        cuda_lib.reset_launches()
+        t = time.perf_counter()
+        loss = step_fn(agg, optimizer, towers, images.to(device), ptok, eot, vtok, None, 2)
+        print(f"[fp32-train] {device}: one step {time.perf_counter() - t:.2f} s, "
+              f"loss {float(loss):.6f}", flush=True)
+        if device == "cuda":
+            got = dict(cuda_lib.LAUNCHES)
+            want = {"fused_attn_half": 24, "fused_attn_half_masked": 24, "fused_mlp_half": 48,
+                    "attn_half_bwd_dx_masked": 24, "mlp_half_bwd_dx": 24,
+                    "attn_half_bwd_dx": 0, "fused_attention": 4}
+            if got != want:
+                raise AssertionError(f"fp32 train step: launches {got}, expected {want}")
+        results[device] = (
+            float(loss), [leaf.grad.cpu() for leaf in param_leaves(agg)],
+            [leaf.detach().cpu() for leaf in param_leaves(agg)],
+        )
+    (g_loss, g_grads, g_params), (c_loss, c_grads, c_params) = results["cuda"], results["cpu"]
+    print(f"[fp32-train] card vs CPU loss: {abs(g_loss - c_loss):.3g} (tol 1e-4)", flush=True)
+    if not abs(g_loss - c_loss) <= 1e-4:
+        raise AssertionError(f"fp32 train step: loss {g_loss} on the card, {c_loss} on the CPU")
+    # Adam's first step is lr * g / (|g| + 1e-8) with g the gradient plus the
+    # L2 decay term: where that sum is rounding noise (the key bias, whose
+    # gradient is zero in exact arithmetic; weights whose gradient cancels
+    # the decay) rounding decides what share of lr the element moves, up to a
+    # full step each way. So the parameters are held as the nine-step
+    # trajectory test holds them: the bulk tightly (median 1e-6, mean 1e-5),
+    # the tail by Adam's bound of 2 x lr.
+    lr = FlagshipOptim.LR
+    worst_g = worst_p = 0.0
+    for name, gg, cg, gp, cp in zip(leaf_names(agg), g_grads, c_grads, g_params, c_params):
+        scale = max(float(cg.abs().max()), 1e-12)
+        rel = float((gg - cg).abs().max()) / scale
+        diff = (gp - cp).abs().flatten()
+        median, mean, top = float(diff.median()), float(diff.mean()), float(diff.max())
+        worst_g, worst_p = max(worst_g, rel), max(worst_p, mean)
+        print(f"[fp32-train]   {name}: grad err / scale {rel:.3g}; post-step param err median "
+              f"{median:.3g}, mean {mean:.3g}, max {top:.3g}", flush=True)
+        if not rel <= 1e-4:
+            raise AssertionError(f"fp32 train step: gradient of {name} differs by {rel} of its "
+                                 "scale between the card and the CPU (tol 1e-4)")
+        if not (median <= 1e-6 and mean <= 1e-5 and top <= 2 * lr * 1.001):
+            raise AssertionError(
+                f"fp32 train step: {name} differs after the update by median {median}, mean "
+                f"{mean}, max {top} (tol 1e-6, 1e-5, {2 * lr})")
+    print(f"[fp32-train] card vs CPU: gradients within {worst_g:.3g} of their scale (tol 1e-4), "
+          f"post-step params within {worst_p:.3g} on average (tol 1e-5)", flush=True)
+
+
 def main() -> int:
     if not (ROOT / "ovmr_tpu_torch").is_dir():
         print("chip_smoke: the ovmr_tpu_torch package is not beside this script",
@@ -464,11 +769,20 @@ def main() -> int:
     if unchecked:
         raise AssertionError(f"launches at shapes phase 2 did not check: {unchecked}")
     fp32_path(torch, np, clip_params, agg_params)
+    train_launches, train_shapes = training_slice(torch, np, clip_params, agg_params)
+    unchecked = {key: n for key, n in train_shapes.items() if key not in checked}
+    if unchecked:
+        raise AssertionError(f"training launches at shapes phase 2 did not check: {unchecked}")
+    fp32_train_step(torch, np, clip_params, agg_params)
     for entry in kernels:
-        # launches: the wrapper's count over the slice; launches_at_shape:
-        # those at this entry's shape and dtype
-        entry["launches"] = launches[entry["kernel"]]
-        entry["launches_at_shape"] = shapes.get(entry.pop("shape_key"), 0)
+        # launches: the wrapper's count over the serving slice plus the three
+        # timed training steps (each read with the counts zeroed just
+        # before); launches_at_shape: those at this entry's shape and dtype
+        key = entry.pop("shape_key")
+        entry["launches_serving"] = launches[entry["kernel"]]
+        entry["launches_training"] = train_launches[entry["kernel"]]
+        entry["launches"] = entry["launches_serving"] + entry["launches_training"]
+        entry["launches_at_shape"] = shapes.get(key, 0) + train_shapes.get(key, 0)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

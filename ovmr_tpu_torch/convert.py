@@ -6,7 +6,8 @@ and right-multiplied ``[in, out]`` weights. Given the JAX parameters as
 nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``),
 these functions check the structure and copy every array into a torch
 tensor, so both packages compute the same function on the same weights.
-No JAX is imported here; the caller does the ``np.asarray``.
+:func:`aggregator_params_to_numpy` is the way back, for comparing trained
+parameters. No JAX is imported here; the caller does the ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -16,10 +17,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
-_BLOCK_KEYS = frozenset(
-    ("w_qkv", "b_qkv", "w_out", "b_out", "ln_1_scale", "ln_1_bias",
-     "c_fc_w", "c_fc_b", "c_proj_w", "c_proj_b", "ln_2_scale", "ln_2_bias")
-)
+from ovmr_tpu_torch.ops.block_fused import BLOCK_KEYS
+
+_BLOCK_KEYS = frozenset(BLOCK_KEYS)
 _VISUAL_KEYS = frozenset(
     ("patch_embed_w", "class_embedding", "positional_embedding", "ln_pre_scale",
      "ln_pre_bias", "blocks", "ln_post_scale", "ln_post_bias", "proj")
@@ -74,4 +74,19 @@ def aggregator_params_from_numpy(params: Mapping, device="cpu", dtype=torch.floa
     return {
         "blocks": _blocks(params["blocks"], "aggregator params['blocks']", device, dtype),
         "cls_token": _tensor(params["cls_token"], device, dtype),
+    }
+
+
+def aggregator_params_to_numpy(params: Mapping) -> dict:
+    """The port's aggregator params -> nested dict of fp32 numpy arrays in
+    the JAX package's layout (the same keys and shapes)."""
+    _require_keys(params, frozenset(("blocks", "cls_token")), "aggregator params")
+    _require_keys(params["blocks"], _BLOCK_KEYS, "aggregator params['blocks']")
+
+    def array(t):
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    return {
+        "blocks": {k: array(v) for k, v in params["blocks"].items()},
+        "cls_token": array(params["cls_token"]),
     }

@@ -23,12 +23,13 @@
 // made every column block recompute the row statistics and kept A out of
 // cp.async; the extra pass moves one activation (77 MB at ViT-B/16 batch
 // 256, ~50 us) and lets every GEMM stage both tiles with cp.async. The
-// GEMM is one tiled kernel with two shared-memory stages; its epilogue adds
-// the bias in fp32 and applies the activation or the residual. The
-// attention core keeps a head's K and V and each 16-query tile's fp32
-// scores in shared memory. bf16/fp16 products run on the tensor cores
-// through WMMA with fp32 accumulation; fp32 products are plain FMA (TF32
-// would break the 1e-5 fp32 tolerance). No TMA or wgmma yet.
+// GEMM (gemm.cuh, shared with the backward halves) is one tiled kernel with
+// two shared-memory stages; its epilogue adds the bias in fp32 and applies
+// the activation or the residual. The attention core keeps a head's K and V
+// and each 16-query tile's fp32 scores in shared memory. bf16/fp16 products
+// run on the tensor cores through WMMA with fp32 accumulation; fp32
+// products are plain FMA (TF32 would break the 1e-5 fp32 tolerance). No TMA
+// or wgmma yet.
 //
 // Rounding follows the TPU kernel's contract (block_fused.py:68-149): the
 // LN output is cast to the activation dtype before the QKV / c_fc product;
@@ -36,24 +37,9 @@
 // mask is added before an fp32 softmax; probs and each head's output are
 // cast; the projection is cast before the residual add in the activation
 // dtype; QuickGELU runs in fp32 and is then cast.
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "gemm.cuh"
 
 namespace ovmr {
-
-enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESIDUAL = 2 };
-
-template <typename T, int EPI>
-__device__ __forceinline__ T epilogue_one(float acc, T bias, T resid) {
-  float v = acc + to_f(bias);
-  if (EPI == EPI_BIAS_GELU) v = v * (1.0f / (1.0f + expf(-1.702f * v)));
-  T o = from_f<T>(v);
-  if (EPI == EPI_BIAS_RESIDUAL) o = from_f<T>(to_f(resid) + to_f(o));
-  return o;
-}
 
 // LayerNorm in fp32 (two-pass, eps 1e-5), cast to the activation dtype:
 // y[m] = T((x[m] - mean) * rstd * g + b), one warp per row, 16-byte loads.
@@ -95,192 +81,6 @@ __global__ void __launch_bounds__(LN_THREADS)
     for (int e = 0; e < VW; ++e)
       o.v[e] = from_f<T>((to_f(v.v[e]) - mean) * rstd * to_f(gv.v[e]) + to_f(bv.v[e]));
     *reinterpret_cast<Vec<T, VW>*>(y + (size_t)row * K + k) = o;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// GEMM, bf16/fp16: C[M, N] = epi(A[M, K] @ W[K, N] + bias)
-// 128 x 128 block tile, 8 warps as 4 x 2, each warp 32 x 64 (2 x 4 WMMA
-// 16x16x16 fragments with fp32 accumulators). K and N are multiples of 8.
-// Two shared-memory stages: the next k-tile is copied with cp.async while
-// the warps multiply the current one.
-// ---------------------------------------------------------------------------
-constexpr int TC_BM = 128, TC_BN = 128, TC_BK = 32, TC_THREADS = 256;
-constexpr int TC_LDA = TC_BK + 8;  // padded rows; multiples of 8 for WMMA
-constexpr int TC_LDB = TC_BN + 8;
-
-// 16-byte global -> shared copy; zero-fills when !pred (nothing is read)
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// start copying k-tile k0 of A and W into one stage
-template <typename T>
-__device__ __forceinline__ void issue_tile(T* As, T* Bs, const T* A, const T* W, int M,
-                                           int N, int K, int m0, int n0, int k0) {
-  for (int c = threadIdx.x; c < TC_BM * TC_BK / 8; c += TC_THREADS) {
-    const int r = c / (TC_BK / 8), kc = (c % (TC_BK / 8)) * 8;
-    const bool ok = m0 + r < M && k0 + kc < K;
-    cp_async16(&As[r * TC_LDA + kc], ok ? A + (size_t)(m0 + r) * K + k0 + kc : A, ok);
-  }
-  for (int c = threadIdx.x; c < TC_BK * TC_BN / 8; c += TC_THREADS) {
-    const int r = c / (TC_BN / 8), nc = (c % (TC_BN / 8)) * 8;
-    const bool ok = k0 + r < K && n0 + nc < N;
-    cp_async16(&Bs[r * TC_LDB + nc], ok ? W + (size_t)(k0 + r) * N + n0 + nc : W, ok);
-  }
-  cp_async_commit();
-}
-
-template <typename T, int EPI>
-__global__ void __launch_bounds__(TC_THREADS, 2)
-    gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ W,
-                   const T* __restrict__ bias, const T* __restrict__ R, T* __restrict__ C,
-                   int M, int N, int K) {
-  __shared__ __align__(128) T As[2][TC_BM * TC_LDA];
-  __shared__ __align__(128) T Bs[2][TC_BK * TC_LDB];
-  __shared__ __align__(128) float scratch[TC_THREADS / 32][16 * 16];
-
-  const int n0 = blockIdx.x * TC_BN, m0 = blockIdx.y * TC_BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  issue_tile(As[0], Bs[0], A, W, M, N, K, m0, n0, 0);
-  const int nk = ceil_div(K, TC_BK);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    // the other stage was last read before the previous barrier: safe to fill
-    if (kt + 1 < nk) {
-      issue_tile(As[cur ^ 1], Bs[cur ^ 1], A, W, M, N, K, m0, n0, (kt + 1) * TC_BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TC_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[cur][(wm * 32 + i * 16) * TC_LDA + kk], TC_LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[cur][kk * TC_LDB + wn * 64 + j * 16], TC_LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: each fragment goes through the warp's fp32 scratch, then each
-  // lane finishes 8 consecutive outputs of one row
-  float* sc = scratch[warp];
-  const int r = lane / 2, cc = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = m0 + wm * 32 + i * 16 + r, gn = n0 + wn * 64 + j * 16 + cc;
-      if (gm < M && gn < N) {
-        const Vec<T, 8> bv = *reinterpret_cast<const Vec<T, 8>*>(bias + gn);
-        Vec<T, 8> rv;
-        if (EPI == EPI_BIAS_RESIDUAL)
-          rv = *reinterpret_cast<const Vec<T, 8>*>(R + (size_t)gm * N + gn);
-        Vec<T, 8> o;
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          o.v[e] = epilogue_one<T, EPI>(sc[r * 16 + cc + e], bv.v[e],
-                                        EPI == EPI_BIAS_RESIDUAL ? rv.v[e] : bv.v[e]);
-        *reinterpret_cast<Vec<T, 8>*>(C + (size_t)gm * N + gn) = o;
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// GEMM, fp32: same contract, plain FMA. 64 x 64 block tile, 256 threads,
-// each 4 x 4 outputs. K and N are multiples of 4.
-// ---------------------------------------------------------------------------
-constexpr int F_BM = 64, F_BN = 64, F_BK = 16, F_THREADS = 256;
-
-template <int EPI>
-__global__ void __launch_bounds__(F_THREADS)
-    gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                    const float* __restrict__ bias, const float* __restrict__ R,
-                    float* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) float As[F_BK][F_BM + 4];  // transposed: As[k][m]
-  __shared__ __align__(16) float Bs[F_BK][F_BN + 4];
-
-  const int n0 = blockIdx.x * F_BN, m0 = blockIdx.y * F_BM;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += F_BK) {
-    {
-      const int r = tid / 4, kc = (tid % 4) * 4;
-      const int gm = m0 + r, gk = k0 + kc;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gm < M && gk < K) v = *reinterpret_cast<const float4*>(A + (size_t)gm * K + gk);
-      As[kc + 0][r] = v.x;
-      As[kc + 1][r] = v.y;
-      As[kc + 2][r] = v.z;
-      As[kc + 3][r] = v.w;
-    }
-    {
-      const int r = tid / 16, nc = (tid % 16) * 4;
-      const int gk = k0 + r, gn = n0 + nc;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gk < K && gn < N) v = *reinterpret_cast<const float4*>(W + (size_t)gk * N + gn);
-      *reinterpret_cast<float4*>(&Bs[r][nc]) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < F_BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn >= N) continue;
-      const float rv = EPI == EPI_BIAS_RESIDUAL ? R[(size_t)gm * N + gn] : 0.f;
-      C[(size_t)gm * N + gn] = epilogue_one<float, EPI>(acc[i][j], bias[gn], rv);
-    }
   }
 }
 
@@ -518,30 +318,15 @@ __global__ void __launch_bounds__(AT_MAX_WARPS * 32)
 // ---------------------------------------------------------------------------
 // host launchers
 // ---------------------------------------------------------------------------
-template <typename T, int EPI>
-static void launch_gemm_t(const void* A, const void* W, const void* bias, const void* R,
-                          void* C, int M, int N, int K, cudaStream_t st) {
-  if constexpr (std::is_same<T, float>::value) {
-    dim3 grid(ceil_div(N, F_BN), ceil_div(M, F_BM));
-    gemm_f32_kernel<EPI><<<grid, F_THREADS, 0, st>>>(
-        (const float*)A, (const float*)W, (const float*)bias, (const float*)R, (float*)C,
-        M, N, K);
-  } else {
-    dim3 grid(ceil_div(N, TC_BN), ceil_div(M, TC_BM));
-    gemm_tc_kernel<T, EPI><<<grid, TC_THREADS, 0, st>>>(
-        (const T*)A, (const T*)W, (const T*)bias, (const T*)R, (T*)C, M, N, K);
-  }
-}
-
 template <typename T>
-static void launch_gemm(const void* A, const void* W, const void* bias, const void* R,
-                        void* C, int M, int N, int K, int epi, cudaStream_t st) {
+static void launch_fwd_gemm(const void* A, const void* W, const void* bias, const void* R,
+                            void* C, int M, int N, int K, int epi, cudaStream_t st) {
   if (epi == EPI_BIAS_GELU)
-    launch_gemm_t<T, EPI_BIAS_GELU>(A, W, bias, R, C, M, N, K, st);
+    launch_gemm<T, false, EPI_BIAS_GELU>(A, W, bias, R, C, M, N, K, st);
   else if (epi == EPI_BIAS_RESIDUAL)
-    launch_gemm_t<T, EPI_BIAS_RESIDUAL>(A, W, bias, R, C, M, N, K, st);
+    launch_gemm<T, false, EPI_BIAS_RESIDUAL>(A, W, bias, R, C, M, N, K, st);
   else
-    launch_gemm_t<T, EPI_BIAS>(A, W, bias, R, C, M, N, K, st);
+    launch_gemm<T, false, EPI_BIAS>(A, W, bias, R, C, M, N, K, st);
 }
 
 template <typename T>
@@ -609,9 +394,11 @@ OVMR_EXPORT int ovmr_gemm(int dtype, const void* A, const void* W, const void* b
   if (epilogue < 0 || epilogue > 2 || (epilogue == EPI_BIAS_RESIDUAL && !R))
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case DT_F32: launch_gemm<float>(A, W, bias, R, C, M, N, K, epilogue, st); break;
-    case DT_BF16: launch_gemm<__nv_bfloat16>(A, W, bias, R, C, M, N, K, epilogue, st); break;
-    case DT_F16: launch_gemm<__half>(A, W, bias, R, C, M, N, K, epilogue, st); break;
+    case DT_F32: launch_fwd_gemm<float>(A, W, bias, R, C, M, N, K, epilogue, st); break;
+    case DT_BF16:
+      launch_fwd_gemm<__nv_bfloat16>(A, W, bias, R, C, M, N, K, epilogue, st);
+      break;
+    case DT_F16: launch_fwd_gemm<__half>(A, W, bias, R, C, M, N, K, epilogue, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -62,6 +62,18 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// 16-byte global -> shared copy; zero-fills when !pred (nothing is read)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr size_t align_up(size_t x, size_t a) {
   return (x + a - 1) / a * a;

@@ -1,12 +1,17 @@
-"""Visual token generator ("aggregator"), serving path.
+"""Visual token generator ("aggregator"), the only trained module.
 
 Counterpart of ``ovmr_tpu/models/aggregator.py`` (reference
 ``TransformerDropout``, ``clip/model.py:341-358``): a 4-layer pre-LN
 transformer of width = CLIP embed dim, heads = width // 64, that turns a
 class's exemplar features into ``n_ctx`` visual tokens (vokens).
 
-Only the dropout-0 (inference) path is here; the dropout branch of the
-reference block is training work and comes with the training port.
+Training runs it with dropout on the attention probabilities and twice
+inside the MLP (after QuickGELU and after ``c_proj``). The masks come from
+an explicit ``torch.Generator`` on the tensor's device, drawn in a fixed
+order (layer by layer: attention, MLP hidden, MLP output), so one seed
+gives one set of masks. They are not the JAX package's masks (another
+RNG): parity holds at dropout 0. Serving passes no generator and runs the
+dropout-0 path.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from ovmr_tpu_torch.ops.layers import (
     dense,
     l2_normalize,
     layer_norm,
+    matmul_f32,
     merge_heads,
     quick_gelu,
     split_heads,
@@ -67,32 +73,68 @@ def init_aggregator(
     }
 
 
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: keep with probability ``1 - rate`` and scale the
+    kept values by ``1 / (1 - rate)`` (``_dropout`` :69-74)."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
 def _dropout_block(
-    x: torch.Tensor, p: dict, n_head: int, attn_fn=fused_attention
+    x: torch.Tensor,
+    p: dict,
+    n_head: int,
+    dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    attn_fn=fused_attention,
 ) -> torch.Tensor:
-    """Pre-LN residual block of the reference
-    ``ResidualAttentionBlockWithDropout`` at dropout 0."""
+    """Pre-LN residual block with the dropout placement of the reference
+    ``ResidualAttentionBlockWithDropout`` (``_dropout_block`` :77-120):
+    attention-probability dropout, MLP dropout after QuickGELU and after
+    ``c_proj``."""
+    active = generator is not None and dropout > 0.0
     h = layer_norm(x, p["ln_1_scale"], p["ln_1_bias"])
     qkv = dense(h, p["w_qkv"], p["b_qkv"])
     q, k, v = (split_heads(t, n_head) for t in qkv.chunk(3, dim=-1))
-    attn_out = dense(merge_heads(attn_fn(q, k, v, None)), p["w_out"], p["b_out"])
-    x = x + attn_out
+    if active:
+        # dropout must hit the attention probabilities, so the attention is
+        # expanded in torch ops and ``attn_fn`` (K6) is not called
+        scale = q.shape[-1] ** -0.5
+        probs = torch.softmax(matmul_f32(q * scale, k.transpose(-1, -2)), dim=-1)
+        probs = _dropout(probs, dropout, generator)
+        attn_out = matmul_f32(probs.to(q.dtype), v).to(q.dtype)
+    else:
+        attn_out = attn_fn(q, k, v, None)
+    x = x + dense(merge_heads(attn_out), p["w_out"], p["b_out"])
     h = layer_norm(x, p["ln_2_scale"], p["ln_2_bias"])
     h = quick_gelu(dense(h, p["c_fc_w"], p["c_fc_b"]))
-    return x + dense(h, p["c_proj_w"], p["c_proj_b"])
+    h = _dropout(h, dropout, generator)
+    h = dense(h, p["c_proj_w"], p["c_proj_b"])
+    h = _dropout(h, dropout, generator)
+    return x + h
 
 
 def generate_vokens(
-    params: dict, exemplar_feats: torch.Tensor, attn_fn=fused_attention
+    params: dict,
+    exemplar_feats: torch.Tensor,
+    dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    attn_fn=fused_attention,
 ) -> torch.Tensor:
     """exemplar_feats [N, K, D] -> vokens [N, n_ctx, D]: prepend the learned
     queries, run the blocks, keep the first n_ctx positions
-    (reference ``trainers/mm_classifier_one_prompt.py:167-169``)."""
+    (reference ``trainers/mm_classifier_one_prompt.py:167-169``). Dropout is
+    active only with a ``generator`` and ``dropout`` > 0."""
     n, _, d = exemplar_feats.shape
     cls = params["cls_token"].to(exemplar_feats.dtype)
     n_ctx = cls.shape[0]
     x = torch.cat([cls[None].expand(n, n_ctx, d), exemplar_feats], dim=1)
     blocks = params["blocks"]
     for i in range(blocks["w_qkv"].shape[0]):
-        x = _dropout_block(x, {k: v[i] for k, v in blocks.items()}, d // 64, attn_fn)
+        x = _dropout_block(
+            x, {k: v[i] for k, v in blocks.items()}, d // 64, dropout, generator, attn_fn
+        )
     return x[:, :n_ctx, :]

@@ -16,7 +16,8 @@ import torch
 
 from .clip import CLIPConfig
 
-_BLOCK_KEYS = (
+# (port key, reference state_dict key, transpose to [in, out])
+TORCH_BLOCK_KEYS = (
     ("w_qkv", "attn.in_proj_weight", True),
     ("b_qkv", "attn.in_proj_bias", False),
     ("w_out", "attn.out_proj.weight", True),
@@ -77,7 +78,7 @@ def _blocks_from_sd(sd: Dict, prefix: str, n_layers: int) -> Dict[str, torch.Ten
     """Stack per-layer block weights along a leading layer axis, linear
     weights transposed to [in, out]."""
     out = {}
-    for key, torch_key, transpose in _BLOCK_KEYS:
+    for key, torch_key, transpose in TORCH_BLOCK_KEYS:
         rows = [_t(sd[f"{prefix}.{i}.{torch_key}"]) for i in range(n_layers)]
         out[key] = torch.stack([r.t() if transpose else r for r in rows]).contiguous()
     return out

@@ -76,12 +76,18 @@ def classifier_heads(
     prompt_embeds: torch.Tensor,
     vis_embeds: torch.Tensor,
     eot_idx: torch.Tensor,
+    dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
     attn_fn=fused_attention,
     block_fn=fused_residual_block,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """L2-normalized exemplar features [N, K, D] -> (mm_classifier [N,D],
-    v_classifier [N,D], vokens [N, n_ctx, D])."""
-    vokens = generate_vokens(agg_params, exemplar_feats, attn_fn=attn_fn)
+    v_classifier [N,D], vokens [N, n_ctx, D]). ``dropout`` with a
+    ``generator`` is the training path's aggregator dropout; serving leaves
+    both at their defaults."""
+    vokens = generate_vokens(
+        agg_params, exemplar_feats, dropout=dropout, generator=generator, attn_fn=attn_fn
+    )
     n_ctx = vokens.shape[1]
     mm_eos = eot_idx.long() + n_ctx
     v_eos = torch.full_like(mm_eos, 1 + n_ctx)  # reference quirk: last voken

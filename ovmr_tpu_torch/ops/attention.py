@@ -7,8 +7,15 @@ fp32 before the score product, an fp32 softmax, the probabilities cast to
 v's dtype and the p.v product accumulated in fp32. On the serving path it
 runs the aggregator's attention (``models/aggregator.py``).
 
-The wrapper takes the plain version for a tensor on the CPU and launches
-``csrc/attention.cu`` for a tensor on a CUDA card; it never falls back.
+The raw wrapper :func:`fused_attention_kernel` takes the plain version for
+a tensor on the CPU and launches ``csrc/attention.cu`` for a tensor on a
+CUDA card; it never falls back. It records no autograd graph, so on the
+card it raises for a tensor that requires grad. :func:`fused_attention`,
+the entry the models call, is differentiable (TPU: ``pallas_attention`` /
+``pallas_attention_masked`` :114-154): K6 forward, and for dq, dk, dv torch
+autograd over :func:`ovmr_tpu_torch.ops.layers.attention_plain` on the
+saved q, k, v. The JAX package has no backward kernel for K6, so neither
+has the port.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ from typing import Optional
 import torch
 
 from ovmr_tpu_torch.ops import cuda_lib
-from ovmr_tpu_torch.ops.layers import matmul_f32
+from ovmr_tpu_torch.ops.layers import attention_plain, matmul_f32
 
 
 def fused_attention_plain(q, k, v, mask: Optional[torch.Tensor] = None):
@@ -31,13 +38,15 @@ def fused_attention_plain(q, k, v, mask: Optional[torch.Tensor] = None):
     return matmul_f32(probs.to(v.dtype), v).to(q.dtype)
 
 
-def fused_attention(q, k, v, mask: Optional[torch.Tensor] = None):
-    """K6: fused attention over [B, H, L, Dh]; ``mask`` is additive [L, L]."""
+def fused_attention_kernel(q, k, v, mask: Optional[torch.Tensor] = None):
+    """K6 forward over [B, H, L, Dh]; ``mask`` is additive [L, L]. No
+    autograd graph is recorded."""
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, mask)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: no kernel for device {q.device}")
     what = "fused_attention"
+    cuda_lib.require_no_grad(what, q, k, v)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{what}: q, k, v must share one [B, H, L, Dh] shape")
     b, h, l, dh = q.shape
@@ -66,3 +75,27 @@ def fused_attention(q, k, v, mask: Optional[torch.Tensor] = None):
     cuda_lib.count_launch("fused_attention", q)
     return out
 
+
+class _FusedAttention(torch.autograd.Function):
+    """K6 forward; dq, dk, dv by torch autograd over ``attention_plain`` on
+    the saved q, k, v (``_pa_bwd`` :123-128, ``_pam_bwd`` :143-151)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return fused_attention_kernel(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = attention_plain(*leaves, mask)
+            dq, dk, dv = torch.autograd.grad(out, leaves, g.to(out.dtype))
+        return dq, dk, dv, None
+
+
+def fused_attention(q, k, v, mask: Optional[torch.Tensor] = None):
+    """K6, differentiable: fused attention over [B, H, L, Dh]; ``mask`` is
+    additive [L, L] and gets no gradient."""
+    return _FusedAttention.apply(q, k, v, mask)

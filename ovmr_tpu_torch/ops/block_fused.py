@@ -1,6 +1,6 @@
 """The two halves of the CLIP residual block, as hand-written Hopper kernels.
 
-PyTorch counterpart of ``ovmr_tpu/ops/block_fused.py`` (forward only):
+PyTorch counterpart of ``ovmr_tpu/ops/block_fused.py``:
 
 - **K1** :func:`fused_attn_half` (TPU: ``_attn_half_kernel`` :58 and
   ``_masked_attn_half_kernel`` :113): ``x + out_proj(MHA(LN1(x)))`` with a
@@ -9,10 +9,18 @@ PyTorch counterpart of ``ovmr_tpu/ops/block_fused.py`` (forward only):
 - **K2** :func:`fused_mlp_half` (TPU: ``_mlp_half_kernel`` :123):
   ``x + c_proj(QuickGELU(c_fc(LN2(x))))``.
 
+- :func:`fused_residual_block`, the differentiable block (TPU:
+  ``_fused_block`` :483-558): K1 then K2 forward; the backward runs the dx
+  kernels K4 then K3 of :mod:`ovmr_tpu_torch.ops.block_fused_bwd` on the
+  saved block input and attention-half output.
+
 Each wrapper takes its plain PyTorch version (``*_plain``, built from
 :mod:`ovmr_tpu_torch.ops.layers`) for a tensor on the CPU and launches the
 CUDA kernels of ``csrc/block_fused.cu`` for a tensor on a CUDA card; it
-never falls back from one to the other. The plain versions round where
+never falls back from one to the other. A raw wrapper (``fused_attn_half``,
+``fused_mlp_half``) records no autograd graph, so on the card it raises for
+a tensor that requires grad; gradients go through
+:func:`fused_residual_block`. The plain versions round where
 the kernels round (``block_fused.py:68-149``): LN output cast before the
 product, qkv cast after its bias, scores scaled after the fp32 product,
 probs and each head's output cast, the projection cast before the residual
@@ -36,6 +44,7 @@ from ovmr_tpu_torch.ops.layers import (
     layer_norm,
     matmul_f32,
     merge_heads,
+    residual_attention_block,
     split_heads,
 )
 
@@ -141,6 +150,7 @@ def fused_attn_half(
     if x.device.type != "cuda":
         raise ValueError(f"fused_attn_half: no kernel for device {x.device}")
     what = "fused_attn_half"
+    cuda_lib.require_no_grad(what, x, w_qkv, b_qkv, w_out, b_out, ln_s, ln_b)
     b, l, d = x.shape
     _check_block_args(
         what, x,
@@ -187,6 +197,7 @@ def fused_mlp_half(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_half: no kernel for device {x.device}")
     what = "fused_mlp_half"
+    cuda_lib.require_no_grad(what, x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b)
     b, l, d = x.shape
     hidden = c_fc_w.shape[-1]
     _check_block_args(
@@ -214,14 +225,69 @@ def fused_mlp_half(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
     return out
 
 
+# the layer's tensors in the order the autograd Function takes them
+BLOCK_KEYS = (
+    "w_qkv", "b_qkv", "w_out", "b_out", "ln_1_scale", "ln_1_bias",
+    "c_fc_w", "c_fc_b", "c_proj_w", "c_proj_b", "ln_2_scale", "ln_2_bias",
+)
+
+
+class _FusedBlock(torch.autograd.Function):
+    """K1 then K2 forward; K4 then K3 backward (``_fused_block`` :483-558).
+
+    Saves the block input x, the attention half's output y (K1 wrote it to
+    global memory anyway) and the layer's tensors, nothing else: both dx
+    kernels recompute their half's intermediates, which is what gives a
+    differentiated tower its per-layer rematerialisation. For CPU tensors
+    the same wiring runs the plain twins in both directions."""
+
+    @staticmethod
+    def forward(ctx, x, mask, n_head, *weights):
+        (w_qkv, b_qkv, w_out, b_out, ln_1_s, ln_1_b,
+         c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_2_s, ln_2_b) = weights
+        y = fused_attn_half(x, w_qkv, b_qkv, w_out, b_out, ln_1_s, ln_1_b,
+                            mask=mask, n_head=n_head)
+        z = fused_mlp_half(y, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_2_s, ln_2_b)
+        ctx.n_head = n_head
+        ctx.save_for_backward(x, y, mask, *weights)
+        return z
+
+    @staticmethod
+    def backward(ctx, g):
+        from ovmr_tpu_torch.ops.block_fused_bwd import attn_half_bwd_dx, mlp_half_bwd_dx
+
+        x, y, mask, *weights = ctx.saved_tensors
+        (w_qkv, b_qkv, w_out, b_out, ln_1_s, ln_1_b,
+         c_fc_w, c_fc_b, c_proj_w, _, ln_2_s, ln_2_b) = weights
+        # autograd may hand over a strided or differently typed cotangent;
+        # the kernels take x's dtype, contiguous
+        g = g.to(x.dtype).contiguous()
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dy = mlp_half_bwd_dx(y, g, c_fc_w, c_fc_b, c_proj_w, ln_2_s, ln_2_b)
+            dx = attn_half_bwd_dx(x, dy, w_qkv, b_qkv, w_out, ln_1_s, ln_1_b,
+                                  mask=mask, n_head=ctx.n_head)
+        wanted = ctx.needs_input_grad[3:]
+        dweights = [None] * len(weights)
+        if any(wanted):
+            # weight cotangents by torch autograd over the torch-math block
+            # (:544-547); every shipped trainer freezes the towers, so the
+            # training path never takes this branch
+            with torch.enable_grad():
+                leaves = [w.detach().requires_grad_(need) for w, need in zip(weights, wanted)]
+                out = residual_attention_block(
+                    x.detach(), dict(zip(BLOCK_KEYS, leaves)), ctx.n_head, mask
+                )
+                grads = torch.autograd.grad(
+                    out, [w for w, need in zip(leaves, wanted) if need], g
+                )
+            it = iter(grads)
+            dweights = [next(it) if need else None for need in wanted]
+        return (dx, None, None, *dweights)
+
+
 def fused_residual_block(x, p, n_head, mask=None):
     """Drop-in for :func:`ovmr_tpu_torch.ops.layers.residual_attention_block`
-    running K1 then K2 (forward only)."""
-    y = fused_attn_half(
-        x, p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"],
-        p["ln_1_scale"], p["ln_1_bias"], mask=mask, n_head=n_head,
-    )
-    return fused_mlp_half(
-        y, p["c_fc_w"], p["c_fc_b"], p["c_proj_w"], p["c_proj_b"],
-        p["ln_2_scale"], p["ln_2_bias"],
-    )
+    running K1 then K2, differentiable through the dx kernels K4 and K3.
+    Under ``torch.no_grad()`` nothing is saved."""
+    return _FusedBlock.apply(x, mask, n_head, *(p[k] for k in BLOCK_KEYS))

@@ -32,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ovmr_tpu_torch_kernels"
-SOURCES = ("block_fused", "attention")
+SOURCES = ("block_fused", "block_fused_bwd", "attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,6 +46,9 @@ LAUNCHES: Dict[str, int] = {
     "fused_attn_half_masked": 0,
     "fused_mlp_half": 0,
     "fused_attention": 0,
+    "attn_half_bwd_dx": 0,
+    "attn_half_bwd_dx_masked": 0,
+    "mlp_half_bwd_dx": 0,
 }
 # launches by (kernel, shape of its first input, dtype name)
 LAUNCH_SHAPES: Counter = Counter()
@@ -60,6 +63,14 @@ _SIGNATURES = {
         "ovmr_gemm": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         # dtype, qkv, mask, out, B, L, D, H, stream
         "ovmr_attn_core": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "block_fused_bwd": {
+        # dtype, A, W, bias, aux, C, M, N, K, epilogue, stream
+        "ovmr_gemm_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # dtype, x, dxln, g, ln_g, out, M, K, stream
+        "ovmr_ln_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
+        # dtype, qkv, dattn, mask, dqkv, B, L, D, H, stream
+        "ovmr_attn_bwd_core": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "attention": {
         # dtype, q, k, v, mask, out, BH, L, Dh, stream
@@ -167,6 +178,21 @@ def dtype_code(dtype: torch.dtype) -> int:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_no_grad(what: str, *tensors) -> None:
+    """A raw kernel wrapper writes into fresh buffers through ctypes, so its
+    result carries no ``grad_fn``: refuse a tensor that autograd is tracking
+    instead of dropping its gradient. Inside a ``torch.autograd.Function``
+    (where grad mode is off) the wrappers pass."""
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{what}: a tensor requires grad, and this kernel wrapper records no "
+            "autograd graph; call it through its differentiable entry "
+            "(fused_residual_block, fused_attention) or under torch.no_grad()"
+        )
 
 
 def require_cuda_args(what: str, dtype: torch.dtype, device: torch.device, **tensors) -> None:

@@ -128,6 +128,27 @@ def residual_attention_block(
     return x + mlp_block(layer_norm(x, p["ln_2_scale"], p["ln_2_bias"]), p)
 
 
+def residual_block_remat(
+    x: torch.Tensor,
+    p: dict,
+    n_head: int,
+    mask: Optional[torch.Tensor] = None,
+    attn_fn=attention_plain,
+) -> torch.Tensor:
+    """The torch-math block with per-layer rematerialisation
+    (``residual_block_remat``): identical values, but the backward recomputes
+    the layer instead of keeping its intermediates. For a differentiated
+    tower whose caller passes the torch-math block explicitly; the kernel
+    block :func:`ovmr_tpu_torch.ops.block_fused.fused_residual_block`
+    rematerialises by construction."""
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(
+        lambda x_: residual_attention_block(x_, p, n_head, mask, attn_fn),
+        x, use_reentrant=False,
+    )
+
+
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
     """Unit-normalize along ``dim`` in float32, cast back to x.dtype."""
     xf = x.float()

@@ -1,5 +1,6 @@
 """The port's hand-written kernels against their plain versions on a CUDA
-card, and the serving slice on the card against the CPU.
+card, the differentiable entries on the card against the CPU, and the
+serving slice on the card against the CPU.
 
 Every test here needs a card: marked ``cuda`` and skipped without one
 (the check runs inside the ``cuda`` fixture, not at import). On the card:
@@ -17,12 +18,24 @@ import pytest
 import torch
 
 from ovmr_tpu_torch.ops import cuda_lib
-from ovmr_tpu_torch.ops.attention import fused_attention, fused_attention_plain
+from ovmr_tpu_torch.ops.attention import (
+    fused_attention,
+    fused_attention_kernel,
+    fused_attention_plain,
+)
 from ovmr_tpu_torch.ops.block_fused import (
+    BLOCK_KEYS,
     fused_attn_half,
     fused_attn_half_plain,
     fused_mlp_half,
     fused_mlp_half_plain,
+    fused_residual_block,
+)
+from ovmr_tpu_torch.ops.block_fused_bwd import (
+    attn_half_bwd_dx,
+    attn_half_bwd_dx_plain,
+    mlp_half_bwd_dx,
+    mlp_half_bwd_dx_plain,
 )
 from ovmr_tpu_torch.ops.layers import causal_mask
 
@@ -95,6 +108,167 @@ def test_fused_attention_matches_plain(cuda, dtype, shape, masked):
     _check(fused_attention(q, k, v, mask), fused_attention_plain(q, k, v, mask))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize(
+    "b,l,d,h,masked",
+    [(1, 1, 64, 1, False), (2, 17, 64, 2, True), (3, 17, 64, 1, False),
+     (2, 77, 64, 2, True), (5, 9, 128, 4, False), (3, 77, 512, 8, True),
+     (3, 77, 512, 8, False), (2, 33, 40, 5, True), (192, 77, 512, 8, True)],
+)
+def test_dx_halves_match_plain(cuda, dtype, b, l, d, h, masked):
+    """K3 and K4 against their plain twins, TINY and text-tower shapes."""
+    p = _layer(d, dtype, cuda, seed=b * 1000 + l)
+    gen = torch.Generator().manual_seed(l)
+    x = torch.randn(b, l, d, generator=gen).to(cuda, dtype)
+    g = torch.randn(b, l, d, generator=gen).to(cuda, dtype)
+    mask = causal_mask(l, device=cuda) if masked else None
+    cuda_lib.reset_launches()
+    a = (x, g, p["w_qkv"], p["b_qkv"], p["w_out"], p["ln_s"], p["ln_b"])
+    _check(attn_half_bwd_dx(*a, mask=mask, n_head=h),
+           attn_half_bwd_dx_plain(*a, mask=mask, n_head=h))
+    m = (x, g, p["c_fc_w"], p["c_fc_b"], p["c_proj_w"], p["ln_s"], p["ln_b"])
+    _check(mlp_half_bwd_dx(*m), mlp_half_bwd_dx_plain(*m))
+    k3 = "attn_half_bwd_dx_masked" if masked else "attn_half_bwd_dx"
+    assert cuda_lib.LAUNCHES[k3] == 1 and cuda_lib.LAUNCHES["mlp_half_bwd_dx"] == 1
+
+
+def test_attn_bwd_core_refuses_a_head_that_does_not_fit(cuda):
+    """One head must fit in a block's shared memory: a vision tower's
+    L = 197 does not, and the wrapper raises instead of falling back."""
+    p = _layer(768, torch.bfloat16, cuda, seed=0)
+    x = torch.randn(1, 197, 768, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        attn_half_bwd_dx(x, x, p["w_qkv"], p["b_qkv"], p["w_out"], p["ln_s"], p["ln_b"],
+                         n_head=12)
+
+
+def _block_params(d, dtype, device, seed):
+    p = _layer(d, dtype, device, seed)
+    p.update(ln_1_scale=p["ln_s"], ln_1_bias=p["ln_b"],
+             ln_2_scale=p["ln_s"].flip(0).contiguous(), ln_2_bias=p["ln_b"].flip(0).contiguous())
+    return {k: p[k] for k in BLOCK_KEYS}
+
+
+def test_raw_wrappers_refuse_a_tensor_that_requires_grad(cuda):
+    """A raw wrapper records no autograd graph: on the card it raises for
+    a tracked tensor instead of dropping the gradient silently."""
+    p = _block_params(64, torch.float32, cuda, seed=1)
+    x = torch.randn(2, 9, 64, device=cuda, requires_grad=True)
+    a = (p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"], p["ln_1_scale"], p["ln_1_bias"])
+    m = (p["c_fc_w"], p["c_fc_b"], p["c_proj_w"], p["c_proj_b"], p["ln_2_scale"], p["ln_2_bias"])
+    q = torch.randn(2, 1, 9, 64, device=cuda, requires_grad=True)
+    g = torch.randn(2, 9, 64, device=cuda)
+    calls = [
+        lambda: fused_attn_half(x, *a, n_head=1),
+        lambda: fused_mlp_half(x, *m),
+        lambda: fused_attention_kernel(q, q, q),
+        lambda: attn_half_bwd_dx(x, g, *a[:3], *a[4:], n_head=1),
+        lambda: mlp_half_bwd_dx(x, g, *m[:3], *m[4:]),
+        # a frozen input but a weight that trains
+        lambda: fused_mlp_half(x.detach(), m[0].clone().requires_grad_(True), *m[1:]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+    with torch.no_grad():
+        for call in calls:
+            assert not call().requires_grad
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("train_weights", [False, True])
+def test_fused_block_gradients_on_card_match_cpu(cuda, masked, train_weights):
+    """fused_residual_block on the card (K1, K2 forward; K4, K3 backward)
+    gives the CPU's (plain twins') gradients, through two stacked layers and
+    with a strided cotangent."""
+    b, l, d, h = 3, 17, 64, 2
+    layers = [_block_params(d, torch.float32, "cpu", seed=s) for s in (2, 3)]
+    x0 = torch.randn(b, l, d, generator=torch.Generator().manual_seed(5))
+    results = {}
+    for device in ("cpu", cuda):
+        ps = [{k: v.clone().to(device).requires_grad_(train_weights) for k, v in p.items()}
+              for p in layers]
+        x = x0.clone().to(device).requires_grad_(True)
+        mask = causal_mask(l, device=device) if masked else None
+        cuda_lib.reset_launches()
+        y = x
+        for p in ps:
+            y = fused_residual_block(y, p, h, mask)
+        assert y.grad_fn is not None
+        # transpose makes the cotangent reaching the Function strided
+        (y.transpose(0, 1) ** 2).sum().backward()
+        if device != "cpu":
+            k3 = "attn_half_bwd_dx_masked" if masked else "attn_half_bwd_dx"
+            assert cuda_lib.LAUNCHES[k3] == 2 and cuda_lib.LAUNCHES["mlp_half_bwd_dx"] == 2
+        results[str(device)] = [x.grad.cpu()] + [
+            p[k].grad.cpu() for p in ps for k in BLOCK_KEYS if train_weights
+        ]
+    for got, ref in zip(results["cuda"], results["cpu"]):
+        scale = max(float(ref.abs().max()), 1.0)
+        assert float((got - ref).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_attention_gradients_on_card_match_cpu(cuda, masked):
+    """K6 through its autograd wrapper: K6 forward on the card, dq, dk, dv
+    equal to the CPU's."""
+    gen = torch.Generator().manual_seed(9)
+    qkv = [torch.randn(3, 2, 18, 64, generator=gen) for _ in range(3)]
+    results = {}
+    for device in ("cpu", cuda):
+        leaves = [t.clone().to(device).requires_grad_(True) for t in qkv]
+        mask = causal_mask(18, device=device) if masked else None
+        cuda_lib.reset_launches()
+        out = fused_attention(*leaves, mask)
+        assert out.grad_fn is not None
+        if device != "cpu":
+            assert cuda_lib.LAUNCHES["fused_attention"] == 1
+        (out ** 2).sum().backward()
+        results[str(device)] = [out.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for got, ref in zip(results["cuda"], results["cpu"]):
+        assert float((got - ref).abs().max()) <= 1e-4 * max(float(ref.abs().max()), 1.0)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One TINY fp32 training step at dropout 0 on the card (K1-K4 and K6
+    through their autograd entries) against the CPU (plain twins). SGD, whose
+    update is linear in the gradient, so every element is comparable."""
+    from ovmr_tpu_torch.engine.optimizers import param_leaves
+    from ovmr_tpu_torch.engine.train_step import make_train_step
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.models.aggregator import init_aggregator
+    from ovmr_tpu_torch.models.ovmr import build_prompt_tokens
+
+    cp = tclip.init_params(tclip.TINY, seed=0)
+    ap = init_aggregator(width=64, layers=2, n_ctx=2, seed=0)
+    rng = np.random.RandomState(1)
+    images = torch.tensor(
+        (rng.rand(3, 1, 3, 32, 32) + 0.3 * rng.rand(3, 4, 3, 32, 32)).astype(np.float32)
+    )
+    ptok, eot, vtok = (torch.tensor(a) for a in build_prompt_tokens(["circle", "square", "cross"]))
+    step = make_train_step(tclip.TINY, dropout=0.0)
+    results = {}
+    for device in ("cpu", cuda):
+        agg = {"blocks": {k: v.clone().to(device).requires_grad_(True)
+                          for k, v in ap["blocks"].items()},
+               "cls_token": ap["cls_token"].clone().to(device).requires_grad_(True)}
+        optimizer = torch.optim.SGD(param_leaves(agg), lr=0.05, momentum=0.9)
+        cuda_lib.reset_launches()
+        loss = step(agg, optimizer, tclip.tree_to(cp, device=device), images.to(device),
+                    ptok.to(device), eot.to(device), vtok.to(device), None, 2)
+        if device != "cpu":
+            assert cuda_lib.LAUNCHES == {
+                "fused_attn_half": 4, "fused_attn_half_masked": 4, "fused_mlp_half": 8,
+                "fused_attention": 2, "attn_half_bwd_dx": 0, "attn_half_bwd_dx_masked": 4,
+                "mlp_half_bwd_dx": 4,
+            }, cuda_lib.LAUNCHES
+        results[str(device)] = [loss.cpu()] + [leaf.detach().cpu() for leaf in param_leaves(agg)]
+    for got, ref in zip(results["cuda"], results["cpu"]):
+        assert float((got - ref).abs().max()) <= 1e-5
+    moved = (results["cpu"][-1] - ap["cls_token"]).abs().max()
+    assert float(moved) > 1e-4
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     p = _layer(64, torch.float32, cuda, seed=0)
     x = torch.randn(2, 9, 64, device=cuda)
@@ -123,7 +297,9 @@ def test_slice_on_card_matches_cpu(cuda):
     names = ["red circle", "green square", "blue triangle"]
     cuda_lib.reset_launches()
     gpu = OVMRGenerator(cp, tclip.TINY, ap, dtype=torch.float32, device="cuda").generate(names, images)
-    assert all(v > 0 for v in cuda_lib.LAUNCHES.values()), cuda_lib.LAUNCHES
+    # serving launches every forward kernel and no backward one
+    for name, count in cuda_lib.LAUNCHES.items():
+        assert (count == 0) == name.endswith(("bwd_dx", "bwd_dx_masked")), cuda_lib.LAUNCHES
     cpu = OVMRGenerator(cp, tclip.TINY, ap, dtype=torch.float32, device="cpu").generate(names, images)
     for key in ("mm_classifier", "vision_classifier", "text_classifier", "visual_tokens"):
         np.testing.assert_allclose(gpu[key], cpu[key], atol=1e-4, err_msg=key)

@@ -26,7 +26,11 @@ def _imports(tree):
 
 def test_port_imports_no_jax_and_nothing_of_ovmr_tpu():
     files = _port_files()
-    assert len(files) > 15
+    assert len(files) > 20
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for module in ("ops/block_fused_bwd.py", "engine/train_step.py", "engine/optimizers.py",
+                   "engine/schedule.py", "engine/checkpoint.py"):
+        assert f"ovmr_tpu_torch/{module}" in names, module
     bad = []
     for path in files:
         for name in _imports(ast.parse(path.read_text(), str(path))):
@@ -53,6 +57,12 @@ def test_kernel_sources_present():
     for name in cuda_lib.SOURCES:
         assert (cuda_lib.CSRC / f"{name}.cu").is_file(), name
     assert sorted(p.stem for p in cuda_lib.CSRC.glob("*.cu")) == sorted(cuda_lib.SOURCES)
+    assert sorted(cuda_lib._SIGNATURES) == sorted(cuda_lib.SOURCES)
+    # every header a source includes is in the directory (and so in the hash)
+    for src in cuda_lib.CSRC.glob("*.cu*"):
+        for line in src.read_text().splitlines():
+            if line.startswith('#include "'):
+                assert (cuda_lib.CSRC / line.split('"')[1]).is_file(), (src.name, line)
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
     # the build goes under build/, which .gitignore keeps out of commits
     assert cuda_lib.BUILD_DIR.relative_to(ROOT).parts[0] == "build"

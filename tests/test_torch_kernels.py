@@ -130,6 +130,10 @@ def test_plain_paths_launch_nothing(layer_np):
     fused_residual_block(x, p, 2, tlayers.causal_mask(9))
     fused_residual_block(x, p, 2)
     fused_attention(*(torch.randn(2, 1, 9, 64) for _ in range(3)))
+    # and backwards: the dx twins through the autograd Function
+    xg = x.clone().requires_grad_(True)
+    fused_residual_block(xg, p, 2, tlayers.causal_mask(9)).sum().backward()
+    assert xg.grad is not None
     assert all(v == 0 for v in cuda_lib.LAUNCHES.values()), cuda_lib.LAUNCHES
 
 
@@ -155,7 +159,13 @@ def test_models_default_to_the_kernel_wrappers():
                tclip.encode_text_embeds, tovmr.text_classifier, tovmr.classifier_heads,
                tovmr.generate_classifiers_from_feats):
         assert default(fn, "block_fn") is fused_residual_block, fn.__name__
-    for fn in (generate_vokens, tovmr.classifier_heads, tovmr.generate_classifiers_from_feats):
+    from ovmr_tpu_torch.engine import train_step
+
+    for fn in (train_step.frozen_features, train_step.classifier_loss,
+               train_step.make_train_step):
+        assert default(fn, "block_fn") is fused_residual_block, fn.__name__
+    for fn in (generate_vokens, tovmr.classifier_heads, tovmr.generate_classifiers_from_feats,
+               train_step.classifier_loss, train_step.make_train_step):
         assert default(fn, "attn_fn") is fused_attention, fn.__name__
 
 
@@ -165,6 +175,14 @@ def test_launch_counts_by_shape():
     cuda_lib.count_launch("fused_mlp_half", x)
     cuda_lib.count_launch("fused_mlp_half", x)
     cuda_lib.count_launch("fused_attention", torch.empty(1, 2, 9, 64))
+    assert set(cuda_lib.LAUNCHES) == {
+        "fused_attn_half", "fused_attn_half_masked", "fused_mlp_half", "fused_attention",
+        "attn_half_bwd_dx", "attn_half_bwd_dx_masked", "mlp_half_bwd_dx",
+    }
+    for name in ("attn_half_bwd_dx", "attn_half_bwd_dx_masked", "mlp_half_bwd_dx"):
+        cuda_lib.count_launch(name, x)
+        assert cuda_lib.LAUNCHES[name] == 1
+        assert cuda_lib.LAUNCH_SHAPES[(name, (2, 9, 64), "bfloat16")] == 1
     assert cuda_lib.LAUNCHES["fused_mlp_half"] == 2
     assert cuda_lib.LAUNCH_SHAPES[
         cuda_lib.shape_key("fused_mlp_half", (2, 9, 64), torch.bfloat16)] == 2
