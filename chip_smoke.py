@@ -9,15 +9,23 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    every kernel from ``ovmr_tpu_torch/csrc`` (one nvcc per source, in
    parallel) into ``build/ovmr_tpu_torch_kernels/``.
 2. Kernels against their plain PyTorch versions on the card, at the shapes
-   the two main paths give them. Serving, in bf16 and fp32: K1 (vision,
-   unmasked, at generate()'s 512 exemplars and classify()'s 256 queries;
-   text, causal, at each 32-class prompt set, and at the three sets as one
-   batch of 96), K2 (both towers, same shapes), K6 (aggregator). Training:
+   the three main paths give them. Serving at ViT-B/16, in bf16 and fp32:
+   K1 (vision, unmasked, at generate()'s 512 exemplars and classify()'s 256
+   queries; text, causal, at each 32-class prompt set, and at the three sets
+   as one batch of 96), K2 (both towers, same shapes), K6 (aggregator). Training:
    K1 and K2 at the image-tower batches 768, 576 and 960 (bf16), and at the
    192 prompts of a class-grouped batch K1-causal, K2 and the dx backward
-   kernels K3 (masked and unmasked) and K4, in bf16 and fp32. Each is timed
-   beside its plain version, one PyTorch library call chain computing the
-   same function (a yardstick the port never calls; for K3 and K4
+   kernels K3 (masked and unmasked) and K4, in bf16 and fp32. Serving at
+   ViT-L/14@336px (last, so the earlier cases run as they always did): K1
+   (vision, 577 tokens x 1024, 16 heads: the key-tiled attention core) and
+   K5 (the chunked MLP half, 2 chunks) at generate()'s 512 exemplars and
+   classify()'s 256 queries in bf16 and at the fp32 phase's 4 images, K2 at
+   K5's shape as a second yardstick (on no path), K1-causal and K2 at the
+   32 prompts of a set (77 x 768, 12 heads), K6 at 12 heads; the plain
+   versions of the big vision cases run 64 images at a time (a [512, 16,
+   577, 577] fp32 score tensor is 10.9 GB). Each case is checked as soon as it
+   is built, and timed beside its plain version, one PyTorch library call
+   chain computing the same function (a yardstick the port never calls; for K3 and K4
    ``torch.autograd.grad`` with respect to the input through the library
    forward) and its bound on the card; a time is the median of five means
    over back-to-back calls, with their spread.
@@ -47,6 +55,17 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    of its scale, post-step parameters within 1e-5 on average (median 1e-6;
    at most 2 x lr for an element whose gradient plus decay is rounding
    noise, which Adam's normalisation amplifies to a full step).
+7. The serving slice at ViT-L/14@336px, full width and depth (vision 24 x
+   1024, 16 heads, patch 14, 336 px, 577 tokens; text 12 x 768, 12 heads;
+   embed 768), bf16, seeded random towers through
+   ``OVMRGenerator.from_checkpoints("ViT-L/14@336px")``: one warm-up and
+   two timed ``generate()`` requests of 32 classes x 16 exemplars, then
+   ``classify()`` of 256 queries. Exact launch counts per kernel and shape
+   (per request 24 K1 + 24 K5 at 512 images, 36 K1-causal + 36 K2 at 32
+   prompts, 4 K6), the request split, peak device memory, a torch.profiler
+   breakdown.
+8. The same path at fp32 on 2 classes x 2 shots, on the card and on the
+   CPU: classifiers within 1e-4, fusion weights within 1e-3.
 
 Prints the kernels JSON line, the nvidia-smi line and, last, the result
 line ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -55,6 +74,7 @@ when no CUDA device is available or the package is not beside the script.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -131,7 +151,10 @@ def kernel_checks(torch, F):
         fused_attn_half,
         fused_attn_half_plain,
         fused_mlp_half,
+        fused_mlp_half_chunked,
+        fused_mlp_half_chunked_plain,
         fused_mlp_half_plain,
+        mlp_tier_chunks,
     )
     from ovmr_tpu_torch.ops.block_fused_bwd import (
         attn_half_bwd_dx,
@@ -178,9 +201,52 @@ def kernel_checks(torch, F):
             out = half(x, *args)
         return torch.autograd.grad(out, x, g)[0]
 
-    cases = []
+    def sliced(fn, x, step):
+        """``fn`` over batch slices of ``x``, so that a plain version's fp32
+        scores or hidden activations of 512 images never exist at once."""
+        if step >= x.shape[0]:
+            return lambda: fn(x)
+        return lambda: torch.cat([fn(x[s : s + step]) for s in range(0, x.shape[0], step)])
+
+    results = []
+
+    def check(c):
+        """Hold one case's kernel against its plain version, then time both,
+        the library yardstick and the bound. Each case is checked as soon as
+        it is built, so only one row's tensors are alive at a time."""
+        got = c["kernel"]()
+        ref = c["plain"]()
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        tol = tolerance(c["dtype"], ref)
+        finite = bool(torch.isfinite(got).all())
+        dt = "bf16" if c["dtype"] == torch.bfloat16 else "fp32"
+        label = f"{c['name']}/{c['case']}/{dt}"
+        print(f"[kernels] {label} {c['shape']}: max_abs_err {err:.3g} (tol {tol:.3g})",
+              flush=True)
+        if not finite or not err <= tol:
+            raise AssertionError(f"{label}: kernel disagrees with its plain version "
+                                 f"(max_abs_err {err}, tol {tol}, finite {finite})")
+        rounds = c.get("rounds", 5)  # the kernel always gets five rounds
+        kernel_ms, k_lo, k_hi = cuda_ms(c["kernel"], c["reps"])
+        plain_ms = cuda_ms(c["plain"], c["reps"], rounds)[0]
+        library_ms = cuda_ms(c["library"], c["reps"], rounds)[0]
+        b_ms, b_by = bound_ms(c["bytes"], c["flops"], c["peak"])
+        print(f"[kernels] {label}: kernel {kernel_ms:.4f} ms ({k_lo:.4f}-{k_hi:.4f}), "
+              f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        results.append(dict(
+            name=label, kernel=c["name"], route="cuda", source=c["source"],
+            replaces=c["replaces"], case=c["case"], shape=c["shape"], dtype=dt,
+            shape_key=cuda_lib.shape_key(c["name"], c["x"].shape, c["dtype"]),
+            max_abs_err=err, tol=tol, ms=kernel_ms, kernel_ms=kernel_ms,
+            ms_spread=[k_lo, k_hi], plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=b_ms, bound_by=b_by,
+        ))
+
     params = {}
     both = (torch.bfloat16, torch.float32)
+    bf16, fp32 = both[:1], both[1:]
     # (case, B, L, D, heads, causal, dtypes, backward too). Serving:
     # generate()'s exemplar encode (32 x 16 images), classify()'s 256
     # queries, one 32-class prompt set (text, mm and v each), and the three
@@ -195,9 +261,19 @@ def kernel_checks(torch, F):
             ("vision-train-768", 768, 197, 768, 12, False, both[:1], False),
             ("vision-train-576", 576, 197, 768, 12, False, both[:1], False),
             ("vision-train-960", 960, 197, 768, 12, False, both[:1], False),
-            ("text-train", 192, 77, 512, 8, True, both, True)):
+            ("text-train", 192, 77, 512, 8, True, both, True),
+            # ViT-L/14@336px serving: the exemplar encode, classify()'s
+            # queries, the fp32 phase's 4 images, one 32-class prompt set
+            ("vitl336-vision-encode", 512, 577, 1024, 16, False, bf16, False),
+            ("vitl336-vision-classify", 256, 577, 1024, 16, False, bf16, False),
+            ("vitl336-vision-fp32", 4, 577, 1024, 16, False, fp32, False),
+            ("vitl336-text-prompts", 32, 77, 768, 12, True, both, False),):
         p32 = params.setdefault(d, layer(d))
         x32 = randn(b, l, d)
+        chunks = mlp_tier_chunks(l, d, 4 * d)  # > 0: this tower's MLP half is K5
+        # the plain and library versions run 64 images at a time where the
+        # fp32 scores of the whole batch would take more than 4 GiB
+        step = 64 if b * h * l * l * 4 > 2 ** 32 else b
         g32 = randn(b, l, d) if bwd else None
         mask = causal_mask(l, device="cuda") if masked else None
         name_k1 = "fused_attn_half_masked" if masked else "fused_attn_half"
@@ -207,34 +283,48 @@ def kernel_checks(torch, F):
             it = x.element_size()
             tok = b * l
             peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+            timing = dict(reps=10 if dtype == torch.bfloat16 and step == b else 3,
+                          rounds=5 if step == b else 3)
             attn_pairs = l * (l + 1) // 2 if masked else l * l
             a_args = (x, p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"],
                       p["ln_1_scale"], p["ln_1_bias"])
             m_args = (x, p["c_fc_w"], p["c_fc_b"], p["c_proj_w"], p["c_proj_b"],
                       p["ln_2_scale"], p["ln_2_bias"])
             lib_mask = None if mask is None else mask.to(dtype)
-            cases.append(dict(
+            check(dict(
                 name=name_k1, case=case, dtype=dtype, shape=[b, l, d, h], x=x,
                 source="ovmr_tpu_torch/csrc/block_fused.cu",
                 replaces=("ovmr_tpu/ops/block_fused.py:113" if masked
                           else "ovmr_tpu/ops/block_fused.py:58"),
                 kernel=lambda a=a_args, m=mask, h=h: fused_attn_half(*a, mask=m, n_head=h),
-                plain=lambda a=a_args, m=mask, h=h: fused_attn_half_plain(*a, mask=m, n_head=h),
-                library=lambda x=x, p=p, m=lib_mask, h=h: library_attn_half(x, p, m, h),
+                plain=sliced(lambda xs, a=a_args, m=mask, h=h: fused_attn_half_plain(
+                    xs, *a[1:], mask=m, n_head=h), x, step),
+                library=sliced(lambda xs, p=p, m=lib_mask, h=h: library_attn_half(xs, p, m, h),
+                               x, step),
                 bytes=(2 * tok * d + 4 * d * d + 6 * d) * it + (l * l * 4 if masked else 0),
                 flops=2 * tok * d * 4 * d + 4 * b * attn_pairs * d,
-                peak=peak, reps=10 if dtype == torch.bfloat16 else 3,
+                peak=peak, **timing,
             ))
-            cases.append(dict(
-                name="fused_mlp_half", case=case, dtype=dtype, shape=[b, l, d, 4 * d], x=x,
+            mlp = dict(
+                case=case, dtype=dtype, shape=[b, l, d, 4 * d], x=x,
                 source="ovmr_tpu_torch/csrc/block_fused.cu",
-                replaces="ovmr_tpu/ops/block_fused.py:123",
-                kernel=lambda a=m_args: fused_mlp_half(*a),
-                plain=lambda a=m_args: fused_mlp_half_plain(*a),
-                library=lambda x=x, p=p: library_mlp_half(x, p),
+                library=sliced(lambda xs, p=p: library_mlp_half(xs, p), x, step),
                 bytes=(2 * tok * d + 8 * d * d + 7 * d) * it,
                 flops=4 * tok * d * 4 * d,
-                peak=peak, reps=10 if dtype == torch.bfloat16 else 3,
+                peak=peak, **timing,
+            )
+            if chunks:  # K5 on the path; K2 at the same shape as a yardstick (on no path)
+                check(dict(
+                    mlp, name="fused_mlp_half_chunked",
+                    replaces="ovmr_tpu/ops/block_fused.py:249",
+                    kernel=lambda a=m_args, c=chunks: fused_mlp_half_chunked(*a, chunks=c),
+                    plain=sliced(lambda xs, a=m_args, c=chunks: fused_mlp_half_chunked_plain(
+                        xs, *a[1:], chunks=c), x, step),
+                ))
+            check(dict(
+                mlp, name="fused_mlp_half", replaces="ovmr_tpu/ops/block_fused.py:123",
+                kernel=lambda a=m_args: fused_mlp_half(*a),
+                plain=sliced(lambda xs, a=m_args: fused_mlp_half_plain(xs, *a[1:]), x, step),
             ))
             if not bwd:
                 continue
@@ -243,7 +333,7 @@ def kernel_checks(torch, F):
             for m, lm, pairs in ((mask, lib_mask, attn_pairs), (None, None, l * l)):
                 k3_args = (x, g, p["w_qkv"], p["b_qkv"], p["w_out"],
                            p["ln_1_scale"], p["ln_1_bias"])
-                cases.append(dict(
+                check(dict(
                     name="attn_half_bwd_dx_masked" if m is not None else "attn_half_bwd_dx",
                     case=case, dtype=dtype, shape=[b, l, d, h], x=x,
                     source="ovmr_tpu_torch/csrc/block_fused_bwd.cu",
@@ -258,11 +348,11 @@ def kernel_checks(torch, F):
                     bytes=(3 * tok * d + 4 * d * d + 5 * d) * it
                     + (l * l * 4 if m is not None else 0),
                     flops=2 * tok * d * 7 * d + 10 * b * pairs * d,
-                    peak=peak, reps=10 if dtype == torch.bfloat16 else 3,
+                    peak=peak, **timing,
                 ))
             k4_args = (x, g, p["c_fc_w"], p["c_fc_b"], p["c_proj_w"],
                        p["ln_2_scale"], p["ln_2_bias"])
-            cases.append(dict(
+            check(dict(
                 name="mlp_half_bwd_dx", case=case, dtype=dtype, shape=[b, l, d, 4 * d], x=x,
                 source="ovmr_tpu_torch/csrc/block_fused_bwd.cu",
                 replaces="ovmr_tpu/ops/block_fused_bwd.py:57",
@@ -273,14 +363,14 @@ def kernel_checks(torch, F):
                 # three [tokens, D] x [D, 4D] products
                 bytes=(3 * tok * d + 8 * d * d + 6 * d) * it,
                 flops=3 * 2 * tok * d * 4 * d,
-                peak=peak, reps=10 if dtype == torch.bfloat16 else 3,
+                peak=peak, **timing,
             ))
-    n, h, l, dh = 32, 8, 18, 64
-    q32, k32, v32 = (randn(n, h, l, dh) for _ in range(3))
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = (t.to(dtype) for t in (q32, k32, v32))
-        cases.append(dict(
-            name="fused_attention", case="aggregator", dtype=dtype, shape=[n, h, l, dh], x=q,
+    # the aggregator at embed width 512 (8 heads) and ViT-L's 768 (12 heads)
+    for (case, n, h, l, dh), dtype in itertools.product(
+            (("aggregator", 32, 8, 18, 64), ("vitl336-aggregator", 32, 12, 18, 64)), both):
+        q, k, v = (randn(n, h, l, dh).to(dtype) for _ in range(3))
+        check(dict(
+            name="fused_attention", case=case, dtype=dtype, shape=[n, h, l, dh], x=q,
             source="ovmr_tpu_torch/csrc/attention.cu",
             replaces="ovmr_tpu/ops/attention.py:28",
             kernel=lambda q=q, k=k, v=v: fused_attention(q, k, v),
@@ -292,37 +382,6 @@ def kernel_checks(torch, F):
             reps=200,
         ))
 
-    results = []
-    for c in cases:
-        got = c["kernel"]()
-        ref = c["plain"]()
-        torch.cuda.synchronize()
-        err = float((got.float() - ref.float()).abs().max())
-        tol = tolerance(c["dtype"], ref)
-        finite = bool(torch.isfinite(got).all())
-        dt = "bf16" if c["dtype"] == torch.bfloat16 else "fp32"
-        label = f"{c['name']}/{c['case']}/{dt}"
-        print(f"[kernels] {label} {c['shape']}: max_abs_err {err:.3g} (tol {tol:.3g})",
-              flush=True)
-        if not finite or not err <= tol:
-            raise AssertionError(f"{label}: kernel disagrees with its plain version "
-                                 f"(max_abs_err {err}, tol {tol}, finite {finite})")
-        kernel_ms, k_lo, k_hi = cuda_ms(c["kernel"], c["reps"])
-        plain_ms = cuda_ms(c["plain"], c["reps"])[0]
-        library_ms = cuda_ms(c["library"], c["reps"])[0]
-        b_ms, b_by = bound_ms(c["bytes"], c["flops"], c["peak"])
-        print(f"[kernels] {label}: kernel {kernel_ms:.4f} ms ({k_lo:.4f}-{k_hi:.4f}), "
-              f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-        results.append(dict(
-            name=label, kernel=c["name"], route="cuda", source=c["source"],
-            replaces=c["replaces"], case=c["case"], shape=c["shape"], dtype=dt,
-            shape_key=cuda_lib.shape_key(c["name"], c["x"].shape, c["dtype"]),
-            max_abs_err=err, tol=tol, ms=kernel_ms, kernel_ms=kernel_ms,
-            ms_spread=[k_lo, k_hi], plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=b_ms, bound_by=b_by,
-        ))
-        del got, ref
     return results
 
 
@@ -352,41 +411,49 @@ def check_classifiers(np, out, n, d, n_ctx, unit_tol):
     assert np.abs(fw.sum(-1) - 1).max() < 1e-5, fw.sum(-1)
 
 
-def serving_slice(torch, np):
-    from ovmr_tpu_torch.api import OVMRGenerator, load_exported_classifiers
-    from ovmr_tpu_torch.models import clip as tclip
-    from ovmr_tpu_torch.models.aggregator import init_aggregator
+VOCAB = ["golden retriever", "tabby cat", "sports car", "red panda", "fire truck",
+         "bald eagle", "espresso", "lighthouse", "jellyfish", "pretzel", "volcano",
+         "sunflower", "umbrella", "violin", "zebra", "airliner", "broccoli",
+         "canoe", "dumbbell", "flamingo", "garden hose", "hamster", "iceberg",
+         "jigsaw puzzle", "koala", "lemon", "mailbox", "necklace", "ostrich",
+         "pineapple", "quill", "rocking chair", "snowmobile", "teapot",
+         "unicycle", "vending machine", "waffle iron", "yurt", "crème brûlée",
+         "Straße sign", "ski_mask", "T-Rex"]
+
+
+def serving_slice(torch, np, tag, gen, n_requests, warmups=0):
+    """``warmups`` uncounted requests, then with the launch counts zeroed:
+    ``n_requests`` generate() calls of 32 classes x 16 exemplars at the
+    model's resolution, classify() of 256 queries, export and reload.
+    Checks the outputs and the exact launch counts by kernel and shape;
+    prints the request split, peak memory and a profile of one request."""
+    from ovmr_tpu_torch.api import load_exported_classifiers
     from ovmr_tpu_torch.models.ovmr import eval_logits_np
     from ovmr_tpu_torch.ops import cuda_lib
+    from ovmr_tpu_torch.ops.block_fused import mlp_tier_chunks
 
-    cfg = tclip.VIT_B16
-    n_ctx, n_cls, shots = 2, 32, 16
-    t0 = time.perf_counter()
-    clip_params = tclip.init_params(cfg, seed=0)
-    agg_params = init_aggregator(width=cfg.embed_dim, n_ctx=n_ctx, seed=0)
-    gen = OVMRGenerator(clip_params, cfg, agg_params, dtype=torch.bfloat16, device="cuda")
-    print(f"[slice] ViT-B/16 bf16 generator ready in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-
-    vocab = ["golden retriever", "tabby cat", "sports car", "red panda", "fire truck",
-             "bald eagle", "espresso", "lighthouse", "jellyfish", "pretzel", "volcano",
-             "sunflower", "umbrella", "violin", "zebra", "airliner", "broccoli",
-             "canoe", "dumbbell", "flamingo", "garden hose", "hamster", "iceberg",
-             "jigsaw puzzle", "koala", "lemon", "mailbox", "necklace", "ostrich",
-             "pineapple", "quill", "rocking chair", "snowmobile", "teapot",
-             "unicycle", "vending machine", "waffle iron", "yurt", "crème brûlée",
-             "Straße sign", "ski_mask", "T-Rex"]
+    cfg = gen.clip_cfg
+    size = cfg.image_resolution
+    n_cls, shots, n_queries = 32, 16, 256
+    n_ctx = gen.agg_params["cls_token"].shape[0]
     requests = []
-    for r in range(3):
-        names = [vocab[(r * 7 + i) % len(vocab)] + ("" if r == 0 else f" {r}")
+    for r in range(warmups + n_requests):
+        names = [VOCAB[(r * 7 + i) % len(VOCAB)] + ("" if r == 0 else f" {r}")
                  for i in range(n_cls)]
-        requests.append((names, exemplar_images(torch, n_cls, shots, 100 + r, "cuda")))
-    queries = exemplar_images(torch, 256, 1, 200, "cuda")[:, 0]
+        requests.append((names, exemplar_images(torch, n_cls, shots, 100 + r, "cuda", size)))
+    queries = exemplar_images(torch, n_queries, 1, 200, "cuda", size)[:, 0]
+    for names, images in requests[:warmups]:
+        t = time.perf_counter()
+        gen.generate(names, images)
+        torch.cuda.synchronize()
+        print(f"[{tag}] warm-up request: {(time.perf_counter() - t) * 1e3:.1f} ms wall",
+              flush=True)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     cuda_lib.reset_launches()
     walls, outs = [], []
-    for names, images in requests:
+    for names, images in requests[warmups:]:
         t = time.perf_counter()
         out = gen.generate(names, images)
         torch.cuda.synchronize()
@@ -401,57 +468,70 @@ def serving_slice(torch, np):
         vt = torch.load(str(Path(tmp) / "visual_tokens.pt"), weights_only=True)
     launches = dict(cuda_lib.LAUNCHES)
     shapes = dict(cuda_lib.LAUNCH_SHAPES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     for i, wall in enumerate(walls):
-        print(f"[slice] generate request {i}: {n_cls} classes x {shots} shots, "
+        print(f"[{tag}] generate request {i}: {n_cls} classes x {shots} shots at {size} px, "
               f"{wall * 1e3:.1f} ms wall", flush=True)
-    print(f"[slice] classify 256 queries (fusion): {classify_s * 1e3:.1f} ms wall", flush=True)
-    print(f"[slice] launches during the slice: {launches}", flush=True)
+    print(f"[{tag}] classify {n_queries} queries (fusion): {classify_s * 1e3:.1f} ms wall",
+          flush=True)
+    print(f"[{tag}] peak device memory over the requests and classify: {peak_gib:.2f} GiB",
+          flush=True)
+    print(f"[{tag}] launches during the slice: {launches}", flush=True)
     for key, count in sorted(shapes.items()):
-        print(f"[slice]   {key[0]} {list(key[1])} {key[2]}: {count}", flush=True)
+        print(f"[{tag}]   {key[0]} {list(key[1])} {key[2]}: {count}", flush=True)
     for out in outs:
         check_classifiers(np, out, n_cls, cfg.embed_dim, n_ctx, unit_tol=1e-2)
-    assert probs.shape == (256, n_cls) and np.isfinite(probs).all()
+    assert probs.shape == (n_queries, n_cls) and np.isfinite(probs).all()
     # fusion scores against the host-side numpy recipe on the same features
-    scale = float(np.exp(clip_params["logit_scale"].numpy()))
+    scale = float(np.exp(gen.clip_params["logit_scale"].float().cpu().numpy()))
     host = eval_logits_np(gen.encode_images(queries), outs[-1], scale, "fusion")
     err = float(np.abs(probs - host).max())
-    print(f"[slice] classify vs host recipe: max_abs_err {err:.3g} (tol 1e-5)", flush=True)
+    print(f"[{tag}] classify vs host recipe: max_abs_err {err:.3g} (tol 1e-5)", flush=True)
     assert err <= 1e-5, err
     assert set(loaded) == {"text_classifier", "vision_classifier", "mm_classifier",
                            "fusion_weight"}
     for key, v in loaded.items():
         assert v.dtype == np.float32 and np.array_equal(v, outs[-1][key]), key
     assert np.array_equal(vt["visual_tokens"].numpy(), outs[-1]["visual_tokens"])
-    # per request: vision 12 x (K1 + K2) for the 512 exemplars; text 12 x
-    # (K1 causal + K2) for each of the text, mm and v prompt sets; 4 x K6
-    layers = cfg.vision_layers
-    expected = {
-        "fused_attn_half": 3 * layers + layers,  # + classify's encode
-        "fused_attn_half_masked": 3 * 3 * cfg.transformer_layers,
-        "fused_mlp_half": 3 * (layers + 3 * cfg.transformer_layers) + layers,
-        "fused_attention": 3 * 4,
+
+    # per request: the vision tower's layers x (K1 + K2 or K5) for the 512
+    # exemplars; the text tower's layers x (K1 causal + K2) for each of the
+    # text, mm and v prompt sets; 4 x K6. classify: the vision tower once more.
+    tokens, vw, tw = cfg.num_patches + 1, cfg.vision_width, cfg.transformer_width
+    vision_mlp = ("fused_mlp_half_chunked" if mlp_tier_chunks(tokens, vw, 4 * vw)
+                  else "fused_mlp_half")
+    dt = str(gen.dtype).removeprefix("torch.")
+    text_runs = n_requests * 3 * cfg.transformer_layers
+    want = {
+        ("fused_attn_half", (n_cls * shots, tokens, vw), dt): n_requests * cfg.vision_layers,
+        (vision_mlp, (n_cls * shots, tokens, vw), dt): n_requests * cfg.vision_layers,
+        ("fused_attn_half", (n_queries, tokens, vw), dt): cfg.vision_layers,
+        (vision_mlp, (n_queries, tokens, vw), dt): cfg.vision_layers,
+        ("fused_attn_half_masked", (n_cls, cfg.context_length, tw), dt): text_runs,
+        ("fused_mlp_half", (n_cls, cfg.context_length, tw), dt): text_runs,
+        ("fused_attention", (n_cls, cfg.embed_dim // 64, shots + n_ctx, 64), dt): n_requests * 4,
     }
-    for key, want in expected.items():
-        if launches[key] <= 0:
-            raise AssertionError(f"kernel {key} was not launched on the serving path")
-        if launches[key] != want:
-            raise AssertionError(f"kernel {key}: {launches[key]} launches, expected {want}")
+    if shapes != want:
+        raise AssertionError(f"{tag}: launches by shape {shapes}, expected {want}")
+    for kernel in {key[0] for key in want}:
+        if launches[kernel] <= 0:
+            raise AssertionError(f"kernel {kernel} was not launched on the {tag} path")
 
     # where a request's time goes: the exemplar encode vs the rest
     names, images = requests[0]
     t = time.perf_counter()
-    feats = gen.encode_images(images.reshape(n_cls * shots, 3, 224, 224))
+    feats = gen.encode_images(images.reshape(n_cls * shots, 3, size, size))
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t
     t = time.perf_counter()
     gen.generate_from_features(names, feats.reshape(n_cls, shots, -1))
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t
-    print(f"[slice] request split: encode {enc_s * 1e3:.1f} ms, text + aggregator + "
+    print(f"[{tag}] request split: encode {enc_s * 1e3:.1f} ms, text + aggregator + "
           f"fusion {gen_s * 1e3:.1f} ms", flush=True)
-    profile_call(torch, "one request", lambda: gen.generate(names, images))
-    return clip_params, agg_params, launches, shapes
+    profile_call(torch, f"one {tag} request", lambda: gen.generate(names, images))
+    return launches, shapes
 
 
 def profile_call(torch, what, fn):
@@ -482,36 +562,37 @@ def profile_call(torch, what, fn):
               flush=True)
 
 
-def fp32_path(torch, np, clip_params, agg_params):
-    from ovmr_tpu_torch.api import OVMRGenerator
-    from ovmr_tpu_torch.models import clip as tclip
-
-    cfg = tclip.VIT_B16
-    names = ["golden retriever", "tabby cat", "sports car", "red panda"]
-    images = exemplar_images(torch, 4, 4, 300, "cpu")
-    queries = exemplar_images(torch, 8, 1, 301, "cpu")[:, 0]
+def fp32_path(torch, np, tag, make_gen, n_cls, shots, n_queries):
+    """generate() + classify() at fp32 on the card (kernels) and on the CPU
+    (plain versions), from ``make_gen(device)``: classifiers within 1e-4,
+    fusion weights within 1e-3."""
+    names = VOCAB[:n_cls]
     results = {}
     for device in ("cuda", "cpu"):
-        gen = OVMRGenerator(clip_params, cfg, agg_params, dtype=torch.float32, device=device)
+        gen = make_gen(device)
+        size = gen.clip_cfg.image_resolution
+        images = exemplar_images(torch, n_cls, shots, 300, "cpu", size)
+        queries = exemplar_images(torch, n_queries, 1, 301, "cpu", size)[:, 0]
         t = time.perf_counter()
         out = gen.generate(names, images)
         probs = gen.classify(queries, out, mode="fusion")
-        print(f"[fp32] {device}: generate + classify {time.perf_counter() - t:.2f} s",
+        print(f"[{tag}] {device}: generate + classify {time.perf_counter() - t:.2f} s",
               flush=True)
-        check_classifiers(np, out, 4, cfg.embed_dim, 2, unit_tol=1e-5)
+        check_classifiers(np, out, n_cls, gen.clip_cfg.embed_dim, 2, unit_tol=1e-5)
         results[device] = (out, probs)
+        del gen
     (gpu, gpu_p), (cpu, cpu_p) = results["cuda"], results["cpu"]
     for key, tol in (("mm_classifier", 1e-4), ("vision_classifier", 1e-4),
                      ("text_classifier", 1e-4), ("visual_tokens", 1e-4),
                      ("fusion_weight", 1e-3)):
         err = float(np.abs(gpu[key] - cpu[key]).max())
-        print(f"[fp32] card vs CPU {key}: max_abs_err {err:.3g} (tol {tol})", flush=True)
+        print(f"[{tag}] card vs CPU {key}: max_abs_err {err:.3g} (tol {tol})", flush=True)
         if not err <= tol:
-            raise AssertionError(f"fp32 {key}: card and CPU differ by {err} > {tol}")
+            raise AssertionError(f"{tag} {key}: card and CPU differ by {err} > {tol}")
     err = float(np.abs(gpu_p - cpu_p).max())
-    print(f"[fp32] card vs CPU classify(fusion): max_abs_err {err:.3g} (tol 1e-4)", flush=True)
+    print(f"[{tag}] card vs CPU classify(fusion): max_abs_err {err:.3g} (tol 1e-4)", flush=True)
     if not err <= 1e-4:
-        raise AssertionError(f"fp32 classify: card and CPU differ by {err}")
+        raise AssertionError(f"{tag} classify: card and CPU differ by {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -589,6 +670,7 @@ def training_slice(torch, np, clip_params, agg_params):
         "fused_attn_half": 2 * cfg.vision_layers,   # two image passes
         "fused_attn_half_masked": 2 * layers,       # the mm and v prompt sets
         "fused_mlp_half": 2 * cfg.vision_layers + 2 * layers,
+        "fused_mlp_half_chunked": 0,                # ViT-B/16's MLP weights stay resident
         "attn_half_bwd_dx_masked": 2 * layers,
         "mlp_half_bwd_dx": 2 * layers,
         "attn_half_bwd_dx": 0,
@@ -696,7 +778,7 @@ def fp32_train_step(torch, np, clip_params, agg_params):
         if device == "cuda":
             got = dict(cuda_lib.LAUNCHES)
             want = {"fused_attn_half": 24, "fused_attn_half_masked": 24, "fused_mlp_half": 48,
-                    "attn_half_bwd_dx_masked": 24, "mlp_half_bwd_dx": 24,
+                    "fused_mlp_half_chunked": 0, "attn_half_bwd_dx_masked": 24, "mlp_half_bwd_dx": 24,
                     "attn_half_bwd_dx": 0, "fused_attention": 4}
             if got != want:
                 raise AssertionError(f"fp32 train step: launches {got}, expected {want}")
@@ -761,28 +843,65 @@ def main() -> int:
     build_s = cuda_lib.build_all()
     print(f"[device] kernels built in {build_s:.1f} s into {cuda_lib.BUILD_DIR}", flush=True)
 
+    from ovmr_tpu_torch.api import OVMRGenerator
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.models.aggregator import init_aggregator
+
     kernels = kernel_checks(torch, F)
-    clip_params, agg_params, launches, shapes = serving_slice(torch, np)
-    # every launch of the slice ran at a shape phase 2 held and timed
     checked = {entry["shape_key"] for entry in kernels}
-    unchecked = {key: n for key, n in shapes.items() if key not in checked}
-    if unchecked:
-        raise AssertionError(f"launches at shapes phase 2 did not check: {unchecked}")
-    fp32_path(torch, np, clip_params, agg_params)
-    train_launches, train_shapes = training_slice(torch, np, clip_params, agg_params)
-    unchecked = {key: n for key, n in train_shapes.items() if key not in checked}
-    if unchecked:
-        raise AssertionError(f"training launches at shapes phase 2 did not check: {unchecked}")
+
+    def all_checked(what, shapes):
+        """Every launch of a path ran at a shape phase 2 held and timed."""
+        unchecked = {key: n for key, n in shapes.items() if key not in checked}
+        if unchecked:
+            raise AssertionError(f"{what} launches at shapes phase 2 did not check: {unchecked}")
+
+    paths = {}
+    cfg = tclip.VIT_B16
+    t0 = time.perf_counter()
+    clip_params = tclip.init_params(cfg, seed=0)
+    agg_params = init_aggregator(width=cfg.embed_dim, n_ctx=2, seed=0)
+    gen = OVMRGenerator(clip_params, cfg, agg_params, dtype=torch.bfloat16, device="cuda")
+    print(f"[slice] ViT-B/16 bf16 generator ready in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    paths["serving"] = serving_slice(torch, np, "slice", gen, n_requests=3)
+    all_checked("serving", paths["serving"][1])
+    del gen
+    fp32_path(torch, np, "fp32", lambda device: OVMRGenerator(
+        clip_params, cfg, agg_params, dtype=torch.float32, device=device),
+        n_cls=4, shots=4, n_queries=8)
+    paths["training"] = training_slice(torch, np, clip_params, agg_params)
+    all_checked("training", paths["training"][1])
     fp32_train_step(torch, np, clip_params, agg_params)
+
+    # ViT-L/14@336px serving, through the entry point a user calls; no local
+    # checkpoint exists, so the towers are random from the seed (it warns)
+    def vitl(device, dtype):
+        t = time.perf_counter()
+        gen = OVMRGenerator.from_checkpoints("ViT-L/14@336px", n_ctx=2, dtype=dtype,
+                                             device=device, seed=0)
+        print(f"[vitl336] generator on {device} ({str(dtype).removeprefix('torch.')}) ready "
+              f"in {time.perf_counter() - t:.1f} s", flush=True)
+        return gen
+
+    paths["vitl336"] = serving_slice(torch, np, "vitl336", vitl("cuda", torch.bfloat16),
+                                     n_requests=2, warmups=1)
+    all_checked("vitl336", paths["vitl336"][1])
+    torch.cuda.empty_cache()
+    fp32_path(torch, np, "vitl336-fp32", lambda device: vitl(device, torch.float32),
+              n_cls=2, shots=2, n_queries=4)
+
     for entry in kernels:
-        # launches: the wrapper's count over the serving slice plus the three
-        # timed training steps (each read with the counts zeroed just
-        # before); launches_at_shape: those at this entry's shape and dtype
+        # launches: the wrapper's count over the three ViT-B/16 requests +
+        # classify, the three timed training steps and the two
+        # ViT-L/14@336px requests + classify (each read with the counts
+        # zeroed just before); launches_at_shape: those at this entry's shape
+        # and dtype
         key = entry.pop("shape_key")
-        entry["launches_serving"] = launches[entry["kernel"]]
-        entry["launches_training"] = train_launches[entry["kernel"]]
-        entry["launches"] = entry["launches_serving"] + entry["launches_training"]
-        entry["launches_at_shape"] = shapes.get(key, 0) + train_shapes.get(key, 0)
+        for path, (launches, shapes) in paths.items():
+            entry[f"launches_{path}"] = launches[entry["kernel"]]
+        entry["launches"] = sum(launches[entry["kernel"]] for launches, _ in paths.values())
+        entry["launches_at_shape"] = sum(shapes.get(key, 0) for _, shapes in paths.values())
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -9,6 +9,9 @@
 // copy is ever made). bf16/fp16 products run on the tensor cores through
 // WMMA with fp32 accumulation; fp32 products are plain FMA (TF32 would
 // break the 1e-5 fp32 tolerance). M is free; N and K are multiples of 8.
+// `ldw` is the distance in elements between two rows of W as stored, so W
+// may be a column slice of a wider matrix (the chunked MLP half multiplies
+// by c_fc_w[:, j0:j1] in place); 0 stands for a dense W (N, or K with TRANS).
 //
 // Epilogues (the fp32 accumulator is finished per element, then stored):
 //   EPI_BIAS           T(acc + bias)
@@ -18,6 +21,8 @@
 //   EPI_CAST           T(acc)
 //   EPI_GELU_GRAD      T(acc * QuickGELU'(aux)), aux = h_pre, fp32
 //   EPI_F32            acc, stored as fp32 (the LayerNorm cotangent's input)
+//   EPI_ACCUM          T(C + T(acc)): the partial product is cast, then added
+//                      to what C holds, in the activation dtype
 #pragma once
 
 #include <mma.h>
@@ -35,7 +40,8 @@ enum Epilogue {
   EPI_BIAS_F32 = 3,
   EPI_CAST = 4,
   EPI_GELU_GRAD = 5,
-  EPI_F32 = 6
+  EPI_F32 = 6,
+  EPI_ACCUM = 7
 };
 
 __host__ __device__ constexpr bool epi_has_bias(int e) { return e <= EPI_BIAS_F32; }
@@ -58,11 +64,12 @@ __device__ __forceinline__ float epilogue_value(float acc, T bias, float hpre) {
   return v;
 }
 
-// cast, and for EPI_BIAS_RESIDUAL add the residual in the activation dtype
+// cast, and for EPI_BIAS_RESIDUAL and EPI_ACCUM add the residual (or what C
+// holds) in the activation dtype
 template <typename T, int EPI>
 __device__ __forceinline__ T epilogue_cast(float v, T resid) {
   T o = from_f<T>(v);
-  if (EPI == EPI_BIAS_RESIDUAL) o = from_f<T>(to_f(resid) + to_f(o));
+  if (EPI == EPI_BIAS_RESIDUAL || EPI == EPI_ACCUM) o = from_f<T>(to_f(resid) + to_f(o));
   return o;
 }
 
@@ -85,7 +92,7 @@ __host__ __device__ constexpr int tc_b_elems() {
 // start copying k-tile k0 of A and W into one stage
 template <typename T, bool TRANS>
 __device__ __forceinline__ void copy_tile_async(T* As, T* Bs, const T* A, const T* W, int M,
-                                           int N, int K, int m0, int n0, int k0) {
+                                           int N, int K, int ldw, int m0, int n0, int k0) {
   for (int c = threadIdx.x; c < TC_BM * TC_BK / 8; c += TC_THREADS) {
     const int r = c / (TC_BK / 8), kc = (c % (TC_BK / 8)) * 8;
     const bool ok = m0 + r < M && k0 + kc < K;
@@ -95,13 +102,13 @@ __device__ __forceinline__ void copy_tile_async(T* As, T* Bs, const T* A, const 
     for (int c = threadIdx.x; c < TC_BN * TC_BK / 8; c += TC_THREADS) {
       const int r = c / (TC_BK / 8), kc = (c % (TC_BK / 8)) * 8;
       const bool ok = n0 + r < N && k0 + kc < K;
-      cp_async16(&Bs[r * TC_LDA + kc], ok ? W + (size_t)(n0 + r) * K + k0 + kc : W, ok);
+      cp_async16(&Bs[r * TC_LDA + kc], ok ? W + (size_t)(n0 + r) * ldw + k0 + kc : W, ok);
     }
   } else {
     for (int c = threadIdx.x; c < TC_BK * TC_BN / 8; c += TC_THREADS) {
       const int r = c / (TC_BN / 8), nc = (c % (TC_BN / 8)) * 8;
       const bool ok = k0 + r < K && n0 + nc < N;
-      cp_async16(&Bs[r * TC_LDB + nc], ok ? W + (size_t)(k0 + r) * N + n0 + nc : W, ok);
+      cp_async16(&Bs[r * TC_LDB + nc], ok ? W + (size_t)(k0 + r) * ldw + n0 + nc : W, ok);
     }
   }
   cp_async_commit();
@@ -111,7 +118,7 @@ template <typename T, bool TRANS, int EPI>
 __global__ void __launch_bounds__(TC_THREADS, 2)
     gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ W,
                    const T* __restrict__ bias, const void* __restrict__ aux,
-                   void* __restrict__ Cv, int M, int N, int K) {
+                   void* __restrict__ Cv, int M, int N, int K, int ldw) {
   __shared__ __align__(128) T As[2][TC_BM * TC_LDA];
   __shared__ __align__(128) T Bs[2][tc_b_elems<TRANS>()];
   __shared__ __align__(128) float scratch[TC_THREADS / 32][16 * 16];
@@ -127,13 +134,13 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  copy_tile_async<T, TRANS>(As[0], Bs[0], A, W, M, N, K, m0, n0, 0);
+  copy_tile_async<T, TRANS>(As[0], Bs[0], A, W, M, N, K, ldw, m0, n0, 0);
   const int nk = ceil_div(K, TC_BK);
   for (int kt = 0; kt < nk; ++kt) {
     const int cur = kt & 1;
     // the other stage was last read before the previous barrier: safe to fill
     if (kt + 1 < nk) {
-      copy_tile_async<T, TRANS>(As[cur ^ 1], Bs[cur ^ 1], A, W, M, N, K, m0, n0,
+      copy_tile_async<T, TRANS>(As[cur ^ 1], Bs[cur ^ 1], A, W, M, N, K, ldw, m0, n0,
                            (kt + 1) * TC_BK);
       cp_async_wait<1>();
     } else {
@@ -180,6 +187,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
         if (epi_has_bias(EPI)) bv = *reinterpret_cast<const Vec<T, 8>*>(bias + gn);
         if (EPI == EPI_BIAS_RESIDUAL)
           rv = *reinterpret_cast<const Vec<T, 8>*>(static_cast<const T*>(aux) + at);
+        if (EPI == EPI_ACCUM) rv = *reinterpret_cast<const Vec<T, 8>*>(static_cast<T*>(Cv) + at);
         if (EPI == EPI_GELU_GRAD) {
           const float* h = static_cast<const float*>(aux) + at;
           hp[0] = *reinterpret_cast<const Vec<float, 4>*>(h);
@@ -202,8 +210,8 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
           Vec<T, 8> o;
 #pragma unroll
           for (int e = 0; e < 8; ++e)
-            o.v[e] = epilogue_cast<T, EPI>(v[e], EPI == EPI_BIAS_RESIDUAL ? rv.v[e]
-                                                                         : from_f<T>(0.f));
+            o.v[e] = epilogue_cast<T, EPI>(
+                v[e], EPI == EPI_BIAS_RESIDUAL || EPI == EPI_ACCUM ? rv.v[e] : from_f<T>(0.f));
           *reinterpret_cast<Vec<T, 8>*>(static_cast<T*>(Cv) + at) = o;
         }
       }
@@ -222,7 +230,7 @@ template <bool TRANS, int EPI>
 __global__ void __launch_bounds__(F_THREADS)
     gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
                     const float* __restrict__ bias, const void* __restrict__ auxv,
-                    void* __restrict__ Cv, int M, int N, int K) {
+                    void* __restrict__ Cv, int M, int N, int K, int ldw) {
   __shared__ __align__(16) float As[F_BK][F_BM + 4];  // transposed: As[k][m]
   __shared__ __align__(16) float Bs[F_BK][F_BN + 4];
   const float* aux = static_cast<const float*>(auxv);
@@ -252,7 +260,7 @@ __global__ void __launch_bounds__(F_THREADS)
       const int r = tid / 4, kc = (tid % 4) * 4;
       const int gn = n0 + r, gk = k0 + kc;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gn < N && gk < K) v = *reinterpret_cast<const float4*>(W + (size_t)gn * K + gk);
+      if (gn < N && gk < K) v = *reinterpret_cast<const float4*>(W + (size_t)gn * ldw + gk);
       Bs[kc + 0][r] = v.x;
       Bs[kc + 1][r] = v.y;
       Bs[kc + 2][r] = v.z;
@@ -261,7 +269,7 @@ __global__ void __launch_bounds__(F_THREADS)
       const int r = tid / 16, nc = (tid % 16) * 4;
       const int gk = k0 + r, gn = n0 + nc;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gk < K && gn < N) v = *reinterpret_cast<const float4*>(W + (size_t)gk * N + gn);
+      if (gk < K && gn < N) v = *reinterpret_cast<const float4*>(W + (size_t)gk * ldw + gn);
       *reinterpret_cast<float4*>(&Bs[r][nc]) = v;
     }
     __syncthreads();
@@ -289,22 +297,24 @@ __global__ void __launch_bounds__(F_THREADS)
       const size_t at = (size_t)gm * N + gn;
       const float v = epilogue_value<float, EPI>(
           acc[i][j], epi_has_bias(EPI) ? bias[gn] : 0.f, EPI == EPI_GELU_GRAD ? aux[at] : 0.f);
-      C[at] = epilogue_cast<float, EPI>(v, EPI == EPI_BIAS_RESIDUAL ? aux[at] : 0.f);
+      C[at] = epilogue_cast<float, EPI>(
+          v, EPI == EPI_BIAS_RESIDUAL ? aux[at] : EPI == EPI_ACCUM ? C[at] : 0.f);
     }
   }
 }
 
 template <typename T, bool TRANS, int EPI>
 static void launch_gemm(const void* A, const void* W, const void* bias, const void* aux,
-                        void* C, int M, int N, int K, cudaStream_t st) {
+                        void* C, int M, int N, int K, cudaStream_t st, int ldw = 0) {
+  if (ldw == 0) ldw = TRANS ? K : N;
   if constexpr (std::is_same<T, float>::value) {
     dim3 grid(ceil_div(N, F_BN), ceil_div(M, F_BM));
     gemm_f32_kernel<TRANS, EPI><<<grid, F_THREADS, 0, st>>>(
-        (const float*)A, (const float*)W, (const float*)bias, aux, C, M, N, K);
+        (const float*)A, (const float*)W, (const float*)bias, aux, C, M, N, K, ldw);
   } else {
     dim3 grid(ceil_div(N, TC_BN), ceil_div(M, TC_BM));
     gemm_tc_kernel<T, TRANS, EPI><<<grid, TC_THREADS, 0, st>>>(
-        (const T*)A, (const T*)W, (const T*)bias, aux, C, M, N, K);
+        (const T*)A, (const T*)W, (const T*)bias, aux, C, M, N, K, ldw);
   }
 }
 

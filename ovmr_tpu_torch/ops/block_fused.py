@@ -8,11 +8,17 @@ PyTorch counterpart of ``ovmr_tpu/ops/block_fused.py``:
   mask (causal in the text tower).
 - **K2** :func:`fused_mlp_half` (TPU: ``_mlp_half_kernel`` :123):
   ``x + c_proj(QuickGELU(c_fc(LN2(x))))``.
+- **K5** :func:`fused_mlp_half_chunked` (TPU: ``_mlp_half_chunked_kernel``
+  :249): the same half with the hidden width taken in ``chunks`` slices;
+  each slice's partial ``c_proj`` product is cast and added to the output
+  in the activation dtype, so in bf16 it differs from K2 by that rounding.
 
 - :func:`fused_residual_block`, the differentiable block (TPU:
-  ``_fused_block`` :483-558): K1 then K2 forward; the backward runs the dx
-  kernels K4 then K3 of :mod:`ovmr_tpu_torch.ops.block_fused_bwd` on the
-  saved block input and attention-half output.
+  ``_fused_block`` :483-558): K1, then K2 or K5 as :func:`mlp_tier_chunks`
+  routes the tower (K5 only for ViT-L/14@336px's vision tower), forward; the
+  backward runs the dx kernels K4 then K3 of
+  :mod:`ovmr_tpu_torch.ops.block_fused_bwd` on the saved block input and
+  attention-half output, and raises after a K5 forward.
 
 Each wrapper takes its plain PyTorch version (``*_plain``, built from
 :mod:`ovmr_tpu_torch.ops.layers`) for a tensor on the CPU and launches the
@@ -21,15 +27,25 @@ never falls back from one to the other. A raw wrapper (``fused_attn_half``,
 ``fused_mlp_half``) records no autograd graph, so on the card it raises for
 a tensor that requires grad; gradients go through
 :func:`fused_residual_block`. The plain versions round where
-the kernels round (``block_fused.py:68-149``): LN output cast before the
-product, qkv cast after its bias, scores scaled after the fp32 product,
-probs and each head's output cast, the projection cast before the residual
-add, QuickGELU in fp32 then cast.
+the kernels round (``block_fused.py:68-149``, ``:249-283``): LN output cast
+before the product, qkv cast after its bias, scores scaled after the fp32
+product, probs and each head's output cast, the projection cast before the
+residual add, QuickGELU in fp32 then cast, K5's partial products cast
+before each add.
 
-Unlike the TPU module there is no VMEM residency routing
-(``_block_flavor``/``_g_limits``): on CUDA every dtype (fp32, bf16, fp16)
-and every width that is a multiple of 8 runs the kernels. The source note
-in ``csrc/block_fused.cu`` says what bounds them and how they are built.
+K1's attention core comes in two forms, picked by the launcher from the
+sequence length: up to 320 tokens (fp32: while a head's K and V fit in
+shared memory) a whole head stays on-chip; longer sequences (577 tokens at
+336 px) walk the keys in tiles, in two passes that keep K1's rounding. Any
+length runs; the head width is at most 128.
+
+Of the TPU module's VMEM residency routing only the MLP tier is kept
+(:func:`mlp_tier_chunks`), so that each configuration runs the counterpart
+of the kernel it runs there; batch tiles (``_g_limits``) and the XLA
+fallbacks (``_block_flavor``) have no counterpart: on CUDA every dtype
+(fp32, bf16, fp16) and every width that is a multiple of 8 runs the
+kernels. The source note in ``csrc/block_fused.cu`` says what bounds them
+and how they are built.
 """
 
 from __future__ import annotations
@@ -48,8 +64,44 @@ from ovmr_tpu_torch.ops.layers import (
     split_heads,
 )
 
-# epilogue codes of csrc/block_fused.cu ovmr_gemm
-_EPI_BIAS, _EPI_BIAS_GELU, _EPI_BIAS_RESIDUAL = 0, 1, 2
+# epilogue codes of csrc/block_fused.cu ovmr_gemm (csrc/gemm.cuh Epilogue)
+_EPI_BIAS, _EPI_BIAS_GELU, _EPI_BIAS_RESIDUAL, _EPI_ACCUM = 0, 1, 2, 7
+
+# The MLP tier of the TPU module's forward routing (``_fused_block_fwd_impl``
+# :441-477), in bytes of bf16 weights and activations: the MLP weights stay
+# resident up to _MLP_W_CUTOFF, and up to _MLP_W_RESIDENT_FWD where two
+# images' padded tokens fit the x-tile envelope _TILE_X_BYTES; beyond that
+# they stream in hidden chunks of at most 8 MiB.
+_MLP_W_CUTOFF = 10 * 1024 * 1024
+_MLP_W_RESIDENT_FWD = 18 * 1024 * 1024
+_TILE_X_BYTES = 16 * 80 * 512 * 2
+_MLP_CHUNK_BYTES = 8 * 1024 * 1024
+
+
+def _tile_token_limit(l: int, d: int) -> int:
+    """bf16 images per tile within the padded x-tile envelope (``:367-370``)."""
+    l_pad = -8 * (-l // 8)
+    return max(1, _TILE_X_BYTES // (l_pad * d * 2))
+
+
+def mlp_tier_chunks(l: int, d: int, hidden: int) -> int:
+    """Which MLP half a tower of ``l`` tokens, width ``d`` and ``hidden``
+    takes: 0 for K2 (:func:`fused_mlp_half`), else the number of hidden
+    chunks K5 (:func:`fused_mlp_half_chunked`) streams.
+
+    The thresholds are the TPU's VMEM envelope, not the card's: they are kept
+    so that each configuration runs the counterpart of the kernel the JAX
+    package runs for it (only ViT-L/14@336px's vision tower, 577 tokens x
+    1024 with 16.8 MB of MLP weights, takes K5, in 2 chunks). The decision
+    is made on the 2-byte sizes those thresholds were measured at, whatever
+    the tensor's dtype, so an fp32 check of a path runs the same kernels as
+    the bf16 path it checks."""
+    mlp_w = 2 * d * hidden * 2  # c_fc_w and c_proj_w in bf16
+    if mlp_w <= _MLP_W_CUTOFF:
+        return 0
+    if mlp_w <= _MLP_W_RESIDENT_FWD and _tile_token_limit(l, d) >= 2:
+        return 0
+    return max(2, -(-mlp_w // _MLP_CHUNK_BYTES))
 
 
 # --------------------------------------------------------------------------
@@ -79,6 +131,31 @@ def fused_mlp_half_plain(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
     h = matmul_f32(layer_norm(x, ln_s, ln_b), c_fc_w) + c_fc_b.float()
     h = (h * torch.sigmoid(1.702 * h)).to(x.dtype)
     return x + dense(h, c_proj_w, c_proj_b)
+
+
+def _chunk_width(hidden: int, chunks: int) -> int:
+    """``chunks`` raised until it divides ``hidden`` (``:300-302``)."""
+    while hidden % chunks:
+        chunks += 1
+    return hidden // chunks
+
+
+def fused_mlp_half_chunked_plain(
+    x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b, chunks: int = 4
+):
+    """K5's arithmetic step by step (``:249-283``): the output starts as
+    ``x + c_proj_b`` and each hidden chunk's partial c_proj product is cast
+    to the activation dtype and added there; the partials are never summed
+    in fp32, which is K5's one difference from K2."""
+    dtype = x.dtype
+    hc = _chunk_width(c_fc_w.shape[-1], chunks)
+    xln = layer_norm(x, ln_s, ln_b)
+    out = x + c_proj_b.float().to(dtype)
+    for j in range(0, c_fc_w.shape[-1], hc):
+        h = matmul_f32(xln, c_fc_w[:, j : j + hc]) + c_fc_b[j : j + hc].float()
+        h = (h * torch.sigmoid(1.702 * h)).to(dtype)
+        out = out + matmul_f32(h, c_proj_w[j : j + hc]).to(dtype)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -126,13 +203,14 @@ def _layer_norm(lib, code, x, ln_s, ln_b, stream):
 
 
 def _gemm(lib, code, a, w, bias, out, epilogue, stream, resid=None):
-    """out = epilogue(a @ w + bias) for a [..., K], w [K, N]."""
+    """out = epilogue(a @ w + bias) for a [..., K] and w [K, N]; w may be a
+    column slice of a wider matrix (its row stride is handed on)."""
     cuda_lib.check(
         lib,
         lib.ovmr_gemm(
-            code, a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            code, a.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
             resid.data_ptr() if resid is not None else None, out.data_ptr(),
-            a.numel() // a.shape[-1], w.shape[-1], a.shape[-1], epilogue, stream,
+            a.numel() // a.shape[-1], w.shape[-1], a.shape[-1], w.stride(0), epilogue, stream,
         ),
         "ovmr_gemm",
     )
@@ -161,13 +239,10 @@ def fused_attn_half(
         what, w_qkv=(w_qkv, (d, 3 * d)), b_qkv=(b_qkv, (3 * d,)),
         w_out=(w_out, (d, d)), b_out=(b_out, (d,)), ln_s=(ln_s, (d,)), ln_b=(ln_b, (d,)),
     )
-    dh = d // n_head
-    if x.dtype == torch.float32:
-        # fp32 attention core: Q tile of 64 rows, K, V and scores in shared memory
-        if ((64 + 2 * l) * (dh + 1) + 64 * (l + 1)) * 4 > 227 * 1024:
-            raise ValueError(f"{what}: fp32 L={l}, head width {dh} exceed shared memory")
-    elif -(-l // 16) * 16 > 320 or -(-dh // 16) * 16 > 128:
-        raise ValueError(f"{what}: the attention core takes L <= 320 and head width <= 128")
+    if d // n_head > 128:
+        # both attention cores keep a query tile's output, 16 x head width,
+        # in one warp's accumulators; the sequence length is free
+        raise ValueError(f"{what}: head width {d // n_head} exceeds the attention core's 128")
     lib = cuda_lib.library("block_fused")
     code = cuda_lib.dtype_code(x.dtype)
     with torch.cuda.device(x.device):
@@ -190,21 +265,15 @@ def fused_attn_half(
     return out
 
 
-def fused_mlp_half(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
-    """K2: x + c_proj(QuickGELU(c_fc(LN2(x)))) for x [B, L, D]."""
-    if x.device.type == "cpu":
-        return fused_mlp_half_plain(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp_half: no kernel for device {x.device}")
-    what = "fused_mlp_half"
+def _check_mlp_args(what, x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
+    """What K2 and K5 ask of their arguments on the card."""
     cuda_lib.require_no_grad(what, x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b)
-    b, l, d = x.shape
-    hidden = c_fc_w.shape[-1]
     _check_block_args(
         what, x,
         dict(c_fc_w=c_fc_w, c_fc_b=c_fc_b, c_proj_w=c_proj_w, c_proj_b=c_proj_b,
              ln_s=ln_s, ln_b=ln_b),
     )
+    d, hidden = x.shape[-1], c_fc_w.shape[-1]
     if hidden % 8:
         raise ValueError(f"{what}: hidden width {hidden} must be a multiple of 8")
     _shapes_ok(
@@ -212,6 +281,17 @@ def fused_mlp_half(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
         c_proj_w=(c_proj_w, (hidden, d)), c_proj_b=(c_proj_b, (d,)),
         ln_s=(ln_s, (d,)), ln_b=(ln_b, (d,)),
     )
+
+
+def fused_mlp_half(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
+    """K2: x + c_proj(QuickGELU(c_fc(LN2(x)))) for x [B, L, D]."""
+    if x.device.type == "cpu":
+        return fused_mlp_half_plain(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_half: no kernel for device {x.device}")
+    _check_mlp_args("fused_mlp_half", x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b)
+    b, l, _ = x.shape
+    hidden = c_fc_w.shape[-1]
     lib = cuda_lib.library("block_fused")
     code = cuda_lib.dtype_code(x.dtype)
     with torch.cuda.device(x.device):
@@ -225,6 +305,47 @@ def fused_mlp_half(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
     return out
 
 
+def fused_mlp_half_chunked(
+    x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b, chunks: int = 4
+):
+    """K5: K2's function with the hidden width taken in ``chunks`` slices
+    (raised until it divides the hidden width), the partial c_proj products
+    cast and added in the activation dtype. The hidden buffer is
+    ``[B, L, hidden / chunks]``; the weight slices are read in place."""
+    if x.device.type == "cpu":
+        return fused_mlp_half_chunked_plain(
+            x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b, chunks=chunks
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_half_chunked: no kernel for device {x.device}")
+    what = "fused_mlp_half_chunked"
+    _check_mlp_args(what, x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b)
+    b, l, d = x.shape
+    hidden = c_fc_w.shape[-1]
+    hc = _chunk_width(hidden, chunks)
+    if hc % 8:  # a column slice must start on a 16-byte boundary
+        raise ValueError(f"{what}: chunk width {hc} must be a multiple of 8")
+    lib = cuda_lib.library("block_fused")
+    code = cuda_lib.dtype_code(x.dtype)
+    with torch.cuda.device(x.device):
+        stream = cuda_lib.stream_of(x)
+        xln = _layer_norm(lib, code, x, ln_s, ln_b, stream)
+        out = torch.empty_like(x)
+        cuda_lib.check(
+            lib,
+            lib.ovmr_residual_bias(code, x.data_ptr(), c_proj_b.data_ptr(), out.data_ptr(),
+                                   b * l, d, stream),
+            "ovmr_residual_bias",
+        )
+        h = torch.empty((b, l, hc), dtype=x.dtype, device=x.device)
+        for j in range(0, hidden, hc):
+            _gemm(lib, code, xln, c_fc_w[:, j : j + hc], c_fc_b[j : j + hc], h,
+                  _EPI_BIAS_GELU, stream)
+            _gemm(lib, code, h, c_proj_w[j : j + hc], None, out, _EPI_ACCUM, stream)
+    cuda_lib.count_launch(what, x)
+    return out
+
+
 # the layer's tensors in the order the autograd Function takes them
 BLOCK_KEYS = (
     "w_qkv", "b_qkv", "w_out", "b_out", "ln_1_scale", "ln_1_bias",
@@ -233,7 +354,11 @@ BLOCK_KEYS = (
 
 
 class _FusedBlock(torch.autograd.Function):
-    """K1 then K2 forward; K4 then K3 backward (``_fused_block`` :483-558).
+    """K1 then K2 (or K5, as :func:`mlp_tier_chunks` routes the tower)
+    forward; K4 then K3 backward (``_fused_block`` :483-558). A block that
+    took K5 forward is not differentiated: the TPU module leaves that
+    backward to XLA (``:512-516``), no path differentiates a vision tower,
+    and the dx kernels were never held at such a shape, so backward raises.
 
     Saves the block input x, the attention half's output y (K1 wrote it to
     global memory anyway) and the layer's tensors, nothing else: both dx
@@ -247,8 +372,13 @@ class _FusedBlock(torch.autograd.Function):
          c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_2_s, ln_2_b) = weights
         y = fused_attn_half(x, w_qkv, b_qkv, w_out, b_out, ln_1_s, ln_1_b,
                             mask=mask, n_head=n_head)
-        z = fused_mlp_half(y, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_2_s, ln_2_b)
-        ctx.n_head = n_head
+        chunks = mlp_tier_chunks(x.shape[-2], x.shape[-1], c_fc_w.shape[-1])
+        if chunks:
+            z = fused_mlp_half_chunked(y, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_2_s, ln_2_b,
+                                       chunks=chunks)
+        else:
+            z = fused_mlp_half(y, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_2_s, ln_2_b)
+        ctx.n_head, ctx.chunks = n_head, chunks
         ctx.save_for_backward(x, y, mask, *weights)
         return z
 
@@ -256,6 +386,12 @@ class _FusedBlock(torch.autograd.Function):
     def backward(ctx, g):
         from ovmr_tpu_torch.ops.block_fused_bwd import attn_half_bwd_dx, mlp_half_bwd_dx
 
+        if ctx.chunks:
+            raise RuntimeError(
+                "fused_residual_block: this tower's MLP half ran chunked "
+                "(fused_mlp_half_chunked), which has no backward kernel; differentiate "
+                "it through ovmr_tpu_torch.ops.layers.residual_attention_block"
+            )
         x, y, mask, *weights = ctx.saved_tensors
         (w_qkv, b_qkv, w_out, b_out, ln_1_s, ln_1_b,
          c_fc_w, c_fc_b, c_proj_w, _, ln_2_s, ln_2_b) = weights
@@ -288,6 +424,7 @@ class _FusedBlock(torch.autograd.Function):
 
 def fused_residual_block(x, p, n_head, mask=None):
     """Drop-in for :func:`ovmr_tpu_torch.ops.layers.residual_attention_block`
-    running K1 then K2, differentiable through the dx kernels K4 and K3.
+    running K1 then K2 (K5 where :func:`mlp_tier_chunks` says so),
+    differentiable through the dx kernels K4 and K3 except after K5.
     Under ``torch.no_grad()`` nothing is saved."""
     return _FusedBlock.apply(x, mask, n_head, *(p[k] for k in BLOCK_KEYS))

@@ -45,6 +45,7 @@ LAUNCHES: Dict[str, int] = {
     "fused_attn_half": 0,
     "fused_attn_half_masked": 0,
     "fused_mlp_half": 0,
+    "fused_mlp_half_chunked": 0,
     "fused_attention": 0,
     "attn_half_bwd_dx": 0,
     "attn_half_bwd_dx_masked": 0,
@@ -59,8 +60,10 @@ _SIGNATURES = {
     "block_fused": {
         # dtype, x, ln_g, ln_b, y, M, K, stream
         "ovmr_layer_norm": [_I, _P, _P, _P, _P, _I, _I, _P],
-        # dtype, A, W, bias, residual, C, M, N, K, epilogue, stream
-        "ovmr_gemm": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # dtype, A, W, bias, residual, C, M, N, K, ldw, epilogue, stream
+        "ovmr_gemm": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # dtype, x, bias, out, M, N, stream
+        "ovmr_residual_bias": [_I, _P, _P, _P, _I, _I, _P],
         # dtype, qkv, mask, out, B, L, D, H, stream
         "ovmr_attn_core": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     },

@@ -28,6 +28,8 @@ from ovmr_tpu_torch.ops.block_fused import (
     fused_attn_half,
     fused_attn_half_plain,
     fused_mlp_half,
+    fused_mlp_half_chunked,
+    fused_mlp_half_chunked_plain,
     fused_mlp_half_plain,
     fused_residual_block,
 )
@@ -99,6 +101,47 @@ def test_block_halves_match_plain(cuda, dtype, b, l, d, h, masked):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("chunks", [2, 4])
+@pytest.mark.parametrize("b,l,d", [(1, 1, 64), (3, 17, 64), (2, 33, 40), (5, 9, 128),
+                                   (3, 77, 768), (2, 577, 1024)])
+def test_chunked_mlp_half_matches_plain(cuda, dtype, chunks, b, l, d):
+    """K5 against its plain version, from one token to ViT-L/14@336px's
+    shape, at a width (40) that is a multiple of 8 but not of 128."""
+    p = _layer(d, dtype, cuda, seed=b * 1000 + l)
+    x = torch.randn(b, l, d, generator=torch.Generator().manual_seed(l)).to(cuda, dtype)
+    m = (x, p["c_fc_w"], p["c_fc_b"], p["c_proj_w"], p["c_proj_b"], p["ln_s"], p["ln_b"])
+    cuda_lib.reset_launches()
+    _check(fused_mlp_half_chunked(*m, chunks=chunks),
+           fused_mlp_half_chunked_plain(*m, chunks=chunks))
+    assert cuda_lib.LAUNCHES["fused_mlp_half_chunked"] == 1
+    assert cuda_lib.LAUNCHES["fused_mlp_half"] == 0
+
+
+def test_chunked_mlp_half_raises_chunks_to_a_divisor(cuda):
+    p = _layer(64, torch.float32, cuda, seed=3)  # hidden 256: 3 -> 4 chunks
+    x = torch.randn(2, 9, 64, device=cuda)
+    m = (x, p["c_fc_w"], p["c_fc_b"], p["c_proj_w"], p["c_proj_b"], p["ln_s"], p["ln_b"])
+    assert torch.equal(fused_mlp_half_chunked(*m, chunks=3), fused_mlp_half_chunked(*m, chunks=4))
+    with pytest.raises(ValueError, match="chunk width"):
+        fused_mlp_half_chunked(*m, chunks=64)  # slices of 4 columns start off a 16-byte boundary
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,l,d,h", [(2, 320, 128, 2), (2, 321, 128, 2), (1, 577, 1024, 16),
+                                     (1, 400, 256, 2), (3, 700, 40, 1)])
+def test_attn_half_at_long_sequences(cuda, dtype, masked, b, l, d, h):
+    """K1 on both sides of the switch between its attention cores (a whole
+    head on-chip up to 320 tokens, key tiles beyond), at ViT-L/14@336px's
+    577 tokens, at head widths 128 and 40, with and without a causal mask."""
+    p = _layer(d, dtype, cuda, seed=l)
+    x = torch.randn(b, l, d, generator=torch.Generator().manual_seed(l)).to(cuda, dtype)
+    mask = causal_mask(l, device=cuda) if masked else None
+    a = (x, p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"], p["ln_s"], p["ln_b"])
+    _check(fused_attn_half(*a, mask=mask, n_head=h), fused_attn_half_plain(*a, mask=mask, n_head=h))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("shape,masked", [((32, 8, 18, 64), False), ((2, 1, 17, 64), True),
                                           ((3, 2, 9, 32), False), ((4, 2, 77, 64), True)])
 def test_fused_attention_matches_plain(cuda, dtype, shape, masked):
@@ -161,6 +204,7 @@ def test_raw_wrappers_refuse_a_tensor_that_requires_grad(cuda):
     calls = [
         lambda: fused_attn_half(x, *a, n_head=1),
         lambda: fused_mlp_half(x, *m),
+        lambda: fused_mlp_half_chunked(x, *m, chunks=2),
         lambda: fused_attention_kernel(q, q, q),
         lambda: attn_half_bwd_dx(x, g, *a[:3], *a[4:], n_head=1),
         lambda: mlp_half_bwd_dx(x, g, *m[:3], *m[4:]),
@@ -259,7 +303,7 @@ def test_train_step_on_card_matches_cpu(cuda):
         if device != "cpu":
             assert cuda_lib.LAUNCHES == {
                 "fused_attn_half": 4, "fused_attn_half_masked": 4, "fused_mlp_half": 8,
-                "fused_attention": 2, "attn_half_bwd_dx": 0, "attn_half_bwd_dx_masked": 4,
+                "fused_mlp_half_chunked": 0, "fused_attention": 2, "attn_half_bwd_dx": 0, "attn_half_bwd_dx_masked": 4,
                 "mlp_half_bwd_dx": 4,
             }, cuda_lib.LAUNCHES
         results[str(device)] = [loss.cpu()] + [leaf.detach().cpu() for leaf in param_leaves(agg)]
@@ -267,6 +311,30 @@ def test_train_step_on_card_matches_cpu(cuda):
         assert float((got - ref).abs().max()) <= 1e-5
     moved = (results["cpu"][-1] - ap["cls_token"]).abs().max()
     assert float(moved) > 1e-4
+
+
+def test_fused_block_routes_vit_l_336_through_the_chunked_half(cuda):
+    """A layer of ViT-L/14@336px's vision tower runs K1 (the long core) and
+    K5 in 2 chunks and equals the plain halves; backward raises."""
+    d, l = 1024, 577
+    p = _block_params(d, torch.bfloat16, cuda, seed=4)
+    x = torch.randn(2, l, d, generator=torch.Generator().manual_seed(1)).to(cuda, torch.bfloat16)
+    cuda_lib.reset_launches()
+    with torch.no_grad():
+        got = fused_residual_block(x, p, 16)
+    assert cuda_lib.LAUNCHES["fused_mlp_half_chunked"] == 1
+    assert cuda_lib.LAUNCHES["fused_mlp_half"] == 0 and cuda_lib.LAUNCHES["fused_attn_half"] == 1
+    y = fused_attn_half_plain(x, p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"],
+                              p["ln_1_scale"], p["ln_1_bias"], n_head=16)
+    ref = fused_mlp_half_chunked_plain(y, p["c_fc_w"], p["c_fc_b"], p["c_proj_w"], p["c_proj_b"],
+                                       p["ln_2_scale"], p["ln_2_bias"], chunks=2)
+    # two halves: twice one half's rounding allowance
+    torch.cuda.synchronize()
+    peak = max(float(ref.abs().max()), 1.0)
+    assert float((got.float() - ref.float()).abs().max()) <= 4.0 * 2.0 ** (math.floor(math.log2(peak)) - 7)
+    out = fused_residual_block(x.requires_grad_(True), p, 16)
+    with pytest.raises(RuntimeError, match="chunked"):
+        out.sum().backward()
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -297,9 +365,11 @@ def test_slice_on_card_matches_cpu(cuda):
     names = ["red circle", "green square", "blue triangle"]
     cuda_lib.reset_launches()
     gpu = OVMRGenerator(cp, tclip.TINY, ap, dtype=torch.float32, device="cuda").generate(names, images)
-    # serving launches every forward kernel and no backward one
+    # serving launches every forward kernel of a TINY tower (its MLP half is
+    # K2, not the chunked K5) and no backward one
     for name, count in cuda_lib.LAUNCHES.items():
-        assert (count == 0) == name.endswith(("bwd_dx", "bwd_dx_masked")), cuda_lib.LAUNCHES
+        idle = name.endswith(("bwd_dx", "bwd_dx_masked")) or name == "fused_mlp_half_chunked"
+        assert (count == 0) == idle, cuda_lib.LAUNCHES
     cpu = OVMRGenerator(cp, tclip.TINY, ap, dtype=torch.float32, device="cpu").generate(names, images)
     for key in ("mm_classifier", "vision_classifier", "text_classifier", "visual_tokens"):
         np.testing.assert_allclose(gpu[key], cpu[key], atol=1e-4, err_msg=key)

@@ -29,7 +29,7 @@ def test_port_imports_no_jax_and_nothing_of_ovmr_tpu():
     assert len(files) > 20
     names = {str(f.relative_to(ROOT)) for f in files}
     for module in ("ops/block_fused_bwd.py", "engine/train_step.py", "engine/optimizers.py",
-                   "engine/schedule.py", "engine/checkpoint.py"):
+                   "engine/schedule.py", "engine/checkpoint.py", "ops/block_fused.py"):
         assert f"ovmr_tpu_torch/{module}" in names, module
     bad = []
     for path in files:
@@ -67,4 +67,11 @@ def test_kernel_sources_present():
     # the build goes under build/, which .gitignore keeps out of commits
     assert cuda_lib.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+    # every exported launcher the loader binds is defined in its source, and
+    # every kernel wrapper has its launch count
+    for name, signatures in cuda_lib._SIGNATURES.items():
+        text = (cuda_lib.CSRC / f"{name}.cu").read_text()
+        for fn in signatures:
+            assert f"OVMR_EXPORT int {fn}(" in text, (name, fn)
+    assert "fused_mlp_half_chunked" in cuda_lib.LAUNCHES
     assert os.path.isfile(PORT / "text" / "assets" / "bpe_simple_vocab_16e6.txt.gz")

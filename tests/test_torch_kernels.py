@@ -176,7 +176,8 @@ def test_launch_counts_by_shape():
     cuda_lib.count_launch("fused_mlp_half", x)
     cuda_lib.count_launch("fused_attention", torch.empty(1, 2, 9, 64))
     assert set(cuda_lib.LAUNCHES) == {
-        "fused_attn_half", "fused_attn_half_masked", "fused_mlp_half", "fused_attention",
+        "fused_attn_half", "fused_attn_half_masked", "fused_mlp_half",
+        "fused_mlp_half_chunked", "fused_attention",
         "attn_half_bwd_dx", "attn_half_bwd_dx_masked", "mlp_half_bwd_dx",
     }
     for name in ("attn_half_bwd_dx", "attn_half_bwd_dx_masked", "mlp_half_bwd_dx"):
