@@ -23,7 +23,12 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    K5's shape as a second yardstick (on no path), K1-causal and K2 at the
    32 prompts of a set (77 x 768, 12 heads), K6 at 12 heads; the plain
    versions of the big vision cases run 64 images at a time (a [512, 16,
-   577, 577] fp32 score tensor is 10.9 GB). Each case is checked as soon as it
+   577, 577] fp32 score tensor is 10.9 GB). On a model axis of 2 (last):
+   K7 and K8 at ViT-L/14@336px's shard shapes (vision 8 heads, dl 512,
+   hidden 2048 at 512 and 256 images; text 6 heads, dl 384, hidden 1536,
+   causal, at 32 prompts) in bf16 and at phase 10's 4 images and 8 prompts
+   in fp32, and K7 on a shard of zero-padded heads, which must give exact
+   zeros. Each case is checked as soon as it
    is built, and timed beside its plain version, one PyTorch library call
    chain computing the same function (a yardstick the port never calls; for K3 and K4
    ``torch.autograd.grad`` with respect to the input through the library
@@ -66,6 +71,18 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    breakdown.
 8. The same path at fp32 on 2 classes x 2 shots, on the card and on the
    CPU: classifiers within 1e-4, fusion weights within 1e-3.
+9. The same ViT-L/14@336px towers (phase 7's, bf16) on a model axis of 2
+   local shards, through the MM_CLS_OP serving seams
+   (``engine.trainer.tp_seam_tools``, ``make_feature_extractor``,
+   ``mm_generate_classifiers``): one warm-up and two timed requests of
+   32 x 16, then 256 queries through the TP encode and ``eval_logits``.
+   Launch counts exact per request (K7 48 at 512 images, K7-causal 72 and
+   K8 48 + 72, K6 4; K1, K2 and K5 none) and per classify; the classifiers
+   held against phase 7's for the same requests by a cosine floor; the
+   request split and a torch.profiler breakdown.
+10. Phase 8's fp32 request and queries on the model axis on the card,
+   against phase 8's CPU single-device result: classifiers within 1e-4,
+   fusion weights within 1e-3.
 
 Prints the kernels JSON line, the nvidia-smi line and, last, the result
 line ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -74,7 +91,6 @@ when no CUDA device is available or the package is not beside the script.
 
 from __future__ import annotations
 
-import itertools
 import json
 import math
 import subprocess
@@ -238,7 +254,7 @@ def kernel_checks(torch, F):
         results.append(dict(
             name=label, kernel=c["name"], route="cuda", source=c["source"],
             replaces=c["replaces"], case=c["case"], shape=c["shape"], dtype=dt,
-            shape_key=cuda_lib.shape_key(c["name"], c["x"].shape, c["dtype"]),
+            shape_key=cuda_lib.shape_key(c["name"], c.get("key_shape", c["x"].shape), c["dtype"]),
             max_abs_err=err, tol=tol, ms=kernel_ms, kernel_ms=kernel_ms,
             ms_spread=[k_lo, k_hi], plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=b_ms, bound_by=b_by,
@@ -365,24 +381,143 @@ def kernel_checks(torch, F):
                 flops=3 * 2 * tok * d * 4 * d,
                 peak=peak, **timing,
             ))
-    # the aggregator at embed width 512 (8 heads) and ViT-L's 768 (12 heads)
-    for (case, n, h, l, dh), dtype in itertools.product(
-            (("aggregator", 32, 8, 18, 64), ("vitl336-aggregator", 32, 12, 18, 64)), both):
-        q, k, v = (randn(n, h, l, dh).to(dtype) for _ in range(3))
-        check(dict(
-            name="fused_attention", case=case, dtype=dtype, shape=[n, h, l, dh], x=q,
-            source="ovmr_tpu_torch/csrc/attention.cu",
-            replaces="ovmr_tpu/ops/attention.py:28",
-            kernel=lambda q=q, k=k, v=v: fused_attention(q, k, v),
-            plain=lambda q=q, k=k, v=v: fused_attention_plain(q, k, v),
-            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
-            bytes=4 * q.numel() * q.element_size(),
-            flops=4 * n * h * l * l * dh,
-            peak=PEAK_FP32,  # K6 upcasts Q and K: its products are fp32 FMA
-            reps=200,
-        ))
+    # the aggregator at embed width 512 (8 heads) and ViT-L's 768 (12 heads);
+    # on the fp32 TP check's 2 classes padded to 8, 2 shots + 2 vokens
+    for case, n, h, l, dh, dtypes in (("aggregator", 32, 8, 18, 64, both),
+                                      ("vitl336-aggregator", 32, 12, 18, 64, both),
+                                      ("vitl336-tp-fp32-aggregator", 8, 12, 4, 64, fp32)):
+        for dtype in dtypes:
+            q, k, v = (randn(n, h, l, dh).to(dtype) for _ in range(3))
+            check(dict(
+                name="fused_attention", case=case, dtype=dtype, shape=[n, h, l, dh], x=q,
+                source="ovmr_tpu_torch/csrc/attention.cu",
+                replaces="ovmr_tpu/ops/attention.py:28",
+                kernel=lambda q=q, k=k, v=v: fused_attention(q, k, v),
+                plain=lambda q=q, k=k, v=v: fused_attention_plain(q, k, v),
+                library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
+                bytes=4 * q.numel() * q.element_size(),
+                flops=4 * n * h * l * l * dh,
+                peak=PEAK_FP32,  # K6 upcasts Q and K: its products are fp32 FMA
+                reps=200,
+            ))
 
+    tp_cases(torch, F, randn, check, sliced, both)
     return results
+
+
+def tp_cases(torch, F, randn, check, sliced, both):
+    """K7 and K8 at the shard shapes of ViT-L/14@336px on a model axis of 2
+    (vision: 8 heads, dl 512, hidden 2048; text: 6 heads, dl 384, hidden
+    1536): the TP request's 512 exemplars and 32-prompt sets and the 256
+    queries in bf16, the fp32 TP check's 4 images and 8 padded prompts in
+    fp32; then a shard of zero-padded heads, which must give exact zeros."""
+    from ovmr_tpu_torch.ops.block_fused_tp import (
+        tp_attn_half_partial,
+        tp_attn_half_partial_plain,
+        tp_mlp_half_partial,
+        tp_mlp_half_partial_plain,
+    )
+    from ovmr_tpu_torch.ops.layers import causal_mask
+
+    def shard(d, dl, hl, zero_heads=False):
+        z = 0.0 if zero_heads else 1.0
+        return {
+            "w_q": z * randn(d, dl, std=d ** -0.5), "b_q": z * randn(dl, std=0.02),
+            "w_k": z * randn(d, dl, std=d ** -0.5), "b_k": z * randn(dl, std=0.02),
+            "w_v": z * randn(d, dl, std=d ** -0.5), "b_v": z * randn(dl, std=0.02),
+            "w_out": z * randn(dl, d, std=dl ** -0.5),
+            "ln_1_scale": 1 + randn(d, std=0.1), "ln_1_bias": randn(d, std=0.1),
+            "c_fc_w": randn(d, hl, std=d ** -0.5), "c_fc_b": randn(hl, std=0.02),
+            "c_proj_w": randn(hl, d, std=hl ** -0.5),
+            "ln_2_scale": 1 + randn(d, std=0.1), "ln_2_bias": randn(d, std=0.1),
+        }
+
+    def k7_args(x, s):
+        return (x, s["w_q"], s["b_q"], s["w_k"], s["b_k"], s["w_v"], s["b_v"], s["w_out"],
+                s["ln_1_scale"], s["ln_1_bias"])
+
+    def library_k7(x, s, mask, nh):
+        """F.layer_norm, three F.linear, SDPA, F.linear then cast to fp32."""
+        b, l, d = x.shape
+        dl = s["w_q"].shape[-1]
+        xln = F.layer_norm(x, (d,), s["ln_1_scale"], s["ln_1_bias"])
+        q, k, v = (F.linear(xln, s[w].t(), s[bias]).view(b, l, nh, dl // nh).transpose(1, 2)
+                   for w, bias in (("w_q", "b_q"), ("w_k", "b_k"), ("w_v", "b_v")))
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        return F.linear(o.transpose(1, 2).reshape(b, l, dl), s["w_out"].t()).float()
+
+    def library_k8(x, s):
+        d = x.shape[-1]
+        hdn = F.linear(F.layer_norm(x, (d,), s["ln_2_scale"], s["ln_2_bias"]),
+                       s["c_fc_w"].t(), s["c_fc_b"])
+        return F.linear(hdn * torch.sigmoid(1.702 * hdn), s["c_proj_w"].t()).float()
+
+    bf16, fp32 = both[:1], both[1:]
+    shards = {}
+    for case, b, l, d, dl, nh, hl, masked, dtypes in (
+            ("vitl336-tp2-vision-encode", 512, 577, 1024, 512, 8, 2048, False, bf16),
+            ("vitl336-tp2-vision-classify", 256, 577, 1024, 512, 8, 2048, False, bf16),
+            ("vitl336-tp2-text-prompts", 32, 77, 768, 384, 6, 1536, True, bf16),
+            ("vitl336-tp2-vision-fp32", 4, 577, 1024, 512, 8, 2048, False, fp32),
+            ("vitl336-tp2-text-fp32", 8, 77, 768, 384, 6, 1536, True, fp32)):
+        s32 = shards.setdefault(d, shard(d, dl, hl))
+        x32 = randn(b, l, d)
+        mask = causal_mask(l, device="cuda") if masked else None
+        step = 64 if b * nh * l * l * 4 > 2 ** 32 else b
+        for dtype in dtypes:
+            s = {k: v.to(dtype) for k, v in s32.items()}
+            x = x32.to(dtype)
+            it = x.element_size()
+            tok = b * l
+            pairs = l * (l + 1) // 2 if masked else l * l
+            timing = dict(reps=10 if dtype == torch.bfloat16 and step == b else 3,
+                          rounds=5 if step == b else 3)
+            lib_mask = None if mask is None else mask.to(dtype)
+            common = dict(case=case, dtype=dtype, x=x, source="ovmr_tpu_torch/csrc/block_fused.cu",
+                          peak=PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32, **timing)
+            a = k7_args(x, s)
+            check(dict(
+                common,
+                name="tp_attn_half_partial_masked" if masked else "tp_attn_half_partial",
+                replaces=("ovmr_tpu/ops/block_fused_tp.py:235" if masked
+                          else "ovmr_tpu/ops/block_fused_tp.py:179"),
+                shape=[b, l, d, dl, nh], key_shape=(b, l, d, dl),
+                kernel=lambda a=a, m=mask, nh=nh: tp_attn_half_partial(*a, mask=m, n_head=nh),
+                plain=sliced(lambda xs, a=a, m=mask, nh=nh: tp_attn_half_partial_plain(
+                    xs, *a[1:], mask=m, n_head=nh), x, step),
+                library=sliced(lambda xs, s=s, m=lib_mask, nh=nh: library_k7(xs, s, m, nh),
+                               x, step),
+                # x read, the fp32 partial written, the shard's four weights,
+                # three biases and LN1; q/k/v, scores, probs x V, out products
+                bytes=tok * d * (it + 4) + (4 * d * dl + 3 * dl + 2 * d) * it
+                + (l * l * 4 if masked else 0),
+                flops=2 * tok * d * 3 * dl + 4 * b * pairs * dl + 2 * tok * dl * d,
+            ))
+            m8 = (x, s["c_fc_w"], s["c_fc_b"], s["c_proj_w"], s["ln_2_scale"], s["ln_2_bias"])
+            check(dict(
+                common, name="tp_mlp_half_partial", replaces="ovmr_tpu/ops/block_fused_tp.py:245",
+                shape=[b, l, d, hl], key_shape=(b, l, d, hl),
+                kernel=lambda m8=m8: tp_mlp_half_partial(*m8),
+                plain=sliced(lambda xs, m8=m8: tp_mlp_half_partial_plain(xs, *m8[1:]), x, step),
+                library=sliced(lambda xs, s=s: library_k8(xs, s), x, step),
+                bytes=tok * d * (it + 4) + (2 * d * hl + hl + 2 * d) * it,
+                flops=4 * tok * d * hl,
+            ))
+    # a shard of zero-padded heads (split_clip_qkv pads heads that do not
+    # divide the model axis) contributes an exact zero, masked or not
+    for l, d, dl, nh, masked in ((77, 768, 384, 6, True), (577, 1024, 512, 8, False)):
+        s = shard(d, dl, 4 * d, zero_heads=True)
+        x = randn(4, l, d)
+        for dtype in both:
+            mask = causal_mask(l, device="cuda") if masked else None
+            a = k7_args(x.to(dtype), {k: v.to(dtype) for k, v in s.items()})
+            got = tp_attn_half_partial(*a, mask=mask, n_head=nh)
+            torch.cuda.synchronize()
+            if not bool((got == 0).all()):
+                raise AssertionError(f"K7 on a zero-padded shard ({l} x {d}, {dtype}): "
+                                     f"max |out| {float(got.abs().max())}, expected exact zeros")
+    print("[kernels] K7 on zero-padded head shards (77 x 768 causal, 577 x 1024; fp32, bf16): "
+          "exact zeros", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -421,6 +556,20 @@ VOCAB = ["golden retriever", "tabby cat", "sports car", "red panda", "fire truck
          "Straße sign", "ski_mask", "T-Rex"]
 
 
+N_CLS, SHOTS, N_QUERIES = 32, 16, 256
+
+
+def make_requests(torch, count, size):
+    """``count`` requests of N_CLS class names x SHOTS exemplars at ``size``
+    px (seeds 100, 101, ...), and N_QUERIES query images (seed 200)."""
+    requests = []
+    for r in range(count):
+        names = [VOCAB[(r * 7 + i) % len(VOCAB)] + ("" if r == 0 else f" {r}")
+                 for i in range(N_CLS)]
+        requests.append((names, exemplar_images(torch, N_CLS, SHOTS, 100 + r, "cuda", size)))
+    return requests, exemplar_images(torch, N_QUERIES, 1, 200, "cuda", size)[:, 0]
+
+
 def serving_slice(torch, np, tag, gen, n_requests, warmups=0):
     """``warmups`` uncounted requests, then with the launch counts zeroed:
     ``n_requests`` generate() calls of 32 classes x 16 exemplars at the
@@ -434,14 +583,9 @@ def serving_slice(torch, np, tag, gen, n_requests, warmups=0):
 
     cfg = gen.clip_cfg
     size = cfg.image_resolution
-    n_cls, shots, n_queries = 32, 16, 256
+    n_cls, shots, n_queries = N_CLS, SHOTS, N_QUERIES
     n_ctx = gen.agg_params["cls_token"].shape[0]
-    requests = []
-    for r in range(warmups + n_requests):
-        names = [VOCAB[(r * 7 + i) % len(VOCAB)] + ("" if r == 0 else f" {r}")
-                 for i in range(n_cls)]
-        requests.append((names, exemplar_images(torch, n_cls, shots, 100 + r, "cuda", size)))
-    queries = exemplar_images(torch, n_queries, 1, 200, "cuda", size)[:, 0]
+    requests, queries = make_requests(torch, warmups + n_requests, size)
     for names, images in requests[:warmups]:
         t = time.perf_counter()
         gen.generate(names, images)
@@ -531,7 +675,7 @@ def serving_slice(torch, np, tag, gen, n_requests, warmups=0):
     print(f"[{tag}] request split: encode {enc_s * 1e3:.1f} ms, text + aggregator + "
           f"fusion {gen_s * 1e3:.1f} ms", flush=True)
     profile_call(torch, f"one {tag} request", lambda: gen.generate(names, images))
-    return launches, shapes
+    return launches, shapes, outs
 
 
 def profile_call(torch, what, fn):
@@ -565,7 +709,7 @@ def profile_call(torch, what, fn):
 def fp32_path(torch, np, tag, make_gen, n_cls, shots, n_queries):
     """generate() + classify() at fp32 on the card (kernels) and on the CPU
     (plain versions), from ``make_gen(device)``: classifiers within 1e-4,
-    fusion weights within 1e-3."""
+    fusion weights within 1e-3. Returns the CPU's (classifiers, scores)."""
     names = VOCAB[:n_cls]
     results = {}
     for device in ("cuda", "cpu"):
@@ -582,17 +726,207 @@ def fp32_path(torch, np, tag, make_gen, n_cls, shots, n_queries):
         results[device] = (out, probs)
         del gen
     (gpu, gpu_p), (cpu, cpu_p) = results["cuda"], results["cpu"]
+    hold_against(np, f"{tag} card vs CPU", gpu, cpu, gpu_p, cpu_p)
+    return cpu, cpu_p
+
+
+def hold_against(np, tag, got, ref, got_p, ref_p):
+    """Classifiers within 1e-4, fusion weights within 1e-3, scores within 1e-4."""
     for key, tol in (("mm_classifier", 1e-4), ("vision_classifier", 1e-4),
                      ("text_classifier", 1e-4), ("visual_tokens", 1e-4),
                      ("fusion_weight", 1e-3)):
-        err = float(np.abs(gpu[key] - cpu[key]).max())
-        print(f"[{tag}] card vs CPU {key}: max_abs_err {err:.3g} (tol {tol})", flush=True)
+        err = float(np.abs(got[key] - ref[key]).max())
+        print(f"[{tag}] {key}: max_abs_err {err:.3g} (tol {tol})", flush=True)
         if not err <= tol:
-            raise AssertionError(f"{tag} {key}: card and CPU differ by {err} > {tol}")
-    err = float(np.abs(gpu_p - cpu_p).max())
-    print(f"[{tag}] card vs CPU classify(fusion): max_abs_err {err:.3g} (tol 1e-4)", flush=True)
+            raise AssertionError(f"{tag} {key}: differs by {err} > {tol}")
+    err = float(np.abs(got_p - ref_p).max())
+    print(f"[{tag}] classify(fusion): max_abs_err {err:.3g} (tol 1e-4)", flush=True)
     if not err <= 1e-4:
-        raise AssertionError(f"{tag} classify: card and CPU differ by {err}")
+        raise AssertionError(f"{tag} classify: differs by {err}")
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: the serving slice on a model axis of 2
+# ---------------------------------------------------------------------------
+
+TP_SIZE = 2
+COSINE_FLOOR = 0.99
+
+
+def tp_server(torch, gen):
+    """The MM_CLS_OP serving seams over ``gen``'s towers on a model axis of
+    TP_SIZE local shards: ``request(names, images) -> classifiers``,
+    ``classify(images, classifiers) -> fusion scores`` and ``encode(images)
+    -> features``, each batch encoded at its own size."""
+    from ovmr_tpu_torch.engine.trainer import (
+        make_feature_extractor,
+        mm_generate_classifiers,
+        tp_seam_tools,
+    )
+    from ovmr_tpu_torch.models.ovmr import build_prompt_tokens, eval_logits
+    from ovmr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
+    from ovmr_tpu_torch.parallel import ModelAxis
+
+    cfg = gen.clip_cfg
+    t = time.perf_counter()
+    block, params = tp_seam_tools(ModelAxis.local(TP_SIZE), gen.clip_params, cfg)
+    torch.cuda.synchronize()
+    print(f"[tp] towers split and placed as {TP_SIZE} local shards in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    encoders = {}
+
+    def encode(images):
+        n = images.shape[0]
+        if n not in encoders:
+            encoders[n] = make_feature_extractor(cfg, gen.dtype, CLIP_MEAN, CLIP_STD, batch_size=n,
+                                                 device="cuda", tp_block_fn=block)
+        return encoders[n](params, images)
+
+    def request(names, images):
+        n, k = images.shape[:2]
+        feats = encode(images.reshape(n * k, *images.shape[2:])).reshape(n, k, -1)
+        ptok, eot, vtok = build_prompt_tokens(names)
+        return mm_generate_classifiers(params, cfg, gen.agg_params, feats, ptok, eot, vtok,
+                                       eval_tau=10.0, block_fn=block)
+
+    def classify(images, classifiers):
+        feats = torch.as_tensor(encode(images), device="cuda")
+        dev = {k: torch.as_tensor(v, device="cuda") for k, v in classifiers.items()}
+        scale = float(params["logit_scale"].float().exp())
+        return eval_logits(feats, dev, scale, "fusion").cpu().numpy()
+
+    return request, classify, encode
+
+
+def tp_serving_slice(torch, np, gen, single_outs, n_requests=2, warmups=1):
+    """ViT-L/14@336px bf16 on TP_SIZE local shards: ``warmups`` uncounted
+    requests, then ``n_requests`` requests of 32 x 16 and 256 queries, each
+    with exact launch counts by kernel and shape; the classifiers held
+    against the single-card ones of the same requests (``single_outs``) by
+    the cosine floor; the request split and a profile."""
+    from ovmr_tpu_torch.models.ovmr import eval_logits_np
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    cfg = gen.clip_cfg
+    size = cfg.image_resolution
+    request, classify, encode = tp_server(torch, gen)
+    requests, queries = make_requests(torch, warmups + n_requests, size)
+    for names, images in requests[:warmups]:
+        t = time.perf_counter()
+        request(names, images)
+        torch.cuda.synchronize()
+        print(f"[tp] warm-up request: {(time.perf_counter() - t) * 1e3:.1f} ms wall", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    dt = str(gen.dtype).removeprefix("torch.")
+    vw, tw, tokens = cfg.vision_width, cfg.transformer_width, cfg.num_patches + 1
+    vdl = vw // cfg.vision_heads * -(-cfg.vision_heads // TP_SIZE)
+    tdl = tw // cfg.transformer_heads * -(-cfg.transformer_heads // TP_SIZE)
+
+    def vision(batch):  # every layer: K7 and K8 once a shard
+        per = cfg.vision_layers * TP_SIZE
+        return {("tp_attn_half_partial", (batch, tokens, vw, vdl), dt): per,
+                ("tp_mlp_half_partial", (batch, tokens, vw, 4 * vw // TP_SIZE), dt): per}
+
+    per = 3 * cfg.transformer_layers * TP_SIZE  # the text, mm and v prompt sets
+    want_request = {
+        **vision(N_CLS * SHOTS),
+        ("tp_attn_half_partial_masked", (N_CLS, cfg.context_length, tw, tdl), dt): per,
+        ("tp_mlp_half_partial", (N_CLS, cfg.context_length, tw, 4 * tw // TP_SIZE), dt): per,
+        ("fused_attention", (N_CLS, cfg.embed_dim // 64, SHOTS + 2, 64), dt): 4,
+    }
+    launches, shapes, outs, walls = {k: 0 for k in cuda_lib.LAUNCHES}, {}, [], []
+
+    def counted(want, fn):
+        cuda_lib.reset_launches()
+        out = fn()
+        got = dict(cuda_lib.LAUNCH_SHAPES)
+        if got != want:
+            raise AssertionError(f"tp: launches by shape {got}, expected {want}")
+        for key, n in cuda_lib.LAUNCHES.items():
+            launches[key] += n
+        for key, n in got.items():
+            shapes[key] = shapes.get(key, 0) + n
+        return out
+
+    for names, images in requests[warmups:]:
+        t = time.perf_counter()
+        outs.append(counted(want_request, lambda: request(names, images)))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    probs = counted(vision(N_QUERIES), lambda: classify(queries, outs[-1]))
+    classify_s = time.perf_counter() - t
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    for i, wall in enumerate(walls):
+        print(f"[tp] request {i}: {N_CLS} classes x {SHOTS} shots at {size} px, model axis "
+              f"{TP_SIZE}, {wall * 1e3:.1f} ms wall", flush=True)
+    print(f"[tp] classify {N_QUERIES} queries (fusion): {classify_s * 1e3:.1f} ms wall",
+          flush=True)
+    print(f"[tp] peak device memory over the requests and classify: {peak_gib:.2f} GiB",
+          flush=True)
+    print(f"[tp] launches per request, exact: {want_request}", flush=True)
+    for name in ("fused_attn_half", "fused_attn_half_masked", "fused_mlp_half",
+                 "fused_mlp_half_chunked"):
+        assert launches[name] == 0, (name, launches[name])
+    for out in outs:
+        check_classifiers(np, out, N_CLS, cfg.embed_dim, 2, unit_tol=1e-2)
+    assert probs.shape == (N_QUERIES, N_CLS) and np.isfinite(probs).all()
+    host = eval_logits_np(encode(queries), outs[-1],
+                          float(np.exp(gen.clip_params["logit_scale"].float().cpu().numpy())),
+                          "fusion")
+    err = float(np.abs(probs - host).max())
+    print(f"[tp] classify vs host recipe: max_abs_err {err:.3g} (tol 1e-5)", flush=True)
+    assert err <= 1e-5, err
+    # bf16 on a model axis against bf16 on one card, request by request:
+    # the same function rounded at other places (fp32 partial sums)
+    for i, (tp_out, one) in enumerate(zip(outs, single_outs)):
+        for key in ("mm_classifier", "vision_classifier", "text_classifier", "visual_tokens"):
+            a = tp_out[key].reshape(N_CLS, -1).astype(np.float64)
+            b = one[key].reshape(N_CLS, -1).astype(np.float64)
+            cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+            print(f"[tp] request {i} {key} vs one card: cosine min {cos.min():.6f}, mean "
+                  f"{cos.mean():.6f} (floor {COSINE_FLOOR})", flush=True)
+            if not cos.min() >= COSINE_FLOOR:
+                raise AssertionError(f"tp request {i} {key}: cosine {cos.min()} to the "
+                                     f"single-card classifiers, below {COSINE_FLOOR}")
+
+    names, images = requests[warmups]
+    t = time.perf_counter()
+    encode(images.reshape(N_CLS * SHOTS, 3, size, size))
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t
+    t = time.perf_counter()
+    request(names, images)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t
+    print(f"[tp] request split: encode {enc_s * 1e3:.1f} ms, text + aggregator + fusion "
+          f"{(total_s - enc_s) * 1e3:.1f} ms (of {total_s * 1e3:.1f} ms)", flush=True)
+    profile_call(torch, "one tp request", lambda: request(names, images))
+    return launches, shapes
+
+
+def tp_fp32_check(torch, np, gen, cpu_out, cpu_probs, n_cls=2, shots=2, n_queries=4):
+    """Phase 8's fp32 request and queries (same seeds) on TP_SIZE local
+    shards on the card, against phase 8's CPU single-device result."""
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    size = gen.clip_cfg.image_resolution
+    request, classify, _ = tp_server(torch, gen)
+    images = exemplar_images(torch, n_cls, shots, 300, "cpu", size)
+    queries = exemplar_images(torch, n_queries, 1, 301, "cpu", size)[:, 0]
+    cuda_lib.reset_launches()
+    t = time.perf_counter()
+    out = request(VOCAB[:n_cls], images)
+    probs = classify(queries, out)
+    print(f"[tp-fp32] cuda: generate + classify {time.perf_counter() - t:.2f} s", flush=True)
+    shapes = dict(cuda_lib.LAUNCH_SHAPES)
+    print(f"[tp-fp32] launches by shape: {shapes}", flush=True)
+    check_classifiers(np, out, n_cls, gen.clip_cfg.embed_dim, 2, unit_tol=1e-5)
+    hold_against(np, "tp-fp32 card vs CPU single device", out, cpu_out, probs, cpu_probs)
+    return shapes
 
 
 # ---------------------------------------------------------------------------
@@ -675,6 +1009,9 @@ def training_slice(torch, np, clip_params, agg_params):
         "mlp_half_bwd_dx": 2 * layers,
         "attn_half_bwd_dx": 0,
         "fused_attention": 0,                       # dropout expands the attention
+        "tp_attn_half_partial": 0,                  # no model axis
+        "tp_attn_half_partial_masked": 0,
+        "tp_mlp_half_partial": 0,
     }
 
     def fresh():
@@ -779,7 +1116,8 @@ def fp32_train_step(torch, np, clip_params, agg_params):
             got = dict(cuda_lib.LAUNCHES)
             want = {"fused_attn_half": 24, "fused_attn_half_masked": 24, "fused_mlp_half": 48,
                     "fused_mlp_half_chunked": 0, "attn_half_bwd_dx_masked": 24, "mlp_half_bwd_dx": 24,
-                    "attn_half_bwd_dx": 0, "fused_attention": 4}
+                    "attn_half_bwd_dx": 0, "fused_attention": 4, "tp_attn_half_partial": 0,
+                    "tp_attn_half_partial_masked": 0, "tp_mlp_half_partial": 0}
             if got != want:
                 raise AssertionError(f"fp32 train step: launches {got}, expected {want}")
         results[device] = (
@@ -864,7 +1202,7 @@ def main() -> int:
     gen = OVMRGenerator(clip_params, cfg, agg_params, dtype=torch.bfloat16, device="cuda")
     print(f"[slice] ViT-B/16 bf16 generator ready in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    paths["serving"] = serving_slice(torch, np, "slice", gen, n_requests=3)
+    paths["serving"] = serving_slice(torch, np, "slice", gen, n_requests=3)[:2]
     all_checked("serving", paths["serving"][1])
     del gen
     fp32_path(torch, np, "fp32", lambda device: OVMRGenerator(
@@ -884,19 +1222,31 @@ def main() -> int:
               f"in {time.perf_counter() - t:.1f} s", flush=True)
         return gen
 
-    paths["vitl336"] = serving_slice(torch, np, "vitl336", vitl("cuda", torch.bfloat16),
-                                     n_requests=2, warmups=1)
+    gen_l = vitl("cuda", torch.bfloat16)
+    launches, shapes, single_outs = serving_slice(torch, np, "vitl336", gen_l, n_requests=2,
+                                                  warmups=1)
+    paths["vitl336"] = (launches, shapes)
     all_checked("vitl336", paths["vitl336"][1])
     torch.cuda.empty_cache()
-    fp32_path(torch, np, "vitl336-fp32", lambda device: vitl(device, torch.float32),
-              n_cls=2, shots=2, n_queries=4)
+    cpu_out, cpu_probs = fp32_path(torch, np, "vitl336-fp32",
+                                   lambda device: vitl(device, torch.float32),
+                                   n_cls=2, shots=2, n_queries=4)
+
+    # the same model on a model axis of 2, through the MM_CLS_OP serving
+    # seams: bf16 requests against the single-card ones, fp32 against the CPU
+    paths["vitl336_tp"] = tp_serving_slice(torch, np, gen_l, single_outs)
+    all_checked("vitl336_tp", paths["vitl336_tp"][1])
+    del gen_l
+    torch.cuda.empty_cache()
+    all_checked("vitl336-tp-fp32", tp_fp32_check(torch, np, vitl("cuda", torch.float32),
+                                                 cpu_out, cpu_probs))
 
     for entry in kernels:
         # launches: the wrapper's count over the three ViT-B/16 requests +
-        # classify, the three timed training steps and the two
-        # ViT-L/14@336px requests + classify (each read with the counts
-        # zeroed just before); launches_at_shape: those at this entry's shape
-        # and dtype
+        # classify, the three timed training steps, the two ViT-L/14@336px
+        # requests + classify and the two on a model axis of 2 + classify
+        # (each read with the counts zeroed just before); launches_at_shape:
+        # those at this entry's shape and dtype
         key = entry.pop("shape_key")
         for path, (launches, shapes) in paths.items():
             entry[f"launches_{path}"] = launches[entry["kernel"]]

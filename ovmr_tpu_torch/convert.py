@@ -8,6 +8,12 @@ these functions check the structure and copy every array into a torch
 tensor, so both packages compute the same function on the same weights.
 :func:`aggregator_params_to_numpy` is the way back, for comparing trained
 parameters. No JAX is imported here; the caller does the ``np.asarray``.
+
+A tower's blocks may be packed (``w_qkv``/``b_qkv``) or in the split-qkv
+layout of tensor parallelism (``w_q``/``w_k``/``w_v`` and their biases,
+head-padded or not): the numpy of the JAX package's
+``split_clip_qkv(params, m, cfg)`` converts as it is, and equals the port's
+own ``split_clip_qkv`` of the converted packed towers.
 """
 
 from __future__ import annotations
@@ -18,8 +24,10 @@ import numpy as np
 import torch
 
 from ovmr_tpu_torch.ops.block_fused import BLOCK_KEYS
+from ovmr_tpu_torch.ops.block_fused_tp import TP_KEYS
 
 _BLOCK_KEYS = frozenset(BLOCK_KEYS)
+_SPLIT_BLOCK_KEYS = frozenset(TP_KEYS)
 _VISUAL_KEYS = frozenset(
     ("patch_embed_w", "class_embedding", "positional_embedding", "ln_pre_scale",
      "ln_pre_bias", "blocks", "ln_post_scale", "ln_post_bias", "proj")
@@ -40,14 +48,15 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device=device, dtype=dtype)
 
 
-def _blocks(tree: Mapping, where: str, device, dtype) -> dict:
-    _require_keys(tree, _BLOCK_KEYS, where)
+def _blocks(tree: Mapping, where: str, device, dtype, split_ok: bool = False) -> dict:
+    _require_keys(tree, _SPLIT_BLOCK_KEYS if split_ok and "w_q" in tree else _BLOCK_KEYS, where)
     return {k: _tensor(v, device, dtype) for k, v in tree.items()}
 
 
 def clip_params_from_numpy(params: Mapping, device="cpu", dtype=torch.float32) -> dict:
-    """JAX ViT CLIP params (numpy leaves) -> the port's CLIP params.
-    ``logit_scale`` stays fp32 whatever ``dtype`` is."""
+    """JAX ViT CLIP params (numpy leaves) -> the port's CLIP params, packed
+    or split-qkv blocks alike. ``logit_scale`` stays fp32 whatever ``dtype``
+    is."""
     _require_keys(params, frozenset(("visual", "text", "logit_scale")), "params")
     if "patch_embed_w" not in params["visual"]:
         raise NotImplementedError("ResNet towers are not ported yet")
@@ -56,7 +65,7 @@ def clip_params_from_numpy(params: Mapping, device="cpu", dtype=torch.float32) -
 
     def tower(tree, where):
         return {
-            k: _blocks(v, f"{where}['blocks']", device, dtype)
+            k: _blocks(v, f"{where}['blocks']", device, dtype, split_ok=True)
             if k == "blocks" else _tensor(v, device, dtype)
             for k, v in tree.items()
         }

@@ -8,12 +8,32 @@
 //   K5 fused_mlp_half_chunked (_mlp_half_chunked_kernel :249)
 //      the same half with the hidden width taken in chunks: each chunk's
 //      partial c_proj product is cast and added to the output in the
-//      activation dtype.
+//      activation dtype;
+// and the per-shard partials of ovmr_tpu/ops/block_fused_tp.py:
+//   K7 tp_attn_half_partial (_attn_partial_kernel :179, masked :235)
+//      fp32 attn_local(LN1(x)) @ w_out_local over one head shard, no bias and
+//      no residual (the caller sums the shards' partials, then adds them);
+//   K8 tp_mlp_half_partial (_mlp_partial_kernel :245)
+//      fp32 QuickGELU(LN2(x) @ c_fc_local + b_local) @ c_proj_local.
+// K7 and K8 are composed by their wrappers (ovmr_tpu_torch/ops/block_fused_tp.py)
+// from the launchers below, as K1 and K2 are:
+//   K7 = layer_norm -> 3 x gemm(+b_q | +b_k | +b_v), each into its column
+//        slice of one [tokens, 3 dl] buffer (the GEMM's ldc) -> attn_core at
+//        width dl and the shard's heads -> gemm(EPI_F32, fp32 out)
+//   K8 = layer_norm -> gemm(+c_fc_b, QuickGELU) -> gemm(EPI_F32, fp32 out)
+// Writing q, k and v into slices of the buffer the attention core reads
+// keeps the shard's three weights as they are stored (nothing is packed
+// when the shard is placed) and the core unchanged. A shard is half the
+// work of K1/K2 at model axis 2 plus an fp32 partial (1.2 GB at ViT-L/14@336px,
+// 512 images) written here and read by the sum of the shards.
 //
 // What bounds them on the H100: at ViT-B/16 batch 256 the products are
 // 268 GFLOP (K1) and 476 GFLOP (K2) per layer against ~0.1 GB of
 // activations, far above the ~295 FLOP/byte ridge, so both halves are
 // bound by tensor-core operations (about 0.27 and 0.48 ms at 989 TFLOP/s).
+// So are K7 and K8: a ViT-L/14@336px vision shard at model axis 2 and 512
+// images is 1.59 and 2.48 TFLOP (1.61 and 2.51 ms) against 1.8 GB of
+// activations and partials (0.54 ms).
 //
 // Design. The TPU kernels keep a whole tile of images in VMEM (an image's
 // QKV alone is 197 x 2304 bf16 = 908 KB, the MLP hidden of a 64-token tile
@@ -654,15 +674,18 @@ __global__ void __launch_bounds__(RB_THREADS)
 // ---------------------------------------------------------------------------
 template <typename T>
 static void launch_fwd_gemm(const void* A, const void* W, const void* bias, const void* R,
-                            void* C, int M, int N, int K, int ldw, int epi, cudaStream_t st) {
+                            void* C, int M, int N, int K, int ldw, int ldc, int epi,
+                            cudaStream_t st) {
   if (epi == EPI_BIAS_GELU)
-    launch_gemm<T, false, EPI_BIAS_GELU>(A, W, bias, R, C, M, N, K, st, ldw);
+    launch_gemm<T, false, EPI_BIAS_GELU>(A, W, bias, R, C, M, N, K, st, ldw, ldc);
   else if (epi == EPI_BIAS_RESIDUAL)
-    launch_gemm<T, false, EPI_BIAS_RESIDUAL>(A, W, bias, R, C, M, N, K, st, ldw);
+    launch_gemm<T, false, EPI_BIAS_RESIDUAL>(A, W, bias, R, C, M, N, K, st, ldw, ldc);
   else if (epi == EPI_ACCUM)
-    launch_gemm<T, false, EPI_ACCUM>(A, W, bias, R, C, M, N, K, st, ldw);
+    launch_gemm<T, false, EPI_ACCUM>(A, W, bias, R, C, M, N, K, st, ldw, ldc);
+  else if (epi == EPI_F32)
+    launch_gemm<T, false, EPI_F32>(A, W, bias, R, C, M, N, K, st, ldw, ldc);
   else
-    launch_gemm<T, false, EPI_BIAS>(A, W, bias, R, C, M, N, K, st, ldw);
+    launch_gemm<T, false, EPI_BIAS>(A, W, bias, R, C, M, N, K, st, ldw, ldc);
 }
 
 template <typename T>
@@ -750,23 +773,29 @@ OVMR_EXPORT int ovmr_layer_norm(int dtype, const void* x, const void* g, const v
   return (int)cudaGetLastError();
 }
 
-// C = epilogue(A @ W + bias), W's rows ldw elements apart: 0 cast, 1
-// QuickGELU then cast, 2 cast then add the residual R, 7 (no bias) cast then
-// add to what C holds
+// C = epilogue(A @ W + bias), W's rows ldw and C's rows ldc elements apart:
+// 0 cast, 1 QuickGELU then cast, 2 cast then add the residual R, 6 (no bias)
+// the fp32 sum stored as fp32 (C is float), 7 (no bias) cast then add to
+// what C holds
 OVMR_EXPORT int ovmr_gemm(int dtype, const void* A, const void* W, const void* bias,
-                          const void* R, void* C, int M, int N, int K, int ldw, int epilogue,
-                          void* stream) {
+                          const void* R, void* C, int M, int N, int K, int ldw, int ldc,
+                          int epilogue, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool known = epilogue == EPI_BIAS || epilogue == EPI_BIAS_GELU ||
-                     epilogue == EPI_BIAS_RESIDUAL || epilogue == EPI_ACCUM;
-  if (!known || (epilogue == EPI_BIAS_RESIDUAL && !R) || ldw < N)
+                     epilogue == EPI_BIAS_RESIDUAL || epilogue == EPI_ACCUM ||
+                     epilogue == EPI_F32;
+  if (!known || (epilogue == EPI_BIAS_RESIDUAL && !R) || ldw < N || ldc < N)
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
-    case DT_F32: launch_fwd_gemm<float>(A, W, bias, R, C, M, N, K, ldw, epilogue, st); break;
-    case DT_BF16:
-      launch_fwd_gemm<__nv_bfloat16>(A, W, bias, R, C, M, N, K, ldw, epilogue, st);
+    case DT_F32:
+      launch_fwd_gemm<float>(A, W, bias, R, C, M, N, K, ldw, ldc, epilogue, st);
       break;
-    case DT_F16: launch_fwd_gemm<__half>(A, W, bias, R, C, M, N, K, ldw, epilogue, st); break;
+    case DT_BF16:
+      launch_fwd_gemm<__nv_bfloat16>(A, W, bias, R, C, M, N, K, ldw, ldc, epilogue, st);
+      break;
+    case DT_F16:
+      launch_fwd_gemm<__half>(A, W, bias, R, C, M, N, K, ldw, ldc, epilogue, st);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

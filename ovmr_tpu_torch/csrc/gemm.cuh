@@ -12,6 +12,10 @@
 // `ldw` is the distance in elements between two rows of W as stored, so W
 // may be a column slice of a wider matrix (the chunked MLP half multiplies
 // by c_fc_w[:, j0:j1] in place); 0 stands for a dense W (N, or K with TRANS).
+// `ldc` is the same for C, so C may be a column slice of a wider buffer (the
+// tensor-parallel attention partial writes q, k and v side by side into one
+// [M, 3 dl] buffer); 0 stands for a dense C (N). A residual or h_pre operand
+// is always dense [M, N].
 //
 // Epilogues (the fp32 accumulator is finished per element, then stored):
 //   EPI_BIAS           T(acc + bias)
@@ -118,7 +122,7 @@ template <typename T, bool TRANS, int EPI>
 __global__ void __launch_bounds__(TC_THREADS, 2)
     gemm_tc_kernel(const T* __restrict__ A, const T* __restrict__ W,
                    const T* __restrict__ bias, const void* __restrict__ aux,
-                   void* __restrict__ Cv, int M, int N, int K, int ldw) {
+                   void* __restrict__ Cv, int M, int N, int K, int ldw, int ldc) {
   __shared__ __align__(128) T As[2][TC_BM * TC_LDA];
   __shared__ __align__(128) T Bs[2][tc_b_elems<TRANS>()];
   __shared__ __align__(128) float scratch[TC_THREADS / 32][16 * 16];
@@ -181,15 +185,15 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
       __syncwarp();
       const int gm = m0 + wm * 32 + i * 16 + r, gn = n0 + wn * 64 + j * 16 + cc;
       if (gm < M && gn < N) {
-        const size_t at = (size_t)gm * N + gn;
+        const size_t at = (size_t)gm * ldc + gn, at_aux = (size_t)gm * N + gn;
         Vec<T, 8> bv, rv;
         Vec<float, 4> hp[2];
         if (epi_has_bias(EPI)) bv = *reinterpret_cast<const Vec<T, 8>*>(bias + gn);
         if (EPI == EPI_BIAS_RESIDUAL)
-          rv = *reinterpret_cast<const Vec<T, 8>*>(static_cast<const T*>(aux) + at);
+          rv = *reinterpret_cast<const Vec<T, 8>*>(static_cast<const T*>(aux) + at_aux);
         if (EPI == EPI_ACCUM) rv = *reinterpret_cast<const Vec<T, 8>*>(static_cast<T*>(Cv) + at);
         if (EPI == EPI_GELU_GRAD) {
-          const float* h = static_cast<const float*>(aux) + at;
+          const float* h = static_cast<const float*>(aux) + at_aux;
           hp[0] = *reinterpret_cast<const Vec<float, 4>*>(h);
           hp[1] = *reinterpret_cast<const Vec<float, 4>*>(h + 4);
         }
@@ -230,7 +234,7 @@ template <bool TRANS, int EPI>
 __global__ void __launch_bounds__(F_THREADS)
     gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
                     const float* __restrict__ bias, const void* __restrict__ auxv,
-                    void* __restrict__ Cv, int M, int N, int K, int ldw) {
+                    void* __restrict__ Cv, int M, int N, int K, int ldw, int ldc) {
   __shared__ __align__(16) float As[F_BK][F_BM + 4];  // transposed: As[k][m]
   __shared__ __align__(16) float Bs[F_BK][F_BN + 4];
   const float* aux = static_cast<const float*>(auxv);
@@ -294,27 +298,29 @@ __global__ void __launch_bounds__(F_THREADS)
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx * 4 + j;
       if (gn >= N) continue;
-      const size_t at = (size_t)gm * N + gn;
+      const size_t at = (size_t)gm * ldc + gn, at_aux = (size_t)gm * N + gn;
       const float v = epilogue_value<float, EPI>(
-          acc[i][j], epi_has_bias(EPI) ? bias[gn] : 0.f, EPI == EPI_GELU_GRAD ? aux[at] : 0.f);
+          acc[i][j], epi_has_bias(EPI) ? bias[gn] : 0.f, EPI == EPI_GELU_GRAD ? aux[at_aux] : 0.f);
       C[at] = epilogue_cast<float, EPI>(
-          v, EPI == EPI_BIAS_RESIDUAL ? aux[at] : EPI == EPI_ACCUM ? C[at] : 0.f);
+          v, EPI == EPI_BIAS_RESIDUAL ? aux[at_aux] : EPI == EPI_ACCUM ? C[at] : 0.f);
     }
   }
 }
 
 template <typename T, bool TRANS, int EPI>
 static void launch_gemm(const void* A, const void* W, const void* bias, const void* aux,
-                        void* C, int M, int N, int K, cudaStream_t st, int ldw = 0) {
+                        void* C, int M, int N, int K, cudaStream_t st, int ldw = 0,
+                        int ldc = 0) {
   if (ldw == 0) ldw = TRANS ? K : N;
+  if (ldc == 0) ldc = N;
   if constexpr (std::is_same<T, float>::value) {
     dim3 grid(ceil_div(N, F_BN), ceil_div(M, F_BM));
     gemm_f32_kernel<TRANS, EPI><<<grid, F_THREADS, 0, st>>>(
-        (const float*)A, (const float*)W, (const float*)bias, aux, C, M, N, K, ldw);
+        (const float*)A, (const float*)W, (const float*)bias, aux, C, M, N, K, ldw, ldc);
   } else {
     dim3 grid(ceil_div(N, TC_BN), ceil_div(M, TC_BM));
     gemm_tc_kernel<T, TRANS, EPI><<<grid, TC_THREADS, 0, st>>>(
-        (const T*)A, (const T*)W, (const T*)bias, aux, C, M, N, K, ldw);
+        (const T*)A, (const T*)W, (const T*)bias, aux, C, M, N, K, ldw, ldc);
   }
 }
 

@@ -208,8 +208,11 @@ def run_blocks(
     """Loop over the stacked transformer blocks ([n_layers, ...] leaves),
     each one ``block_fn(h, layer_params, n_head, mask)``: the kernels K1 and
     K2 by default (their plain versions for a CPU tensor), or the
-    torch-math :func:`ovmr_tpu_torch.ops.layers.residual_attention_block`."""
-    for i in range(blocks["w_qkv"].shape[0]):
+    torch-math :func:`ovmr_tpu_torch.ops.layers.residual_attention_block`,
+    or on towers placed for a model axis the TP block of
+    :func:`ovmr_tpu_torch.ops.block_fused_tp.make_tp_block` (each layer's
+    slice then holds its shards)."""
+    for i in range(blocks["ln_1_scale"].shape[0]):
         x = block_fn(x, {k: v[i] for k, v in blocks.items()}, n_head, mask)
     return x
 

@@ -65,7 +65,7 @@ from ovmr_tpu_torch.ops.layers import (
 )
 
 # epilogue codes of csrc/block_fused.cu ovmr_gemm (csrc/gemm.cuh Epilogue)
-_EPI_BIAS, _EPI_BIAS_GELU, _EPI_BIAS_RESIDUAL, _EPI_ACCUM = 0, 1, 2, 7
+_EPI_BIAS, _EPI_BIAS_GELU, _EPI_BIAS_RESIDUAL, _EPI_F32, _EPI_ACCUM = 0, 1, 2, 6, 7
 
 # The MLP tier of the TPU module's forward routing (``_fused_block_fwd_impl``
 # :441-477), in bytes of bf16 weights and activations: the MLP weights stay
@@ -204,13 +204,15 @@ def _layer_norm(lib, code, x, ln_s, ln_b, stream):
 
 def _gemm(lib, code, a, w, bias, out, epilogue, stream, resid=None):
     """out = epilogue(a @ w + bias) for a [..., K] and w [K, N]; w may be a
-    column slice of a wider matrix (its row stride is handed on)."""
+    column slice of a wider matrix, and out a column slice of a wider buffer
+    (their row strides are handed on)."""
     cuda_lib.check(
         lib,
         lib.ovmr_gemm(
             code, a.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
             resid.data_ptr() if resid is not None else None, out.data_ptr(),
-            a.numel() // a.shape[-1], w.shape[-1], a.shape[-1], w.stride(0), epilogue, stream,
+            a.numel() // a.shape[-1], w.shape[-1], a.shape[-1], w.stride(0), out.stride(-2),
+            epilogue, stream,
         ),
         "ovmr_gemm",
     )

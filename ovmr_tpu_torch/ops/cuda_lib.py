@@ -50,8 +50,13 @@ LAUNCHES: Dict[str, int] = {
     "attn_half_bwd_dx": 0,
     "attn_half_bwd_dx_masked": 0,
     "mlp_half_bwd_dx": 0,
+    "tp_attn_half_partial": 0,
+    "tp_attn_half_partial_masked": 0,
+    "tp_mlp_half_partial": 0,
 }
-# launches by (kernel, shape of its first input, dtype name)
+# launches by (kernel, shape of its first input, dtype name); the
+# tensor-parallel partials add their shard's width to the shape, since one
+# input shape runs different launches for shards of different widths
 LAUNCH_SHAPES: Counter = Counter()
 
 _P = ctypes.c_void_p
@@ -60,8 +65,8 @@ _SIGNATURES = {
     "block_fused": {
         # dtype, x, ln_g, ln_b, y, M, K, stream
         "ovmr_layer_norm": [_I, _P, _P, _P, _P, _I, _I, _P],
-        # dtype, A, W, bias, residual, C, M, N, K, ldw, epilogue, stream
-        "ovmr_gemm": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # dtype, A, W, bias, residual, C, M, N, K, ldw, ldc, epilogue, stream
+        "ovmr_gemm": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # dtype, x, bias, out, M, N, stream
         "ovmr_residual_bias": [_I, _P, _P, _P, _I, _I, _P],
         # dtype, qkv, mask, out, B, L, D, H, stream
@@ -90,9 +95,11 @@ def reset_launches() -> None:
     LAUNCH_SHAPES.clear()
 
 
-def count_launch(name: str, x: torch.Tensor) -> None:
+def count_launch(name: str, x: torch.Tensor, shape=None) -> None:
+    """One launch of ``name`` on ``x``, keyed by ``shape`` (``x.shape`` when
+    omitted)."""
     LAUNCHES[name] += 1
-    LAUNCH_SHAPES[shape_key(name, x.shape, x.dtype)] += 1
+    LAUNCH_SHAPES[shape_key(name, x.shape if shape is None else shape, x.dtype)] += 1
 
 
 def shape_key(name: str, shape, dtype: torch.dtype) -> Tuple[str, Tuple[int, ...], str]:

@@ -1,6 +1,7 @@
 """The port's hand-written kernels against their plain versions on a CUDA
 card, the differentiable entries on the card against the CPU, and the
-serving slice on the card against the CPU.
+serving slice on the card against the CPU; the tensor-parallel partials K7
+and K8 and the TP block likewise.
 
 Every test here needs a card: marked ``cuda`` and skipped without one
 (the check runs inside the ``cuda`` fixture, not at import). On the card:
@@ -39,6 +40,7 @@ from ovmr_tpu_torch.ops.block_fused_bwd import (
     mlp_half_bwd_dx,
     mlp_half_bwd_dx_plain,
 )
+from ovmr_tpu_torch.ops import block_fused_tp as tbtp
 from ovmr_tpu_torch.ops.layers import causal_mask
 
 pytestmark = pytest.mark.cuda
@@ -304,7 +306,8 @@ def test_train_step_on_card_matches_cpu(cuda):
             assert cuda_lib.LAUNCHES == {
                 "fused_attn_half": 4, "fused_attn_half_masked": 4, "fused_mlp_half": 8,
                 "fused_mlp_half_chunked": 0, "fused_attention": 2, "attn_half_bwd_dx": 0, "attn_half_bwd_dx_masked": 4,
-                "mlp_half_bwd_dx": 4,
+                "mlp_half_bwd_dx": 4, "tp_attn_half_partial": 0, "tp_attn_half_partial_masked": 0,
+                "tp_mlp_half_partial": 0,
             }, cuda_lib.LAUNCHES
         results[str(device)] = [loss.cpu()] + [leaf.detach().cpu() for leaf in param_leaves(agg)]
     for got, ref in zip(results["cuda"], results["cpu"]):
@@ -366,11 +369,182 @@ def test_slice_on_card_matches_cpu(cuda):
     cuda_lib.reset_launches()
     gpu = OVMRGenerator(cp, tclip.TINY, ap, dtype=torch.float32, device="cuda").generate(names, images)
     # serving launches every forward kernel of a TINY tower (its MLP half is
-    # K2, not the chunked K5) and no backward one
+    # K2, not the chunked K5) and no backward or tensor-parallel one
     for name, count in cuda_lib.LAUNCHES.items():
-        idle = name.endswith(("bwd_dx", "bwd_dx_masked")) or name == "fused_mlp_half_chunked"
+        idle = (name.endswith(("bwd_dx", "bwd_dx_masked")) or name == "fused_mlp_half_chunked"
+                or name.startswith("tp_"))
         assert (count == 0) == idle, cuda_lib.LAUNCHES
     cpu = OVMRGenerator(cp, tclip.TINY, ap, dtype=torch.float32, device="cpu").generate(names, images)
     for key in ("mm_classifier", "vision_classifier", "text_classifier", "visual_tokens"):
         np.testing.assert_allclose(gpu[key], cpu[key], atol=1e-4, err_msg=key)
     np.testing.assert_allclose(gpu["fusion_weight"], cpu["fusion_weight"], atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: K7, K8 and the TP block
+# ---------------------------------------------------------------------------
+
+
+def _tp_shard(d, dl, hl, dtype, device, seed, zero_heads=False):
+    """One shard's tensors; ``zero_heads``: the q/k/v/out weights of an
+    all-zero padded head shard."""
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*s, std, pad=False):
+        t = torch.randn(*s, generator=g) * std
+        return (t * 0 if pad and zero_heads else t).to(device, dtype)
+
+    return {
+        "w_q": r(d, dl, std=d ** -0.5, pad=True), "b_q": r(dl, std=0.02, pad=True),
+        "w_k": r(d, dl, std=d ** -0.5, pad=True), "b_k": r(dl, std=0.02, pad=True),
+        "w_v": r(d, dl, std=d ** -0.5, pad=True), "b_v": r(dl, std=0.02, pad=True),
+        "w_out": r(dl, d, std=dl ** -0.5, pad=True),
+        "ln_s": 1 + r(d, std=0.1), "ln_b": r(d, std=0.1),
+        "c_fc_w": r(d, hl, std=d ** -0.5), "c_fc_b": r(hl, std=0.02),
+        "c_proj_w": r(hl, d, std=hl ** -0.5),
+    }
+
+
+def _check_partial(got, ref, dtype):
+    """An fp32 partial against its plain twin, at the tolerance of the
+    input dtype (bf16/fp16 heads or hidden values may round to neighbours)."""
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype == torch.float32 and got.shape == ref.shape
+    assert torch.isfinite(got).all()
+    peak = max(float(ref.abs().max()), 1.0)
+    bits = MANTISSA[dtype]
+    tol = 1e-5 * peak if bits is None else 2.0 * 2.0 ** (math.floor(math.log2(peak)) - bits)
+    err = float((got - ref).abs().max())
+    assert err <= tol, (err, tol)
+
+
+def _k7_args(x, s):
+    return (x, s["w_q"], s["b_q"], s["w_k"], s["b_k"], s["w_v"], s["b_v"], s["w_out"],
+            s["ln_s"], s["ln_b"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize(
+    "b,l,d,dl,nh,hl",
+    [(2, 77, 512, 64, 1, 256), (2, 197, 512, 128, 2, 512), (3, 77, 768, 384, 6, 1536),
+     (2, 197, 768, 384, 6, 1536), (1, 577, 1024, 512, 8, 2048), (2, 33, 40, 16, 2, 80)],
+)
+def test_tp_partials_match_plain(cuda, dtype, masked, b, l, d, dl, nh, hl):
+    """K7 and K8 against their plain twins at the shard widths of model
+    axis 2 (ViT-L/14@336px: text dl 384 / hl 1536, vision dl 512 / hl 2048;
+    ViT-B/16 vision 384) and at 64 and 128, at 77, 197 and 577 tokens."""
+    s = _tp_shard(d, dl, hl, dtype, cuda, seed=b * 1000 + l)
+    x = torch.randn(b, l, d, generator=torch.Generator().manual_seed(l)).to(cuda, dtype)
+    mask = causal_mask(l, device=cuda) if masked else None
+    cuda_lib.reset_launches()
+    a = _k7_args(x, s)
+    _check_partial(tbtp.tp_attn_half_partial(*a, mask=mask, n_head=nh),
+                   tbtp.tp_attn_half_partial_plain(*a, mask=mask, n_head=nh), dtype)
+    m = (x, s["c_fc_w"], s["c_fc_b"], s["c_proj_w"], s["ln_s"], s["ln_b"])
+    _check_partial(tbtp.tp_mlp_half_partial(*m), tbtp.tp_mlp_half_partial_plain(*m), dtype)
+    k7 = "tp_attn_half_partial_masked" if masked else "tp_attn_half_partial"
+    assert cuda_lib.LAUNCHES[k7] == 1 and cuda_lib.LAUNCHES["tp_mlp_half_partial"] == 1
+    assert cuda_lib.LAUNCH_SHAPES[(k7, (b, l, d, dl), str(dtype).removeprefix("torch."))] == 1
+    assert cuda_lib.LAUNCH_SHAPES[("tp_mlp_half_partial", (b, l, d, hl),
+                                   str(dtype).removeprefix("torch."))] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,l,d,dl,nh", [(2, 77, 768, 384, 6), (1, 577, 1024, 512, 8),
+                                         (2, 17, 64, 64, 1)])
+def test_tp_padded_shard_gives_exact_zeros(cuda, dtype, masked, b, l, d, dl, nh):
+    """A shard of zero-padded heads (split_clip_qkv's padding) contributes
+    an exact 0, masked or not."""
+    s = _tp_shard(d, dl, 4 * d, dtype, cuda, seed=l, zero_heads=True)
+    x = torch.randn(b, l, d, generator=torch.Generator().manual_seed(l)).to(cuda, dtype)
+    mask = causal_mask(l, device=cuda) if masked else None
+    got = tbtp.tp_attn_half_partial(*_k7_args(x, s), mask=mask, n_head=nh)
+    torch.cuda.synchronize()
+    assert got.shape == (b, l, d) and bool((got == 0).all())
+
+
+def test_tp_raw_wrappers_refuse_a_tensor_that_requires_grad(cuda):
+    s = _tp_shard(64, 64, 256, torch.float32, cuda, seed=1)
+    x = torch.randn(2, 9, 64, device=cuda, requires_grad=True)
+    calls = [
+        lambda: tbtp.tp_attn_half_partial(*_k7_args(x, s), n_head=1),
+        lambda: tbtp.tp_mlp_half_partial(x, s["c_fc_w"], s["c_fc_b"], s["c_proj_w"],
+                                         s["ln_s"], s["ln_b"]),
+        lambda: tbtp.tp_mlp_half_partial(x.detach(), s["c_fc_w"].clone().requires_grad_(True),
+                                         s["c_fc_b"], s["c_proj_w"], s["ln_s"], s["ln_b"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+    with torch.no_grad():
+        for call in calls:
+            assert not call().requires_grad
+
+
+def _tp_layer(m, n_head, seed):
+    """One TINY_TP vision layer (D 128, 2 heads of 64), split, head-padded
+    for ``m`` and placed as local shards, on the CPU."""
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.parallel import ModelAxis, shard_block
+
+    cp = tclip.init_params(tclip.TINY_TP, seed=seed)
+    p = {k: v[0] for k, v in cp["visual"]["blocks"].items()}
+    g = torch.Generator().manual_seed(seed)
+    for k in ("b_qkv", "b_out", "c_fc_b", "c_proj_b", "ln_1_bias", "ln_2_bias"):
+        p[k] = 0.05 * torch.randn(p[k].shape, generator=g)
+    sp = tbtp.pad_head_shards(tbtp.split_qkv_blocks(p), 128 // n_head, m)
+    axis = ModelAxis.local(m)
+    return axis, shard_block(sp, axis, stacked=False)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("masked", [False, True])
+def test_tp_block_gradients_on_card_match_cpu(cuda, m, masked):
+    """The TP block (local shards, m=2 and head-padded m=4) on the card (K7,
+    K8 forward) against the CPU (plain twins): output, dx and every weight
+    gradient within 1e-4 of their scale, through two stacked layers."""
+    n_head = 2
+    layers = [_tp_layer(m, n_head, seed) for seed in (0, 1)]
+    axis = layers[0][0]
+    block = tbtp.make_tp_block(axis)
+    x0 = torch.randn(3, 17, 128, generator=torch.Generator().manual_seed(5))
+    results = {}
+    for device in ("cpu", cuda):
+        ps = [{k: v.clone().to(device).requires_grad_(True) for k, v in p.items()}
+              for _, p in layers]
+        x = x0.clone().to(device).requires_grad_(True)
+        mask = causal_mask(17, device=device) if masked else None
+        cuda_lib.reset_launches()
+        y = x
+        for p in ps:
+            y = block(y, p, n_head, mask)
+        (y.transpose(0, 1) ** 2).sum().backward()
+        if device != "cpu":
+            k7 = "tp_attn_half_partial_masked" if masked else "tp_attn_half_partial"
+            assert cuda_lib.LAUNCHES[k7] == 2 * m and cuda_lib.LAUNCHES["tp_mlp_half_partial"] == 2 * m
+        results[str(device)] = [y.detach().cpu(), x.grad.cpu()] + [
+            p[k].grad.cpu() for p in ps for k in tbtp.TP_KEYS]
+    for got, ref in zip(results["cuda"], results["cpu"]):
+        scale = max(float(ref.abs().max()), 1.0)
+        assert float((got - ref).abs().max()) <= 1e-4 * scale
+
+
+def test_tp_route_sends_a_shard_above_a_cutoff_to_torch_math(cuda, monkeypatch):
+    """With both cutoffs below the shard's weights the block takes the
+    torch-math partials: no K7 or K8 is counted, and the result equals the
+    CPU's."""
+    monkeypatch.setattr(tbtp, "_ATTN_W_CUTOFF", 0)
+    monkeypatch.setattr(tbtp, "_MLP_W_CUTOFF", 0)
+    assert tbtp.tp_route(128, 64, 256) == (False, False)
+    axis, p = _tp_layer(2, 2, seed=3)
+    block = tbtp.make_tp_block(axis)
+    x = torch.randn(2, 17, 128, generator=torch.Generator().manual_seed(2))
+    ref = block(x, p, 2)
+    cuda_lib.reset_launches()
+    with torch.no_grad():
+        got = block(x.to(cuda), {k: v.to(cuda) for k, v in p.items()}, 2)
+    torch.cuda.synchronize()
+    assert not any(cuda_lib.LAUNCHES.values()), cuda_lib.LAUNCHES
+    assert float((got.cpu() - ref).abs().max()) <= 1e-4 * max(float(ref.abs().max()), 1.0)

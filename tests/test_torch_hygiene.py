@@ -29,7 +29,9 @@ def test_port_imports_no_jax_and_nothing_of_ovmr_tpu():
     assert len(files) > 20
     names = {str(f.relative_to(ROOT)) for f in files}
     for module in ("ops/block_fused_bwd.py", "engine/train_step.py", "engine/optimizers.py",
-                   "engine/schedule.py", "engine/checkpoint.py", "ops/block_fused.py"):
+                   "engine/schedule.py", "engine/checkpoint.py", "ops/block_fused.py",
+                   "ops/block_fused_tp.py", "parallel/mesh.py", "engine/trainer.py",
+                   "ops/preprocess.py"):
         assert f"ovmr_tpu_torch/{module}" in names, module
     bad = []
     for path in files:

@@ -179,6 +179,7 @@ def test_launch_counts_by_shape():
         "fused_attn_half", "fused_attn_half_masked", "fused_mlp_half",
         "fused_mlp_half_chunked", "fused_attention",
         "attn_half_bwd_dx", "attn_half_bwd_dx_masked", "mlp_half_bwd_dx",
+        "tp_attn_half_partial", "tp_attn_half_partial_masked", "tp_mlp_half_partial",
     }
     for name in ("attn_half_bwd_dx", "attn_half_bwd_dx_masked", "mlp_half_bwd_dx"):
         cuda_lib.count_launch(name, x)
@@ -188,6 +189,9 @@ def test_launch_counts_by_shape():
     assert cuda_lib.LAUNCH_SHAPES[
         cuda_lib.shape_key("fused_mlp_half", (2, 9, 64), torch.bfloat16)] == 2
     assert cuda_lib.LAUNCH_SHAPES[("fused_attention", (1, 2, 9, 64), "float32")] == 1
+    # a tensor-parallel partial is keyed by its shard's width too
+    cuda_lib.count_launch("tp_mlp_half_partial", x, shape=(2, 9, 64, 128))
+    assert cuda_lib.LAUNCH_SHAPES[("tp_mlp_half_partial", (2, 9, 64, 128), "bfloat16")] == 1
     cuda_lib.reset_launches()
     assert not cuda_lib.LAUNCH_SHAPES and not any(cuda_lib.LAUNCHES.values())
 
