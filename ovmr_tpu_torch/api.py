@@ -31,10 +31,10 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ovmr_tpu_torch.engine.trainer import encode_features, mm_generate_classifiers
 from ovmr_tpu_torch.models import clip as tclip
 from ovmr_tpu_torch.models import ovmr
 from ovmr_tpu_torch.models.aggregator import init_aggregator
-from ovmr_tpu_torch.ops.layers import l2_normalize
 
 
 def resolve_device(device) -> torch.device:
@@ -114,12 +114,8 @@ class OVMRGenerator:
         encoded ``batch_size`` images at a time."""
         images = torch.as_tensor(images)
         parts = [
-            l2_normalize(
-                tclip.encode_image(
-                    self.clip_params, self.clip_cfg,
-                    images[s : s + batch_size].to(self.device, self.dtype),
-                )
-            )
+            encode_features(self.clip_params, self.clip_cfg,
+                            images[s : s + batch_size].to(self.device), self.dtype)
             for s in range(0, images.shape[0], batch_size)
         ]
         return torch.cat(parts)
@@ -151,7 +147,8 @@ class OVMRGenerator:
         chunk_size: int = 2048,
         max_text_classes: Optional[int] = None,
     ) -> Dict[str, np.ndarray]:
-        """Exemplar features [N, K, D] (numpy or tensor) -> classifiers.
+        """Exemplar features [N, K, D] (numpy or tensor) -> classifiers, by
+        :func:`ovmr_tpu_torch.engine.trainer.mm_generate_classifiers`.
 
         Class counts above ``chunk_size`` run the class axis in chunks
         (:func:`ovmr.generate_classifiers_chunked`, bounding text-tower
@@ -160,45 +157,11 @@ class OVMRGenerator:
         guard: at or above it the frozen text head and the fusion are
         skipped (keys absent from the result)."""
         ptok, eot, vtok = ovmr.build_prompt_tokens(classnames)
-        n = len(classnames)
         limit = ovmr.TEXT_CLS_MAX_CLASSES if max_text_classes is None else int(max_text_classes)
-        include_text = n < limit
-        if not include_text:
-            warnings.warn(
-                f"Skipping frozen text classifier: {n} classes >= "
-                f"max_text_classes ({limit}); text_classifier/fusion_weight omitted."
-            )
-        cp, cfg, ap = self.clip_params, self.clip_cfg, self.agg_params
-        feats = torch.as_tensor(exemplar_feats, device=self.device).to(self.dtype)
-        dev = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
-        vtok_dev = dev(vtok)
-
-        if n <= chunk_size and include_text:
-            t_cls = ovmr.text_classifier(cp, cfg, dev(ptok))
-            out = ovmr.generate_classifiers_from_feats(
-                cp, cfg, ap, feats, dev(ptok), dev(eot), vtok_dev, t_cls, eval_tau=eval_tau
-            )
-            return {key: v.float().cpu().numpy() for key, v in out.items()}
-
-        def heads_fn(f, pt, et):
-            pe, ve = ovmr.prompt_embeddings(cp, f, pt, vtok_dev)
-            return ovmr.classifier_heads(cp, cfg, ap, f, pe, ve, et)
-
-        out = ovmr.generate_classifiers_chunked(
-            feats, ptok, eot, vtok, chunk_size, heads_fn,
-            text_fn=(lambda pt: ovmr.text_classifier(cp, cfg, pt)) if include_text else None,
+        return mm_generate_classifiers(
+            self.clip_params, self.clip_cfg, self.agg_params, exemplar_feats, ptok, eot, vtok,
+            eval_tau, class_chunk=chunk_size, class_pad_multiple=1, text_cls_max_classes=limit,
         )
-        if include_text:
-            out["fusion_weight"] = (
-                ovmr.fusion_from_classifiers(
-                    feats, dev(out["mm_classifier"]), dev(out["vision_classifier"]),
-                    dev(out["text_classifier"]), cp["logit_scale"].float().exp(),
-                    float(eval_tau),
-                )
-                .cpu()
-                .numpy()
-            )
-        return out
 
     @torch.inference_mode()
     def classify(

@@ -12,6 +12,10 @@ itself comes with the trainer work):
   from exemplar features, class-chunked, with the text-head guard, the
   preference fusion and the export.
 
+:func:`encode_features` and :func:`mm_generate_classifiers` are also the
+bodies of :class:`ovmr_tpu_torch.api.OVMRGenerator`'s encode and
+generation, with the single-device block.
+
 Under a model axis the JAX package runs its seams inside ``shard_map`` over
 'model' and swaps the aggregator's Pallas attention for ``attention_xla``
 (``:195``, ``:269``) because ``pallas_call`` has no SPMD partitioning rule.
@@ -21,17 +25,17 @@ kernels itself, so the aggregator keeps its kernel (K6) under TP too.
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from ovmr_tpu_torch.api import resolve_device
 from ovmr_tpu_torch.models import clip as tclip
 from ovmr_tpu_torch.models import ovmr
 from ovmr_tpu_torch.ops.block_fused import fused_residual_block
 from ovmr_tpu_torch.ops.layers import l2_normalize
-from ovmr_tpu_torch.ops.preprocess import normalize_u8
+from ovmr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD, normalize_u8
 from ovmr_tpu_torch.parallel.mesh import pad_to_multiple
 
 
@@ -51,6 +55,25 @@ def tp_seam_tools(axis, clip_params: dict, clip_cfg: tclip.CLIPConfig):
     return make_tp_block(axis), placed
 
 
+def encode_features(
+    clip_params: dict,
+    clip_cfg: tclip.CLIPConfig,
+    images: torch.Tensor,
+    dtype,
+    mean: Sequence[float] = CLIP_MEAN,
+    std: Sequence[float] = CLIP_STD,
+    block_fn=fused_residual_block,
+) -> torch.Tensor:
+    """Unit image features [n, D] in ``dtype``, on the device of
+    ``images``: a float NCHW batch is cast to ``dtype``, a uint8 NHWC batch
+    normalised with ``mean``/``std`` first."""
+    if images.dtype == torch.uint8:
+        x = normalize_u8(images, tuple(mean), tuple(std), dtype).permute(0, 3, 1, 2)
+    else:
+        x = images.to(dtype)
+    return l2_normalize(tclip.encode_image(clip_params, clip_cfg, x, block_fn=block_fn))
+
+
 def make_feature_extractor(
     clip_cfg: tclip.CLIPConfig,
     dtype,
@@ -62,7 +85,7 @@ def make_feature_extractor(
     tp_block_fn=None,
 ):
     """Returns ``encode(clip_params, images) -> L2-normalised fp32 features
-    [n, D]`` (numpy).
+    [n, D]`` (numpy), by :func:`encode_features`.
 
     ``images`` (numpy or tensor) is a float NCHW batch or a uint8 NHWC one,
     normalised on the device; with ``u8_normalize=False`` a uint8 batch is
@@ -71,10 +94,11 @@ def make_feature_extractor(
     padded with zeros to ``batch_size``, so the kernels run at one shape.
     With ``tp_block_fn`` (:func:`tp_seam_tools`) the vision tower runs the
     TP block on towers placed for its model axis."""
+    from ovmr_tpu_torch.api import resolve_device
+
     device = resolve_device(device)
     if not u8_normalize:
         mean, std = (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
-    mean, std = tuple(mean), tuple(std)
     block_fn = fused_residual_block if tp_block_fn is None else tp_block_fn
 
     @torch.inference_mode()
@@ -84,12 +108,8 @@ def make_feature_extractor(
         if n < batch_size:
             pad = images.new_zeros((batch_size - n, *images.shape[1:]))
             images = torch.cat([images, pad])
-        images = images.to(device)
-        if images.dtype == torch.uint8:
-            x = normalize_u8(images, mean, std, dtype).permute(0, 3, 1, 2)
-        else:
-            x = images.to(dtype)
-        feats = l2_normalize(tclip.encode_image(clip_params, clip_cfg, x, block_fn=block_fn))
+        feats = encode_features(clip_params, clip_cfg, images.to(device), dtype, mean, std,
+                                block_fn=block_fn)
         return feats.float().cpu().numpy()[:n]
 
     return encode
@@ -130,7 +150,7 @@ def mm_generate_classifiers(
     chunk = min(int(class_chunk), pad_to_multiple(n_cls, int(class_pad_multiple)))
     include_text = n_cls < int(text_cls_max_classes)
     if not include_text:
-        print(
+        warnings.warn(
             f"Skipping frozen text classifier: {n_cls} classes >= text_cls_max_classes "
             f"({text_cls_max_classes}, the reference >=5000-class guard). text/fusion eval "
             "modes are unavailable; mm_classifiers.pt will omit text_classifier and "
@@ -154,12 +174,11 @@ def mm_generate_classifiers(
         text_fn=text_fn if include_text else None,
     )
     if include_text:
-        rows = {k: torch.as_tensor(out[k], device=device)
-                for k in ("mm_classifier", "vision_classifier", "text_classifier")}
         out["fusion_weight"] = ovmr.fusion_from_classifiers(
-            feats, rows["mm_classifier"], rows["vision_classifier"], rows["text_classifier"],
+            feats, out["mm_classifier"], out["vision_classifier"], out["text_classifier"],
             clip_params["logit_scale"].float().exp(), float(eval_tau),
-        ).float().cpu().numpy()
+        ).float()
+    out = {k: v.cpu().numpy() for k, v in out.items()}
     if output_dir is not None:
         from ovmr_tpu_torch.engine.checkpoint import export_classifiers_torch
 

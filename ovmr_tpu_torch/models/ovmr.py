@@ -214,8 +214,9 @@ def generate_classifiers_chunked(
 ) -> dict:
     """The chunked classifier-generation recipe: pads the class axis to a
     multiple of ``chunk`` with the visual-template row, runs the per-chunk
-    callables and concatenates back to N rows (np.float32). Fusion is the
-    caller's job (it needs the full class set).
+    callables and concatenates back to N rows (fp32 tensors on the device,
+    so nothing waits for the device). Fusion is the caller's job (it needs
+    the full class set).
 
     ``exemplar_feats`` [N, K, D] is a device tensor in the compute dtype;
     ``heads_fn(feats [c,K,D], ptok [c,77], eot [c]) -> (mm, v, vokens)``;
@@ -250,7 +251,7 @@ def generate_classifiers_chunked(
         vt_parts.append(vt_c)
 
     def cat(parts):
-        return torch.cat(parts).float().cpu().numpy()[:n_cls]
+        return torch.cat(parts).float()[:n_cls]
 
     out = {
         "mm_classifier": cat(mm_parts),

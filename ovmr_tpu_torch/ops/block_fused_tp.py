@@ -22,6 +22,9 @@ residual:
 process holds in shard order, then an all-reduce over the process group)
 and adds the bias and the residual once:
 ``y = x + T(sum_j K7_j(x) + b_out)``, ``z = y + T(sum_j K8_j(y) + c_proj_b)``.
+The TPU module sends a shard whose weights exceed its VMEM residency
+cutoffs to an XLA partial (``_tp_flavor`` :433); K7 and K8 stream their
+weights from HBM through the GEMM, so here every shard size takes them.
 
 Storage: the TP towers replace the packed ``w_qkv``/``b_qkv`` leaves with
 ``w_q/w_k/w_v [D, D]`` and ``b_q/b_k/b_v [D]`` (:func:`split_qkv_blocks`),
@@ -54,7 +57,6 @@ from ovmr_tpu_torch.ops.block_fused import (
     _EPI_BIAS,
     _EPI_BIAS_GELU,
     _EPI_F32,
-    _MLP_W_CUTOFF,
     _check_block_args,
     _gemm,
     _layer_norm,
@@ -69,11 +71,6 @@ from ovmr_tpu_torch.ops.layers import (
     quick_gelu,
     split_heads,
 )
-
-# The attention tier of the TPU module's routing (``ovmr_tpu/ops/
-# block_fused.py:347``): a shard's attention weights stay resident up to
-# this many bytes of bf16 (the MLP tier is block_fused._MLP_W_CUTOFF).
-_ATTN_W_CUTOFF = 9 * 1024 * 1024
 
 # --------------------------------------------------------------------------
 # layout: packed qkv -> split q/k/v (contiguous shards are head groups)
@@ -265,7 +262,7 @@ def tp_mlp_half_partial(x, c_fc_w, c_fc_b, c_proj_w, ln_s, ln_b):
 
 
 # --------------------------------------------------------------------------
-# torch math on the split layout (the route above the cutoffs, and backward)
+# torch math on the split layout (backward's recompute)
 # --------------------------------------------------------------------------
 
 
@@ -287,48 +284,13 @@ def _mlp_partial_torch(y, p):
     return matmul_f32(h, p["c_proj_w"].to(h.dtype))
 
 
-def split_layout_block(x, p, n_head, mask=None):
-    """The whole (unsharded) block in torch math on the split-qkv layout
-    (``tp_gspmd_block`` :395): one shard's partials plus the biases and
-    residuals, which is the packed block's arithmetic with q, k and v as
-    three products. ``n_head`` is the model's unpadded head count; the count
-    is taken again from the leaves, so a head-padded layout runs unchanged."""
-    n_head = p["w_q"].shape[-1] // (x.shape[-1] // n_head)
-    y = x + (_attn_partial_torch(x, p, n_head, mask) + p["b_out"].float()).to(x.dtype)
-    return y + (_mlp_partial_torch(y, p) + p["c_proj_b"].float()).to(x.dtype)
-
-
-def split_layout_block_remat(x, p, n_head, mask=None):
-    """:func:`split_layout_block` with per-layer rematerialisation
-    (``tp_gspmd_block_remat`` :420), for a differentiated tower."""
-    from torch.utils.checkpoint import checkpoint
-
-    return checkpoint(lambda x_: split_layout_block(x_, p, n_head, mask), x,
-                      use_reentrant=False)
-
-
 # --------------------------------------------------------------------------
 # the TP block
 # --------------------------------------------------------------------------
 
 
-def tp_route(d: int, dl: int, hl: int):
-    """(K7 for the attention half, K8 for the MLP half) for a shard of head
-    width ``dl`` and hidden width ``hl`` at width ``d`` (``_tp_flavor``
-    :433): a half takes its kernel while the shard's weights stay under the
-    TPU module's residency cutoff, else the torch-math partial. Decided on
-    2-byte sizes whatever the dtype, so an fp32 check of a path runs the
-    kernels of the bf16 path it checks."""
-    attn_w = (3 * d * dl + dl * d) * 2
-    mlp_w = (d * hl + hl * d) * 2
-    return attn_w <= _ATTN_W_CUTOFF, mlp_w <= _MLP_W_CUTOFF
-
-
 def _attn_partial(x, p, nh_local, mask):
-    """Shard ``p``'s attention partial as :func:`tp_route` sends it
-    (``_tp_halves`` :457)."""
-    if not tp_route(x.shape[-1], p["w_q"].shape[-1], p["c_fc_w"].shape[-1])[0]:
-        return _attn_partial_torch(x, p, nh_local, mask)
+    """Shard ``p``'s attention partial: K7 (its plain twin on the CPU)."""
     return tp_attn_half_partial(
         x, p["w_q"], p["b_q"], p["w_k"], p["b_k"], p["w_v"], p["b_v"], p["w_out"],
         p["ln_1_scale"], p["ln_1_bias"], mask=mask, n_head=nh_local,
@@ -336,9 +298,7 @@ def _attn_partial(x, p, nh_local, mask):
 
 
 def _mlp_partial(y, p):
-    """Shard ``p``'s MLP partial as :func:`tp_route` sends it."""
-    if not tp_route(y.shape[-1], p["w_q"].shape[-1], p["c_fc_w"].shape[-1])[1]:
-        return _mlp_partial_torch(y, p)
+    """Shard ``p``'s MLP partial: K8 (its plain twin on the CPU)."""
     return tp_mlp_half_partial(
         y, p["c_fc_w"], p["c_fc_b"], p["c_proj_w"], p["ln_2_scale"], p["ln_2_bias"]
     )
@@ -352,7 +312,7 @@ def _shard(p: dict, j: int) -> dict:
 class _TPBlock(torch.autograd.Function):
     """The block over this process's shards (``_tp_block`` :505-548).
 
-    Forward: per shard K7 (or its torch-math route), the partials reduced
+    Forward: per shard K7, the partials reduced
     over the model axis, then bias and residual; the same for K8. Backward
     recomputes each shard's partials in torch math (the recompute policy of
     the single-device block) and reduces the dx partials over the axis the

@@ -531,20 +531,32 @@ def test_tp_block_gradients_on_card_match_cpu(cuda, m, masked):
         assert float((got - ref).abs().max()) <= 1e-4 * scale
 
 
-def test_tp_route_sends_a_shard_above_a_cutoff_to_torch_math(cuda, monkeypatch):
-    """With both cutoffs below the shard's weights the block takes the
-    torch-math partials: no K7 or K8 is counted, and the result equals the
-    CPU's."""
-    monkeypatch.setattr(tbtp, "_ATTN_W_CUTOFF", 0)
-    monkeypatch.setattr(tbtp, "_MLP_W_CUTOFF", 0)
-    assert tbtp.tp_route(128, 64, 256) == (False, False)
-    axis, p = _tp_layer(2, 2, seed=3)
+def test_tp_block_takes_the_kernels_at_every_shard_size(cuda):
+    """One shard at ViT-L/14's width (the axis a one-rank process group
+    gives): its MLP weights, 16 MiB in bf16, are above the TPU module's
+    residency cutoff, and the card still runs K7 and K8 for it, matching the
+    CPU within 1e-4 of the output's scale."""
+    from ovmr_tpu_torch.parallel import ModelAxis, shard_block
+
+    d, n_head = 1024, 16
+    s = _tp_shard(d, d, 4 * d, torch.float32, "cpu", seed=7)
+    g = torch.Generator().manual_seed(8)
+    p = {k: s[k] for k in ("w_q", "b_q", "w_k", "b_k", "w_v", "b_v", "w_out",
+                           "c_fc_w", "c_fc_b", "c_proj_w")}
+    p.update(ln_1_scale=s["ln_s"], ln_1_bias=s["ln_b"],
+             ln_2_scale=1 + 0.1 * torch.randn(d, generator=g), ln_2_bias=0.1 * torch.randn(d, generator=g),
+             b_out=0.02 * torch.randn(d, generator=g), c_proj_b=0.02 * torch.randn(d, generator=g))
+    axis = ModelAxis.local(1)
+    p = shard_block(p, axis, stacked=False)
     block = tbtp.make_tp_block(axis)
-    x = torch.randn(2, 17, 128, generator=torch.Generator().manual_seed(2))
-    ref = block(x, p, 2)
+    x = torch.randn(2, 17, d, generator=g)
+    ref = block(x, p, n_head)
     cuda_lib.reset_launches()
     with torch.no_grad():
-        got = block(x.to(cuda), {k: v.to(cuda) for k, v in p.items()}, 2)
+        got = block(x.to(cuda), {k: v.to(cuda) for k, v in p.items()}, n_head)
     torch.cuda.synchronize()
-    assert not any(cuda_lib.LAUNCHES.values()), cuda_lib.LAUNCHES
+    assert cuda_lib.LAUNCH_SHAPES == {
+        ("tp_attn_half_partial", (2, 17, d, d), "float32"): 1,
+        ("tp_mlp_half_partial", (2, 17, d, 4 * d), "float32"): 1,
+    }, cuda_lib.LAUNCH_SHAPES
     assert float((got.cpu() - ref).abs().max()) <= 1e-4 * max(float(ref.abs().max()), 1.0)

@@ -8,10 +8,12 @@ on the same numpy inputs, at the shapes of ``tests/test_block_fused_tp.py``
   interpret mode, masked and unmasked (fp32 atol 1e-5, bf16 1e-2);
 - the layout helpers and the converter against JAX's, exactly, a
   head-padded tower included;
-- the TP block on local shards (m = 2, and head-padded m = 2 and 4) against
-  JAX ``make_tp_block`` under ``shard_map`` on the virtual CPU mesh and
-  against the single-device block: forward 1e-5, dx and weight gradients
-  1e-4.
+- the torch-math partials of the TP block's backward against JAX's XLA
+  partials: forward 1e-5, dx 1e-4;
+- the TP block on local shards (m = 1 and 2, and head-padded m = 2 and 4)
+  against JAX ``make_tp_block`` under ``shard_map`` on the virtual CPU mesh
+  and against the single-device block: forward 1e-5, dx and weight
+  gradients 1e-4.
 
 On the CPU every wrapper takes its plain version; the CUDA kernels run in
 ``tests/test_torch_cuda.py`` on a card.
@@ -27,7 +29,6 @@ from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
 from ovmr_tpu.models import clip as jclip
-from ovmr_tpu.ops import block_fused as jbf
 from ovmr_tpu.ops import block_fused_tp as jtp
 from ovmr_tpu.ops.layers import causal_mask as j_causal_mask
 from ovmr_tpu.ops.layers import residual_attention_block as j_block
@@ -221,30 +222,35 @@ def test_model_axis_reduce_and_shards():
 
 
 # --------------------------------------------------------------------------
-# route
+# backward's torch-math partials against JAX's XLA partials
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["ViT-B/16", "ViT-L/14", "ViT-L/14@336px", "TINY_TP"])
-@pytest.mark.parametrize("m", [1, 2, 4, 8])
-def test_route_matches_the_jax_selector(name, m):
-    """K7/K8 or torch math, for both towers of every config at model axes
-    1-8, as ``_tp_flavor`` decides it on the TPU (bf16; fp32 decides the
-    same in the port)."""
-    cfg = tclip.CONFIGS[name]
-    for d, heads in ((cfg.vision_width, cfg.vision_heads),
-                     (cfg.transformer_width, cfg.transformer_heads)):
-        dl = d // heads * -(-heads // m)
-        hl = 4 * d // m
-        x = jax.ShapeDtypeStruct((2, 77, d), jnp.bfloat16)
-        p = {"w_q": jax.ShapeDtypeStruct((d, dl), jnp.bfloat16),
-             "c_fc_w": jax.ShapeDtypeStruct((d, hl), jnp.bfloat16)}
-        _, attn_w, mlp_w = jtp._tp_flavor(x, p, interpret=True)
-        assert ttp.tp_route(d, dl, hl) == (attn_w <= jbf._ATTN_W_CUTOFF,
-                                           mlp_w <= jbf._MLP_W_CUTOFF), (name, m, d)
-    if name == "ViT-L/14@336px" and m == 2:  # this slice's configuration: every layer K7, K8
-        assert ttp.tp_route(1024, 512, 2048) == (True, True)
-        assert ttp.tp_route(768, 384, 1536) == (True, True)
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "causal"])
+@pytest.mark.parametrize("m,n_head,shard", [(1, 2, 0), (2, 2, 1), (2, 1, 0), (2, 1, 1)])
+def test_torch_math_partials_match_jax_xla(layer_np, x_np, masked, m, n_head, shard):
+    """The partials the TP block's backward recomputes, against JAX's
+    ``_attn_partial_xla``/``_mlp_partial_xla`` on the same shard (a padded
+    shard of zero heads included), and their dx against JAX's VJP."""
+    s = _shard_np(_np_tree(_j_split(layer_np, m, n_head)), m, shard)
+    nh = s["w_q"].shape[-1] // (D // n_head)
+    jmask = j_causal_mask(L) if masked else None
+    tmask = causal_mask(L) if masked else None
+    js = {k: jnp.asarray(v) for k, v in s.items()}
+    ts = {k: torch.tensor(v) for k, v in s.items()}
+    x = torch.tensor(x_np, requires_grad=True)
+    cot = np.random.RandomState(5).randn(*x_np.shape).astype(np.float32)
+    for jfn, tfn in ((lambda x_: jtp._attn_partial_xla(x_, js, nh, jmask),
+                      lambda x_: ttp._attn_partial_torch(x_, ts, nh, tmask)),
+                     (lambda x_: jtp._mlp_partial_xla(x_, js),
+                      lambda x_: ttp._mlp_partial_torch(x_, ts))):
+        ref, vjp = jax.vjp(jfn, jnp.asarray(x_np))
+        got = tfn(x)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+        (dx,) = torch.autograd.grad(got, x, torch.tensor(cot))
+        np.testing.assert_allclose(dx.numpy(), np.asarray(vjp(jnp.asarray(cot))[0]),
+                                   atol=1e-4, rtol=0)
 
 
 # --------------------------------------------------------------------------
@@ -277,7 +283,9 @@ def _j_tp(x, split, m, n_head, mask, interpret, cot=None):
     ))(x, split))
 
 
-CASES = [(2, 2), (2, 1), (4, 2)]  # (m, n_head): m=2 unpadded, head-padded 1 -> 2 and 2 -> 4
+# (m, n_head): one shard (a one-rank process group), m=2 unpadded, and
+# head-padded 1 -> 2 and 2 -> 4
+CASES = [(1, 2), (2, 2), (2, 1), (4, 2)]
 
 
 @pytest.mark.parametrize("m,n_head", CASES)
@@ -350,28 +358,6 @@ def test_tp_block_refuses_bad_heads_and_unplaced_shards(layer_np, x_np):
         block(x, _t_split(layer_np, 2, 2), 2)  # not placed: w_q is [D, D]
     with pytest.raises(ValueError, match="split/pad"):
         block(x, shard_block(_t_split(layer_np, 1, 1), axis, stacked=False), 1)
-
-
-@pytest.mark.parametrize("n_head,m", [(2, 1), (1, 2), (2, 4)])
-def test_split_layout_block_matches_packed(layer_np, x_np, n_head, m):
-    """The whole-block torch math on the split layout (padded or not)
-    equals the packed block, and JAX's ``tp_gspmd_block``, and its remat
-    form gives the same values and dx."""
-    p = {k: torch.tensor(v) for k, v in layer_np.items()}
-    split = _t_split(layer_np, m, n_head)
-    x = torch.tensor(x_np)
-    ref = residual_attention_block(x, p, n_head, causal_mask(L))
-    got = ttp.split_layout_block(x, split, n_head, causal_mask(L))
-    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-6, rtol=0)
-    jref = jtp.tp_gspmd_block(jnp.asarray(x_np), _j_split(layer_np, m, n_head), n_head,
-                              j_causal_mask(L))
-    np.testing.assert_allclose(got.numpy(), np.asarray(jref), atol=1e-5, rtol=0)
-    xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
-    ttp.split_layout_block(xa, split, n_head).sum().backward()
-    out = ttp.split_layout_block_remat(xb, split, n_head)
-    out.sum().backward()
-    assert torch.equal(out.detach(), ttp.split_layout_block(x, split, n_head))
-    assert torch.equal(xa.grad, xb.grad)
 
 
 def test_tower_runs_the_tp_block(x_np):

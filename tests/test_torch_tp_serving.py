@@ -163,14 +163,48 @@ def test_tp_generation_matches_jax_heads_under_shard_map(models, generated):
         np.testing.assert_allclose(tp[key], np.asarray(ref), atol=2e-5, rtol=0, err_msg=key)
 
 
-def test_generation_skips_the_text_head_at_the_guard(models, tmp_path, capsys):
+def test_generation_skips_the_text_head_at_the_guard(models, tmp_path):
     ptok, eot, vtok = build_prompt_tokens(NAMES)
-    out = ttrainer.mm_generate_classifiers(
-        models["t_tp_params"], tclip.TINY_TP, models["t_ap"], _feats(), ptok, eot, vtok,
-        eval_tau=10.0, block_fn=models["t_block"], text_cls_max_classes=3,
-        class_chunk=2, output_dir=str(tmp_path),
-    )
-    assert "Skipping frozen text classifier" in capsys.readouterr().out
+    with pytest.warns(UserWarning, match="Skipping frozen text classifier"):
+        out = ttrainer.mm_generate_classifiers(
+            models["t_tp_params"], tclip.TINY_TP, models["t_ap"], _feats(), ptok, eot, vtok,
+            eval_tau=10.0, block_fn=models["t_block"], text_cls_max_classes=3,
+            class_chunk=2, output_dir=str(tmp_path),
+        )
     assert set(out) == {"mm_classifier", "vision_classifier", "visual_tokens"}
     assert out["mm_classifier"].shape == (3, 64)
     assert (tmp_path / "mm_classifiers.pt").is_file() and (tmp_path / "visual_tokens.pt").is_file()
+
+
+@pytest.mark.parametrize("class_chunk", [2, 2048])
+@pytest.mark.parametrize("pad_multiple", [1, 4, 8])
+def test_padded_classes_change_no_real_class(models, generated, class_chunk, pad_multiple):
+    """The classes added to fill a chunk or a pad multiple are cut away
+    again: with the TP block, every chunking and padding of the 3 classes
+    gives the unpadded, unchunked artifact (to fp32 rounding of the fusion's
+    logits)."""
+    feats, (ptok, eot, vtok), tp, _ = generated
+    got = ttrainer.mm_generate_classifiers(
+        models["t_tp_params"], tclip.TINY_TP, models["t_ap"], feats, ptok, eot, vtok,
+        eval_tau=10.0, block_fn=models["t_block"], class_chunk=class_chunk,
+        class_pad_multiple=pad_multiple,
+    )
+    for key in KEYS:
+        np.testing.assert_allclose(got[key], tp[key], atol=1e-6, rtol=0, err_msg=key)
+
+
+@pytest.mark.parametrize("kind", ["float", "uint8"])
+def test_generator_and_extractor_encode_alike(models, kind):
+    """``OVMRGenerator.encode_images`` and the single-device extractor run
+    one encode (``encode_features``): equal features for the same batch."""
+    rng = np.random.RandomState(7)
+    if kind == "float":
+        images = rng.randn(5, 3, 32, 32).astype(np.float32)
+    else:
+        images = rng.randint(0, 256, size=(5, 32, 32, 3)).astype(np.uint8)
+    gen = OVMRGenerator(models["t_cp"], tclip.TINY_TP, models["t_ap"],
+                        dtype=torch.float32, device="cpu")
+    enc = ttrainer.make_feature_extractor(tclip.TINY_TP, torch.float32, MEAN, STD,
+                                          batch_size=5, device="cpu")
+    np.testing.assert_array_equal(gen.encode_images(images, batch_size=5),
+                                  enc(models["t_cp"], images))
