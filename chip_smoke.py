@@ -17,7 +17,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    192 prompts of a class-grouped batch K1-causal, K2 and the dx backward
    kernels K3 (masked and unmasked) and K4, in bf16 and fp32. Serving at
    ViT-L/14@336px (last, so the earlier cases run as they always did): K1
-   (vision, 577 tokens x 1024, 16 heads: the key-tiled attention core) and
+   (vision, 577 tokens x 1024, 16 heads) and
    K5 (the chunked MLP half, 2 chunks) at generate()'s 512 exemplars and
    classify()'s 256 queries in bf16 and at the fp32 phase's 4 images, K2 at
    K5's shape as a second yardstick (on no path), K1-causal and K2 at the
@@ -28,7 +28,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    hidden 2048 at 512 and 256 images; text 6 heads, dl 384, hidden 1536,
    causal, at 32 prompts) in bf16 and at phase 10's 4 images and 8 prompts
    in fp32, and K7 on a shard of zero-padded heads, which must give exact
-   zeros. Each case is checked as soon as it
+   zeros. Beside every K1 and K7 case, the attention core those launch
+   (``attn_core``) alone at the same B, L, width and heads, with SDPA on
+   the same q/k/v as its library yardstick. Each case is checked as soon as it
    is built, and timed beside its plain version, one PyTorch library call
    chain computing the same function (a yardstick the port never calls; for K3 and K4
    ``torch.autograd.grad`` with respect to the input through the library
@@ -48,7 +50,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    recipe (192 classes x 8 instances, adam, lr 2e-4, aggregator dropout
    0.1, n_ctx=2): one warm-up step and three timed steps at the split
    points 4, 3, 5. Per step the launch counts are exact (K1 24, K1-causal
-   24, K2 48, K4 24, K3-masked 24, K6 0), the loss is finite, and on the
+   24 and their attention cores 48, K2 48, K4 24, K3-masked 24, K6 0), the
+   loss is finite, and on the
    first step every aggregator leaf has a finite non-zero gradient and
    changes. A second run from the same seeds, taken apart into image
    passes, heads forward, backward and optimizer (each ending in a
@@ -67,8 +70,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    two timed ``generate()`` requests of 32 classes x 16 exemplars, then
    ``classify()`` of 256 queries. Exact launch counts per kernel and shape
    (per request 24 K1 + 24 K5 at 512 images, 36 K1-causal + 36 K2 at 32
-   prompts, 4 K6), the request split, peak device memory, a torch.profiler
-   breakdown.
+   prompts, 4 K6; an attention core inside every K1), the request split,
+   peak device memory, a torch.profiler breakdown.
 8. The same path at fp32 on 2 classes x 2 shots, on the card and on the
    CPU: classifiers within 1e-4, fusion weights within 1e-3.
 9. The same ViT-L/14@336px towers (phase 7's, bf16) on a model axis of 2
@@ -77,7 +80,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    ``mm_generate_classifiers``): one warm-up and two timed requests of
    32 x 16, then 256 queries through the TP encode and ``eval_logits``.
    Launch counts exact per request (K7 48 at 512 images, K7-causal 72 and
-   K8 48 + 72, K6 4; K1, K2 and K5 none) and per classify; the classifiers
+   K8 48 + 72, K6 4, an attention core inside every K7; K1, K2 and K5
+   none) and per classify; the classifiers
    held against phase 7's for the same requests by a cosine floor; the
    request split and a torch.profiler breakdown.
 10. Phase 8's fp32 request and queries on the model axis on the card,
@@ -164,6 +168,8 @@ def kernel_checks(torch, F):
     from ovmr_tpu_torch.ops import cuda_lib
     from ovmr_tpu_torch.ops.attention import fused_attention, fused_attention_plain
     from ovmr_tpu_torch.ops.block_fused import (
+        attn_core,
+        attn_core_plain,
         fused_attn_half,
         fused_attn_half_plain,
         fused_mlp_half,
@@ -260,6 +266,29 @@ def kernel_checks(torch, F):
             bound_ms=b_ms, bound_by=b_by,
         ))
 
+    def check_core(case, b, l, w, h, mask, dtype, replaces, timing):
+        """The attention core alone at a K1 or K7 launch's shape: ``qkv [b, l,
+        3w]`` of unit variance, its ``h`` heads against the plain twin, and
+        as library SDPA on the same q/k/v (an additive mask where the
+        path has one)."""
+        qkv = randn(b, l, 3 * w).to(dtype)
+        q, k, v = qkv.view(b, l, 3, h, w // h).permute(2, 0, 3, 1, 4)
+        lib_mask = None if mask is None else mask.to(dtype)
+        pairs = l * (l + 1) // 2 if mask is not None else l * l
+        step = 64 if b * h * l * l * 4 > 2 ** 32 else b
+        check(dict(
+            name="attn_core", case=case, dtype=dtype, shape=[b, l, w, h], x=qkv,
+            key_shape=(b, l, w, h), source="ovmr_tpu_torch/csrc/block_fused.cu",
+            replaces=replaces,
+            kernel=lambda: attn_core(qkv, mask, h),
+            plain=sliced(lambda t: attn_core_plain(t, mask, h), qkv, step),
+            library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=lib_mask),
+            # q, k, v read and the heads written once; q.k and probs.v
+            bytes=4 * b * l * w * qkv.element_size() + (l * l * 4 if mask is not None else 0),
+            flops=4 * b * pairs * w,
+            peak=PEAK_BF16 if dtype != torch.float32 else PEAK_FP32, **timing,
+        ))
+
     params = {}
     both = (torch.bfloat16, torch.float32)
     bf16, fp32 = both[:1], both[1:]
@@ -321,6 +350,7 @@ def kernel_checks(torch, F):
                 flops=2 * tok * d * 4 * d + 4 * b * attn_pairs * d,
                 peak=peak, **timing,
             ))
+            check_core(case, b, l, d, h, mask, dtype, "ovmr_tpu/ops/block_fused.py:78", timing)
             mlp = dict(
                 case=case, dtype=dtype, shape=[b, l, d, 4 * d], x=x,
                 source="ovmr_tpu_torch/csrc/block_fused.cu",
@@ -401,11 +431,11 @@ def kernel_checks(torch, F):
                 reps=200,
             ))
 
-    tp_cases(torch, F, randn, check, sliced, both)
+    tp_cases(torch, F, randn, check, check_core, sliced, both)
     return results
 
 
-def tp_cases(torch, F, randn, check, sliced, both):
+def tp_cases(torch, F, randn, check, check_core, sliced, both):
     """K7 and K8 at the shard shapes of ViT-L/14@336px on a model axis of 2
     (vision: 8 heads, dl 512, hidden 2048; text: 6 heads, dl 384, hidden
     1536): the TP request's 512 exemplars and 32-prompt sets and the 256
@@ -493,6 +523,8 @@ def tp_cases(torch, F, randn, check, sliced, both):
                 + (l * l * 4 if masked else 0),
                 flops=2 * tok * d * 3 * dl + 4 * b * pairs * dl + 2 * tok * dl * d,
             ))
+            check_core(case, b, l, dl, nh, mask, dtype, "ovmr_tpu/ops/block_fused_tp.py:204",
+                       timing)
             m8 = (x, s["c_fc_w"], s["c_fc_b"], s["c_proj_w"], s["ln_2_scale"], s["ln_2_bias"])
             check(dict(
                 common, name="tp_mlp_half_partial", replaces="ovmr_tpu/ops/block_fused_tp.py:245",
@@ -647,8 +679,12 @@ def serving_slice(torch, np, tag, gen, n_requests, warmups=0):
                   else "fused_mlp_half")
     dt = str(gen.dtype).removeprefix("torch.")
     text_runs = n_requests * 3 * cfg.transformer_layers
+    vh, th = cfg.vision_heads, cfg.transformer_heads
     want = {
         ("fused_attn_half", (n_cls * shots, tokens, vw), dt): n_requests * cfg.vision_layers,
+        ("attn_core", (n_cls * shots, tokens, vw, vh), dt): n_requests * cfg.vision_layers,
+        ("attn_core", (n_queries, tokens, vw, vh), dt): cfg.vision_layers,
+        ("attn_core", (n_cls, cfg.context_length, tw, th), dt): text_runs,
         (vision_mlp, (n_cls * shots, tokens, vw), dt): n_requests * cfg.vision_layers,
         ("fused_attn_half", (n_queries, tokens, vw), dt): cfg.vision_layers,
         (vision_mlp, (n_queries, tokens, vw), dt): cfg.vision_layers,
@@ -760,9 +796,11 @@ def tp_vision_launches(cfg, dtype, batch):
     """K7 and K8 once a shard in every vision layer, for ``batch`` images."""
     dt = str(dtype).removeprefix("torch.")
     vw, tokens = cfg.vision_width, cfg.num_patches + 1
-    dl = vw // cfg.vision_heads * -(-cfg.vision_heads // TP_SIZE)
+    nh = -(-cfg.vision_heads // TP_SIZE)
+    dl = vw // cfg.vision_heads * nh
     per = cfg.vision_layers * TP_SIZE
     return {("tp_attn_half_partial", (batch, tokens, vw, dl), dt): per,
+            ("attn_core", (batch, tokens, dl, nh), dt): per,
             ("tp_mlp_half_partial", (batch, tokens, vw, 4 * vw // TP_SIZE), dt): per}
 
 
@@ -775,11 +813,13 @@ def tp_request_launches(cfg, dtype, n_cls, shots):
 
     dt = str(dtype).removeprefix("torch.")
     tw, n = cfg.transformer_width, pad_to_multiple(n_cls, 8)
-    dl = tw // cfg.transformer_heads * -(-cfg.transformer_heads // TP_SIZE)
+    nh = -(-cfg.transformer_heads // TP_SIZE)
+    dl = tw // cfg.transformer_heads * nh
     per = 3 * cfg.transformer_layers * TP_SIZE
     return {
         **tp_vision_launches(cfg, dtype, n_cls * shots),
         ("tp_attn_half_partial_masked", (n, cfg.context_length, tw, dl), dt): per,
+        ("attn_core", (n, cfg.context_length, dl, nh), dt): per,
         ("tp_mlp_half_partial", (n, cfg.context_length, tw, 4 * tw // TP_SIZE), dt): per,
         ("fused_attention", (n, cfg.embed_dim // 64, shots + 2, 64), dt): 4,
     }
@@ -1025,6 +1065,7 @@ def training_slice(torch, np, clip_params, agg_params):
     expected = {
         "fused_attn_half": 2 * cfg.vision_layers,   # two image passes
         "fused_attn_half_masked": 2 * layers,       # the mm and v prompt sets
+        "attn_core": 2 * cfg.vision_layers + 2 * layers,  # inside each K1
         "fused_mlp_half": 2 * cfg.vision_layers + 2 * layers,
         "fused_mlp_half_chunked": 0,                # ViT-B/16's MLP weights stay resident
         "attn_half_bwd_dx_masked": 2 * layers,
@@ -1136,7 +1177,8 @@ def fp32_train_step(torch, np, clip_params, agg_params):
               f"loss {float(loss):.6f}", flush=True)
         if device == "cuda":
             got = dict(cuda_lib.LAUNCHES)
-            want = {"fused_attn_half": 24, "fused_attn_half_masked": 24, "fused_mlp_half": 48,
+            want = {"fused_attn_half": 24, "fused_attn_half_masked": 24, "attn_core": 48,
+                    "fused_mlp_half": 48,
                     "fused_mlp_half_chunked": 0, "attn_half_bwd_dx_masked": 24, "mlp_half_bwd_dx": 24,
                     "attn_half_bwd_dx": 0, "fused_attention": 4, "tp_attn_half_partial": 0,
                     "tp_attn_half_partial_masked": 0, "tp_mlp_half_partial": 0}

@@ -60,20 +60,30 @@
 // through WMMA with fp32 accumulation; fp32 products are plain FMA (TF32
 // would break the 1e-5 fp32 tolerance). No TMA or wgmma yet.
 //
-// Two attention cores, chosen by the launcher from the sequence length:
-// - short (L padded to 16 at most 320; fp32: while a head fits in 227 KB):
-//   a head's K and V and each 16-query tile's whole fp32 score rows stay in
-//   shared memory, and the softmax of a row runs in registers;
-// - long (577 tokens at 336 px): a head's K and V (148 KB in bf16) plus a
-//   16 x L fp32 score tile per warp do not fit, so the keys are walked in
-//   tiles of 64 and shared memory holds a K/V tile (two stages, cp.async)
-//   and a 16 x 64 score tile per warp. Two passes over the key tiles: the
-//   first takes each row's maximum and sum (rescaling the running sum when
-//   the maximum grows), the second recomputes the scores, normalises,
-//   casts the probs and multiplies by V. An online-softmax core would make
-//   one pass but round unnormalised probs; two passes keep K1's rounding
-//   (normalised probs cast before probs x V) at the price of a second
-//   q . k product.
+// The attention core (ovmr_attn_core; K1 at width D, K7 at the shard's
+// width dl). In bf16/fp16 one register-resident core serves every sequence
+// length and head width (a multiple of 8 up to 128; the kernel zero-pads to
+// 64 or 128). At ViT-L/14@336px and 512 images its function is 0.70 TFLOP
+// against 2.4 GB of q/k/v/out (0.71 and 0.72 ms at the card's peaks): the
+// tensor cores and the memory bound it alike, so the scores and probs must
+// not make shared-memory round trips or wait on scalar softmax. A block
+// of 8 warps takes 128 queries of one head, each warp 16 rows; Q sits in
+// registers as mma.sync A fragments; K and V stream in tiles of 64 keys
+// through a 3-stage cp.async ring; the scores of a 16 x 64 tile live in the
+// m16n8k16 accumulators, where each thread holds two rows and a row's
+// reductions stay within a quad. Two passes over the key tiles: the first
+// keeps each thread's running maximum and sum of its columns (the sum
+// rescaled when the maximum grows), merged across the quad at the end; the
+// second recomputes the scores and forms exp(s - max) / sum in fp32 (times
+// the row's reciprocal sum), cast straight into the A fragments of
+// probs x V. An online-softmax core would make one pass but round
+// unnormalised probs; two passes keep K1's rounding (normalised probs cast
+// before probs x V) at the price of a second q . k product, 1.5x the
+// function's tensor work. The fp32 cores are plain FMA
+// (TF32 would break the 1e-5 fp32 tolerance): up to a head's K and V in
+// shared memory, one block per 64 queries holds them and the tile's whole
+// score rows; beyond, the keys are walked in tiles of 64 in the same two
+// passes.
 //
 // Rounding follows the TPU kernel's contract (block_fused.py:68-149): the
 // LN output is cast to the activation dtype before the QKV / c_fc product;
@@ -203,162 +213,6 @@ __global__ void __launch_bounds__(AF_THREADS)
   }
 }
 
-// bf16/fp16: one block per (head, image) loads the head's K and V once
-// (cp.async, zero-padded to Lp x Dhp, multiples of 16); each warp
-// then walks 16-query tiles on its own: Q tile -> fp32 scores by WMMA into
-// its private shared memory -> softmax row by row in registers (the probs,
-// cast to the activation dtype, overwrite the row's scores in place) ->
-// probs . V by WMMA -> cast and store. Only the K/V load needs the block.
-constexpr int AT_QT = 16, AT_MAX_WARPS = 8, AT_MAX_COLS = 10;  // Lp <= 320
-constexpr int AT_MAX_DT = 8;                                    // Dhp <= 128
-
-template <typename T>
-struct AttnTcLayout {
-  int ldk, lds;  // K/V and Q rows (elements of T); scores rows (floats)
-  size_t off_v, off_warps, off_s, warp_bytes;
-  __host__ __device__ AttnTcLayout(int Lp, int Dhp) {
-    ldk = Dhp + 8;
-    lds = (Lp > Dhp ? Lp : Dhp) + 4;  // the scores double as the output tile
-    off_v = align_up((size_t)Lp * ldk * sizeof(T), 128);
-    off_warps = align_up(off_v + (size_t)Lp * ldk * sizeof(T), 128);
-    off_s = align_up((size_t)AT_QT * ldk * sizeof(T), 128);
-    warp_bytes = align_up(off_s + (size_t)AT_QT * lds * sizeof(float), 128);
-  }
-  __host__ __device__ size_t bytes(int warps) const { return off_warps + warps * warp_bytes; }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(AT_MAX_WARPS * 32)
-    attn_core_tc_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
-                        T* __restrict__ out, int L, int D, int Dh, int Lp, int Dhp,
-                        float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const AttnTcLayout<T> lay(Lp, Dhp);
-  const int ldk = lay.ldk, lds = lay.lds, ldp = 2 * lay.lds;
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = reinterpret_cast<T*>(smem + lay.off_v);
-  const int nwarps = blockDim.x / 32, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  unsigned char* wsm = smem + lay.off_warps + warp * lay.warp_bytes;
-  T* Qs = reinterpret_cast<T*>(wsm);
-  float* S = reinterpret_cast<float*>(wsm + lay.off_s);
-  T* P = reinterpret_cast<T*>(S);  // row r of P overlays row r of S
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const size_t rs = 3 * (size_t)D;
-  const T* base = qkv + (size_t)b * L * rs + (size_t)h * Dh;
-  const int cpr = Dhp / 8;  // 8-element chunks per padded row
-
-  for (int idx = tid; idx < Lp * cpr; idx += blockDim.x) {
-    const int r = idx / cpr, c8 = (idx % cpr) * 8;
-    const bool ok = r < L && c8 < Dh;
-    cp_async16(Ks + r * ldk + c8, ok ? base + r * rs + D + c8 : base, ok);
-    cp_async16(Vs + r * ldk + c8, ok ? base + r * rs + 2 * D + c8 : base, ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int ntiles = ceil_div(L, AT_QT), tk = Lp / 16, td = Dhp / 16;
-  for (int t = warp; t < ntiles; t += nwarps) {
-    const int q0 = t * AT_QT;
-    for (int idx = lane; idx < AT_QT * cpr; idx += 32) {
-      const int r = idx / cpr, c8 = (idx % cpr) * 8;
-      const bool ok = q0 + r < L && c8 < Dh;
-      cp_async16(Qs + r * ldk + c8, ok ? base + (q0 + r) * rs + c8 : base, ok);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncwarp();
-
-    // scores = q . k (fp32 accumulation)
-    for (int tj = 0; tj < tk; ++tj) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < Dhp; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + kk, ldk);
-        wmma::load_matrix_sync(fb, Ks + tj * 16 * ldk + kk, ldk);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(S + tj * 16, acc, lds, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // probs = softmax(scores * scale + mask), fp32, cast into P in place
-    for (int r = 0; r < AT_QT; ++r) {
-      const int q = q0 + r;
-      const float* srow = S + r * lds;
-      const float* mrow = (mask && q < L) ? mask + (size_t)q * L : nullptr;
-      float vals[AT_MAX_COLS];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < AT_MAX_COLS; ++i) {
-        const int c = lane + 32 * i;
-        float s = -INFINITY;
-        if (q < L && c < L) {
-          s = srow[c] * scale;
-          if (mrow) s += mrow[c];
-        }
-        vals[i] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = warp_max(mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < AT_MAX_COLS; ++i) {
-        const int c = lane + 32 * i;
-        const float e = (q < L && c < L) ? expf(vals[i] - mx) : 0.f;
-        vals[i] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      __syncwarp();  // every lane has read the row before it is overwritten
-      T* prow = P + r * ldp;
-#pragma unroll
-      for (int i = 0; i < AT_MAX_COLS; ++i) {
-        const int c = lane + 32 * i;
-        if (c < Lp) prow[c] = from_f<T>(q < L && c < L ? vals[i] / sum : 0.f);
-      }
-    }
-    __syncwarp();
-
-    // out = probs . v (fp32 accumulation), staged through S, cast per head
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[AT_MAX_DT];
-#pragma unroll
-    for (int tj = 0; tj < AT_MAX_DT; ++tj)
-      if (tj < td) wmma::fill_fragment(acc[tj], 0.f);
-    for (int kk = 0; kk < Lp; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, P + kk, ldp);
-#pragma unroll
-      for (int tj = 0; tj < AT_MAX_DT; ++tj) {
-        if (tj < td) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, Vs + kk * ldk + tj * 16, ldk);
-          wmma::mma_sync(acc[tj], fa, fb, acc[tj]);
-        }
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int tj = 0; tj < AT_MAX_DT; ++tj)
-      if (tj < td) wmma::store_matrix_sync(S + tj * 16, acc[tj], lds, wmma::mem_row_major);
-    __syncwarp();
-    T* obase = out + (size_t)b * L * D + (size_t)h * Dh;
-    const int opr = Dh / 8;
-    for (int idx = lane; idx < AT_QT * opr; idx += 32) {
-      const int r = idx / opr, c8 = (idx % opr) * 8;
-      if (q0 + r >= L) continue;
-      Vec<T, 8> o;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) o.v[e] = from_f<T>(S[r * lds + c8 + e]);
-      *reinterpret_cast<Vec<T, 8>*>(obase + (size_t)(q0 + r) * D + c8) = o;
-    }
-    __syncwarp();
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Long sequences: the keys in tiles of AL_KT, two passes (see the header).
 // ---------------------------------------------------------------------------
@@ -458,194 +312,264 @@ __global__ void __launch_bounds__(AF_THREADS)
   }
 }
 
-// bf16/fp16: one block per (128 queries, head, image), a warp per 16-query
-// tile. The block copies each K tile (second pass: and V tile) into one of
-// two stages with cp.async while the warps work on the other. A warp keeps
-// its Q tile, a 16 x AL_KT fp32 score tile and the cast probs in its own
-// shared memory; lane r holds row r's running maximum and sum.
-constexpr int AL_WARPS = 8;
+// ---------------------------------------------------------------------------
+// bf16/fp16: the register-resident core (see the header). One block of
+// AC_WARPS warps per (query tile of AC_QT rows, head, image); warp w owns
+// query rows q0 + 16 w .. + 15. The keys stream in tiles of AC_KT through a
+// ring of AC_STAGES shared-memory stages (cp.async): pass 1 copies K tiles,
+// pass 2 K and V tiles. Products are mma.sync m16n8k16 with fp32
+// accumulation: Q (A fragments, by ldmatrix once) . K^T (B, by ldmatrix)
+// into scores that stay in the accumulator registers; the cast probs
+// re-enter as A fragments from those registers; V is the B operand by
+// ldmatrix.trans.
+// ---------------------------------------------------------------------------
+constexpr int AC_WARPS = 8, AC_QT = 16 * AC_WARPS, AC_KT = 64, AC_STAGES = 3;
+constexpr float AC_LOG2E = 1.4426950408889634f;
 
-template <typename T>
-struct AttnLongLayout {
-  int ldk, lds, ldp;  // K/V and Q rows, probs rows (elements of T); scores rows (floats)
-  size_t kv_stage, off_v, off_warps, off_s, off_p, warp_bytes;
-  __host__ __device__ explicit AttnLongLayout(int Dhp) {
-    ldk = Dhp + 8;
-    lds = (AL_KT > Dhp ? AL_KT : Dhp) + 4;  // the scores double as the output tile
-    ldp = AL_KT + 8;
-    kv_stage = align_up((size_t)AL_KT * ldk * sizeof(T), 128);
-    off_v = 2 * kv_stage;
-    off_warps = 4 * kv_stage;
-    off_s = align_up((size_t)AT_QT * ldk * sizeof(T), 128);
-    off_p = off_s + align_up((size_t)AT_QT * lds * sizeof(float), 128);
-    warp_bytes = off_p + align_up((size_t)AT_QT * ldp * sizeof(T), 128);
-  }
-  __host__ __device__ size_t bytes() const { return off_warps + AL_WARPS * warp_bytes; }
-};
+// Shared memory at padded head width dhp: the query tile (each warp's rows
+// later stage its output) and the K/V ring. A row is dhp + 8 elements, so
+// the eight 16-byte rows one ldmatrix reads fall in distinct banks.
+__host__ __device__ constexpr size_t attn_core_smem(int dhp) {
+  return (size_t)(AC_QT + AC_STAGES * 2 * AC_KT) * (dhp + 8) * 2;
+}
 
-// start copying rows k0 .. k0 + AL_KT of one operand (src points at row 0's
-// first column of this head) into a stage, zero-filled past L and Dh
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d += a . b for a 16 x 16 A fragment and a 16 x 8 B fragment (b0, b1)
 template <typename T>
-__device__ __forceinline__ void copy_kv_tile_async(T* dst, const T* src, size_t rs, int k0,
-                                                   int L, int Dh, int cpr, int ldk) {
-  for (int idx = threadIdx.x; idx < AL_KT * cpr; idx += AL_WARPS * 32) {
-    const int r = idx / cpr, c8 = (idx % cpr) * 8;
-    const bool ok = k0 + r < L && c8 < Dh;
-    cp_async16(dst + r * ldk + c8, ok ? src + (size_t)(k0 + r) * rs + c8 : src, ok);
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
 }
 
-template <typename T, int MAX_DT>
-__global__ void __launch_bounds__(AL_WARPS * 32)
-    attn_core_tc_long_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
-                             T* __restrict__ out, int L, int D, int Dh, int Dhp, float scale) {
-  constexpr int COLS = AL_KT / 32;  // score columns a lane holds of one row
+// two fp32 values rounded to T (nearest even) in one register, lo first
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// Registers (PTX m16n8k16 layouts, lane = 4 gid + tig): score tile sc[j]
+// holds keys j*8 + 2 tig + {0, 1} of the warp's rows gid (sc[j][0..1]) and
+// gid + 8 (sc[j][2..3]), so a row's reductions stay within a quad; the A
+// fragment of keys 16 t .. 16 t + 15 is sc[2t][0..1], sc[2t][2..3],
+// sc[2t+1][0..1], sc[2t+1][2..3], each pair cast and packed.
+template <typename T, int DHP, bool MASKED>
+__global__ void __launch_bounds__(AC_WARPS * 32, DHP <= 64 ? 2 : 1)
+    attn_core_mma_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
+                         T* __restrict__ out, int L, int W, int Dh, float scale) {
+  constexpr int LD = DHP + 8, TILE = AC_KT * LD, CPR = DHP / 8, THREADS = AC_WARPS * 32;
+  constexpr int NT = AC_KT / 8, KD = DHP / 16, DT = DHP / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  const AttnLongLayout<T> lay(Dhp);
-  const int ldk = lay.ldk, lds = lay.lds, ldp = lay.ldp;
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* ring = Qs + AC_QT * LD;  // stage s: a K tile, then a V tile
+
+  const int q0 = blockIdx.x * AC_QT, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  unsigned char* wsm = smem + lay.off_warps + warp * lay.warp_bytes;
-  T* Qs = reinterpret_cast<T*>(wsm);
-  float* S = reinterpret_cast<float*>(wsm + lay.off_s);
-  T* P = reinterpret_cast<T*>(wsm + lay.off_p);
-
-  const int q0 = (blockIdx.x * AL_WARPS + warp) * AT_QT, h = blockIdx.y, b = blockIdx.z;
-  const bool active = q0 < L;  // an idle warp still copies K/V and meets the barriers
-  const size_t rs = 3 * (size_t)D;
+  const int gid = lane >> 2, tig = lane & 3;
+  const size_t rs = 3 * (size_t)W;
   const T* base = qkv + (size_t)b * L * rs + (size_t)h * Dh;
-  const int cpr = Dhp / 8, td = Dhp / 16, nkt = ceil_div(L, AL_KT);
+  const int nkt = ceil_div(L, AC_KT), nsteps = 2 * nkt;
 
-  if (active) {
-    for (int idx = lane; idx < AT_QT * cpr; idx += 32) {
-      const int r = idx / cpr, c8 = (idx % cpr) * 8;
-      const bool ok = q0 + r < L && c8 < Dh;
-      cp_async16(Qs + r * ldk + c8, ok ? base + (size_t)(q0 + r) * rs + c8 : base, ok);
+  // step s < nkt: pass 1 over key tile s (K); else pass 2 over tile s - nkt
+  // (K and V); rows past L and columns past Dh are zero-filled
+  auto load_step = [&](int s) {
+    const bool pass2 = s >= nkt;
+    const int k0 = (pass2 ? s - nkt : s) * AC_KT;
+    T* Kst = ring + (s % AC_STAGES) * 2 * TILE;
+    for (int idx = tid; idx < AC_KT * CPR; idx += THREADS) {
+      const int r = idx / CPR, c8 = (idx % CPR) * 8;
+      const bool ok = k0 + r < L && c8 < Dh;
+      const T* row = ok ? base + (size_t)(k0 + r) * rs + c8 : base;
+      cp_async16(Kst + r * LD + c8, ok ? row + W : base, ok);
+      if (pass2) cp_async16(Kst + TILE + r * LD + c8, ok ? row + 2 * W : base, ok);
     }
-  }  // committed with the first K tile
+  };
+  for (int idx = tid; idx < AC_QT * CPR; idx += THREADS) {
+    const int r = idx / CPR, c8 = (idx % CPR) * 8;
+    const bool ok = q0 + r < L && c8 < Dh;
+    cp_async16(Qs + r * LD + c8, ok ? base + (size_t)(q0 + r) * rs + c8 : base, ok);
+  }
+  load_step(0);  // in Q's group
+  cp_async_commit();
+#pragma unroll
+  for (int s = 1; s < AC_STAGES - 1; ++s) {
+    if (s < nsteps) load_step(s);
+    cp_async_commit();
+  }
 
-  float m_own = -INFINITY, l_own = 0.f;  // of row `lane` (lanes 0..15)
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[MAX_DT];
-#pragma unroll
-  for (int tj = 0; tj < MAX_DT; ++tj) wmma::fill_fragment(oacc[tj], 0.f);
+  const int qw = q0 + warp * 16;
+  const bool active = qw < L;  // an idle warp still copies and meets the barriers
+  // the mask rows of gid and gid + 8 (a row past L reads row L - 1, unstored)
+  const float* mrow0 = MASKED ? mask + (size_t)min(qw + gid, L - 1) * L : nullptr;
+  const float* mrow1 = MASKED ? mask + (size_t)min(qw + gid + 8, L - 1) * L : nullptr;
 
-  for (int pass = 0; pass < 2; ++pass) {
-    auto copy_stage = [&](int kt) {
-      const int st = kt & 1;
-      T* Kst = reinterpret_cast<T*>(smem + st * lay.kv_stage);
-      copy_kv_tile_async(Kst, base + D, rs, kt * AL_KT, L, Dh, cpr, ldk);
-      if (pass == 1) {
-        T* Vst = reinterpret_cast<T*>(smem + lay.off_v + st * lay.kv_stage);
-        copy_kv_tile_async(Vst, base + 2 * D, rs, kt * AL_KT, L, Dh, cpr, ldk);
+  uint32_t qa[KD][4];
+  float oacc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  // rows gid and gid + 8. Pass 1: the running maximum and sum over this
+  // thread's columns; pass 2: the row's maximum times log2(e) and 1 / sum
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<AC_STAGES - 2>();
+    __syncthreads();  // step s has landed; step s - 1's stage is free to refill
+    if (s + AC_STAGES - 1 < nsteps) load_step(s + AC_STAGES - 1);
+    cp_async_commit();
+    if (!active) continue;
+
+    if (s == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        ldsm_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+    }
+    const bool pass2 = s >= nkt;
+    if (s == nkt) {  // merge the quad's partial statistics into the row's
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float m = m_r[r];
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        float l = m_r[r] == -INFINITY ? 0.f : l_r[r] * exp2f((m_r[r] - m) * AC_LOG2E);
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        m_r[r] = m * AC_LOG2E;
+        l_r[r] = 1.f / l;
       }
-      cp_async_commit();
-    };
-    copy_stage(0);
-    for (int kt = 0; kt < nkt; ++kt) {
-      const int st = kt & 1, k0 = kt * AL_KT;
-      // the other stage was last read before the previous barrier: safe to fill
-      if (kt + 1 < nkt) {
-        copy_stage(kt + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
+    }
+    const int k0 = (pass2 ? s - nkt : s) * AC_KT;
+    const T* Ks = ring + (s % AC_STAGES) * 2 * TILE;
+
+    // scores = q . k, fp32, in registers
+    float sc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int j2 = 0; j2 < NT / 2; ++j2) {
+        // keys j2*16 + 0..7 | + 8..15 by head columns kk*16 + 0..7 | + 8..15
+        uint32_t kb[4];
+        ldsm_x4(kb, Ks + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma_16816<T>(sc[2 * j2], qa[kk], kb[0], kb[1]);
+        mma_16816<T>(sc[2 * j2 + 1], qa[kk], kb[2], kb[3]);
       }
-      __syncthreads();
-      if (active) {
-        const T* Ks = reinterpret_cast<const T*>(smem + st * lay.kv_stage);
-        const T* Vs = reinterpret_cast<const T*>(smem + lay.off_v + st * lay.kv_stage);
-        // scores = q . k (fp32 accumulation)
-        for (int tj = 0; tj < AL_KT / 16; ++tj) {
-          wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-          wmma::fill_fragment(acc, 0.f);
-          for (int kk = 0; kk < Dhp; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb;
-            wmma::load_matrix_sync(fa, Qs + kk, ldk);
-            wmma::load_matrix_sync(fb, Ks + tj * 16 * ldk + kk, ldk);
-            wmma::mma_sync(acc, fa, fb, acc);
-          }
-          wmma::store_matrix_sync(S + tj * 16, acc, lds, wmma::mem_row_major);
+    }
+    // scaled after the fp32 product, then the fp32 mask; keys past L are -inf
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kc = k0 + j * 8 + tig * 2 + e;
+        const bool in = kc < L;
+        float v0 = sc[j][e] * scale, v1 = sc[j][2 + e] * scale;
+        if (MASKED && in) {
+          v0 += __ldg(mrow0 + kc);
+          v1 += __ldg(mrow1 + kc);
         }
-        __syncwarp();
-#pragma unroll 4
-        for (int r = 0; r < AT_QT; ++r) {
-          const int q = q0 + r;
-          const float* srow = S + r * lds;
-          const float* mrow = (mask && q < L) ? mask + (size_t)q * L + k0 : nullptr;
-          float vals[COLS];
-          bool ok[COLS];
-          float mx = -INFINITY;
-#pragma unroll
-          for (int i = 0; i < COLS; ++i) {
-            const int c = lane + 32 * i;
-            ok[i] = q < L && k0 + c < L;
-            float s = -INFINITY;
-            if (ok[i]) {
-              s = srow[c] * scale;
-              if (mrow) s += mrow[c];
-            }
-            vals[i] = s;
-            mx = fmaxf(mx, s);
-          }
-          if (pass == 0) {
-            const float m_old = __shfl_sync(0xffffffffu, m_own, r);
-            const float l_old = __shfl_sync(0xffffffffu, l_own, r);
-            const float m_new = fmaxf(m_old, warp_max(mx));
-            float sum = 0.f;
-#pragma unroll
-            for (int i = 0; i < COLS; ++i)
-              sum += vals[i] == -INFINITY ? 0.f : expf(vals[i] - m_new);
-            sum = warp_sum(sum);
-            if (lane == r) {
-              l_own = (m_old == -INFINITY ? 0.f : l_old * expf(m_old - m_new)) + sum;
-              m_own = m_new;
-            }
-          } else {
-            // probs = exp(scores - max) / sum, cast to the activation dtype
-            const float m = __shfl_sync(0xffffffffu, m_own, r);
-            const float l = __shfl_sync(0xffffffffu, l_own, r);
-#pragma unroll
-            for (int i = 0; i < COLS; ++i)
-              P[r * ldp + lane + 32 * i] = from_f<T>(ok[i] ? expf(vals[i] - m) / l : 0.f);
-          }
-        }
-        if (pass == 1) {
-          __syncwarp();
-          // out += probs . v (fp32 accumulation)
-          for (int kk = 0; kk < AL_KT; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-            wmma::load_matrix_sync(fa, P + kk, ldp);
-#pragma unroll
-            for (int tj = 0; tj < MAX_DT; ++tj) {
-              if (tj < td) {
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb;
-                wmma::load_matrix_sync(fb, Vs + kk * ldk + tj * 16, ldk);
-                wmma::mma_sync(oacc[tj], fa, fb, oacc[tj]);
-              }
-            }
-          }
-        }
-        __syncwarp();  // S and P are rewritten by the next tile
+        sc[j][e] = in ? v0 : -INFINITY;
+        sc[j][2 + e] = in ? v1 : -INFINITY;
       }
-      __syncthreads();
+    }
+
+    if (!pass2) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m_r[r];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+        if (mx == -INFINITY) continue;  // none of these columns visible to the row yet
+        const float mxl = mx * AC_LOG2E;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          sum += exp2f(fmaf(sc[j][2 * r], AC_LOG2E, -mxl)) +
+                 exp2f(fmaf(sc[j][2 * r + 1], AC_LOG2E, -mxl));
+        l_r[r] = l_r[r] * exp2f((m_r[r] - mx) * AC_LOG2E) + sum;
+        m_r[r] = mx;
+      }
+      continue;
+    }
+
+    // probs = exp(s - max) / sum in fp32, cast to T straight into A fragments
+    uint32_t pa[AC_KT / 16][4];
+#pragma unroll
+    for (int t = 0; t < AC_KT / 16; ++t) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float* c = sc[2 * t + half];
+        pa[t][2 * half] = pack2<T>(exp2f(fmaf(c[0], AC_LOG2E, -m_r[0])) * l_r[0],
+                                   exp2f(fmaf(c[1], AC_LOG2E, -m_r[0])) * l_r[0]);
+        pa[t][2 * half + 1] = pack2<T>(exp2f(fmaf(c[2], AC_LOG2E, -m_r[1])) * l_r[1],
+                                       exp2f(fmaf(c[3], AC_LOG2E, -m_r[1])) * l_r[1]);
+      }
+    }
+    // out += probs . v, fp32 accumulation
+    const T* Vs = Ks + TILE;
+#pragma unroll
+    for (int t = 0; t < AC_KT / 16; ++t) {
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        // keys t*16 + 0..7 | + 8..15 by head columns dp*16 + 0..7 | + 8..15
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, Vs + (t * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
+                              (lane >> 4) * 8);
+        mma_16816<T>(oacc[2 * dp], pa[t], vb[0], vb[1]);
+        mma_16816<T>(oacc[2 * dp + 1], pa[t], vb[2], vb[3]);
+      }
     }
   }
   if (!active) return;
 
-  // staged through S, cast per head
+  // one cast; the warp's own Q rows stage its tile for 16-byte stores
+  T* Os = Qs + warp * 16 * LD;
+  asm volatile("" ::: "memory");  // the Q fragments were read before the rows are rewritten
 #pragma unroll
-  for (int tj = 0; tj < MAX_DT; ++tj)
-    if (tj < td) wmma::store_matrix_sync(S + tj * 16, oacc[tj], lds, wmma::mem_row_major);
+  for (int n = 0; n < DT; ++n) {
+    *reinterpret_cast<uint32_t*>(Os + gid * LD + n * 8 + tig * 2) =
+        pack2<T>(oacc[n][0], oacc[n][1]);
+    *reinterpret_cast<uint32_t*>(Os + (gid + 8) * LD + n * 8 + tig * 2) =
+        pack2<T>(oacc[n][2], oacc[n][3]);
+  }
   __syncwarp();
-  T* obase = out + (size_t)b * L * D + (size_t)h * Dh;
+  T* obase = out + (size_t)b * L * W + (size_t)h * Dh;
   const int opr = Dh / 8;
-  for (int idx = lane; idx < AT_QT * opr; idx += 32) {
+  for (int idx = lane; idx < 16 * opr; idx += 32) {
     const int r = idx / opr, c8 = (idx % opr) * 8;
-    if (q0 + r >= L) continue;
-    Vec<T, 8> o;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) o.v[e] = from_f<T>(S[r * lds + c8 + e]);
-    *reinterpret_cast<Vec<T, 8>*>(obase + (size_t)(q0 + r) * D + c8) = o;
+    if (qw + r < L)
+      *reinterpret_cast<Vec<T, 8>*>(obase + (size_t)(qw + r) * W + c8) =
+          *reinterpret_cast<const Vec<T, 8>*>(Os + r * LD + c8);
   }
 }
 
@@ -719,41 +643,34 @@ static cudaError_t launch_attn_core_f32(const void* qkv, const float* mask, void
   return cudaSuccess;
 }
 
-template <typename T, int MAX_DT>
-static cudaError_t launch_attn_core_tc_long(const void* qkv, const float* mask, void* out,
-                                            int B, int L, int D, int H, int Dhp,
-                                            cudaStream_t st) {
-  const AttnLongLayout<T> lay(Dhp);
-  cudaError_t err = cudaFuncSetAttribute(attn_core_tc_long_kernel<T, MAX_DT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)lay.bytes());
+template <typename T, int DHP, bool MASKED>
+static cudaError_t launch_attn_core_mma(const void* qkv, const float* mask, void* out, int B,
+                                        int L, int W, int H, cudaStream_t st) {
+  constexpr size_t bytes = attn_core_smem(DHP);
+  static_assert(bytes <= 227 * 1024, "the core's shared memory exceeds a block's 227 KB");
+  auto kernel = attn_core_mma_kernel<T, DHP, MASKED>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(ceil_div(L, AL_WARPS * AT_QT), H, B);
-  attn_core_tc_long_kernel<T, MAX_DT><<<grid, AL_WARPS * 32, lay.bytes(), st>>>(
-      (const T*)qkv, mask, (T*)out, L, D, D / H, Dhp, (float)(1.0 / sqrt((double)(D / H))));
+  const int Dh = W / H;
+  dim3 grid(ceil_div(L, AC_QT), H, B);  // query tiles fastest: a head's blocks share its K/V in L2
+  kernel<<<grid, AC_WARPS * 32, bytes, st>>>((const T*)qkv, mask, (T*)out, L, W, Dh,
+                                             (float)(1.0 / sqrt((double)Dh)));
   return cudaSuccess;
 }
 
+// head widths that are a multiple of 8 up to 64 run the 64-wide core, up to
+// 128 the 128-wide one (zero-padded inside the kernel)
 template <typename T>
 static cudaError_t launch_attn_core_tc(const void* qkv, const float* mask, void* out, int B,
-                                       int L, int D, int H, cudaStream_t st) {
-  const int Dh = D / H;
-  const int Lp = ceil_div(L, 16) * 16, Dhp = ceil_div(Dh, 16) * 16;
-  if (Dhp > 16 * AT_MAX_DT) return cudaErrorInvalidValue;
-  if (Lp > 32 * AT_MAX_COLS)  // the score rows outgrow a lane's registers: tile the keys
-    return Dhp <= 64 ? launch_attn_core_tc_long<T, 4>(qkv, mask, out, B, L, D, H, Dhp, st)
-                     : launch_attn_core_tc_long<T, AT_MAX_DT>(qkv, mask, out, B, L, D, H, Dhp, st);
-  const AttnTcLayout<T> lay(Lp, Dhp);
-  // a warp per 16-query tile, up to as many as 227 KB of shared memory holds
-  int warps = min(AT_MAX_WARPS, ceil_div(L, AT_QT));
-  while (warps > 1 && lay.bytes(warps) > 227 * 1024) --warps;
-  cudaError_t err = cudaFuncSetAttribute(attn_core_tc_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)lay.bytes(warps));
-  if (err != cudaSuccess) return err;
-  attn_core_tc_kernel<T><<<dim3(H, B), warps * 32, lay.bytes(warps), st>>>(
-      (const T*)qkv, mask, (T*)out, L, D, Dh, Lp, Dhp, (float)(1.0 / sqrt((double)Dh)));
-  return cudaSuccess;
+                                       int L, int W, int H, cudaStream_t st) {
+  const int Dh = W / H;
+  if (W % H || Dh % 8 || Dh > 128) return cudaErrorInvalidValue;
+  if (Dh <= 64)
+    return mask ? launch_attn_core_mma<T, 64, true>(qkv, mask, out, B, L, W, H, st)
+                : launch_attn_core_mma<T, 64, false>(qkv, mask, out, B, L, W, H, st);
+  return mask ? launch_attn_core_mma<T, 128, true>(qkv, mask, out, B, L, W, H, st)
+              : launch_attn_core_mma<T, 128, false>(qkv, mask, out, B, L, W, H, st);
 }
 
 }  // namespace ovmr

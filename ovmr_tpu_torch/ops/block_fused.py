@@ -33,11 +33,13 @@ product, probs and each head's output cast, the projection cast before the
 residual add, QuickGELU in fp32 then cast, K5's partial products cast
 before each add.
 
-K1's attention core comes in two forms, picked by the launcher from the
-sequence length: up to 320 tokens (fp32: while a head's K and V fit in
-shared memory) a whole head stays on-chip; longer sequences (577 tokens at
-336 px) walk the keys in tiles, in two passes that keep K1's rounding. Any
-length runs; the head width is at most 128.
+- :func:`attn_core`, the attention core K1 and K7
+  (:mod:`ovmr_tpu_torch.ops.block_fused_tp`) launch between their
+  projections: per head ``T(softmax(q k^T * Dh^-0.5 + mask) . v)`` from a
+  packed ``qkv [B, L, 3W]`` into ``[B, L, W]``, probs normalised in fp32
+  and then cast. In bf16/fp16 one register-resident tensor-core kernel
+  takes every length and head width (a multiple of 8 up to 128), walking
+  the keys in tiles in two passes that keep K1's rounding.
 
 Of the TPU module's VMEM residency routing only the MLP tier is kept
 (:func:`mlp_tier_chunks`), so that each configuration runs the counterpart
@@ -113,16 +115,23 @@ def fused_attn_half_plain(
     mask: Optional[torch.Tensor] = None, n_head: int = 12,
 ):
     """x + proj(attention(LN1(x))) for x [B, L, D], K1's rounding."""
-    dtype = x.dtype
-    dh = x.shape[-1] // n_head
     qkv = dense(layer_norm(x, ln_s, ln_b), w_qkv, b_qkv)
+    return x + dense(attn_core_plain(qkv, mask, n_head), w_out, b_out)
+
+
+def attn_core_plain(qkv, mask: Optional[torch.Tensor] = None, n_head: int = 12):
+    """Heads ``[B, L, W]`` from a packed ``qkv [B, L, 3W]`` (head h's q, k
+    and v at columns ``h Dh``, ``W + h Dh``, ``2W + h Dh``), K1's rounding:
+    fp32 scores scaled after the product, the fp32 mask added, an fp32
+    softmax whose normalised probs are cast before the fp32-accumulated
+    probs x V, each head's output cast."""
+    dtype = qkv.dtype
     q, k, v = (split_heads(t, n_head) for t in qkv.chunk(3, dim=-1))
-    scores = matmul_f32(q, k.transpose(-1, -2)) * dh ** -0.5
+    scores = matmul_f32(q, k.transpose(-1, -2)) * (qkv.shape[-1] // 3 // n_head) ** -0.5
     if mask is not None:
         scores = scores + mask.float()
     probs = torch.softmax(scores, dim=-1)
-    heads = matmul_f32(probs.to(dtype), v).to(dtype)
-    return x + dense(merge_heads(heads), w_out, b_out)
+    return merge_heads(matmul_f32(probs.to(dtype), v).to(dtype))
 
 
 def fused_mlp_half_plain(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
@@ -218,6 +227,62 @@ def _gemm(lib, code, a, w, bias, out, epilogue, stream, resid=None):
     )
 
 
+def attn_core(qkv, mask: Optional[torch.Tensor] = None, n_head: int = 12):
+    """The attention core of K1 and K7: heads ``[B, L, W]`` from a packed
+    ``qkv [B, L, 3W]``, :func:`attn_core_plain`'s function and rounding.
+    On the card one launch of ``ovmr_attn_core``; the head width ``W /
+    n_head`` must be a multiple of 8 and at most 128, the mask fp32
+    ``[L, L]``."""
+    what = "attn_core"
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"{what}: qkv must be [B, L, 3W], got {tuple(qkv.shape)}")
+    b, l, w3 = qkv.shape
+    w = w3 // 3
+    if n_head <= 0 or w % n_head:
+        raise ValueError(f"{what}: width {w} does not split into {n_head} heads")
+    if mask is not None and tuple(mask.shape) != (l, l):
+        raise ValueError(f"{what}: mask must be [{l}, {l}], got {tuple(mask.shape)}")
+    if qkv.device.type == "cpu":
+        return attn_core_plain(qkv, mask, n_head)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {qkv.device}")
+    cuda_lib.require_no_grad(what, qkv, mask)
+    code = cuda_lib.dtype_code(qkv.dtype)
+    cuda_lib.require_cuda_args(what, qkv.dtype, qkv.device, qkv=qkv)
+    if (w // n_head) % 8:
+        raise ValueError(f"{what}: head width {w}/{n_head} must be a whole multiple of 8")
+    if w // n_head > 128:
+        raise ValueError(f"{what}: head width {w // n_head} exceeds the attention core's 128")
+    if b > 65535 or n_head > 65535:  # the grid's z and y limits
+        raise ValueError(f"{what}: {b} images x {n_head} heads is too many for one launch")
+    if mask is not None:
+        if mask.dtype != torch.float32:
+            raise ValueError(f"{what}: mask must be fp32, got {mask.dtype}")
+        if mask.device != qkv.device or not mask.is_contiguous():
+            raise ValueError(f"{what}: mask must be contiguous on {qkv.device}")
+    with torch.cuda.device(qkv.device):
+        return _attn_core(cuda_lib.library("block_fused"), code, qkv, mask, n_head,
+                          cuda_lib.stream_of(qkv))
+
+
+def _attn_core(lib, code, qkv, mask, n_head, stream):
+    """One launch of the core on arguments already checked: by
+    :func:`attn_core`, or by K1's and K7's wrappers, whose short text-tower
+    launches are host-bound and would pay the checks twice."""
+    b, l, w3 = qkv.shape
+    heads = torch.empty((b, l, w3 // 3), dtype=qkv.dtype, device=qkv.device)
+    cuda_lib.check(
+        lib,
+        lib.ovmr_attn_core(
+            code, qkv.data_ptr(), mask.data_ptr() if mask is not None else None,
+            heads.data_ptr(), b, l, w3 // 3, n_head, stream,
+        ),
+        "ovmr_attn_core",
+    )
+    cuda_lib.count_launch("attn_core", qkv, shape=(b, l, w3 // 3, n_head))
+    return heads
+
+
 def fused_attn_half(
     x, w_qkv, b_qkv, w_out, b_out, ln_s, ln_b,
     mask: Optional[torch.Tensor] = None, n_head: int = 12,
@@ -242,8 +307,9 @@ def fused_attn_half(
         w_out=(w_out, (d, d)), b_out=(b_out, (d,)), ln_s=(ln_s, (d,)), ln_b=(ln_b, (d,)),
     )
     if d // n_head > 128:
-        # both attention cores keep a query tile's output, 16 x head width,
-        # in one warp's accumulators; the sequence length is free
+        # the attention core keeps a warp's 16 x head-width output tile in
+        # its fp32 accumulators (64 registers a thread at 128); the sequence
+        # length is free
         raise ValueError(f"{what}: head width {d // n_head} exceeds the attention core's 128")
     lib = cuda_lib.library("block_fused")
     code = cuda_lib.dtype_code(x.dtype)
@@ -252,15 +318,7 @@ def fused_attn_half(
         xln = _layer_norm(lib, code, x, ln_s, ln_b, stream)
         qkv = torch.empty((b, l, 3 * d), dtype=x.dtype, device=x.device)
         _gemm(lib, code, xln, w_qkv, b_qkv, qkv, _EPI_BIAS, stream)
-        heads = torch.empty_like(x)
-        cuda_lib.check(
-            lib,
-            lib.ovmr_attn_core(
-                code, qkv.data_ptr(), mask.data_ptr() if mask is not None else None,
-                heads.data_ptr(), b, l, d, n_head, stream,
-            ),
-            "ovmr_attn_core",
-        )
+        heads = _attn_core(lib, code, qkv, mask, n_head, stream)
         out = torch.empty_like(x)
         _gemm(lib, code, heads, w_out, b_out, out, _EPI_BIAS_RESIDUAL, stream, resid=x)
     cuda_lib.count_launch("fused_attn_half_masked" if mask is not None else "fused_attn_half", x)

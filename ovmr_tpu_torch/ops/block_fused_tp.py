@@ -57,10 +57,12 @@ from ovmr_tpu_torch.ops.block_fused import (
     _EPI_BIAS,
     _EPI_BIAS_GELU,
     _EPI_F32,
+    _attn_core,
     _check_block_args,
     _gemm,
     _layer_norm,
     _shapes_ok,
+    attn_core_plain,
 )
 from ovmr_tpu_torch.ops.layers import (
     attention_plain,
@@ -154,15 +156,9 @@ def tp_attn_half_partial_plain(
     """fp32 ``attn_local(LN1(x)) @ w_out_local`` for x [B, L, D] over a head
     shard of width ``dl = w_q.shape[-1]`` (``n_head`` local heads), K7's
     rounding."""
-    dtype = x.dtype
     xln = layer_norm(x, ln_s, ln_b)
-    q, k, v = (split_heads(dense(xln, w, b), n_head)
-               for w, b in ((w_q, b_q), (w_k, b_k), (w_v, b_v)))
-    scores = matmul_f32(q, k.transpose(-1, -2)) * (w_q.shape[-1] // n_head) ** -0.5
-    if mask is not None:
-        scores = scores + mask.float()
-    heads = matmul_f32(torch.softmax(scores, dim=-1).to(dtype), v).to(dtype)
-    return matmul_f32(merge_heads(heads), w_out)
+    qkv = torch.cat([dense(xln, w, b) for w, b in ((w_q, b_q), (w_k, b_k), (w_v, b_v))], dim=-1)
+    return matmul_f32(attn_core_plain(qkv, mask, n_head), w_out)
 
 
 def tp_mlp_half_partial_plain(x, c_fc_w, c_fc_b, c_proj_w, ln_s, ln_b):
@@ -214,15 +210,7 @@ def tp_attn_half_partial(
         qkv = torch.empty((b, l, 3 * dl), dtype=x.dtype, device=x.device)
         for j, (w, bias) in enumerate(((w_q, b_q), (w_k, b_k), (w_v, b_v))):
             _gemm(lib, code, xln, w, bias, qkv[..., j * dl : (j + 1) * dl], _EPI_BIAS, stream)
-        heads = torch.empty((b, l, dl), dtype=x.dtype, device=x.device)
-        cuda_lib.check(
-            lib,
-            lib.ovmr_attn_core(
-                code, qkv.data_ptr(), mask.data_ptr() if mask is not None else None,
-                heads.data_ptr(), b, l, dl, n_head, stream,
-            ),
-            "ovmr_attn_core",
-        )
+        heads = _attn_core(lib, code, qkv, mask, n_head, stream)
         out = torch.empty((b, l, d), dtype=torch.float32, device=x.device)
         _gemm(lib, code, heads, w_out, None, out, _EPI_F32, stream)
     name = "tp_attn_half_partial_masked" if mask is not None else "tp_attn_half_partial"

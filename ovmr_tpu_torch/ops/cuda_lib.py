@@ -44,6 +44,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 LAUNCHES: Dict[str, int] = {
     "fused_attn_half": 0,
     "fused_attn_half_masked": 0,
+    "attn_core": 0,  # launched by K1 and K7 between their projections
     "fused_mlp_half": 0,
     "fused_mlp_half_chunked": 0,
     "fused_attention": 0,
@@ -56,7 +57,8 @@ LAUNCHES: Dict[str, int] = {
 }
 # launches by (kernel, shape of its first input, dtype name); the
 # tensor-parallel partials add their shard's width to the shape, since one
-# input shape runs different launches for shards of different widths
+# input shape runs different launches for shards of different widths, and
+# the attention core is keyed (B, L, W, heads)
 LAUNCH_SHAPES: Counter = Counter()
 
 _P = ctypes.c_void_p

@@ -26,6 +26,8 @@ from ovmr_tpu_torch.ops.attention import (
 )
 from ovmr_tpu_torch.ops.block_fused import (
     BLOCK_KEYS,
+    attn_core,
+    attn_core_plain,
     fused_attn_half,
     fused_attn_half_plain,
     fused_mlp_half,
@@ -133,14 +135,64 @@ def test_chunked_mlp_half_raises_chunks_to_a_divisor(cuda):
 @pytest.mark.parametrize("b,l,d,h", [(2, 320, 128, 2), (2, 321, 128, 2), (1, 577, 1024, 16),
                                      (1, 400, 256, 2), (3, 700, 40, 1)])
 def test_attn_half_at_long_sequences(cuda, dtype, masked, b, l, d, h):
-    """K1 on both sides of the switch between its attention cores (a whole
-    head on-chip up to 320 tokens, key tiles beyond), at ViT-L/14@336px's
-    577 tokens, at head widths 128 and 40, with and without a causal mask."""
+    """K1 at lengths off the attention core's 64-key and 128-query tiles,
+    at ViT-L/14@336px's 577 tokens, at head widths 128 and 40, with and
+    without a causal mask."""
     p = _layer(d, dtype, cuda, seed=l)
     x = torch.randn(b, l, d, generator=torch.Generator().manual_seed(l)).to(cuda, dtype)
     mask = causal_mask(l, device=cuda) if masked else None
     a = (x, p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"], p["ln_s"], p["ln_b"])
     _check(fused_attn_half(*a, mask=mask, n_head=h), fused_attn_half_plain(*a, mask=mask, n_head=h))
+
+
+def _core_mask(kind, l, device):
+    """No mask, causal, or random additive entries (a quarter of them
+    pushed down towards -1e4)."""
+    if kind == "none":
+        return None
+    if kind == "causal":
+        return causal_mask(l, device=device)
+    g = torch.Generator().manual_seed(l)
+    m = torch.randn(l, l, generator=g)
+    drop = torch.rand(l, l, generator=g)
+    return torch.where(drop < 0.25, -1e4 * drop * 4, m).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mask_kind", ["none", "causal", "random"])
+@pytest.mark.parametrize("heads", [2, 3], ids=["k1-W=D", "k7-W=dl"])
+@pytest.mark.parametrize("dh", [16, 40, 64, 128])
+@pytest.mark.parametrize("l", [1, 16, 17, 63, 64, 65, 77, 197, 320, 321, 577, 700])
+def test_attn_core_matches_plain(cuda, dtype, mask_kind, heads, dh, l):
+    """The register-resident core against its plain twin across key-tile
+    edges (64), query-tile edges (128), the paths' 77, 197 and 577 tokens,
+    head widths zero-padded to 64 (16, 40) or 128, and both packings K1 (two
+    heads of a width D) and K7 (three heads of a shard dl of a wider model)
+    hand it."""
+    b = 2
+    g = torch.Generator().manual_seed(l * 131 + dh)
+    qkv = torch.randn(b, l, 3 * heads * dh, generator=g).to(cuda, dtype)
+    mask = _core_mask(mask_kind, l, cuda)
+    cuda_lib.reset_launches()
+    _check(attn_core(qkv, mask, heads), attn_core_plain(qkv, mask, heads))
+    assert cuda_lib.LAUNCH_SHAPES == {
+        ("attn_core", (b, l, heads * dh, heads), str(dtype).removeprefix("torch.")): 1}
+
+
+def test_attn_core_refuses_what_it_does_not_take(cuda):
+    qkv = torch.randn(2, 9, 3 * 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="exceeds"):
+        attn_core(qkv, None, 1)  # head width 256
+    with pytest.raises(ValueError, match="multiple of 8"):
+        attn_core(qkv, None, 64)  # head width 4
+    with pytest.raises(ValueError, match="fp32"):
+        attn_core(qkv, torch.zeros(9, 9, device=cuda, dtype=torch.bfloat16), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        attn_core(qkv.transpose(0, 1).contiguous().transpose(0, 1), None, 4)
+    with pytest.raises(TypeError):
+        attn_core(qkv.to(torch.float64), None, 4)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        attn_core(qkv.float().requires_grad_(True), None, 4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
@@ -304,7 +356,8 @@ def test_train_step_on_card_matches_cpu(cuda):
                     ptok.to(device), eot.to(device), vtok.to(device), None, 2)
         if device != "cpu":
             assert cuda_lib.LAUNCHES == {
-                "fused_attn_half": 4, "fused_attn_half_masked": 4, "fused_mlp_half": 8,
+                "fused_attn_half": 4, "fused_attn_half_masked": 4, "attn_core": 8,
+                "fused_mlp_half": 8,
                 "fused_mlp_half_chunked": 0, "fused_attention": 2, "attn_half_bwd_dx": 0, "attn_half_bwd_dx_masked": 4,
                 "mlp_half_bwd_dx": 4, "tp_attn_half_partial": 0, "tp_attn_half_partial_masked": 0,
                 "tp_mlp_half_partial": 0,
@@ -317,7 +370,7 @@ def test_train_step_on_card_matches_cpu(cuda):
 
 
 def test_fused_block_routes_vit_l_336_through_the_chunked_half(cuda):
-    """A layer of ViT-L/14@336px's vision tower runs K1 (the long core) and
+    """A layer of ViT-L/14@336px's vision tower runs K1 and
     K5 in 2 chunks and equals the plain halves; backward raises."""
     d, l = 1024, 577
     p = _block_params(d, torch.bfloat16, cuda, seed=4)
@@ -557,6 +610,7 @@ def test_tp_block_takes_the_kernels_at_every_shard_size(cuda):
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCH_SHAPES == {
         ("tp_attn_half_partial", (2, 17, d, d), "float32"): 1,
+        ("attn_core", (2, 17, d, n_head), "float32"): 1,
         ("tp_mlp_half_partial", (2, 17, d, 4 * d), "float32"): 1,
     }, cuda_lib.LAUNCH_SHAPES
     assert float((got.cpu() - ref).abs().max()) <= 1e-4 * max(float(ref.abs().max()), 1.0)

@@ -176,7 +176,7 @@ def test_launch_counts_by_shape():
     cuda_lib.count_launch("fused_mlp_half", x)
     cuda_lib.count_launch("fused_attention", torch.empty(1, 2, 9, 64))
     assert set(cuda_lib.LAUNCHES) == {
-        "fused_attn_half", "fused_attn_half_masked", "fused_mlp_half",
+        "fused_attn_half", "fused_attn_half_masked", "attn_core", "fused_mlp_half",
         "fused_mlp_half_chunked", "fused_attention",
         "attn_half_bwd_dx", "attn_half_bwd_dx_masked", "mlp_half_bwd_dx",
         "tp_attn_half_partial", "tp_attn_half_partial_masked", "tp_mlp_half_partial",
@@ -192,6 +192,9 @@ def test_launch_counts_by_shape():
     # a tensor-parallel partial is keyed by its shard's width too
     cuda_lib.count_launch("tp_mlp_half_partial", x, shape=(2, 9, 64, 128))
     assert cuda_lib.LAUNCH_SHAPES[("tp_mlp_half_partial", (2, 9, 64, 128), "bfloat16")] == 1
+    # the attention core by (B, L, W, heads)
+    cuda_lib.count_launch("attn_core", x, shape=(2, 9, 64, 2))
+    assert cuda_lib.LAUNCH_SHAPES[("attn_core", (2, 9, 64, 2), "bfloat16")] == 1
     cuda_lib.reset_launches()
     assert not cuda_lib.LAUNCH_SHAPES and not any(cuda_lib.LAUNCHES.values())
 
