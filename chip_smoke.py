@@ -28,7 +28,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    hidden 2048 at 512 and 256 images; text 6 heads, dl 384, hidden 1536,
    causal, at 32 prompts) in bf16 and at phase 10's 4 images and 8 prompts
    in fp32, and K7 on a shard of zero-padded heads, which must give exact
-   zeros. Beside every K1 and K7 case, the attention core those launch
+   zeros. K3 (no mask, the query-tiled core) at the vision towers' 197 x
+   768 and 577 x 1024 and K4 at K5's shape, in bf16. The wgmma/TMA GEMM of
+   K2 and K5 alone at K5's c_fc/c_proj and K2's ViT-B/16 shapes, with
+   ``torch.matmul`` as its yardstick. Beside every K1 and K7 case, the attention core those launch
    (``attn_core``) alone at the same B, L, width and heads, with SDPA on
    the same q/k/v as its library yardstick. Each case is checked as soon as it
    is built, and timed beside its plain version, one PyTorch library call
@@ -87,6 +90,12 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 10. Phase 8's fp32 request and queries on the model axis on the card,
    against phase 8's CPU single-device result: classifiers within 1e-4,
    fusion weights within 1e-3.
+11. ``loss.backward()`` through two ViT-L/14@336px vision blocks (K1 + K5
+   forward, K4 + K3 backward, exact launch counts): fp32 on the card
+   against the CPU (dx within 1e-4 of its scale), bf16 on the card finite.
+
+In bf16 every K2 launches the wgmma GEMM twice and every K5 twice a chunk
+(``gemm_wgmma``, counted by name); phases 3, 5 and 7 check that count.
 
 Prints the kernels JSON line, the nvidia-smi line and, last, the result
 line ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -431,8 +440,96 @@ def kernel_checks(torch, F):
                 reps=200,
             ))
 
+    vision_bwd_cases(torch, F, randn, check, params, layer, library_attn_half, library_mlp_half,
+                     library_dx)
+    gemm_cases(torch, randn, check)
     tp_cases(torch, F, randn, check, check_core, sliced, both)
     return results
+
+
+def vision_bwd_cases(torch, F, randn, check, params, layer, library_attn_half,
+                     library_mlp_half, library_dx):
+    """K3 (no mask) at the vision towers' lengths, where it runs the
+    query-tiled core: ViT-B/16 (197 x 768, 12 heads) and ViT-L/14@336px (577
+    x 1024, 16 heads); K4 at K5's shape. bf16, at batches the plain twins
+    hold at once. No serving or training path differentiates a vision tower;
+    phase 11 does."""
+    from ovmr_tpu_torch.ops.block_fused_bwd import (
+        attn_half_bwd_dx,
+        attn_half_bwd_dx_plain,
+        mlp_half_bwd_dx,
+        mlp_half_bwd_dx_plain,
+    )
+
+    for case, b, l, d, h, k4 in (("vision-bwd", 128, 197, 768, 12, False),
+                                 ("vitl336-vision-bwd", 32, 577, 1024, 16, True)):
+        p = {k: v.to(torch.bfloat16) for k, v in params.setdefault(d, layer(d)).items()}
+        x, g = (randn(b, l, d).to(torch.bfloat16) for _ in range(2))
+        tok, it = b * l, 2
+        common = dict(case=case, dtype=torch.bfloat16, x=x, peak=PEAK_BF16, reps=5, rounds=3,
+                      source="ovmr_tpu_torch/csrc/block_fused_bwd.cu")
+        k3_args = (x, g, p["w_qkv"], p["b_qkv"], p["w_out"], p["ln_1_scale"], p["ln_1_bias"])
+        check(dict(
+            common, name="attn_half_bwd_dx", shape=[b, l, d, h],
+            replaces="ovmr_tpu/ops/block_fused_bwd.py:128",
+            kernel=lambda a=k3_args, h=h: attn_half_bwd_dx(*a, n_head=h),
+            plain=lambda a=k3_args, h=h: attn_half_bwd_dx_plain(*a, n_head=h),
+            library=lambda x=x, g=g, p=p, h=h: library_dx(library_attn_half, x, g, p, None, h),
+            bytes=(3 * tok * d + 4 * d * d + 5 * d) * it,
+            # the JAX cost estimate (ovmr_tpu/ops/block_fused_bwd.py:243)
+            flops=16 * b * l * d * d + 10 * b * l * l * d,
+        ))
+        if not k4:
+            continue
+        k4_args = (x, g, p["c_fc_w"], p["c_fc_b"], p["c_proj_w"], p["ln_2_scale"],
+                   p["ln_2_bias"])
+        check(dict(
+            common, name="mlp_half_bwd_dx", shape=[b, l, d, 4 * d],
+            replaces="ovmr_tpu/ops/block_fused_bwd.py:57",
+            kernel=lambda a=k4_args: mlp_half_bwd_dx(*a),
+            plain=lambda a=k4_args: mlp_half_bwd_dx_plain(*a),
+            library=lambda x=x, g=g, p=p: library_dx(library_mlp_half, x, g, p),
+            bytes=(3 * tok * d + 8 * d * d + 6 * d) * it,
+            flops=3 * 2 * tok * d * 4 * d,
+        ))
+
+
+def gemm_cases(torch, randn, check):
+    """The wgmma/TMA GEMM alone at the products K5 and K2 run on the
+    serving paths, bf16: K5's per-chunk c_fc (QuickGELU, a column slice of
+    c_fc_w read in place) and c_proj (added into the output) at
+    ViT-L/14@336px and 512 images; K2's c_fc and c_proj (plus the residual)
+    at ViT-B/16 and 512 images. Yardstick: torch.matmul of the same
+    operands (no epilogue)."""
+    from ovmr_tpu_torch.ops.block_fused import mlp_gemm, mlp_gemm_plain
+
+    for case, m, n, k, ldw, epilogue, replaces in (
+            ("vitl336-k5-c_fc", 512 * 577, 2048, 1024, 4096, "gelu", "block_fused.py:249"),
+            ("vitl336-k5-c_proj", 512 * 577, 1024, 2048, 1024, "accum", "block_fused.py:249"),
+            ("vision-k2-c_fc", 512 * 197, 3072, 768, 3072, "gelu", "block_fused.py:123"),
+            ("vision-k2-c_proj", 512 * 197, 768, 3072, 768, "residual", "block_fused.py:123")):
+        a = randn(m, k).to(torch.bfloat16)
+        w = randn(k, ldw, std=k ** -0.5).to(torch.bfloat16)[:, :n]
+        bias = randn(n, std=0.02).to(torch.bfloat16) if epilogue != "accum" else None
+        resid = randn(m, n).to(torch.bfloat16) if epilogue == "residual" else None
+        c = randn(m, n).to(torch.bfloat16) if epilogue == "accum" else None
+        # accum adds into its output: the kernel adds into a copy of c (its
+        # first call is the one checked; each timed call adds once more)
+        out = None if c is None else c.clone()
+        check(dict(
+            name="gemm_wgmma", case=case, dtype=torch.bfloat16, shape=[m, n, k], x=a,
+            key_shape=(m, n, k), source="ovmr_tpu_torch/csrc/gemm_wgmma.cuh",
+            replaces="ovmr_tpu/ops/" + replaces,
+            kernel=lambda a=a, w=w, b=bias, r=resid, o=out, e=epilogue: mlp_gemm(
+                a, w, b, e, r, out=o),
+            plain=lambda a=a, w=w, b=bias, r=resid, c=c, e=epilogue: mlp_gemm_plain(
+                a, w, b, e, r, c),
+            library=lambda a=a, w=w: torch.matmul(a, w),
+            # A and W read, C written (and read by the accum epilogue), the
+            # residual read
+            bytes=(m * k + k * n + m * n * (2 if epilogue != "gelu" else 1)) * 2,
+            flops=2 * m * n * k, peak=PEAK_BF16, reps=10, rounds=5,
+        ))
 
 
 def tp_cases(torch, F, randn, check, check_core, sliced, both):
@@ -697,6 +794,13 @@ def serving_slice(torch, np, tag, gen, n_requests, warmups=0):
     for kernel in {key[0] for key in want}:
         if launches[kernel] <= 0:
             raise AssertionError(f"kernel {kernel} was not launched on the {tag} path")
+    # in bf16/fp16 every K2 runs two wgmma GEMMs and every K5 two a chunk
+    chunks = mlp_tier_chunks(tokens, vw, 4 * vw)
+    gemms = sum(n * (2 * chunks if key[0] == "fused_mlp_half_chunked" else 2)
+                for key, n in want.items() if key[0].startswith("fused_mlp_half"))
+    if gen.dtype != torch.float32 and launches["gemm_wgmma"] != gemms:
+        raise AssertionError(f"{tag}: {launches['gemm_wgmma']} wgmma GEMM launches, "
+                             f"expected {gemms}")
 
     # where a request's time goes: the exemplar encode vs the rest
     names, images = requests[0]
@@ -926,7 +1030,7 @@ def tp_serving_slice(torch, np, gen, single_outs, n_requests=2, warmups=1):
           flush=True)
     print(f"[tp] launches per request, exact: {want_request}", flush=True)
     for name in ("fused_attn_half", "fused_attn_half_masked", "fused_mlp_half",
-                 "fused_mlp_half_chunked"):
+                 "fused_mlp_half_chunked", "gemm_wgmma"):
         assert launches[name] == 0, (name, launches[name])
     for out in outs:
         check_classifiers(np, out, N_CLS, cfg.embed_dim, 2, unit_tol=1e-2)
@@ -1075,6 +1179,7 @@ def training_slice(torch, np, clip_params, agg_params):
         "tp_attn_half_partial": 0,                  # no model axis
         "tp_attn_half_partial_masked": 0,
         "tp_mlp_half_partial": 0,
+        "gemm_wgmma": 2 * (2 * cfg.vision_layers + 2 * layers),  # two inside each K2
     }
 
     def fresh():
@@ -1181,7 +1286,8 @@ def fp32_train_step(torch, np, clip_params, agg_params):
                     "fused_mlp_half": 48,
                     "fused_mlp_half_chunked": 0, "attn_half_bwd_dx_masked": 24, "mlp_half_bwd_dx": 24,
                     "attn_half_bwd_dx": 0, "fused_attention": 4, "tp_attn_half_partial": 0,
-                    "tp_attn_half_partial_masked": 0, "tp_mlp_half_partial": 0}
+                    "tp_attn_half_partial_masked": 0, "tp_mlp_half_partial": 0,
+                    "gemm_wgmma": 0}
             if got != want:
                 raise AssertionError(f"fp32 train step: launches {got}, expected {want}")
         results[device] = (
@@ -1218,6 +1324,69 @@ def fp32_train_step(torch, np, clip_params, agg_params):
                 f"{mean}, max {top} (tol 1e-6, 1e-5, {2 * lr})")
     print(f"[fp32-train] card vs CPU: gradients within {worst_g:.3g} of their scale (tol 1e-4), "
           f"post-step params within {worst_p:.3g} on average (tol 1e-5)", flush=True)
+
+
+def vision_backward(torch):
+    """Phase 11: loss.backward() through two ViT-L/14@336px vision blocks
+    (577 x 1024, 16 heads, hidden 4096; seeded random layers, 2 images): K1
+    and K5 forward, K4 and K3 (its query-tiled core) backward, with exact
+    launch counts. fp32 on the card against the CPU (the plain twins): dx
+    within 1e-4 of its scale; bf16 on the card: a finite dx."""
+    from ovmr_tpu_torch.ops import cuda_lib
+    from ovmr_tpu_torch.ops.block_fused import BLOCK_KEYS, fused_residual_block, mlp_tier_chunks
+
+    b, l, d, h = 2, 577, 1024, 16
+    chunks = mlp_tier_chunks(l, d, 4 * d)
+    gen = torch.Generator().manual_seed(11)
+
+    def r(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen) * std
+
+    shapes = {"w_qkv": ((d, 3 * d), d ** -0.5), "b_qkv": ((3 * d,), 0.02),
+              "w_out": ((d, d), d ** -0.5), "b_out": ((d,), 0.02),
+              "ln_1_scale": ((d,), 0.1), "ln_1_bias": ((d,), 0.1),
+              "c_fc_w": ((d, 4 * d), d ** -0.5), "c_fc_b": ((4 * d,), 0.02),
+              "c_proj_w": ((4 * d, d), (4 * d) ** -0.5), "c_proj_b": ((d,), 0.02),
+              "ln_2_scale": ((d,), 0.1), "ln_2_bias": ((d,), 0.1)}
+    layers = [{k: r(*shape, std=std) + (1.0 if k.endswith("_scale") else 0.0)
+               for k, (shape, std) in shapes.items()} for _ in range(2)]
+    assert set(layers[0]) == set(BLOCK_KEYS)
+    x0, g0 = r(b, l, d), r(b, l, d)
+    grads = {}
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                          ("cuda", torch.bfloat16)):
+        ps = [{k: v.to(device, dtype) for k, v in p.items()} for p in layers]
+        x = x0.to(device, dtype, copy=True).requires_grad_(True)
+        cuda_lib.reset_launches()
+        t = time.perf_counter()
+        y = x
+        for p in ps:
+            y = fused_residual_block(y, p, h)
+        y.backward(g0.to(device, dtype))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            want = {k: 0 for k in cuda_lib.LAUNCHES}
+            want.update(fused_attn_half=2, attn_core=2, fused_mlp_half_chunked=2,
+                        mlp_half_bwd_dx=2, attn_half_bwd_dx=2,
+                        gemm_wgmma=0 if dtype == torch.float32 else 2 * 2 * chunks)
+            if dict(cuda_lib.LAUNCHES) != want:
+                raise AssertionError(f"vision backward ({dtype}): launches "
+                                     f"{dict(cuda_lib.LAUNCHES)}, expected {want}")
+        dx = x.grad.float().cpu()
+        tag = f"{device} {str(dtype).removeprefix('torch.')}"
+        print(f"[vision-bwd] {tag}: two ViT-L/14@336px vision blocks forward + backward, "
+              f"{b} x {l} x {d}: {time.perf_counter() - t:.2f} s, |dx| max "
+              f"{float(dx.abs().max()):.4g}", flush=True)
+        if not bool(torch.isfinite(dx).all()):
+            raise AssertionError(f"vision backward ({tag}): dx is not finite")
+        grads[tag] = dx
+    ref = grads["cpu float32"]
+    scale = max(float(ref.abs().max()), 1.0)
+    err = float((grads["cuda float32"] - ref).abs().max())
+    print(f"[vision-bwd] fp32 card vs CPU: dx max_abs_err {err:.3g} (tol {1e-4 * scale:.3g}, "
+          "1e-4 of its scale)", flush=True)
+    if not err <= 1e-4 * scale:
+        raise AssertionError(f"vision backward: fp32 dx differs by {err} between card and CPU")
 
 
 def main() -> int:
@@ -1304,6 +1473,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     all_checked("vitl336-tp-fp32", tp_fp32_check(torch, np, vitl("cuda", torch.float32),
                                                  cpu_out, cpu_probs))
+    torch.cuda.empty_cache()
+    vision_backward(torch)
 
     for entry in kernels:
         # launches: the wrapper's count over the three ViT-B/16 requests +

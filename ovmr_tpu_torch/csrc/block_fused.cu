@@ -53,12 +53,20 @@
 // LayerNorm is its own pass: normalizing inside the GEMM's A-tile staging
 // made every column block recompute the row statistics and kept A out of
 // cp.async; the extra pass moves one activation (77 MB at ViT-B/16 batch
-// 256, ~50 us) and lets every GEMM stage both tiles with cp.async. The
-// GEMM (gemm.cuh, shared with the backward halves) is one tiled kernel with
-// two shared-memory stages; its epilogue adds the bias in fp32 and applies
-// the activation or the residual. bf16/fp16 products run on the tensor cores
-// through WMMA with fp32 accumulation; fp32 products are plain FMA (TF32
-// would break the 1e-5 fp32 tolerance). No TMA or wgmma yet.
+// 256, ~50 us) and lets every GEMM stage both tiles with TMA or cp.async.
+//
+// The GEMMs. K2 and K5 are LayerNorm plus two products of 4 B L D hidden
+// FLOP in all (4.96 TFLOP for K5 at ViT-L/14@336px and 512 images, 5 ms at
+// the card's peak) against a few GB of activations: bound by tensor-core
+// issue. In bf16/fp16 their products run on the wgmma/TMA GEMM
+// (gemm_wgmma.cuh, ovmr_gemm_wgmma): a TMA-fed mbarrier ring, two consumer
+// warpgroups issuing wgmma on a 128 x 128 tile, the epilogue on the
+// accumulator registers. K1, K7, K8 and the backward halves still use
+// gemm.cuh's tiled kernel (ovmr_gemm): two cp.async stages, WMMA fragments
+// with fp32 accumulation, and an fp32 shared-memory round trip per output.
+// Both add the bias in fp32 and apply the activation or the residual in the
+// epilogue, with the same rounding. fp32 products are plain FMA on
+// gemm.cuh's kernel (TF32 would break the 1e-5 fp32 tolerance).
 //
 // The attention core (ovmr_attn_core; K1 at width D, K7 at the shard's
 // width dl). In bf16/fp16 one register-resident core serves every sequence
@@ -92,6 +100,8 @@
 // cast; the projection is cast before the residual add in the activation
 // dtype; QuickGELU runs in fp32 and is then cast.
 #include "gemm.cuh"
+#include "gemm_wgmma.cuh"
+#include "mma_frag.cuh"
 
 namespace ovmr {
 
@@ -333,51 +343,6 @@ __host__ __device__ constexpr size_t attn_core_smem(int dhp) {
   return (size_t)(AC_QT + AC_STAGES * 2 * AC_KT) * (dhp + 8) * 2;
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// d += a . b for a 16 x 16 A fragment and a 16 x 8 B fragment (b0, b1)
-template <typename T>
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// two fp32 values rounded to T (nearest even) in one register, lo first
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  } else {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-}
-
 // Registers (PTX m16n8k16 layouts, lane = 4 gid + tig): score tile sc[j]
 // holds keys j*8 + 2 tig + {0, 1} of the warp's rows gid (sc[j][0..1]) and
 // gid + 8 (sc[j][2..3]), so a row's reductions stay within a quad; the A
@@ -613,6 +578,21 @@ static void launch_fwd_gemm(const void* A, const void* W, const void* bias, cons
 }
 
 template <typename T>
+static cudaError_t launch_fwd_gemm_wgmma(const void* A, const void* W, const void* bias,
+                                         const void* R, void* C, int M, int N, int K, int ldw,
+                                         int ldc, int epi, cudaStream_t st) {
+  switch (epi) {
+    case EPI_BIAS_GELU:
+      return launch_gemm_wgmma<T, EPI_BIAS_GELU>(A, W, bias, R, C, M, N, K, ldw, ldc, st);
+    case EPI_BIAS_RESIDUAL:
+      return launch_gemm_wgmma<T, EPI_BIAS_RESIDUAL>(A, W, bias, R, C, M, N, K, ldw, ldc, st);
+    case EPI_ACCUM:
+      return launch_gemm_wgmma<T, EPI_ACCUM>(A, W, bias, R, C, M, N, K, ldw, ldc, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
 static void launch_residual_bias(const void* x, const void* bias, void* out, int M, int N,
                                  cudaStream_t st) {
   const size_t total = (size_t)M * N, per_block = (size_t)RB_THREADS * (16 / sizeof(T));
@@ -715,6 +695,35 @@ OVMR_EXPORT int ovmr_gemm(int dtype, const void* A, const void* W, const void* b
       break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// ovmr_gemm's contract for the MLP halves in bf16/fp16 on the wgmma/TMA
+// GEMM (gemm_wgmma.cuh): epilogue 1 (QuickGELU then cast), 2 (cast then add
+// the residual R) or 7 (no bias; cast then add to what C holds); N, K and
+// ldw multiples of 8, A and W 16-byte aligned
+OVMR_EXPORT int ovmr_gemm_wgmma(int dtype, const void* A, const void* W, const void* bias,
+                                const void* R, void* C, int M, int N, int K, int ldw, int ldc,
+                                int epilogue, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool known = epilogue == EPI_BIAS_GELU || epilogue == EPI_BIAS_RESIDUAL ||
+                     epilogue == EPI_ACCUM;
+  if (!known || (epilogue != EPI_ACCUM && !bias) || (epilogue == EPI_BIAS_RESIDUAL && !R) ||
+      N % 8 || K % 8 || ldw % 8 || ldw < N || ldc < N || ldc % 2 ||
+      reinterpret_cast<uintptr_t>(A) % 16 || reinterpret_cast<uintptr_t>(W) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  switch (dtype) {
+    case DT_BF16:
+      err = launch_fwd_gemm_wgmma<__nv_bfloat16>(A, W, bias, R, C, M, N, K, ldw, ldc, epilogue,
+                                                 st);
+      break;
+    case DT_F16:
+      err = launch_fwd_gemm_wgmma<__half>(A, W, bias, R, C, M, N, K, ldw, ldc, epilogue, st);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

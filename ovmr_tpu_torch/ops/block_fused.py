@@ -18,7 +18,8 @@ PyTorch counterpart of ``ovmr_tpu/ops/block_fused.py``:
   routes the tower (K5 only for ViT-L/14@336px's vision tower), forward; the
   backward runs the dx kernels K4 then K3 of
   :mod:`ovmr_tpu_torch.ops.block_fused_bwd` on the saved block input and
-  attention-half output, and raises after a K5 forward.
+  attention-half output, after K2 and after K5 alike (K5's chunked rounding
+  does not change the function that dx differentiates).
 
 Each wrapper takes its plain PyTorch version (``*_plain``, built from
 :mod:`ovmr_tpu_torch.ops.layers`) for a tensor on the CPU and launches the
@@ -142,6 +143,23 @@ def fused_mlp_half_plain(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
     return x + dense(h, c_proj_w, c_proj_b)
 
 
+def mlp_gemm_plain(a, w, bias=None, epilogue="gelu", resid=None, out=None):
+    """The MLP halves' products with their epilogues, the kernels' rounding:
+    ``"gelu"`` T(QuickGELU(a @ w + bias)) with QuickGELU in fp32;
+    ``"residual"`` resid + T(a @ w + bias) added in the activation dtype;
+    ``"accum"`` out + T(a @ w) added in the activation dtype (a new tensor;
+    the kernel updates ``out`` in place)."""
+    acc = matmul_f32(a, w)
+    if epilogue == "gelu":
+        h = acc + bias.float()
+        return (h * torch.sigmoid(1.702 * h)).to(a.dtype)
+    if epilogue == "residual":
+        return resid + (acc + bias.float()).to(a.dtype)
+    if epilogue == "accum":
+        return out + acc.to(a.dtype)
+    raise ValueError(f"mlp_gemm: unknown epilogue {epilogue!r}")
+
+
 def _chunk_width(hidden: int, chunks: int) -> int:
     """``chunks`` raised until it divides ``hidden`` (``:300-302``)."""
     while hidden % chunks:
@@ -225,6 +243,83 @@ def _gemm(lib, code, a, w, bias, out, epilogue, stream, resid=None):
         ),
         "ovmr_gemm",
     )
+
+
+_MLP_EPILOGUES = {"gelu": _EPI_BIAS_GELU, "residual": _EPI_BIAS_RESIDUAL, "accum": _EPI_ACCUM}
+
+
+def _mlp_gemm(lib, code, a, w, bias, out, epilogue, stream, resid=None):
+    """K2's and K5's products: the wgmma/TMA GEMM (``csrc/gemm_wgmma.cuh``)
+    in bf16/fp16, gemm.cuh's FMA GEMM in fp32 (whose sums the fp32 1e-5
+    gates rest on)."""
+    if a.dtype == torch.float32:
+        _gemm(lib, code, a, w, bias, out, epilogue, stream, resid=resid)
+        return
+    cuda_lib.check(
+        lib,
+        lib.ovmr_gemm_wgmma(
+            code, a.data_ptr(), w.data_ptr(), bias.data_ptr() if bias is not None else None,
+            resid.data_ptr() if resid is not None else None, out.data_ptr(),
+            a.numel() // a.shape[-1], w.shape[-1], a.shape[-1], w.stride(0), out.stride(-2),
+            epilogue, stream,
+        ),
+        "ovmr_gemm_wgmma",
+    )
+    cuda_lib.count_inner_launch("gemm_wgmma")
+
+
+def mlp_gemm(a, w, bias=None, epilogue="gelu", resid=None, out=None):
+    """One product of the MLP halves with its epilogue
+    (:func:`mlp_gemm_plain`'s function and rounding) for ``a [..., K]`` and
+    ``w [K, N]``; ``w`` may be a column slice of a wider weight and ``out``
+    (written for ``"gelu"``/``"residual"``, updated for ``"accum"``) a
+    column slice of a wider buffer. On the card one launch of the wgmma/TMA
+    GEMM K2 and K5 run, which takes bf16 and fp16."""
+    what = "mlp_gemm"
+    if epilogue not in _MLP_EPILOGUES:
+        raise ValueError(f"{what}: unknown epilogue {epilogue!r}")
+    if a.device.type == "cpu":
+        got = mlp_gemm_plain(a, w, bias, epilogue, resid, out)
+        if out is None:
+            return got
+        out.copy_(got)
+        return out
+    if a.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {a.device}")
+    cuda_lib.require_no_grad(what, a, w, bias, resid, out)
+    if a.dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"{what}: the wgmma GEMM takes bfloat16 or float16, not {a.dtype}")
+    k, n = a.shape[-1], w.shape[-1]
+    if w.dim() != 2 or w.shape[0] != k or w.stride(1) != 1:
+        raise ValueError(f"{what}: w must be [{k}, N] with unit column stride")
+    if n % 8 or k % 8 or w.stride(0) % 8:
+        raise ValueError(f"{what}: N, K and w's row stride must be multiples of 8")
+    lead = tuple(a.shape[:-1])
+    if out is None:
+        if epilogue == "accum":
+            raise ValueError(f"{what}: the accum epilogue adds to out, which is missing")
+        out = torch.empty(lead + (n,), dtype=a.dtype, device=a.device)
+    rows_even = all(out.stride(i) == out.stride(i + 1) * out.shape[i + 1]
+                    for i in range(out.dim() - 2))
+    if (tuple(out.shape) != lead + (n,) or out.stride(-1) != 1 or not rows_even
+            or (out.dim() > 1 and out.stride(-2) % 8) or out.data_ptr() % 16):
+        raise ValueError(f"{what}: out must be {lead + (n,)}, rows a multiple of 8 elements "
+                         "apart, unit column stride, 16-byte aligned")
+    cuda_lib.require_cuda_args(what, a.dtype, a.device, a=a)
+    for name, t in (("w", w), ("out", out), ("bias", bias), ("resid", resid)):
+        if t is not None and (t.device != a.device or t.dtype != a.dtype):
+            raise ValueError(f"{what}: {name} must be {a.dtype} on {a.device}")
+    if w.data_ptr() % 16:
+        raise ValueError(f"{what}: w must start on a 16-byte boundary")
+    if epilogue != "accum" and (bias is None or tuple(bias.shape) != (n,)):
+        raise ValueError(f"{what}: the {epilogue} epilogue needs a bias of shape ({n},)")
+    if epilogue == "residual" and (resid is None or tuple(resid.shape) != lead + (n,)
+                                   or not resid.is_contiguous()):
+        raise ValueError(f"{what}: the residual epilogue needs a contiguous resid {lead + (n,)}")
+    with torch.cuda.device(a.device):
+        _mlp_gemm(cuda_lib.library("block_fused"), cuda_lib.dtype_code(a.dtype), a, w, bias,
+                  out, _MLP_EPILOGUES[epilogue], cuda_lib.stream_of(a), resid=resid)
+    return out
 
 
 def attn_core(qkv, mask: Optional[torch.Tensor] = None, n_head: int = 12):
@@ -358,9 +453,9 @@ def fused_mlp_half(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
         stream = cuda_lib.stream_of(x)
         xln = _layer_norm(lib, code, x, ln_s, ln_b, stream)
         h = torch.empty((b, l, hidden), dtype=x.dtype, device=x.device)
-        _gemm(lib, code, xln, c_fc_w, c_fc_b, h, _EPI_BIAS_GELU, stream)
+        _mlp_gemm(lib, code, xln, c_fc_w, c_fc_b, h, _EPI_BIAS_GELU, stream)
         out = torch.empty_like(x)
-        _gemm(lib, code, h, c_proj_w, c_proj_b, out, _EPI_BIAS_RESIDUAL, stream, resid=x)
+        _mlp_gemm(lib, code, h, c_proj_w, c_proj_b, out, _EPI_BIAS_RESIDUAL, stream, resid=x)
     cuda_lib.count_launch("fused_mlp_half", x)
     return out
 
@@ -399,9 +494,9 @@ def fused_mlp_half_chunked(
         )
         h = torch.empty((b, l, hc), dtype=x.dtype, device=x.device)
         for j in range(0, hidden, hc):
-            _gemm(lib, code, xln, c_fc_w[:, j : j + hc], c_fc_b[j : j + hc], h,
-                  _EPI_BIAS_GELU, stream)
-            _gemm(lib, code, h, c_proj_w[j : j + hc], None, out, _EPI_ACCUM, stream)
+            _mlp_gemm(lib, code, xln, c_fc_w[:, j : j + hc], c_fc_b[j : j + hc], h,
+                      _EPI_BIAS_GELU, stream)
+            _mlp_gemm(lib, code, h, c_proj_w[j : j + hc], None, out, _EPI_ACCUM, stream)
     cuda_lib.count_launch(what, x)
     return out
 
@@ -415,10 +510,11 @@ BLOCK_KEYS = (
 
 class _FusedBlock(torch.autograd.Function):
     """K1 then K2 (or K5, as :func:`mlp_tier_chunks` routes the tower)
-    forward; K4 then K3 backward (``_fused_block`` :483-558). A block that
-    took K5 forward is not differentiated: the TPU module leaves that
-    backward to XLA (``:512-516``), no path differentiates a vision tower,
-    and the dx kernels were never held at such a shape, so backward raises.
+    forward; K4 then K3 backward (``_fused_block`` :483-558). After a K5
+    forward the backward is the same K4 (unchunked) then K3: the chunks
+    only round the forward's partial sums, and the function dx
+    differentiates is the block's, as the TPU module's XLA VJP for such a
+    block (``:549-551``) differentiates it.
 
     Saves the block input x, the attention half's output y (K1 wrote it to
     global memory anyway) and the layer's tensors, nothing else: both dx
@@ -438,7 +534,7 @@ class _FusedBlock(torch.autograd.Function):
                                        chunks=chunks)
         else:
             z = fused_mlp_half(y, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_2_s, ln_2_b)
-        ctx.n_head, ctx.chunks = n_head, chunks
+        ctx.n_head = n_head
         ctx.save_for_backward(x, y, mask, *weights)
         return z
 
@@ -446,12 +542,6 @@ class _FusedBlock(torch.autograd.Function):
     def backward(ctx, g):
         from ovmr_tpu_torch.ops.block_fused_bwd import attn_half_bwd_dx, mlp_half_bwd_dx
 
-        if ctx.chunks:
-            raise RuntimeError(
-                "fused_residual_block: this tower's MLP half ran chunked "
-                "(fused_mlp_half_chunked), which has no backward kernel; differentiate "
-                "it through ovmr_tpu_torch.ops.layers.residual_attention_block"
-            )
         x, y, mask, *weights = ctx.saved_tensors
         (w_qkv, b_qkv, w_out, b_out, ln_1_s, ln_1_b,
          c_fc_w, c_fc_b, c_proj_w, _, ln_2_s, ln_2_b) = weights
@@ -485,6 +575,6 @@ class _FusedBlock(torch.autograd.Function):
 def fused_residual_block(x, p, n_head, mask=None):
     """Drop-in for :func:`ovmr_tpu_torch.ops.layers.residual_attention_block`
     running K1 then K2 (K5 where :func:`mlp_tier_chunks` says so),
-    differentiable through the dx kernels K4 and K3 except after K5.
+    differentiable through the dx kernels K4 and K3.
     Under ``torch.no_grad()`` nothing is saved."""
     return _FusedBlock.apply(x, mask, n_head, *(p[k] for k in BLOCK_KEYS))

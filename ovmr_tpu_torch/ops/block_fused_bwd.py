@@ -27,10 +27,12 @@ twins, which round elsewhere in bf16.
 A wrapper takes its plain twin for a tensor on the CPU and launches the
 kernels of ``csrc/block_fused_bwd.cu`` (plus the forward's LayerNorm and
 QKV GEMM of ``csrc/block_fused.cu``) for a tensor on a CUDA card; it never
-falls back. The attention-backward core holds one whole head in shared
-memory, which covers every CLIP text tower (L = 77, head width 64); beyond
-that (a vision tower's L = 197) the wrapper raises. OVMR never
-differentiates a vision tower.
+falls back. K3's attention-backward core takes every sequence length and
+every head width that is a multiple of 8 up to 128: in bf16/fp16 it is
+tiled over the queries (two tensor-core launches that recompute the scores
+from the packed qkv, so no [L, L] matrix is kept); in fp32 one block holds
+a whole head where it fits in shared memory (:func:`attn_bwd_core_smem_bytes`;
+every CLIP text tower) and the same two tiled launches run beyond.
 """
 
 from __future__ import annotations
@@ -51,9 +53,6 @@ from ovmr_tpu_torch.ops.layers import matmul_f32, merge_heads, split_heads
 
 # epilogue codes of csrc/block_fused_bwd.cu ovmr_gemm_bwd
 _EPI_BIAS_F32, _EPI_T_CAST, _EPI_T_GELU_GRAD, _EPI_T_F32 = 3, 4, 5, 6
-
-_SMEM_LIMIT = 227 * 1024
-
 
 # --------------------------------------------------------------------------
 # plain twins
@@ -94,14 +93,24 @@ def attn_half_bwd_dx_plain(
 ):
     """K3's arithmetic in PyTorch for x, g [B, L, D]."""
     dtype = x.dtype
-    scale = (x.shape[-1] // n_head) ** -0.5
     normed, rstd, gamma = _ln_pieces(x, ln_s)
     xln = (normed * gamma + ln_b.float()).to(dtype)
     qkv = (matmul_f32(xln, w_qkv) + b_qkv.float()).to(dtype)
-    q, k, v = (split_heads(t, n_head) for t in qkv.chunk(3, dim=-1))
     dattn = matmul_f32(g.to(dtype), w_out.transpose(-1, -2)).to(dtype)
-    do = split_heads(dattn, n_head)
+    dqkv = attn_bwd_core_plain(qkv, dattn, mask, n_head)
+    dxln = matmul_f32(dqkv, w_qkv.transpose(-1, -2))
+    return g + _ln_bwd_dx(dxln, normed, rstd, gamma).to(dtype)
 
+
+def attn_bwd_core_plain(qkv, dattn, mask: Optional[torch.Tensor] = None, n_head: int = 12):
+    """K3's attention-backward core for ``qkv [B, L, 3D]`` (the forward's
+    packing) and the head-merged cotangent ``dattn [B, L, D]``: ``dqkv`` in
+    the same packing. fp32 scores, softmax and dP; ``ds`` cast after the
+    scale; probs cast for dv; dq, dk, dv cast per head."""
+    dtype = qkv.dtype
+    scale = (qkv.shape[-1] // 3 // n_head) ** -0.5
+    q, k, v = (split_heads(t, n_head) for t in qkv.chunk(3, dim=-1))
+    do = split_heads(dattn, n_head)
     scores = matmul_f32(q, k.transpose(-1, -2)) * scale
     if mask is not None:
         scores = scores + mask.float()
@@ -112,10 +121,7 @@ def attn_half_bwd_dx_plain(
     dq = matmul_f32(ds, k).to(dtype)
     dk = matmul_f32(ds.transpose(-1, -2), q).to(dtype)
     dv = matmul_f32(probs.to(dtype).transpose(-1, -2), do).to(dtype)
-    dqkv = torch.cat([merge_heads(t) for t in (dq, dk, dv)], dim=-1)
-
-    dxln = matmul_f32(dqkv, w_qkv.transpose(-1, -2))
-    return g + _ln_bwd_dx(dxln, normed, rstd, gamma).to(dtype)
+    return torch.cat([merge_heads(t) for t in (dq, dk, dv)], dim=-1)
 
 
 # --------------------------------------------------------------------------
@@ -152,9 +158,11 @@ def _ln_bwd(lib, code, x, dxln, g, ln_s, stream):
 
 
 def attn_bwd_core_smem_bytes(l: int, dh: int, itemsize: int) -> int:
-    """Shared memory of one block of the attention-backward core
+    """Shared memory of one block of the whole-head attention-backward core
     (``AttnBwdLayout`` in csrc/block_fused_bwd.cu): Q, K, V, dO with padded
-    rows, then two fp32 [L, L + 1] matrices."""
+    rows, then two fp32 [L, L + 1] matrices. The fp32 launcher takes that
+    core where this fits in a block's 227 KB and the query-tiled core
+    beyond it."""
     ldt = dh + 1 if itemsize == 4 else dh + 2
     operands = -(-4 * l * ldt * itemsize // 16) * 16
     return operands + 2 * l * (l + 1) * 4
@@ -227,14 +235,11 @@ def attn_half_bwd_dx(
         what, w_qkv=(w_qkv, (d, 3 * d)), b_qkv=(b_qkv, (3 * d,)), w_out=(w_out, (d, d)),
         ln_s=(ln_s, (d,)), ln_b=(ln_b, (d,)),
     )
-    if b > 65535:
-        raise ValueError(f"{what}: {b} sequences is too many for one launch")
-    smem = attn_bwd_core_smem_bytes(l, d // n_head, x.element_size())
-    if smem > _SMEM_LIMIT:
+    if b > 65535 or n_head > 65535:  # the core's grid z and y limits
+        raise ValueError(f"{what}: {b} sequences x {n_head} heads is too many for one launch")
+    if d // n_head > 128:
         raise ValueError(
-            f"{what}: L={l} with head width {d // n_head} needs {smem} bytes of shared "
-            f"memory for one head, above the {_SMEM_LIMIT} a block can use (the "
-            "attention-backward core does not tile the queries yet)"
+            f"{what}: head width {d // n_head} exceeds the attention-backward core's 128"
         )
     fwd = cuda_lib.library("block_fused")
     lib = cuda_lib.library("block_fused_bwd")
@@ -247,12 +252,16 @@ def attn_half_bwd_dx(
         dattn = torch.empty_like(x)
         _gemm_bwd(lib, code, g, w_out, dattn, _EPI_T_CAST, stream)
         dqkv = torch.empty_like(qkv)
+        # each row's max, sum and delta, written by the tiled core's q-side
+        # launch and read by its kv-side one
+        stats = torch.empty((b, n_head, 3, -(-l // 128) * 128), dtype=torch.float32,
+                            device=x.device)
         cuda_lib.check(
             lib,
             lib.ovmr_attn_bwd_core(
                 code, qkv.data_ptr(), dattn.data_ptr(),
                 mask.data_ptr() if mask is not None else None,
-                dqkv.data_ptr(), b, l, d, n_head, stream,
+                dqkv.data_ptr(), stats.data_ptr(), b, l, d, n_head, stream,
             ),
             "ovmr_attn_bwd_core",
         )

@@ -54,6 +54,7 @@ LAUNCHES: Dict[str, int] = {
     "tp_attn_half_partial": 0,
     "tp_attn_half_partial_masked": 0,
     "tp_mlp_half_partial": 0,
+    "gemm_wgmma": 0,  # the bf16/fp16 products inside K2 and K5, by name only
 }
 # launches by (kernel, shape of its first input, dtype name); the
 # tensor-parallel partials add their shard's width to the shape, since one
@@ -69,6 +70,8 @@ _SIGNATURES = {
         "ovmr_layer_norm": [_I, _P, _P, _P, _P, _I, _I, _P],
         # dtype, A, W, bias, residual, C, M, N, K, ldw, ldc, epilogue, stream
         "ovmr_gemm": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # dtype, A, W, bias, residual, C, M, N, K, ldw, ldc, epilogue, stream
+        "ovmr_gemm_wgmma": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # dtype, x, bias, out, M, N, stream
         "ovmr_residual_bias": [_I, _P, _P, _P, _I, _I, _P],
         # dtype, qkv, mask, out, B, L, D, H, stream
@@ -79,8 +82,8 @@ _SIGNATURES = {
         "ovmr_gemm_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         # dtype, x, dxln, g, ln_g, out, M, K, stream
         "ovmr_ln_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
-        # dtype, qkv, dattn, mask, dqkv, B, L, D, H, stream
-        "ovmr_attn_bwd_core": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # dtype, qkv, dattn, mask, dqkv, stats, B, L, D, H, stream
+        "ovmr_attn_bwd_core": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "attention": {
         # dtype, q, k, v, mask, out, BH, L, Dh, stream
@@ -102,6 +105,13 @@ def count_launch(name: str, x: torch.Tensor, shape=None) -> None:
     omitted)."""
     LAUNCHES[name] += 1
     LAUNCH_SHAPES[shape_key(name, x.shape if shape is None else shape, x.dtype)] += 1
+
+
+def count_inner_launch(name: str) -> None:
+    """One launch of ``name``, a kernel that runs inside another kernel
+    wrapper's launches (the wgmma GEMM inside K2 and K5): counted by name
+    only, since its caller's :data:`LAUNCH_SHAPES` entry fixes its shapes."""
+    LAUNCHES[name] += 1
 
 
 def shape_key(name: str, shape, dtype: torch.dtype) -> Tuple[str, Tuple[int, ...], str]:

@@ -35,6 +35,8 @@ from ovmr_tpu_torch.ops.block_fused import (
     fused_mlp_half_chunked_plain,
     fused_mlp_half_plain,
     fused_residual_block,
+    mlp_gemm,
+    mlp_gemm_plain,
 )
 from ovmr_tpu_torch.ops.block_fused_bwd import (
     attn_half_bwd_dx,
@@ -229,14 +231,117 @@ def test_dx_halves_match_plain(cuda, dtype, b, l, d, h, masked):
     assert cuda_lib.LAUNCHES[k3] == 1 and cuda_lib.LAUNCHES["mlp_half_bwd_dx"] == 1
 
 
-def test_attn_bwd_core_refuses_a_head_that_does_not_fit(cuda):
-    """One head must fit in a block's shared memory: a vision tower's
-    L = 197 does not, and the wrapper raises instead of falling back."""
-    p = _layer(768, torch.bfloat16, cuda, seed=0)
-    x = torch.randn(1, 197, 768, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="shared memory"):
-        attn_half_bwd_dx(x, x, p["w_qkv"], p["b_qkv"], p["w_out"], p["ln_s"], p["ln_b"],
-                         n_head=12)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,d,h", [(2, 197, 768, 12), (1, 577, 1024, 16)])
+def test_attn_bwd_core_refuses_a_head_that_does_not_fit(cuda, dtype, b, l, d, h):
+    """No head is too long for K3 any more: ViT-B/16's L = 197 and
+    ViT-L/14@336px's 577 (whose whole head outgrows a block's shared
+    memory) run the query-tiled core and match the plain twin. What the core
+    still refuses is a head width above 128."""
+    p = _layer(d, dtype, cuda, seed=l)
+    gen = torch.Generator().manual_seed(l)
+    x = torch.randn(b, l, d, generator=gen).to(cuda, dtype)
+    g = torch.randn(b, l, d, generator=gen).to(cuda, dtype)
+    a = (x, g, p["w_qkv"], p["b_qkv"], p["w_out"], p["ln_s"], p["ln_b"])
+    cuda_lib.reset_launches()
+    _check(attn_half_bwd_dx(*a, n_head=h), attn_half_bwd_dx_plain(*a, n_head=h))
+    assert cuda_lib.LAUNCHES["attn_half_bwd_dx"] == 1
+    w = _layer(272, dtype, cuda, seed=1)
+    x = torch.randn(1, 9, 272, device=cuda, dtype=dtype)
+    with pytest.raises(ValueError, match="exceeds"):
+        attn_half_bwd_dx(x, x, w["w_qkv"], w["b_qkv"], w["w_out"], w["ln_s"], w["ln_b"],
+                         n_head=2)  # head width 136
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("mask_kind", ["none", "causal", "random"])
+@pytest.mark.parametrize("dh", [16, 40, 64, 128])
+@pytest.mark.parametrize("l", [1, 16, 17, 63, 64, 65, 77, 127, 128, 129, 197, 320, 577, 700])
+def test_attn_bwd_tiled_core_matches_plain(cuda, dtype, mask_kind, dh, l):
+    """K3 across the tiled core's key (64) and query (32, 64, 128) tile
+    edges, at the paths' 77, 197 and 577 tokens, at head widths zero-padded
+    to 64 (16, 40) or 128, with no mask, the causal mask and a random one;
+    fp32 takes the whole-head core where a head fits and the tiled FMA
+    launches beyond."""
+    b, h = 2, 2
+    d = h * dh
+    p = _layer(d, dtype, cuda, seed=l * 131 + dh)
+    gen = torch.Generator().manual_seed(l * 7 + dh)
+    x = torch.randn(b, l, d, generator=gen).to(cuda, dtype)
+    g = torch.randn(b, l, d, generator=gen).to(cuda, dtype)
+    mask = _core_mask(mask_kind, l, cuda)
+    a = (x, g, p["w_qkv"], p["b_qkv"], p["w_out"], p["ln_s"], p["ln_b"])
+    _check(attn_half_bwd_dx(*a, mask=mask, n_head=h),
+           attn_half_bwd_dx_plain(*a, mask=mask, n_head=h))
+
+
+_EPILOGUE_ARGS = {"gelu": (True, False), "residual": (True, True), "accum": (False, False)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("epilogue", ["gelu", "residual", "accum"])
+@pytest.mark.parametrize("m,n,k", [(64, 64, 64), (128, 128, 64), (72, 200, 1000), (1, 8, 8),
+                                   (300, 1000, 72), (4100, 3072, 768), (2464, 768, 3072)])
+@pytest.mark.parametrize("sliced", [False, True])
+def test_mlp_gemm_matches_plain(cuda, dtype, epilogue, m, n, k, sliced):
+    """The wgmma/TMA GEMM of K2 and K5 against its plain twin: one 64-wide
+    tile, one full 128 x 128 tile, ragged M, N and K that are multiples of 8
+    but not of the tile, ViT-B/16's text MLP shapes; ``sliced`` reads W as a
+    column slice of a wider weight and writes C into a column slice of a
+    wider buffer (K5's layout, and more)."""
+    gen = torch.Generator().manual_seed(m + n + k)
+    a = torch.randn(m, k, generator=gen).to(cuda, dtype)
+    w_full = (torch.randn(k, n + (24 if sliced else 0), generator=gen) * k ** -0.5).to(cuda, dtype)
+    w = w_full[:, 16:16 + n] if sliced else w_full
+    has_bias, has_resid = _EPILOGUE_ARGS[epilogue]
+    bias = (torch.randn(n, generator=gen) * 0.1).to(cuda, dtype) if has_bias else None
+    resid = torch.randn(m, n, generator=gen).to(cuda, dtype) if has_resid else None
+    c_full = torch.randn(m, n + (40 if sliced else 0), generator=gen).to(cuda, dtype)
+    c = c_full[:, 8:8 + n] if sliced else c_full
+    before = c_full.clone()
+    ref = mlp_gemm_plain(a, w, bias, epilogue, resid, c.clone())
+    cuda_lib.reset_launches()
+    got = mlp_gemm(a, w, bias, epilogue, resid, out=c)
+    assert got.data_ptr() == c.data_ptr() and cuda_lib.LAUNCHES["gemm_wgmma"] == 1
+    _check(got, ref)
+    if sliced:  # the columns beside the slice are untouched
+        assert torch.equal(c_full[:, :8], before[:, :8])
+        assert torch.equal(c_full[:, 8 + n:], before[:, 8 + n:])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("b,l,d", [(3, 17, 64), (2, 33, 40), (1, 577, 1024), (5, 9, 200)])
+def test_k2_and_k5_launch_the_wgmma_gemm_in_half_precision(cuda, dtype, b, l, d):
+    """K2 runs two products and K5 two a chunk on the wgmma GEMM in bf16 and
+    fp16; fp32 keeps gemm.cuh's FMA GEMM."""
+    p = _layer(d, dtype, cuda, seed=b * 100 + l)
+    x = torch.randn(b, l, d, generator=torch.Generator().manual_seed(l)).to(cuda, dtype)
+    m = (x, p["c_fc_w"], p["c_fc_b"], p["c_proj_w"], p["c_proj_b"], p["ln_s"], p["ln_b"])
+    half = dtype != torch.float32
+    cuda_lib.reset_launches()
+    _check(fused_mlp_half(*m), fused_mlp_half_plain(*m))
+    assert cuda_lib.LAUNCHES["gemm_wgmma"] == (2 if half else 0)
+    cuda_lib.reset_launches()
+    _check(fused_mlp_half_chunked(*m, chunks=2), fused_mlp_half_chunked_plain(*m, chunks=2))
+    assert cuda_lib.LAUNCHES["gemm_wgmma"] == (4 if half else 0)
+
+
+def test_mlp_gemm_refuses_what_it_does_not_take(cuda):
+    a = torch.randn(9, 64, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn(64, 128, device=cuda, dtype=torch.bfloat16)
+    b = torch.randn(128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16 or float16"):
+        mlp_gemm(a.float(), w.float(), b.float())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        mlp_gemm(a, w[:, :100], b[:100])
+    with pytest.raises(ValueError, match="unit column stride"):
+        mlp_gemm(a, w.t().contiguous().t(), b)
+    with pytest.raises(ValueError, match="needs a bias"):
+        mlp_gemm(a, w, None, "gelu")
+    with pytest.raises(ValueError, match="missing"):
+        mlp_gemm(a, w, None, "accum")
+    with pytest.raises(RuntimeError, match="requires grad"):
+        mlp_gemm(a, w.clone().requires_grad_(True), b)
 
 
 def _block_params(d, dtype, device, seed):
@@ -360,7 +465,7 @@ def test_train_step_on_card_matches_cpu(cuda):
                 "fused_mlp_half": 8,
                 "fused_mlp_half_chunked": 0, "fused_attention": 2, "attn_half_bwd_dx": 0, "attn_half_bwd_dx_masked": 4,
                 "mlp_half_bwd_dx": 4, "tp_attn_half_partial": 0, "tp_attn_half_partial_masked": 0,
-                "tp_mlp_half_partial": 0,
+                "tp_mlp_half_partial": 0, "gemm_wgmma": 0,
             }, cuda_lib.LAUNCHES
         results[str(device)] = [loss.cpu()] + [leaf.detach().cpu() for leaf in param_leaves(agg)]
     for got, ref in zip(results["cuda"], results["cpu"]):
@@ -371,7 +476,9 @@ def test_train_step_on_card_matches_cpu(cuda):
 
 def test_fused_block_routes_vit_l_336_through_the_chunked_half(cuda):
     """A layer of ViT-L/14@336px's vision tower runs K1 and
-    K5 in 2 chunks and equals the plain halves; backward raises."""
+    K5 in 2 chunks and equals the plain halves; its backward runs K4 then
+    K3 (the tiled core at 577 tokens) and equals the plain dx twins on the
+    same saved activations."""
     d, l = 1024, 577
     p = _block_params(d, torch.bfloat16, cuda, seed=4)
     x = torch.randn(2, l, d, generator=torch.Generator().manual_seed(1)).to(cuda, torch.bfloat16)
@@ -388,9 +495,46 @@ def test_fused_block_routes_vit_l_336_through_the_chunked_half(cuda):
     torch.cuda.synchronize()
     peak = max(float(ref.abs().max()), 1.0)
     assert float((got.float() - ref.float()).abs().max()) <= 4.0 * 2.0 ** (math.floor(math.log2(peak)) - 7)
-    out = fused_residual_block(x.requires_grad_(True), p, 16)
-    with pytest.raises(RuntimeError, match="chunked"):
-        out.sum().backward()
+    xg = x.clone().requires_grad_(True)
+    g = torch.randn(2, l, d, generator=torch.Generator().manual_seed(2)).to(cuda, torch.bfloat16)
+    cuda_lib.reset_launches()
+    (dx,) = torch.autograd.grad(fused_residual_block(xg, p, 16), xg, g)
+    assert cuda_lib.LAUNCHES["mlp_half_bwd_dx"] == 1 and cuda_lib.LAUNCHES["attn_half_bwd_dx"] == 1
+    with torch.no_grad():
+        y_k = fused_attn_half(x, p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"],
+                              p["ln_1_scale"], p["ln_1_bias"], n_head=16)
+    dy = mlp_half_bwd_dx_plain(y_k, g, p["c_fc_w"], p["c_fc_b"], p["c_proj_w"],
+                               p["ln_2_scale"], p["ln_2_bias"])
+    ref = attn_half_bwd_dx_plain(x, dy, p["w_qkv"], p["b_qkv"], p["w_out"],
+                                 p["ln_1_scale"], p["ln_1_bias"], n_head=16)
+    torch.cuda.synchronize()
+    peak = max(float(ref.abs().max()), 1.0)
+    assert float((dx.float() - ref.float()).abs().max()) <= 4.0 * 2.0 ** (math.floor(math.log2(peak)) - 7)
+
+
+def test_fused_block_after_k5_gradients_on_card_match_cpu(cuda, monkeypatch):
+    """fp32, a block sent through K5 (the thresholds at zero) at a vision
+    tower's 197 tokens: dx on the card (K4, then K3's tiled FMA core) equals
+    the CPU's within 1e-4 of its scale."""
+    import ovmr_tpu_torch.ops.block_fused as tbf
+
+    monkeypatch.setattr(tbf, "_MLP_W_CUTOFF", 0)
+    monkeypatch.setattr(tbf, "_MLP_W_RESIDENT_FWD", 0)
+    b, l, d, h = 2, 197, 64, 2
+    p0 = _block_params(d, torch.float32, "cpu", seed=6)
+    x0 = torch.randn(b, l, d, generator=torch.Generator().manual_seed(7))
+    grads = {}
+    for device in ("cpu", cuda):
+        x = x0.clone().to(device).requires_grad_(True)
+        p = {k: v.to(device) for k, v in p0.items()}
+        cuda_lib.reset_launches()
+        (fused_residual_block(x, p, h) ** 2).sum().backward()
+        if device != "cpu":
+            assert cuda_lib.LAUNCHES["fused_mlp_half_chunked"] == 1
+            assert cuda_lib.LAUNCHES["attn_half_bwd_dx"] == 1
+        grads[str(device)] = x.grad.cpu()
+    scale = max(float(grads["cpu"].abs().max()), 1.0)
+    assert float((grads["cuda"] - grads["cpu"]).abs().max()) <= 1e-4 * scale
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -424,8 +568,9 @@ def test_slice_on_card_matches_cpu(cuda):
     # serving launches every forward kernel of a TINY tower (its MLP half is
     # K2, not the chunked K5) and no backward or tensor-parallel one
     for name, count in cuda_lib.LAUNCHES.items():
+        # (nor, at fp32, the bf16/fp16 wgmma GEMM)
         idle = (name.endswith(("bwd_dx", "bwd_dx_masked")) or name == "fused_mlp_half_chunked"
-                or name.startswith("tp_"))
+                or name.startswith("tp_") or name == "gemm_wgmma")
         assert (count == 0) == idle, cuda_lib.LAUNCHES
     cpu = OVMRGenerator(cp, tclip.TINY, ap, dtype=torch.float32, device="cpu").generate(names, images)
     for key in ("mm_classifier", "vision_classifier", "text_classifier", "visual_tokens"):

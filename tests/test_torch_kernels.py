@@ -180,6 +180,7 @@ def test_launch_counts_by_shape():
         "fused_mlp_half_chunked", "fused_attention",
         "attn_half_bwd_dx", "attn_half_bwd_dx_masked", "mlp_half_bwd_dx",
         "tp_attn_half_partial", "tp_attn_half_partial_masked", "tp_mlp_half_partial",
+        "gemm_wgmma",
     }
     for name in ("attn_half_bwd_dx", "attn_half_bwd_dx_masked", "mlp_half_bwd_dx"):
         cuda_lib.count_launch(name, x)
@@ -195,6 +196,10 @@ def test_launch_counts_by_shape():
     # the attention core by (B, L, W, heads)
     cuda_lib.count_launch("attn_core", x, shape=(2, 9, 64, 2))
     assert cuda_lib.LAUNCH_SHAPES[("attn_core", (2, 9, 64, 2), "bfloat16")] == 1
+    # the GEMM inside K2 and K5 is counted by name only
+    shapes = dict(cuda_lib.LAUNCH_SHAPES)
+    cuda_lib.count_inner_launch("gemm_wgmma")
+    assert cuda_lib.LAUNCHES["gemm_wgmma"] == 1 and dict(cuda_lib.LAUNCH_SHAPES) == shapes
     cuda_lib.reset_launches()
     assert not cuda_lib.LAUNCH_SHAPES and not any(cuda_lib.LAUNCHES.values())
 

@@ -3,7 +3,7 @@
 The MLP route (K2 or the chunked K5) against the JAX package's trace-time
 selector for every entry of ``CONFIGS``, with the JAX kernels stubbed as
 ``tests/test_block_fused.py::test_vitl_routing`` stubs them; the backward
-after a K5 forward; K1's wrapper at 577 tokens; the config read from a
+after a K5 forward (K4 then K3, the unchunked block's dx); K1's wrapper at 577 tokens; the config read from a
 state dict with ViT-L shapes; the positional table of a 24 x 24 grid.
 """
 
@@ -94,9 +94,15 @@ def test_fused_block_follows_the_route_and_backward_after_k5_raises(monkeypatch)
     chunked = tbf.fused_residual_block(xg, p, 2)
     assert taken == [2]
     torch.testing.assert_close(chunked.detach(), resident, atol=1e-5, rtol=0)
-    with pytest.raises(RuntimeError, match="chunked"):
-        chunked.sum().backward()
-    assert xg.grad is None
+    # the backward after K5 runs K4 then K3, as after K2: the unchunked
+    # block's dx
+    g = torch.randn(2, 9, 64, generator=torch.Generator().manual_seed(2))
+    (dx_chunked,) = torch.autograd.grad(chunked, xg, g)
+    monkeypatch.undo()
+    xr = x.clone().requires_grad_(True)
+    (dx_resident,) = torch.autograd.grad(tbf.fused_residual_block(xr, p, 2), xr, g)
+    assert taken == [2]
+    torch.testing.assert_close(dx_chunked, dx_resident, atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("masked", [False, True])
