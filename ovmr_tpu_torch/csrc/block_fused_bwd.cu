@@ -52,10 +52,8 @@
 // (the forward core's helpers, mma_frag.cuh), scores, probs, dP and dS live
 // in the accumulator registers, and K/V (q-side) or Q/dO (kv-side) tiles
 // stream through a 3-stage cp.async ring. fp32 stays plain FMA (TF32 would
-// break the 1e-5 fp32 tolerance): where a whole head fits (L = 77, the text
-// tower's training backward) one block per (head, prompt) keeps Q, K, V, dO
-// and two fp32 [L, L] matrices in shared memory; beyond, the same two
-// launches in shared-memory tiles.
+// break the 1e-5 fp32 tolerance), the same two launches in shared-memory
+// tiles; it is the correctness dtype, not a timed one.
 //
 // Rounding follows the TPU kernels (block_fused_bwd.py:57-216): LN pieces in
 // fp32, the LN output cast; h_pre stays fp32; dh_pre is cast after the fp32
@@ -136,184 +134,8 @@ __global__ void __launch_bounds__(LNB_THREADS)
 // ---------------------------------------------------------------------------
 // Attention-backward core of K3: qkv [B, L, 3D] and dattn [B, L, D] (the
 // cotangent of the head-merged attention output) in, dqkv [B, L, 3D] out in
-// the forward's packing (q heads | k heads | v heads).
-//
-// fp32 where a whole head fits: one block per (head, prompt).
-// ---------------------------------------------------------------------------
-constexpr int AB_THREADS = 256, AB_ROWS = 4;
-
-// Shared-memory layout of one (head, prompt): Q, K, V, dO as T with a row
-// stride that is an odd number of 32-bit words (no bank conflicts down a
-// column), then two fp32 [L, L + 1] matrices.
-template <typename T>
-struct AttnBwdLayout {
-  int ldt, ldp;
-  size_t off_p, off_ds, bytes;
-  __host__ __device__ AttnBwdLayout(int L, int Dh) {
-    ldt = sizeof(T) == 4 ? Dh + 1 : Dh + 2;
-    ldp = L + 1;
-    off_p = align_up((size_t)4 * L * ldt * sizeof(T), 16);
-    off_ds = off_p + (size_t)L * ldp * sizeof(float);
-    bytes = off_ds + (size_t)L * ldp * sizeof(float);
-  }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(AB_THREADS)
-    attn_bwd_core_kernel(const T* __restrict__ qkv, const T* __restrict__ dattn,
-                         const float* __restrict__ mask, T* __restrict__ dqkv, int L, int D,
-                         int Dh, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const AttnBwdLayout<T> lay(L, Dh);
-  const int ldt = lay.ldt, ldp = lay.ldp;
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + L * ldt;
-  T* Vs = Ks + L * ldt;
-  T* Os = Vs + L * ldt;
-  float* P = reinterpret_cast<float*>(smem + lay.off_p);    // scores, then probs
-  float* DS = reinterpret_cast<float*>(smem + lay.off_ds);  // dP, then dS
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const size_t rs = 3 * (size_t)D;
-  const T* base = qkv + (size_t)b * L * rs + (size_t)h * Dh;
-  const T* dbase = dattn + (size_t)b * L * D + (size_t)h * Dh;
-
-  constexpr int VW = 16 / sizeof(T);
-  const int cpr = Dh / VW;  // 16-byte chunks per row (Dh is a multiple of 8)
-  for (int idx = tid; idx < L * cpr; idx += AB_THREADS) {
-    const int r = idx / cpr, c = (idx % cpr) * VW;
-    const Vec<T, VW> q = *reinterpret_cast<const Vec<T, VW>*>(base + r * rs + c);
-    const Vec<T, VW> k = *reinterpret_cast<const Vec<T, VW>*>(base + r * rs + D + c);
-    const Vec<T, VW> v = *reinterpret_cast<const Vec<T, VW>*>(base + r * rs + 2 * D + c);
-    const Vec<T, VW> o = *reinterpret_cast<const Vec<T, VW>*>(dbase + (size_t)r * D + c);
-#pragma unroll
-    for (int e = 0; e < VW; ++e) {
-      Qs[r * ldt + c + e] = q.v[e];
-      Ks[r * ldt + c + e] = k.v[e];
-      Vs[r * ldt + c + e] = v.v[e];
-      Os[r * ldt + c + e] = o.v[e];
-    }
-  }
-  __syncthreads();
-
-  // scores = q k^T * scale + mask and dP = dO v^T, fp32; each thread takes
-  // AB_ROWS queries of one key column
-  const int ntile = ceil_div(L, AB_ROWS);
-  for (int idx = tid; idx < ntile * L; idx += AB_THREADS) {
-    const int i0 = (idx / L) * AB_ROWS, j = idx % L;
-    int ii[AB_ROWS];
-    float s[AB_ROWS], dp[AB_ROWS];
-#pragma unroll
-    for (int r = 0; r < AB_ROWS; ++r) {
-      ii[r] = min(i0 + r, L - 1) * ldt;
-      s[r] = 0.f;
-      dp[r] = 0.f;
-    }
-    for (int d = 0; d < Dh; ++d) {
-      const float kf = to_f(Ks[j * ldt + d]), vf = to_f(Vs[j * ldt + d]);
-#pragma unroll
-      for (int r = 0; r < AB_ROWS; ++r) {
-        s[r] = fmaf(to_f(Qs[ii[r] + d]), kf, s[r]);
-        dp[r] = fmaf(to_f(Os[ii[r] + d]), vf, dp[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < AB_ROWS; ++r) {
-      const int i = i0 + r;
-      if (i < L) {
-        float sc = s[r] * scale;
-        if (mask) sc += mask[(size_t)i * L + j];
-        P[i * ldp + j] = sc;
-        DS[i * ldp + j] = dp[r];
-      }
-    }
-  }
-  __syncthreads();
-
-  // per query row: probs = softmax(scores) in fp32 (a masked entry's -inf
-  // gives exactly 0), dS = T(probs * (dP - sum(dP * probs)) * scale); the
-  // probs are left rounded to T, as the dV product takes them
-  for (int i = warp; i < L; i += AB_THREADS / 32) {
-    float* prow = P + i * ldp;
-    float* drow = DS + i * ldp;
-    float mx = -INFINITY;
-    for (int j = lane; j < L; j += 32) mx = fmaxf(mx, prow[j]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(prow[j] - mx);
-      prow[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    float delta = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float p = prow[j] / sum;
-      prow[j] = p;
-      delta += drow[j] * p;
-    }
-    delta = warp_sum(delta);
-    for (int j = lane; j < L; j += 32) {
-      const float p = prow[j];
-      const float ds = p * (drow[j] - delta) * scale;
-      drow[j] = to_f(from_f<T>(ds));
-      prow[j] = to_f(from_f<T>(p));
-    }
-  }
-  __syncthreads();
-
-  T* obase = dqkv + (size_t)b * L * rs + (size_t)h * Dh;
-  // dq = dS k: each thread takes AB_ROWS queries of one feature column
-  for (int idx = tid; idx < ntile * Dh; idx += AB_THREADS) {
-    const int i0 = (idx / Dh) * AB_ROWS, d = idx % Dh;
-    int ii[AB_ROWS];
-    float acc[AB_ROWS];
-#pragma unroll
-    for (int r = 0; r < AB_ROWS; ++r) {
-      ii[r] = min(i0 + r, L - 1) * ldp;
-      acc[r] = 0.f;
-    }
-    for (int j = 0; j < L; ++j) {
-      const float kf = to_f(Ks[j * ldt + d]);
-#pragma unroll
-      for (int r = 0; r < AB_ROWS; ++r) acc[r] = fmaf(DS[ii[r] + j], kf, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < AB_ROWS; ++r)
-      if (i0 + r < L) obase[(size_t)(i0 + r) * rs + d] = from_f<T>(acc[r]);
-  }
-  // dk = dS^T q and dv = probs^T dO: sums over the queries, all in this
-  // block; each thread takes AB_ROWS keys of one feature column
-  for (int idx = tid; idx < ntile * Dh; idx += AB_THREADS) {
-    const int j0 = (idx / Dh) * AB_ROWS, d = idx % Dh;
-    int jj[AB_ROWS];
-    float ak[AB_ROWS], av[AB_ROWS];
-#pragma unroll
-    for (int r = 0; r < AB_ROWS; ++r) {
-      jj[r] = min(j0 + r, L - 1);
-      ak[r] = 0.f;
-      av[r] = 0.f;
-    }
-    for (int i = 0; i < L; ++i) {
-      const float qf = to_f(Qs[i * ldt + d]), of = to_f(Os[i * ldt + d]);
-#pragma unroll
-      for (int r = 0; r < AB_ROWS; ++r) {
-        ak[r] = fmaf(DS[i * ldp + jj[r]], qf, ak[r]);
-        av[r] = fmaf(P[i * ldp + jj[r]], of, av[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < AB_ROWS; ++r) {
-      if (j0 + r < L) {
-        obase[(size_t)(j0 + r) * rs + D + d] = from_f<T>(ak[r]);
-        obase[(size_t)(j0 + r) * rs + 2 * D + d] = from_f<T>(av[r]);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The query-tiled core (every L; see the header). The row statistics of
+// the forward's packing (q heads | k heads | v heads), tiled over the
+// queries at every L (see the header). The row statistics of
 // (b, h) live at stats + (b H + h) 3 Lp: [0, Lp) the row maximum, [Lp, 2 Lp)
 // the sum, [2 Lp, 3 Lp) delta; Lp is L rounded up to BT_QT, so a tile's
 // statistics are read in whole 16-byte pieces (entries past L are never
@@ -739,17 +561,18 @@ __global__ void __launch_bounds__(BT_WARPS * 32, 1)
 }
 
 // ---------------------------------------------------------------------------
-// fp32 beyond a whole head: the same two launches in shared-memory tiles,
-// plain FMA. q-side: one block per (BF_Q queries, head, image), the keys in
-// tiles of BF_K; kv-side: one block per (BF_Q keys, head, image), the
-// queries in tiles of BF_K. Statistics: the row maximum, sum and delta.
+// fp32: the same two launches in shared-memory tiles, plain FMA, at every
+// length (shared memory depends on the head width only). q-side: one block
+// per (BF_Q queries, head, image), the keys in tiles of BF_K; kv-side: one
+// block per (BF_Q keys, head, image), the queries in tiles of BF_K.
+// Statistics: the row maximum, sum and delta.
 // ---------------------------------------------------------------------------
 constexpr int BF_Q = 32, BF_K = 64, BF_THREADS = 256;
 
-__host__ __device__ inline size_t bf_q_smem(int Dh) {
+__host__ __device__ constexpr size_t bf_q_smem(int Dh) {
   return ((size_t)(3 * BF_Q + 2 * BF_K) * (Dh + 1) + 2 * BF_Q * (BF_K + 1) + 3 * BF_Q) * 4;
 }
-__host__ __device__ inline size_t bf_kv_smem(int Dh) {
+__host__ __device__ constexpr size_t bf_kv_smem(int Dh) {
   return ((size_t)(4 * BF_Q + 2 * BF_K) * (Dh + 1) + 2 * BF_K * (BF_Q + 1) + 3 * BF_K) * 4;
 }
 
@@ -975,21 +798,15 @@ static cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// fp32: the whole-head core where a head fits in a block, else the two tiled
-// launches (plain FMA)
+// fp32: the two tiled launches (plain FMA) at every length
 static cudaError_t launch_attn_bwd_core_f32(const void* qkv, const void* dattn,
                                             const float* mask, void* dqkv, float* stats, int B,
                                             int L, int D, int H, cudaStream_t st) {
+  static_assert(bf_q_smem(128) <= 227 * 1024 && bf_kv_smem(128) <= 227 * 1024,
+                "the fp32 backward core's shared memory exceeds a block's 227 KB");
   const int Dh = D / H, Lp = ceil_div(L, BT_QT) * BT_QT;
   const float scale = (float)(1.0 / sqrt((double)Dh));
-  const AttnBwdLayout<float> lay(L, Dh);
   cudaError_t err;
-  if (lay.bytes <= 227 * 1024) {
-    if ((err = set_smem(attn_bwd_core_kernel<float>, lay.bytes)) != cudaSuccess) return err;
-    attn_bwd_core_kernel<float><<<dim3(H, B), AB_THREADS, lay.bytes, st>>>(
-        (const float*)qkv, (const float*)dattn, mask, (float*)dqkv, L, D, Dh, scale);
-    return cudaSuccess;
-  }
   if ((err = set_smem(attn_bwd_q_f32_kernel, bf_q_smem(Dh))) != cudaSuccess) return err;
   if ((err = set_smem(attn_bwd_kv_f32_kernel, bf_kv_smem(Dh))) != cudaSuccess) return err;
   attn_bwd_q_f32_kernel<<<dim3(ceil_div(L, BF_Q), H, B), BF_THREADS, bf_q_smem(Dh), st>>>(

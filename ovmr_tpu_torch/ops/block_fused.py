@@ -311,11 +311,14 @@ def mlp_gemm(a, w, bias=None, epilogue="gelu", resid=None, out=None):
             raise ValueError(f"{what}: {name} must be {a.dtype} on {a.device}")
     if w.data_ptr() % 16:
         raise ValueError(f"{what}: w must start on a 16-byte boundary")
-    if epilogue != "accum" and (bias is None or tuple(bias.shape) != (n,)):
-        raise ValueError(f"{what}: the {epilogue} epilogue needs a bias of shape ({n},)")
+    if epilogue != "accum" and (bias is None or tuple(bias.shape) != (n,)
+                                or bias.stride(0) != 1 or bias.data_ptr() % 4):
+        raise ValueError(f"{what}: the {epilogue} epilogue needs a bias of shape ({n},), "
+                         "unit stride, 4-byte aligned")
     if epilogue == "residual" and (resid is None or tuple(resid.shape) != lead + (n,)
-                                   or not resid.is_contiguous()):
-        raise ValueError(f"{what}: the residual epilogue needs a contiguous resid {lead + (n,)}")
+                                   or not resid.is_contiguous() or resid.data_ptr() % 4):
+        raise ValueError(f"{what}: the residual epilogue needs a contiguous resid {lead + (n,)}, "
+                         "4-byte aligned")
     with torch.cuda.device(a.device):
         _mlp_gemm(cuda_lib.library("block_fused"), cuda_lib.dtype_code(a.dtype), a, w, bias,
                   out, _MLP_EPILOGUES[epilogue], cuda_lib.stream_of(a), resid=resid)

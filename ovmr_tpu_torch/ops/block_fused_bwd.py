@@ -28,11 +28,9 @@ A wrapper takes its plain twin for a tensor on the CPU and launches the
 kernels of ``csrc/block_fused_bwd.cu`` (plus the forward's LayerNorm and
 QKV GEMM of ``csrc/block_fused.cu``) for a tensor on a CUDA card; it never
 falls back. K3's attention-backward core takes every sequence length and
-every head width that is a multiple of 8 up to 128: in bf16/fp16 it is
-tiled over the queries (two tensor-core launches that recompute the scores
-from the packed qkv, so no [L, L] matrix is kept); in fp32 one block holds
-a whole head where it fits in shared memory (:func:`attn_bwd_core_smem_bytes`;
-every CLIP text tower) and the same two tiled launches run beyond.
+every head width that is a multiple of 8 up to 128: it is tiled over the
+queries, two launches that recompute the scores from the packed qkv, so no
+[L, L] matrix is kept (tensor cores in bf16/fp16, plain FMA in fp32).
 """
 
 from __future__ import annotations
@@ -155,17 +153,6 @@ def _ln_bwd(lib, code, x, dxln, g, ln_s, stream):
         "ovmr_ln_bwd",
     )
     return out
-
-
-def attn_bwd_core_smem_bytes(l: int, dh: int, itemsize: int) -> int:
-    """Shared memory of one block of the whole-head attention-backward core
-    (``AttnBwdLayout`` in csrc/block_fused_bwd.cu): Q, K, V, dO with padded
-    rows, then two fp32 [L, L + 1] matrices. The fp32 launcher takes that
-    core where this fits in a block's 227 KB and the query-tiled core
-    beyond it."""
-    ldt = dh + 1 if itemsize == 4 else dh + 2
-    operands = -(-4 * l * ldt * itemsize // 16) * 16
-    return operands + 2 * l * (l + 1) * 4
 
 
 def _check_cotangent(what, x, g):

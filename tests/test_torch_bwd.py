@@ -9,6 +9,8 @@ autograd wrapper are held against ``jax.grad`` (fp32, atol 1e-4, the
 gradient rung of ``tests/test_block_fused.py``).
 """
 
+import re
+
 import numpy as np
 import pytest
 
@@ -27,11 +29,7 @@ from ovmr_tpu_torch.ops import cuda_lib
 from ovmr_tpu_torch.ops import layers as tlayers
 from ovmr_tpu_torch.ops.attention import fused_attention
 from ovmr_tpu_torch.ops.block_fused import BLOCK_KEYS, fused_attn_half, fused_residual_block
-from ovmr_tpu_torch.ops.block_fused_bwd import (
-    attn_bwd_core_smem_bytes,
-    attn_half_bwd_dx,
-    mlp_half_bwd_dx,
-)
+from ovmr_tpu_torch.ops.block_fused_bwd import attn_half_bwd_dx, mlp_half_bwd_dx
 
 DTYPES = {"fp32": (jnp.float32, torch.float32, 1e-4), "bf16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
 
@@ -223,12 +221,47 @@ def test_require_no_grad_guards_the_raw_wrappers():
 
 
 def test_attn_bwd_core_shared_memory_limit():
-    """One head must fit in a block's 227 KB: every CLIP text tower does,
-    a vision tower's L = 197 does not."""
+    """K3's core is tiled over the queries at every length and dtype, so a
+    block's shared memory depends on the head width alone: at every width
+    the core takes (a multiple of 8 up to 128) each of its four launches
+    (q-side and kv-side, tensor-core and fp32 FMA) fits in a block's 227 KB,
+    which the launchers also assert at compile time. Sizes from the tile
+    constants of csrc/block_fused_bwd.cu."""
+    text = (cuda_lib.CSRC / "block_fused_bwd.cu").read_text()
+    c = {}
+    for decl in re.findall(r"constexpr int ((?:BT_WARPS|BF_Q) =[^;]*);", text):
+        for item in decl.split(","):
+            name, expr = (t.strip() for t in item.split("="))
+            c[name] = eval(expr, {"__builtins__": {}}, dict(c))
+    # every size function of the core takes a head width and nothing else
+    sizes = dict(re.findall(r"constexpr size_t (b[tf]_(?:q|kv)_smem)\(int (\w+)\)", text))
+    assert sizes == {"bt_q_smem": "dhp", "bt_kv_smem": "dhp", "bf_q_smem": "Dh",
+                     "bf_kv_smem": "Dh"}
+    assert "AttnBwdLayout" not in text
+    qt, kt, stages = c["BT_QT"], c["BT_KT"], c["BT_STAGES"]
+
+    def bt_q(dhp):
+        return (2 * qt + stages * 2 * kt) * (dhp + 8) * 2
+
+    def bt_kv(dhp):
+        kv_qt = 32 if dhp > 64 else 64
+        return (2 * qt + stages * 2 * kv_qt) * (dhp + 8) * 2 + stages * 3 * kv_qt * 4
+
+    def bf_q(dh):
+        return ((3 * c["BF_Q"] + 2 * c["BF_K"]) * (dh + 1) + 2 * c["BF_Q"] * (c["BF_K"] + 1)
+                + 3 * c["BF_Q"]) * 4
+
+    def bf_kv(dh):
+        return ((4 * c["BF_Q"] + 2 * c["BF_K"]) * (dh + 1) + 2 * c["BF_K"] * (c["BF_Q"] + 1)
+                + 3 * c["BF_K"]) * 4
+
     limit = 227 * 1024
-    assert attn_bwd_core_smem_bytes(77, 64, 2) < attn_bwd_core_smem_bytes(77, 64, 4) < limit
-    assert attn_bwd_core_smem_bytes(77, 64, 2) == 4 * 77 * 66 * 2 + 2 * 77 * 78 * 4
-    assert attn_bwd_core_smem_bytes(197, 64, 2) > limit
+    assert (bt_q(128), bt_kv(128), bf_q(128), bf_kv(128)) == (174080, 123008, 132608, 149760)
+    for dh in range(8, 129, 8):
+        dhp = 64 if dh <= 64 else 128  # the tensor-core kernels zero-pad the head
+        assert max(bt_q(dhp), bt_kv(dhp), bf_q(dh), bf_kv(dh)) <= limit
+    assert "static_assert(q_bytes <= 227 * 1024 && kv_bytes <= 227 * 1024" in text
+    assert "static_assert(bf_q_smem(128) <= 227 * 1024 && bf_kv_smem(128) <= 227 * 1024" in text
 
 
 def test_dx_wrappers_refuse_other_devices(layer_np):

@@ -261,8 +261,7 @@ def test_attn_bwd_tiled_core_matches_plain(cuda, dtype, mask_kind, dh, l):
     """K3 across the tiled core's key (64) and query (32, 64, 128) tile
     edges, at the paths' 77, 197 and 577 tokens, at head widths zero-padded
     to 64 (16, 40) or 128, with no mask, the causal mask and a random one;
-    fp32 takes the whole-head core where a head fits and the tiled FMA
-    launches beyond."""
+    fp32 runs the tiled FMA launches at every length."""
     b, h = 2, 2
     d = h * dh
     p = _layer(d, dtype, cuda, seed=l * 131 + dh)
@@ -338,6 +337,10 @@ def test_mlp_gemm_refuses_what_it_does_not_take(cuda):
         mlp_gemm(a, w.t().contiguous().t(), b)
     with pytest.raises(ValueError, match="needs a bias"):
         mlp_gemm(a, w, None, "gelu")
+    with pytest.raises(ValueError, match="needs a bias"):  # the kernel reads bias in pairs
+        mlp_gemm(a, w, torch.randn(256, device=cuda, dtype=torch.bfloat16)[::2])
+    with pytest.raises(ValueError, match="needs a bias"):
+        mlp_gemm(a, w, torch.randn(129, device=cuda, dtype=torch.bfloat16)[1:])
     with pytest.raises(ValueError, match="missing"):
         mlp_gemm(a, w, None, "accum")
     with pytest.raises(RuntimeError, match="requires grad"):
