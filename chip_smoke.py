@@ -30,8 +30,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    in fp32, and K7 on a shard of zero-padded heads, which must give exact
    zeros. K3 (no mask, the query-tiled core) at the vision towers' 197 x
    768 and 577 x 1024 and K4 at K5's shape, in bf16. The wgmma/TMA GEMM of
-   K2 and K5 alone at K5's c_fc/c_proj and K2's ViT-B/16 shapes, with
-   ``torch.matmul`` as its yardstick. Beside every K1 and K7 case, the attention core those launch
+   K1, K2, K5 and K7 alone at K5's c_fc/c_proj, K2's ViT-B/16 shapes, K1's
+   QKV and out-proj and K7's q slice and fp32 out-proj at ViT-L/14@336px,
+   with ``torch.matmul`` as its yardstick. Beside every K1 and K7 case, the attention core those launch
    (``attn_core``) alone at the same B, L, width and heads, with SDPA on
    the same q/k/v as its library yardstick. Each case is checked as soon as it
    is built, and timed beside its plain version, one PyTorch library call
@@ -94,8 +95,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    forward, K4 + K3 backward, exact launch counts): fp32 on the card
    against the CPU (dx within 1e-4 of its scale), bf16 on the card finite.
 
-In bf16 every K2 launches the wgmma GEMM twice and every K5 twice a chunk
-(``gemm_wgmma``, counted by name); phases 3, 5 and 7 check that count.
+In bf16 every K1 and K2 launches the wgmma GEMM twice, every K5 twice a
+chunk and every K7 four times (``gemm_wgmma``, counted by name); phases 3,
+5, 7, 9 and 11 check that count exactly, and phase 6 that fp32 launches
+none.
 
 Prints the kernels JSON line, the nvidia-smi line and, last, the result
 line ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -495,39 +498,54 @@ def vision_bwd_cases(torch, F, randn, check, params, layer, library_attn_half,
 
 
 def gemm_cases(torch, randn, check):
-    """The wgmma/TMA GEMM alone at the products K5 and K2 run on the
+    """The wgmma/TMA GEMM alone at the products K5, K2, K1 and K7 run on the
     serving paths, bf16: K5's per-chunk c_fc (QuickGELU, a column slice of
     c_fc_w read in place) and c_proj (added into the output) at
     ViT-L/14@336px and 512 images; K2's c_fc and c_proj (plus the residual)
-    at ViT-B/16 and 512 images. Yardstick: torch.matmul of the same
-    operands (no epilogue)."""
-    from ovmr_tpu_torch.ops.block_fused import mlp_gemm, mlp_gemm_plain
+    at ViT-B/16 and 512 images; K1's QKV (plus the bias) and out-proj (plus
+    the bias and x) and K7's q (plus the bias, into the first column slice
+    of the shard's [tokens, 3 dl] buffer) and fp32 out-proj at
+    ViT-L/14@336px and 512 images (K7: a shard of model axis 2, dl 512).
+    Yardstick: torch.matmul of the same operands (no epilogue)."""
+    from ovmr_tpu_torch.ops.block_fused import block_gemm, block_gemm_plain
 
-    for case, m, n, k, ldw, epilogue, replaces in (
-            ("vitl336-k5-c_fc", 512 * 577, 2048, 1024, 4096, "gelu", "block_fused.py:249"),
-            ("vitl336-k5-c_proj", 512 * 577, 1024, 2048, 1024, "accum", "block_fused.py:249"),
-            ("vision-k2-c_fc", 512 * 197, 3072, 768, 3072, "gelu", "block_fused.py:123"),
-            ("vision-k2-c_proj", 512 * 197, 768, 3072, 768, "residual", "block_fused.py:123")):
+    vitl = 512 * 577
+    for case, m, n, k, ldw, ldc, epilogue, replaces in (
+            ("vitl336-k5-c_fc", vitl, 2048, 1024, 4096, 2048, "gelu", "block_fused.py:249"),
+            ("vitl336-k5-c_proj", vitl, 1024, 2048, 1024, 1024, "accum", "block_fused.py:249"),
+            ("vision-k2-c_fc", 512 * 197, 3072, 768, 3072, 3072, "gelu", "block_fused.py:123"),
+            ("vision-k2-c_proj", 512 * 197, 768, 3072, 768, 768, "residual",
+             "block_fused.py:123"),
+            ("vitl336-k1-qkv", vitl, 3072, 1024, 3072, 3072, "bias", "block_fused.py:58"),
+            ("vitl336-k1-out", vitl, 1024, 1024, 1024, 1024, "residual", "block_fused.py:58"),
+            ("vitl336-tp2-k7-q", vitl, 512, 1024, 512, 1536, "bias", "block_fused_tp.py:179"),
+            ("vitl336-tp2-k7-out", vitl, 1024, 512, 1024, 1024, "f32",
+             "block_fused_tp.py:179")):
         a = randn(m, k).to(torch.bfloat16)
         w = randn(k, ldw, std=k ** -0.5).to(torch.bfloat16)[:, :n]
-        bias = randn(n, std=0.02).to(torch.bfloat16) if epilogue != "accum" else None
+        bias = randn(n, std=0.02).to(torch.bfloat16) if epilogue not in ("accum", "f32") else None
         resid = randn(m, n).to(torch.bfloat16) if epilogue == "residual" else None
         c = randn(m, n).to(torch.bfloat16) if epilogue == "accum" else None
         # accum adds into its output: the kernel adds into a copy of c (its
-        # first call is the one checked; each timed call adds once more)
-        out = None if c is None else c.clone()
+        # first call is the one checked; each timed call adds once more);
+        # K7's q lands in the first dl columns of a [tokens, 3 dl] buffer
+        out = c.clone() if c is not None else None
+        if ldc != n:
+            out = torch.empty(m, ldc, dtype=torch.bfloat16, device="cuda")[:, :n]
+        out_bytes = 4 if epilogue == "f32" else 2
         check(dict(
             name="gemm_wgmma", case=case, dtype=torch.bfloat16, shape=[m, n, k], x=a,
             key_shape=(m, n, k), source="ovmr_tpu_torch/csrc/gemm_wgmma.cuh",
             replaces="ovmr_tpu/ops/" + replaces,
-            kernel=lambda a=a, w=w, b=bias, r=resid, o=out, e=epilogue: mlp_gemm(
+            kernel=lambda a=a, w=w, b=bias, r=resid, o=out, e=epilogue: block_gemm(
                 a, w, b, e, r, out=o),
-            plain=lambda a=a, w=w, b=bias, r=resid, c=c, e=epilogue: mlp_gemm_plain(
+            plain=lambda a=a, w=w, b=bias, r=resid, c=c, e=epilogue: block_gemm_plain(
                 a, w, b, e, r, c),
             library=lambda a=a, w=w: torch.matmul(a, w),
             # A and W read, C written (and read by the accum epilogue), the
-            # residual read
-            bytes=(m * k + k * n + m * n * (2 if epilogue != "gelu" else 1)) * 2,
+            # residual read, the bias read
+            bytes=(m * k + k * n + (n if bias is not None else 0)) * 2 + m * n * out_bytes
+            + (m * n * 2 if epilogue in ("accum", "residual") else 0),
             flops=2 * m * n * k, peak=PEAK_BF16, reps=10, rounds=5,
         ))
 
@@ -794,11 +812,15 @@ def serving_slice(torch, np, tag, gen, n_requests, warmups=0):
     for kernel in {key[0] for key in want}:
         if launches[kernel] <= 0:
             raise AssertionError(f"kernel {kernel} was not launched on the {tag} path")
-    # in bf16/fp16 every K2 runs two wgmma GEMMs and every K5 two a chunk
+    # in bf16/fp16 every K1 and K2 runs two wgmma GEMMs and every K5 two a
+    # chunk; in fp32 none
     chunks = mlp_tier_chunks(tokens, vw, 4 * vw)
     gemms = sum(n * (2 * chunks if key[0] == "fused_mlp_half_chunked" else 2)
-                for key, n in want.items() if key[0].startswith("fused_mlp_half"))
-    if gen.dtype != torch.float32 and launches["gemm_wgmma"] != gemms:
+                for key, n in want.items()
+                if key[0].startswith(("fused_mlp_half", "fused_attn_half")))
+    if gen.dtype == torch.float32:
+        gemms = 0
+    if launches["gemm_wgmma"] != gemms:
         raise AssertionError(f"{tag}: {launches['gemm_wgmma']} wgmma GEMM launches, "
                              f"expected {gemms}")
 
@@ -1030,8 +1052,13 @@ def tp_serving_slice(torch, np, gen, single_outs, n_requests=2, warmups=1):
           flush=True)
     print(f"[tp] launches per request, exact: {want_request}", flush=True)
     for name in ("fused_attn_half", "fused_attn_half_masked", "fused_mlp_half",
-                 "fused_mlp_half_chunked", "gemm_wgmma"):
+                 "fused_mlp_half_chunked"):
         assert launches[name] == 0, (name, launches[name])
+    # in bf16/fp16 every K7 runs its q, k, v and out-proj on the wgmma GEMM
+    k7 = sum(n for key, n in shapes.items() if key[0].startswith("tp_attn_half_partial"))
+    if launches["gemm_wgmma"] != 4 * k7:
+        raise AssertionError(f"tp: {launches['gemm_wgmma']} wgmma GEMM launches, "
+                             f"expected {4 * k7}")
     for out in outs:
         check_classifiers(np, out, N_CLS, cfg.embed_dim, 2, unit_tol=1e-2)
     assert probs.shape == (N_QUERIES, N_CLS) and np.isfinite(probs).all()
@@ -1179,7 +1206,7 @@ def training_slice(torch, np, clip_params, agg_params):
         "tp_attn_half_partial": 0,                  # no model axis
         "tp_attn_half_partial_masked": 0,
         "tp_mlp_half_partial": 0,
-        "gemm_wgmma": 2 * (2 * cfg.vision_layers + 2 * layers),  # two inside each K2
+        "gemm_wgmma": 4 * (2 * cfg.vision_layers + 2 * layers),  # two inside each K1 and K2
     }
 
     def fresh():
@@ -1368,7 +1395,7 @@ def vision_backward(torch):
             want = {k: 0 for k in cuda_lib.LAUNCHES}
             want.update(fused_attn_half=2, attn_core=2, fused_mlp_half_chunked=2,
                         mlp_half_bwd_dx=2, attn_half_bwd_dx=2,
-                        gemm_wgmma=0 if dtype == torch.float32 else 2 * 2 * chunks)
+                        gemm_wgmma=0 if dtype == torch.float32 else 2 * (2 + 2 * chunks))
             if dict(cuda_lib.LAUNCHES) != want:
                 raise AssertionError(f"vision backward ({dtype}): launches "
                                      f"{dict(cuda_lib.LAUNCHES)}, expected {want}")

@@ -58,12 +58,14 @@
 // The GEMMs. K2 and K5 are LayerNorm plus two products of 4 B L D hidden
 // FLOP in all (4.96 TFLOP for K5 at ViT-L/14@336px and 512 images, 5 ms at
 // the card's peak) against a few GB of activations: bound by tensor-core
-// issue. In bf16/fp16 their products run on the wgmma/TMA GEMM
-// (gemm_wgmma.cuh, ovmr_gemm_wgmma): a TMA-fed mbarrier ring, two consumer
-// warpgroups issuing wgmma on a 128 x 128 tile, the epilogue on the
-// accumulator registers. K1, K7, K8 and the backward halves still use
-// gemm.cuh's tiled kernel (ovmr_gemm): two cp.async stages, WMMA fragments
-// with fp32 accumulation, and an fp32 shared-memory round trip per output.
+// issue; so are K1's QKV (1.86 TFLOP at the same shape) and out-proj, and
+// K7's four products. In bf16/fp16 the products of K1, K2, K5 and K7 run
+// on the wgmma/TMA GEMM (gemm_wgmma.cuh, ovmr_gemm_wgmma): a TMA-fed
+// mbarrier ring, two consumer warpgroups issuing wgmma on a 128 x 128
+// tile, the epilogue on the accumulator registers. K8 and the backward
+// halves still use gemm.cuh's tiled kernel (ovmr_gemm): two cp.async
+// stages, WMMA fragments with fp32 accumulation, and an fp32 shared-memory
+// round trip per output.
 // Both add the bias in fp32 and apply the activation or the residual in the
 // epilogue, with the same rounding. fp32 products are plain FMA on
 // gemm.cuh's kernel (TF32 would break the 1e-5 fp32 tolerance).
@@ -582,10 +584,14 @@ static cudaError_t launch_fwd_gemm_wgmma(const void* A, const void* W, const voi
                                          const void* R, void* C, int M, int N, int K, int ldw,
                                          int ldc, int epi, cudaStream_t st) {
   switch (epi) {
+    case EPI_BIAS:
+      return launch_gemm_wgmma<T, EPI_BIAS>(A, W, bias, R, C, M, N, K, ldw, ldc, st);
     case EPI_BIAS_GELU:
       return launch_gemm_wgmma<T, EPI_BIAS_GELU>(A, W, bias, R, C, M, N, K, ldw, ldc, st);
     case EPI_BIAS_RESIDUAL:
       return launch_gemm_wgmma<T, EPI_BIAS_RESIDUAL>(A, W, bias, R, C, M, N, K, ldw, ldc, st);
+    case EPI_F32:
+      return launch_gemm_wgmma<T, EPI_F32>(A, W, bias, R, C, M, N, K, ldw, ldc, st);
     case EPI_ACCUM:
       return launch_gemm_wgmma<T, EPI_ACCUM>(A, W, bias, R, C, M, N, K, ldw, ldc, st);
     default: return cudaErrorInvalidValue;
@@ -698,19 +704,26 @@ OVMR_EXPORT int ovmr_gemm(int dtype, const void* A, const void* W, const void* b
   return (int)cudaGetLastError();
 }
 
-// ovmr_gemm's contract for the MLP halves in bf16/fp16 on the wgmma/TMA
-// GEMM (gemm_wgmma.cuh): epilogue 1 (QuickGELU then cast), 2 (cast then add
-// the residual R) or 7 (no bias; cast then add to what C holds); N, K and
-// ldw multiples of 8, A and W 16-byte aligned
+// ovmr_gemm's contract for the block halves in bf16/fp16 on the wgmma/TMA
+// GEMM (gemm_wgmma.cuh): epilogue 0 (cast), 1 (QuickGELU then cast), 2
+// (cast then add the residual R), 6 (no bias; the fp32 sum stored as fp32,
+// C is float and ldc counts floats) or 7 (no bias; cast then add to what C
+// holds). A bias is given exactly when the epilogue adds one; N, K and ldw
+// multiples of 8, A and W 16-byte aligned; ldc even, C, the bias and R
+// aligned to a pair of their elements (the epilogue moves column pairs)
 OVMR_EXPORT int ovmr_gemm_wgmma(int dtype, const void* A, const void* W, const void* bias,
                                 const void* R, void* C, int M, int N, int K, int ldw, int ldc,
                                 int epilogue, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool known = epilogue == EPI_BIAS_GELU || epilogue == EPI_BIAS_RESIDUAL ||
+  const bool known = epilogue == EPI_BIAS || epilogue == EPI_BIAS_GELU ||
+                     epilogue == EPI_BIAS_RESIDUAL || epilogue == EPI_F32 ||
                      epilogue == EPI_ACCUM;
-  if (!known || (epilogue != EPI_ACCUM && !bias) || (epilogue == EPI_BIAS_RESIDUAL && !R) ||
-      N % 8 || K % 8 || ldw % 8 || ldw < N || ldc < N || ldc % 2 ||
-      reinterpret_cast<uintptr_t>(A) % 16 || reinterpret_cast<uintptr_t>(W) % 16)
+  const uintptr_t pair = epi_out_f32(epilogue) ? 8 : 4;
+  if (!known || epi_has_bias(epilogue) != (bias != nullptr) ||
+      (epilogue == EPI_BIAS_RESIDUAL && !R) || N % 8 || K % 8 || ldw % 8 || ldw < N ||
+      ldc < N || ldc % 2 || reinterpret_cast<uintptr_t>(A) % 16 ||
+      reinterpret_cast<uintptr_t>(W) % 16 || reinterpret_cast<uintptr_t>(C) % pair ||
+      reinterpret_cast<uintptr_t>(bias) % 4 || reinterpret_cast<uintptr_t>(R) % 4)
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   switch (dtype) {

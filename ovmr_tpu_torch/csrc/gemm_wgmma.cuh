@@ -1,21 +1,28 @@
-// The Hopper GEMM of the MLP halves K2 and K5 in bf16/fp16: wgmma fed by
-// TMA through an mbarrier ring (block_fused.cu launches it through
-// ovmr_gemm_wgmma).
+// The Hopper GEMM of the block halves in bf16/fp16: wgmma fed by TMA
+// through an mbarrier ring (block_fused.cu launches it through
+// ovmr_gemm_wgmma). K1's QKV and out-proj, K7's q/k/v and fp32 out-proj,
+// and K2's and K5's c_fc and c_proj run on it.
 //
 //   C[M, N] = epilogue(A[M, K] @ W[K, N])
 //
 // the contract of gemm.cuh's forward form: A dense row-major; W row-major
 // with rows ldw elements apart (a column slice of a wider weight is read in
-// place); C rows ldc elements apart; M free, N and K multiples of 8, ragged
-// edges masked. Epilogues, rounded exactly as gemm.cuh's epilogue_value /
-// epilogue_cast round them:
+// place); C rows ldc elements (of C's own type) apart, so C may be a column
+// slice of a wider buffer (K7 writes q, k and v side by side); M free, N
+// and K multiples of 8, ragged edges masked. Epilogues, rounded exactly as
+// gemm.cuh's epilogue_value / epilogue_cast / epi_out_f32 round them:
+//   EPI_BIAS           T(acc + bias), bias added in fp32 (K1's QKV, K7's q/k/v)
 //   EPI_BIAS_GELU      T(QuickGELU(acc + bias)), QuickGELU in fp32 (c_fc)
-//   EPI_BIAS_RESIDUAL  T(R + T(acc + bias)), R dense [M, N] (K2's c_proj)
+//   EPI_BIAS_RESIDUAL  T(R + T(acc + bias)), R dense [M, N] (K1's out-proj,
+//                      K2's c_proj)
+//   EPI_F32            acc stored as fp32, no bias (K7's out-proj partial)
 //   EPI_ACCUM          T(C + T(acc)) (K5's per-chunk c_proj)
 //
-// What bounds it: the MLP products are far above the card's ~295 FLOP/byte
-// ridge (K5 at ViT-L/14@336px and 512 images: 4.96 TFLOP against ~2.5 GB),
-// so tensor-core issue is the limit. gemm.cuh's WMMA kernel reached ~155
+// What bounds it: the block's products are far above the card's ~295
+// FLOP/byte ridge (at ViT-L/14@336px and 512 images K5's two are 4.96 TFLOP
+// against ~2.5 GB, K1's QKV 1.86 TFLOP against ~2.4 GB), so tensor-core
+// issue is the limit. K7's fp32 out-proj is the exception: at K = 512 its
+// 1.2 GB of fp32 stores bound it. gemm.cuh's WMMA kernel reached ~155
 // TFLOP/s there: 16x16x16 fragments loaded by every warp, a two-stage
 // cp.async pipeline that all threads wait on, and an fp32 shared-memory
 // round trip per output. Here:
@@ -35,7 +42,7 @@
 //     K, so the products need no masking;
 //   - the epilogue works on the accumulator registers: bias in fp32,
 //     QuickGELU, the cast, the residual or C read in the activation dtype,
-//     and a masked store of column pairs.
+//     and a masked store of column pairs (4 bytes a pair, 8 for fp32 out).
 // The tensor maps are encoded on the host for every call, with the
 // cuTensorMapEncodeTiled looked up once in libcuda at run time (the
 // library links nothing beyond the CUDA runtime).
@@ -128,8 +135,8 @@ template <typename T, int EPI>
 __global__ void __launch_bounds__(WG_THREADS, 2)
     gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                       const __grid_constant__ CUtensorMap map_w, const T* __restrict__ bias,
-                      const T* __restrict__ resid, T* __restrict__ C, int M, int N, int K,
-                      int ldc) {
+                      const T* __restrict__ resid, void* __restrict__ Cv, int M, int N,
+                      int K, int ldc) {
   extern __shared__ unsigned char wg_raw[];
   __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
@@ -199,18 +206,29 @@ __global__ void __launch_bounds__(WG_THREADS, 2)
       for (int h = 0; h < 2; ++h) {
         const int row = r + 8 * h;
         if (row >= M) continue;
-        T* c = C + (size_t)row * ldc + col;
-        Vec<T, 2> rv, o;
-        if (EPI == EPI_BIAS_RESIDUAL)
-          rv = *reinterpret_cast<const Vec<T, 2>*>(resid + (size_t)row * N + col);
-        if (EPI == EPI_ACCUM) rv = *reinterpret_cast<const Vec<T, 2>*>(c);
+        const size_t at = (size_t)row * ldc + col;
+        float v[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float v = epilogue_value<T, EPI>(d[i * 4 + h * 2 + e],
-                                                 epi_has_bias(EPI) ? bv.v[e] : from_f<T>(0.f), 0.f);
-          o.v[e] = epilogue_cast<T, EPI>(v, EPI == EPI_BIAS_GELU ? from_f<T>(0.f) : rv.v[e]);
+        for (int e = 0; e < 2; ++e)
+          v[e] = epilogue_value<T, EPI>(d[i * 4 + h * 2 + e],
+                                        epi_has_bias(EPI) ? bv.v[e] : from_f<T>(0.f), 0.f);
+        if constexpr (epi_out_f32(EPI)) {
+          Vec<float, 2> o;
+          o.v[0] = v[0];
+          o.v[1] = v[1];
+          *reinterpret_cast<Vec<float, 2>*>(static_cast<float*>(Cv) + at) = o;
+        } else {
+          constexpr bool reads = EPI == EPI_BIAS_RESIDUAL || EPI == EPI_ACCUM;
+          T* c = static_cast<T*>(Cv) + at;
+          Vec<T, 2> rv, o;
+          if (EPI == EPI_BIAS_RESIDUAL)
+            rv = *reinterpret_cast<const Vec<T, 2>*>(resid + (size_t)row * N + col);
+          if (EPI == EPI_ACCUM) rv = *reinterpret_cast<const Vec<T, 2>*>(c);
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            o.v[e] = epilogue_cast<T, EPI>(v[e], reads ? rv.v[e] : from_f<T>(0.f));
+          *reinterpret_cast<Vec<T, 2>*>(c) = o;
         }
-        *reinterpret_cast<Vec<T, 2>*>(c) = o;
       }
     }
   }
@@ -270,8 +288,8 @@ static cudaError_t launch_gemm_wgmma(const void* A, const void* W, const void* b
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WG_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid(ceil_div(N, WG_BN), ceil_div(M, WG_BM));  // column tiles fastest: A rows shared in L2
-  kernel<<<grid, WG_THREADS, WG_SMEM, st>>>(map_a, map_w, (const T*)bias, (const T*)R, (T*)C, M,
-                                            N, K, ldc);
+  kernel<<<grid, WG_THREADS, WG_SMEM, st>>>(map_a, map_w, (const T*)bias, (const T*)R, C, M, N,
+                                            K, ldc);
   return cudaSuccess;
 }
 

@@ -41,6 +41,9 @@ before each add.
   and then cast. In bf16/fp16 one register-resident tensor-core kernel
   takes every length and head width (a multiple of 8 up to 128), walking
   the keys in tiles in two passes that keep K1's rounding.
+- :func:`block_gemm`, one product of K1, K2, K5 or K7 with its epilogue
+  (bias, QuickGELU, residual, fp32 out, accumulate): in bf16/fp16 the
+  wgmma/TMA GEMM of ``csrc/gemm_wgmma.cuh``, in fp32 gemm.cuh's FMA GEMM.
 
 Of the TPU module's VMEM residency routing only the MLP tier is kept
 (:func:`mlp_tier_chunks`), so that each configuration runs the counterpart
@@ -143,13 +146,19 @@ def fused_mlp_half_plain(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
     return x + dense(h, c_proj_w, c_proj_b)
 
 
-def mlp_gemm_plain(a, w, bias=None, epilogue="gelu", resid=None, out=None):
-    """The MLP halves' products with their epilogues, the kernels' rounding:
+def block_gemm_plain(a, w, bias=None, epilogue="gelu", resid=None, out=None):
+    """The block halves' products with their epilogues, the kernels'
+    rounding: ``"bias"`` T(a @ w + bias) with the bias added in fp32;
     ``"gelu"`` T(QuickGELU(a @ w + bias)) with QuickGELU in fp32;
     ``"residual"`` resid + T(a @ w + bias) added in the activation dtype;
-    ``"accum"`` out + T(a @ w) added in the activation dtype (a new tensor;
-    the kernel updates ``out`` in place)."""
+    ``"f32"`` the fp32 sum a @ w, uncast; ``"accum"`` out + T(a @ w) added
+    in the activation dtype (a new tensor; the kernel updates ``out`` in
+    place)."""
     acc = matmul_f32(a, w)
+    if epilogue == "bias":
+        return (acc + bias.float()).to(a.dtype)
+    if epilogue == "f32":
+        return acc
     if epilogue == "gelu":
         h = acc + bias.float()
         return (h * torch.sigmoid(1.702 * h)).to(a.dtype)
@@ -157,7 +166,7 @@ def mlp_gemm_plain(a, w, bias=None, epilogue="gelu", resid=None, out=None):
         return resid + (acc + bias.float()).to(a.dtype)
     if epilogue == "accum":
         return out + acc.to(a.dtype)
-    raise ValueError(f"mlp_gemm: unknown epilogue {epilogue!r}")
+    raise ValueError(f"block_gemm: unknown epilogue {epilogue!r}")
 
 
 def _chunk_width(hidden: int, chunks: int) -> int:
@@ -230,9 +239,12 @@ def _layer_norm(lib, code, x, ln_s, ln_b, stream):
 
 
 def _gemm(lib, code, a, w, bias, out, epilogue, stream, resid=None):
-    """out = epilogue(a @ w + bias) for a [..., K] and w [K, N]; w may be a
-    column slice of a wider matrix, and out a column slice of a wider buffer
-    (their row strides are handed on)."""
+    """out = epilogue(a @ w + bias) on gemm.cuh's kernel, for a [..., K] and
+    w [K, N]; w may be a column slice of a wider matrix, and out a column
+    slice of a wider buffer (their row strides are handed on). fp32 runs
+    here for every half (through :func:`_block_gemm`); in bf16/fp16 only
+    K8's two products and K3's QKV recompute still do (the backward's
+    transposed products have their own ``_gemm_bwd``)."""
     cuda_lib.check(
         lib,
         lib.ovmr_gemm(
@@ -245,13 +257,14 @@ def _gemm(lib, code, a, w, bias, out, epilogue, stream, resid=None):
     )
 
 
-_MLP_EPILOGUES = {"gelu": _EPI_BIAS_GELU, "residual": _EPI_BIAS_RESIDUAL, "accum": _EPI_ACCUM}
+_BLOCK_EPILOGUES = {"bias": _EPI_BIAS, "gelu": _EPI_BIAS_GELU, "residual": _EPI_BIAS_RESIDUAL,
+                    "f32": _EPI_F32, "accum": _EPI_ACCUM}
 
 
-def _mlp_gemm(lib, code, a, w, bias, out, epilogue, stream, resid=None):
-    """K2's and K5's products: the wgmma/TMA GEMM (``csrc/gemm_wgmma.cuh``)
-    in bf16/fp16, gemm.cuh's FMA GEMM in fp32 (whose sums the fp32 1e-5
-    gates rest on)."""
+def _block_gemm(lib, code, a, w, bias, out, epilogue, stream, resid=None):
+    """The products of K1, K2, K5 and K7: the wgmma/TMA GEMM
+    (``csrc/gemm_wgmma.cuh``) in bf16/fp16, gemm.cuh's FMA GEMM in fp32
+    (whose sums the fp32 1e-5 gates rest on)."""
     if a.dtype == torch.float32:
         _gemm(lib, code, a, w, bias, out, epilogue, stream, resid=resid)
         return
@@ -268,18 +281,19 @@ def _mlp_gemm(lib, code, a, w, bias, out, epilogue, stream, resid=None):
     cuda_lib.count_inner_launch("gemm_wgmma")
 
 
-def mlp_gemm(a, w, bias=None, epilogue="gelu", resid=None, out=None):
-    """One product of the MLP halves with its epilogue
-    (:func:`mlp_gemm_plain`'s function and rounding) for ``a [..., K]`` and
-    ``w [K, N]``; ``w`` may be a column slice of a wider weight and ``out``
-    (written for ``"gelu"``/``"residual"``, updated for ``"accum"``) a
-    column slice of a wider buffer. On the card one launch of the wgmma/TMA
-    GEMM K2 and K5 run, which takes bf16 and fp16."""
-    what = "mlp_gemm"
-    if epilogue not in _MLP_EPILOGUES:
+def block_gemm(a, w, bias=None, epilogue="gelu", resid=None, out=None):
+    """One product of the block halves with its epilogue
+    (:func:`block_gemm_plain`'s function and rounding) for ``a [..., K]``
+    and ``w [K, N]``; ``w`` may be a column slice of a wider weight and
+    ``out`` (written for ``"bias"``/``"gelu"``/``"residual"``/``"f32"``,
+    updated for ``"accum"``) a column slice of a wider buffer. ``out`` is
+    fp32 for ``"f32"``, else ``a``'s dtype. On the card one launch of the
+    wgmma/TMA GEMM that K1, K2, K5 and K7 run, which takes bf16 and fp16."""
+    what = "block_gemm"
+    if epilogue not in _BLOCK_EPILOGUES:
         raise ValueError(f"{what}: unknown epilogue {epilogue!r}")
     if a.device.type == "cpu":
-        got = mlp_gemm_plain(a, w, bias, epilogue, resid, out)
+        got = block_gemm_plain(a, w, bias, epilogue, resid, out)
         if out is None:
             return got
         out.copy_(got)
@@ -295,24 +309,29 @@ def mlp_gemm(a, w, bias=None, epilogue="gelu", resid=None, out=None):
     if n % 8 or k % 8 or w.stride(0) % 8:
         raise ValueError(f"{what}: N, K and w's row stride must be multiples of 8")
     lead = tuple(a.shape[:-1])
+    out_dtype = torch.float32 if epilogue == "f32" else a.dtype
     if out is None:
         if epilogue == "accum":
             raise ValueError(f"{what}: the accum epilogue adds to out, which is missing")
-        out = torch.empty(lead + (n,), dtype=a.dtype, device=a.device)
+        out = torch.empty(lead + (n,), dtype=out_dtype, device=a.device)
+    pair = 2 * out.element_size()  # the epilogue stores column pairs
     rows_even = all(out.stride(i) == out.stride(i + 1) * out.shape[i + 1]
                     for i in range(out.dim() - 2))
     if (tuple(out.shape) != lead + (n,) or out.stride(-1) != 1 or not rows_even
-            or (out.dim() > 1 and out.stride(-2) % 8) or out.data_ptr() % 16):
-        raise ValueError(f"{what}: out must be {lead + (n,)}, rows a multiple of 8 elements "
-                         "apart, unit column stride, 16-byte aligned")
+            or (out.dim() > 1 and out.stride(-2) % 2) or out.data_ptr() % pair):
+        raise ValueError(f"{what}: out must be {lead + (n,)}, rows an even number of elements "
+                         f"apart, unit column stride, {pair}-byte aligned")
     cuda_lib.require_cuda_args(what, a.dtype, a.device, a=a)
-    for name, t in (("w", w), ("out", out), ("bias", bias), ("resid", resid)):
-        if t is not None and (t.device != a.device or t.dtype != a.dtype):
-            raise ValueError(f"{what}: {name} must be {a.dtype} on {a.device}")
+    for name, t, dtype in (("w", w, a.dtype), ("out", out, out_dtype), ("bias", bias, a.dtype),
+                           ("resid", resid, a.dtype)):
+        if t is not None and (t.device != a.device or t.dtype != dtype):
+            raise ValueError(f"{what}: {name} must be {dtype} on {a.device}")
     if w.data_ptr() % 16:
         raise ValueError(f"{what}: w must start on a 16-byte boundary")
-    if epilogue != "accum" and (bias is None or tuple(bias.shape) != (n,)
-                                or bias.stride(0) != 1 or bias.data_ptr() % 4):
+    if epilogue in ("f32", "accum"):
+        if bias is not None:
+            raise ValueError(f"{what}: the {epilogue} epilogue takes no bias")
+    elif bias is None or tuple(bias.shape) != (n,) or bias.stride(0) != 1 or bias.data_ptr() % 4:
         raise ValueError(f"{what}: the {epilogue} epilogue needs a bias of shape ({n},), "
                          "unit stride, 4-byte aligned")
     if epilogue == "residual" and (resid is None or tuple(resid.shape) != lead + (n,)
@@ -320,8 +339,8 @@ def mlp_gemm(a, w, bias=None, epilogue="gelu", resid=None, out=None):
         raise ValueError(f"{what}: the residual epilogue needs a contiguous resid {lead + (n,)}, "
                          "4-byte aligned")
     with torch.cuda.device(a.device):
-        _mlp_gemm(cuda_lib.library("block_fused"), cuda_lib.dtype_code(a.dtype), a, w, bias,
-                  out, _MLP_EPILOGUES[epilogue], cuda_lib.stream_of(a), resid=resid)
+        _block_gemm(cuda_lib.library("block_fused"), cuda_lib.dtype_code(a.dtype), a, w, bias,
+                    out, _BLOCK_EPILOGUES[epilogue], cuda_lib.stream_of(a), resid=resid)
     return out
 
 
@@ -415,10 +434,10 @@ def fused_attn_half(
         stream = cuda_lib.stream_of(x)
         xln = _layer_norm(lib, code, x, ln_s, ln_b, stream)
         qkv = torch.empty((b, l, 3 * d), dtype=x.dtype, device=x.device)
-        _gemm(lib, code, xln, w_qkv, b_qkv, qkv, _EPI_BIAS, stream)
+        _block_gemm(lib, code, xln, w_qkv, b_qkv, qkv, _EPI_BIAS, stream)
         heads = _attn_core(lib, code, qkv, mask, n_head, stream)
         out = torch.empty_like(x)
-        _gemm(lib, code, heads, w_out, b_out, out, _EPI_BIAS_RESIDUAL, stream, resid=x)
+        _block_gemm(lib, code, heads, w_out, b_out, out, _EPI_BIAS_RESIDUAL, stream, resid=x)
     cuda_lib.count_launch("fused_attn_half_masked" if mask is not None else "fused_attn_half", x)
     return out
 
@@ -456,9 +475,9 @@ def fused_mlp_half(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
         stream = cuda_lib.stream_of(x)
         xln = _layer_norm(lib, code, x, ln_s, ln_b, stream)
         h = torch.empty((b, l, hidden), dtype=x.dtype, device=x.device)
-        _mlp_gemm(lib, code, xln, c_fc_w, c_fc_b, h, _EPI_BIAS_GELU, stream)
+        _block_gemm(lib, code, xln, c_fc_w, c_fc_b, h, _EPI_BIAS_GELU, stream)
         out = torch.empty_like(x)
-        _mlp_gemm(lib, code, h, c_proj_w, c_proj_b, out, _EPI_BIAS_RESIDUAL, stream, resid=x)
+        _block_gemm(lib, code, h, c_proj_w, c_proj_b, out, _EPI_BIAS_RESIDUAL, stream, resid=x)
     cuda_lib.count_launch("fused_mlp_half", x)
     return out
 
@@ -497,9 +516,9 @@ def fused_mlp_half_chunked(
         )
         h = torch.empty((b, l, hc), dtype=x.dtype, device=x.device)
         for j in range(0, hidden, hc):
-            _mlp_gemm(lib, code, xln, c_fc_w[:, j : j + hc], c_fc_b[j : j + hc], h,
-                      _EPI_BIAS_GELU, stream)
-            _mlp_gemm(lib, code, h, c_proj_w[j : j + hc], None, out, _EPI_ACCUM, stream)
+            _block_gemm(lib, code, xln, c_fc_w[:, j : j + hc], c_fc_b[j : j + hc], h,
+                        _EPI_BIAS_GELU, stream)
+            _block_gemm(lib, code, h, c_proj_w[j : j + hc], None, out, _EPI_ACCUM, stream)
     cuda_lib.count_launch(what, x)
     return out
 

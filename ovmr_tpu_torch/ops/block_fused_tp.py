@@ -42,7 +42,9 @@ output is cast; q, k and v are each cast after their fp32 bias; the scores
 are scaled after the fp32 product and the mask is added in fp32; the probs
 and each head's output are cast; the partial is fp32, uncast; QuickGELU
 runs in fp32 and is then cast. K7 and K8 take fp32, bf16 and fp16 and every
-width that is a multiple of 8, with head width at most 128.
+width that is a multiple of 8, with head width at most 128. In bf16/fp16
+K7's four products run on the wgmma/TMA GEMM (the launches of
+:func:`ovmr_tpu_torch.ops.block_fused.block_gemm`), K8's on gemm.cuh's.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from ovmr_tpu_torch.ops.block_fused import (
     _EPI_BIAS_GELU,
     _EPI_F32,
     _attn_core,
+    _block_gemm,
     _check_block_args,
     _gemm,
     _layer_norm,
@@ -209,10 +212,11 @@ def tp_attn_half_partial(
         # q, k and v side by side, as the attention core reads them
         qkv = torch.empty((b, l, 3 * dl), dtype=x.dtype, device=x.device)
         for j, (w, bias) in enumerate(((w_q, b_q), (w_k, b_k), (w_v, b_v))):
-            _gemm(lib, code, xln, w, bias, qkv[..., j * dl : (j + 1) * dl], _EPI_BIAS, stream)
+            _block_gemm(lib, code, xln, w, bias, qkv[..., j * dl : (j + 1) * dl], _EPI_BIAS,
+                        stream)
         heads = _attn_core(lib, code, qkv, mask, n_head, stream)
         out = torch.empty((b, l, d), dtype=torch.float32, device=x.device)
-        _gemm(lib, code, heads, w_out, None, out, _EPI_F32, stream)
+        _block_gemm(lib, code, heads, w_out, None, out, _EPI_F32, stream)
     name = "tp_attn_half_partial_masked" if mask is not None else "tp_attn_half_partial"
     cuda_lib.count_launch(name, x, shape=(b, l, d, dl))
     return out

@@ -54,7 +54,7 @@ LAUNCHES: Dict[str, int] = {
     "tp_attn_half_partial": 0,
     "tp_attn_half_partial_masked": 0,
     "tp_mlp_half_partial": 0,
-    "gemm_wgmma": 0,  # the bf16/fp16 products inside K2 and K5, by name only
+    "gemm_wgmma": 0,  # the bf16/fp16 products of K1, K2, K5 and K7, by name only
 }
 # launches by (kernel, shape of its first input, dtype name); the
 # tensor-parallel partials add their shard's width to the shape, since one
@@ -109,7 +109,7 @@ def count_launch(name: str, x: torch.Tensor, shape=None) -> None:
 
 def count_inner_launch(name: str) -> None:
     """One launch of ``name``, a kernel that runs inside another kernel
-    wrapper's launches (the wgmma GEMM inside K2 and K5): counted by name
+    wrapper's launches (the wgmma GEMM inside K1, K2, K5 and K7): counted by name
     only, since its caller's :data:`LAUNCH_SHAPES` entry fixes its shapes."""
     LAUNCHES[name] += 1
 

@@ -34,9 +34,9 @@ from ovmr_tpu_torch.ops.block_fused import (
     fused_mlp_half_chunked,
     fused_mlp_half_chunked_plain,
     fused_mlp_half_plain,
+    block_gemm,
+    block_gemm_plain,
     fused_residual_block,
-    mlp_gemm,
-    mlp_gemm_plain,
 )
 from ovmr_tpu_torch.ops.block_fused_bwd import (
     attn_half_bwd_dx,
@@ -274,20 +274,22 @@ def test_attn_bwd_tiled_core_matches_plain(cuda, dtype, mask_kind, dh, l):
            attn_half_bwd_dx_plain(*a, mask=mask, n_head=h))
 
 
-_EPILOGUE_ARGS = {"gelu": (True, False), "residual": (True, True), "accum": (False, False)}
+_EPILOGUE_ARGS = {"bias": (True, False), "gelu": (True, False), "residual": (True, True),
+                  "f32": (False, False), "accum": (False, False)}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("epilogue", ["gelu", "residual", "accum"])
+@pytest.mark.parametrize("epilogue", ["bias", "gelu", "residual", "f32", "accum"])
 @pytest.mark.parametrize("m,n,k", [(64, 64, 64), (128, 128, 64), (72, 200, 1000), (1, 8, 8),
                                    (300, 1000, 72), (4100, 3072, 768), (2464, 768, 3072)])
 @pytest.mark.parametrize("sliced", [False, True])
 def test_mlp_gemm_matches_plain(cuda, dtype, epilogue, m, n, k, sliced):
-    """The wgmma/TMA GEMM of K2 and K5 against its plain twin: one 64-wide
-    tile, one full 128 x 128 tile, ragged M, N and K that are multiples of 8
-    but not of the tile, ViT-B/16's text MLP shapes; ``sliced`` reads W as a
-    column slice of a wider weight and writes C into a column slice of a
-    wider buffer (K5's layout, and more)."""
+    """The wgmma/TMA GEMM of K1, K2, K5 and K7 against its plain twin: one
+    64-wide tile, one full 128 x 128 tile, ragged M, N and K that are
+    multiples of 8 but not of the tile, ViT-B/16's text MLP shapes;
+    ``sliced`` reads W as a column slice of a wider weight and writes C
+    into a column slice of a wider buffer (K5's and K7's layouts, and more).
+    ``"f32"`` writes an fp32 C, held at the input dtype's tolerance."""
     gen = torch.Generator().manual_seed(m + n + k)
     a = torch.randn(m, k, generator=gen).to(cuda, dtype)
     w_full = (torch.randn(k, n + (24 if sliced else 0), generator=gen) * k ** -0.5).to(cuda, dtype)
@@ -295,14 +297,18 @@ def test_mlp_gemm_matches_plain(cuda, dtype, epilogue, m, n, k, sliced):
     has_bias, has_resid = _EPILOGUE_ARGS[epilogue]
     bias = (torch.randn(n, generator=gen) * 0.1).to(cuda, dtype) if has_bias else None
     resid = torch.randn(m, n, generator=gen).to(cuda, dtype) if has_resid else None
-    c_full = torch.randn(m, n + (40 if sliced else 0), generator=gen).to(cuda, dtype)
+    out_dtype = torch.float32 if epilogue == "f32" else dtype
+    c_full = torch.randn(m, n + (40 if sliced else 0), generator=gen).to(cuda, out_dtype)
     c = c_full[:, 8:8 + n] if sliced else c_full
     before = c_full.clone()
-    ref = mlp_gemm_plain(a, w, bias, epilogue, resid, c.clone())
+    ref = block_gemm_plain(a, w, bias, epilogue, resid, c.clone())
     cuda_lib.reset_launches()
-    got = mlp_gemm(a, w, bias, epilogue, resid, out=c)
+    got = block_gemm(a, w, bias, epilogue, resid, out=c)
     assert got.data_ptr() == c.data_ptr() and cuda_lib.LAUNCHES["gemm_wgmma"] == 1
-    _check(got, ref)
+    if epilogue == "f32":
+        _check_partial(got, ref, dtype)
+    else:
+        _check(got, ref)
     if sliced:  # the columns beside the slice are untouched
         assert torch.equal(c_full[:, :8], before[:, :8])
         assert torch.equal(c_full[:, 8 + n:], before[:, 8 + n:])
@@ -325,26 +331,62 @@ def test_k2_and_k5_launch_the_wgmma_gemm_in_half_precision(cuda, dtype, b, l, d)
     assert cuda_lib.LAUNCHES["gemm_wgmma"] == (4 if half else 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,l,d,h,dl,nh", [(3, 17, 64, 2, 32, 1), (2, 33, 40, 5, 16, 2),
+                                           (2, 77, 768, 12, 384, 6), (1, 577, 1024, 16, 512, 8),
+                                           (2, 197, 768, 12, 384, 6)])
+def test_k1_and_k7_launch_the_wgmma_gemm_in_half_precision(cuda, dtype, masked, b, l, d, h,
+                                                          dl, nh):
+    """K1 runs its QKV and out-proj, K7 its q, k, v and fp32 out-proj on the
+    wgmma GEMM in bf16 and fp16 (2 and 4 launches); fp32 keeps gemm.cuh's
+    FMA GEMM. Each still matches its plain twin."""
+    p = _layer(d, dtype, cuda, seed=b * 10 + l)
+    x = torch.randn(b, l, d, generator=torch.Generator().manual_seed(l)).to(cuda, dtype)
+    mask = causal_mask(l, device=cuda) if masked else None
+    half = dtype != torch.float32
+    a = (x, p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"], p["ln_s"], p["ln_b"])
+    cuda_lib.reset_launches()
+    _check(fused_attn_half(*a, mask=mask, n_head=h), fused_attn_half_plain(*a, mask=mask, n_head=h))
+    assert cuda_lib.LAUNCHES["gemm_wgmma"] == (2 if half else 0)
+    s = _tp_shard(d, dl, 4 * dl, dtype, cuda, seed=l)
+    cuda_lib.reset_launches()
+    _check_partial(tbtp.tp_attn_half_partial(*_k7_args(x, s), mask=mask, n_head=nh),
+                   tbtp.tp_attn_half_partial_plain(*_k7_args(x, s), mask=mask, n_head=nh), dtype)
+    assert cuda_lib.LAUNCHES["gemm_wgmma"] == (4 if half else 0)
+
+
 def test_mlp_gemm_refuses_what_it_does_not_take(cuda):
     a = torch.randn(9, 64, device=cuda, dtype=torch.bfloat16)
     w = torch.randn(64, 128, device=cuda, dtype=torch.bfloat16)
     b = torch.randn(128, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="bfloat16 or float16"):
-        mlp_gemm(a.float(), w.float(), b.float())
+        block_gemm(a.float(), w.float(), b.float())
     with pytest.raises(ValueError, match="multiples of 8"):
-        mlp_gemm(a, w[:, :100], b[:100])
+        block_gemm(a, w[:, :100], b[:100])
     with pytest.raises(ValueError, match="unit column stride"):
-        mlp_gemm(a, w.t().contiguous().t(), b)
+        block_gemm(a, w.t().contiguous().t(), b)
     with pytest.raises(ValueError, match="needs a bias"):
-        mlp_gemm(a, w, None, "gelu")
+        block_gemm(a, w, None, "gelu")
     with pytest.raises(ValueError, match="needs a bias"):  # the kernel reads bias in pairs
-        mlp_gemm(a, w, torch.randn(256, device=cuda, dtype=torch.bfloat16)[::2])
+        block_gemm(a, w, torch.randn(256, device=cuda, dtype=torch.bfloat16)[::2])
     with pytest.raises(ValueError, match="needs a bias"):
-        mlp_gemm(a, w, torch.randn(129, device=cuda, dtype=torch.bfloat16)[1:])
+        block_gemm(a, w, torch.randn(129, device=cuda, dtype=torch.bfloat16)[1:])
     with pytest.raises(ValueError, match="missing"):
-        mlp_gemm(a, w, None, "accum")
+        block_gemm(a, w, None, "accum")
+    with pytest.raises(ValueError, match="takes no bias"):
+        block_gemm(a, w, b, "f32")
+    with pytest.raises(ValueError, match="takes no bias"):
+        block_gemm(a, w, b, "accum", out=torch.zeros(9, 128, device=cuda, dtype=a.dtype))
+    with pytest.raises(ValueError, match="out must be torch.float32"):  # f32 writes fp32
+        block_gemm(a, w, None, "f32", out=torch.empty(9, 128, device=cuda, dtype=a.dtype))
+    with pytest.raises(ValueError, match="even number"):  # the epilogue stores column pairs
+        block_gemm(a, w, b, "bias", out=torch.empty(9, 129, device=cuda, dtype=a.dtype)[:, :128])
+    with pytest.raises(ValueError, match="8-byte aligned"):  # an fp32 pair is 8 bytes
+        block_gemm(a, w, None, "f32",
+                   out=torch.empty(9 * 128 + 1, device=cuda)[1:].view(9, 128))
     with pytest.raises(RuntimeError, match="requires grad"):
-        mlp_gemm(a, w.clone().requires_grad_(True), b)
+        block_gemm(a, w.clone().requires_grad_(True), b)
 
 
 def _block_params(d, dtype, device, seed):

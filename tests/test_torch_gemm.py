@@ -1,7 +1,8 @@
-"""The MLP halves' GEMM (``mlp_gemm``, the wgmma/TMA kernel on the card) on
-the CPU, where it is its plain twin: its three epilogues compose to K2's and
-K5's plain versions exactly, and those match the Pallas kernels in
-interpret mode (fp32 1e-5, bf16 1e-2)."""
+"""The block halves' GEMM (``block_gemm``, the wgmma/TMA kernel on the
+card) on the CPU, where it is its plain twin: its MLP epilogues compose to
+K2's and K5's plain versions exactly, and those match the Pallas kernels in
+interpret mode (fp32 1e-5, bf16 1e-2). K1 and K7 composed from it:
+``tests/test_torch_gemm_attn.py``."""
 
 import numpy as np
 import pytest
@@ -15,8 +16,8 @@ from ovmr_tpu_torch.ops.block_fused import (
     _chunk_width,
     fused_mlp_half_chunked_plain,
     fused_mlp_half_plain,
-    mlp_gemm,
-    mlp_gemm_plain,
+    block_gemm,
+    block_gemm_plain,
 )
 from ovmr_tpu_torch.ops.layers import layer_norm
 
@@ -50,8 +51,8 @@ def test_mlp_gemm_composes_k2_and_k5(dtype, chunks, b, l, d):
     xt = torch.tensor(x).to(tdt)
     xln = layer_norm(xt, t["ln_2_scale"], t["ln_2_bias"])
     if chunks == 0:
-        h = mlp_gemm(xln, t["c_fc_w"], t["c_fc_b"], "gelu")
-        got = mlp_gemm(h, t["c_proj_w"], t["c_proj_b"], "residual", resid=xt)
+        h = block_gemm(xln, t["c_fc_w"], t["c_fc_b"], "gelu")
+        got = block_gemm(h, t["c_proj_w"], t["c_proj_b"], "residual", resid=xt)
         plain = fused_mlp_half_plain(xt, *(t[k] for k in NAMES))
         ref = j_fused_mlp_half(jnp.asarray(x, jdt), *(jnp.asarray(p[k], jdt) for k in NAMES),
                                interpret=True)
@@ -59,8 +60,8 @@ def test_mlp_gemm_composes_k2_and_k5(dtype, chunks, b, l, d):
         hc = _chunk_width(4 * d, chunks)
         got = xt + t["c_proj_b"].float().to(tdt)
         for j in range(0, 4 * d, hc):
-            h = mlp_gemm(xln, t["c_fc_w"][:, j:j + hc], t["c_fc_b"][j:j + hc], "gelu")
-            mlp_gemm(h, t["c_proj_w"][j:j + hc], None, "accum", out=got)
+            h = block_gemm(xln, t["c_fc_w"][:, j:j + hc], t["c_fc_b"][j:j + hc], "gelu")
+            block_gemm(h, t["c_proj_w"][j:j + hc], None, "accum", out=got)
         plain = fused_mlp_half_chunked_plain(xt, *(t[k] for k in NAMES), chunks=chunks)
         ref = j_fused_mlp_half_chunked(jnp.asarray(x, jdt),
                                        *(jnp.asarray(p[k], jdt) for k in NAMES),
@@ -74,13 +75,13 @@ def test_mlp_gemm_epilogues_and_refusals():
     a, w = torch.randn(5, 16, generator=g), torch.randn(16, 24, generator=g)
     bias, resid, c = torch.randn(24, generator=g), torch.randn(5, 24, generator=g), torch.zeros(5, 24)
     acc = a @ w
-    torch.testing.assert_close(mlp_gemm_plain(a, w, bias, "gelu"),
+    torch.testing.assert_close(block_gemm_plain(a, w, bias, "gelu"),
                                (acc + bias) * torch.sigmoid(1.702 * (acc + bias)))
-    torch.testing.assert_close(mlp_gemm_plain(a, w, bias, "residual", resid), resid + acc + bias)
-    out = mlp_gemm(a, w, None, "accum", out=c)
+    torch.testing.assert_close(block_gemm_plain(a, w, bias, "residual", resid), resid + acc + bias)
+    out = block_gemm(a, w, None, "accum", out=c)
     assert out is c
     torch.testing.assert_close(c, acc)
     with pytest.raises(ValueError, match="epilogue"):
-        mlp_gemm(a, w, bias, "relu")
+        block_gemm(a, w, bias, "relu")
     with pytest.raises(ValueError, match="no kernel"):
-        mlp_gemm(a.to("meta"), w.to("meta"), bias.to("meta"))
+        block_gemm(a.to("meta"), w.to("meta"), bias.to("meta"))
