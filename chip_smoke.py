@@ -30,9 +30,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    in fp32, and K7 on a shard of zero-padded heads, which must give exact
    zeros. K3 (no mask, the query-tiled core) at the vision towers' 197 x
    768 and 577 x 1024 and K4 at K5's shape, in bf16. The wgmma/TMA GEMM of
-   K1, K2, K5 and K7 alone at K5's c_fc/c_proj, K2's ViT-B/16 shapes, K1's
-   QKV and out-proj and K7's q slice and fp32 out-proj at ViT-L/14@336px,
-   with ``torch.matmul`` as its yardstick. Beside every K1 and K7 case, the attention core those launch
+   K1, K2, K5, K7 and K8 alone at K5's c_fc/c_proj, K2's ViT-B/16 shapes,
+   K1's QKV and out-proj, K7's q slice and fp32 out-proj and K8's c_fc and
+   fp32 c_proj at ViT-L/14@336px, with ``torch.matmul`` as its yardstick.
+   Beside every K1 and K7 case, the attention core those launch
    (``attn_core``) alone at the same B, L, width and heads, with SDPA on
    the same q/k/v as its library yardstick. Each case is checked as soon as it
    is built, and timed beside its plain version, one PyTorch library call
@@ -95,10 +96,12 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    forward, K4 + K3 backward, exact launch counts): fp32 on the card
    against the CPU (dx within 1e-4 of its scale), bf16 on the card finite.
 
-In bf16 every K1 and K2 launches the wgmma GEMM twice, every K5 twice a
-chunk and every K7 four times (``gemm_wgmma``, counted by name); phases 3,
-5, 7, 9 and 11 check that count exactly, and phase 6 that fp32 launches
-none.
+In bf16 every K1, K2 and K8 launches the wgmma GEMM twice, every K5 twice
+a chunk and every K7 four times (``gemm_wgmma``, counted by name); phases
+3, 5, 7, 9 and 11 check that count exactly, and phase 6 that fp32 launches
+none. K6 runs at the aggregator's shapes, where the host's time to issue a
+call may bound it: its rows add the host's milliseconds a call and the
+device's (torch.profiler), for the kernel and for SDPA.
 
 Prints the kernels JSON line, the nvidia-smi line and, last, the result
 line ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -152,6 +155,36 @@ def cuda_ms(fn, reps: int, rounds: int = 5):
         means.append(start.elapsed_time(end) / reps)
     means.sort()
     return means[len(means) // 2], means[0], means[-1]
+
+
+def host_ms(fn, reps: int, rounds: int = 5) -> float:
+    """Host milliseconds to issue one call of ``fn``: the median of
+    ``rounds`` means over ``reps`` back-to-back calls, each timed from a
+    synchronised device to the last call's return (no synchronise inside
+    the window, so the device's time is not in it while the queue does not
+    fill)."""
+    import torch
+
+    fn()
+    means = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        means.append((time.perf_counter() - t) * 1e3 / reps)
+    torch.cuda.synchronize()
+    means.sort()
+    return means[len(means) // 2]
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Device milliseconds a call of ``fn`` keeps the card busy: the
+    kernels' time (torch.profiler) over ``reps`` calls, over ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    _, rows = device_times(torch, lambda: [fn() for _ in range(reps)])
+    return sum(r[0] for r in rows) / reps
 
 
 def tolerance(dtype, ref) -> float:
@@ -269,14 +302,23 @@ def kernel_checks(torch, F):
         print(f"[kernels] {label}: kernel {kernel_ms:.4f} ms ({k_lo:.4f}-{k_hi:.4f}), "
               f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-        results.append(dict(
+        row = dict(
             name=label, kernel=c["name"], route="cuda", source=c["source"],
             replaces=c["replaces"], case=c["case"], shape=c["shape"], dtype=dt,
             shape_key=cuda_lib.shape_key(c["name"], c.get("key_shape", c["x"].shape), c["dtype"]),
             max_abs_err=err, tol=tol, ms=kernel_ms, kernel_ms=kernel_ms,
             ms_spread=[k_lo, k_hi], plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=b_ms, bound_by=b_by,
-        ))
+        )
+        if c.get("host_bound"):
+            # where the host may bound a call: the host's time to issue one
+            # call, apart from the device's time per launch
+            for side in ("kernel", "library"):
+                host, device = host_ms(c[side], c["reps"]), device_ms(torch, c[side], c["reps"])
+                row[f"{side}_host_ms"], row[f"{side}_device_ms"] = host, device
+                print(f"[kernels] {label}: {side} host {host:.4f} ms a call, device "
+                      f"{device:.4f} ms a call", flush=True)
+        results.append(row)
 
     def check_core(case, b, l, w, h, mask, dtype, replaces, timing):
         """The attention core alone at a K1 or K7 launch's shape: ``qkv [b, l,
@@ -440,7 +482,7 @@ def kernel_checks(torch, F):
                 bytes=4 * q.numel() * q.element_size(),
                 flops=4 * n * h * l * l * dh,
                 peak=PEAK_FP32,  # K6 upcasts Q and K: its products are fp32 FMA
-                reps=200,
+                reps=200, host_bound=True,
             ))
 
     vision_bwd_cases(torch, F, randn, check, params, layer, library_attn_half, library_mlp_half,
@@ -498,14 +540,15 @@ def vision_bwd_cases(torch, F, randn, check, params, layer, library_attn_half,
 
 
 def gemm_cases(torch, randn, check):
-    """The wgmma/TMA GEMM alone at the products K5, K2, K1 and K7 run on the
-    serving paths, bf16: K5's per-chunk c_fc (QuickGELU, a column slice of
-    c_fc_w read in place) and c_proj (added into the output) at
+    """The wgmma/TMA GEMM alone at the products K5, K2, K1, K7 and K8 run on
+    the serving paths, bf16: K5's per-chunk c_fc (QuickGELU, a column slice
+    of c_fc_w read in place) and c_proj (added into the output) at
     ViT-L/14@336px and 512 images; K2's c_fc and c_proj (plus the residual)
     at ViT-B/16 and 512 images; K1's QKV (plus the bias) and out-proj (plus
-    the bias and x) and K7's q (plus the bias, into the first column slice
-    of the shard's [tokens, 3 dl] buffer) and fp32 out-proj at
-    ViT-L/14@336px and 512 images (K7: a shard of model axis 2, dl 512).
+    the bias and x), K7's q (plus the bias, into the first column slice of
+    the shard's [tokens, 3 dl] buffer) and fp32 out-proj, and K8's c_fc
+    (QuickGELU) and fp32 c_proj at ViT-L/14@336px and 512 images (K7, K8: a
+    shard of model axis 2, dl 512, hidden 2048).
     Yardstick: torch.matmul of the same operands (no epilogue)."""
     from ovmr_tpu_torch.ops.block_fused import block_gemm, block_gemm_plain
 
@@ -520,7 +563,11 @@ def gemm_cases(torch, randn, check):
             ("vitl336-k1-out", vitl, 1024, 1024, 1024, 1024, "residual", "block_fused.py:58"),
             ("vitl336-tp2-k7-q", vitl, 512, 1024, 512, 1536, "bias", "block_fused_tp.py:179"),
             ("vitl336-tp2-k7-out", vitl, 1024, 512, 1024, 1024, "f32",
-             "block_fused_tp.py:179")):
+             "block_fused_tp.py:179"),
+            ("vitl336-tp2-k8-c_fc", vitl, 2048, 1024, 2048, 2048, "gelu",
+             "block_fused_tp.py:245"),
+            ("vitl336-tp2-k8-c_proj", vitl, 1024, 2048, 1024, 1024, "f32",
+             "block_fused_tp.py:245")):
         a = randn(m, k).to(torch.bfloat16)
         w = randn(k, ldw, std=k ** -0.5).to(torch.bfloat16)[:, :n]
         bias = randn(n, std=0.02).to(torch.bfloat16) if epilogue not in ("accum", "f32") else None
@@ -840,9 +887,10 @@ def serving_slice(torch, np, tag, gen, n_requests, warmups=0):
     return launches, shapes, outs
 
 
-def profile_call(torch, what, fn):
-    """Device time by kernel over one call of ``fn`` (torch.profiler), and
-    the device's busy share of the call's wall time."""
+def device_times(torch, fn):
+    """The wall milliseconds of one call of ``fn`` (to a synchronise) under
+    torch.profiler, and the device's (ms, kernel name, launches) by kernel,
+    largest first."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -860,6 +908,13 @@ def profile_call(torch, what, fn):
         if us > 0:
             rows.append((us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
+    return wall_ms, rows
+
+
+def profile_call(torch, what, fn):
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and
+    the device's busy share of the call's wall time."""
+    wall_ms, rows = device_times(torch, fn)
     busy_ms = sum(r[0] for r in rows)
     print(f"[profile] {what}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%)", flush=True)
@@ -1054,11 +1109,13 @@ def tp_serving_slice(torch, np, gen, single_outs, n_requests=2, warmups=1):
     for name in ("fused_attn_half", "fused_attn_half_masked", "fused_mlp_half",
                  "fused_mlp_half_chunked"):
         assert launches[name] == 0, (name, launches[name])
-    # in bf16/fp16 every K7 runs its q, k, v and out-proj on the wgmma GEMM
+    # in bf16/fp16 every K7 runs its q, k, v and out-proj on the wgmma GEMM,
+    # every K8 its c_fc and c_proj
     k7 = sum(n for key, n in shapes.items() if key[0].startswith("tp_attn_half_partial"))
-    if launches["gemm_wgmma"] != 4 * k7:
+    k8 = sum(n for key, n in shapes.items() if key[0] == "tp_mlp_half_partial")
+    if launches["gemm_wgmma"] != 4 * k7 + 2 * k8:
         raise AssertionError(f"tp: {launches['gemm_wgmma']} wgmma GEMM launches, "
-                             f"expected {4 * k7}")
+                             f"expected 4 x {k7} K7 + 2 x {k8} K8")
     for out in outs:
         check_classifiers(np, out, N_CLS, cfg.embed_dim, 2, unit_tol=1e-2)
     assert probs.shape == (N_QUERIES, N_CLS) and np.isfinite(probs).all()

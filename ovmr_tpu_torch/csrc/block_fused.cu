@@ -59,13 +59,14 @@
 // FLOP in all (4.96 TFLOP for K5 at ViT-L/14@336px and 512 images, 5 ms at
 // the card's peak) against a few GB of activations: bound by tensor-core
 // issue; so are K1's QKV (1.86 TFLOP at the same shape) and out-proj, and
-// K7's four products. In bf16/fp16 the products of K1, K2, K5 and K7 run
-// on the wgmma/TMA GEMM (gemm_wgmma.cuh, ovmr_gemm_wgmma): a TMA-fed
-// mbarrier ring, two consumer warpgroups issuing wgmma on a 128 x 128
-// tile, the epilogue on the accumulator registers. K8 and the backward
-// halves still use gemm.cuh's tiled kernel (ovmr_gemm): two cp.async
-// stages, WMMA fragments with fp32 accumulation, and an fp32 shared-memory
-// round trip per output.
+// K7's four products and K8's two. In bf16/fp16 the products of K1, K2,
+// K5, K7 and K8 run on the wgmma/TMA GEMM (gemm_wgmma.cuh,
+// ovmr_gemm_wgmma): a TMA-fed mbarrier ring, two consumer warpgroups
+// issuing wgmma on a 128 x 128 tile, the epilogue on the accumulator
+// registers. fp32 and the backward halves (K3's QKV recompute and K3/K4's
+// transposed products) still use gemm.cuh's tiled kernel (ovmr_gemm): two
+// cp.async stages, WMMA fragments with fp32 accumulation, and an fp32
+// shared-memory round trip per output.
 // Both add the bias in fp32 and apply the activation or the residual in the
 // epilogue, with the same rounding. fp32 products are plain FMA on
 // gemm.cuh's kernel (TF32 would break the 1e-5 fp32 tolerance).

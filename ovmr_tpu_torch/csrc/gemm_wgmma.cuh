@@ -1,7 +1,8 @@
 // The Hopper GEMM of the block halves in bf16/fp16: wgmma fed by TMA
 // through an mbarrier ring (block_fused.cu launches it through
 // ovmr_gemm_wgmma). K1's QKV and out-proj, K7's q/k/v and fp32 out-proj,
-// and K2's and K5's c_fc and c_proj run on it.
+// and the c_fc and c_proj of K2, K5 and K8 (K8's c_proj with fp32 out) run
+// on it.
 //
 //   C[M, N] = epilogue(A[M, K] @ W[K, N])
 //
@@ -15,7 +16,8 @@
 //   EPI_BIAS_GELU      T(QuickGELU(acc + bias)), QuickGELU in fp32 (c_fc)
 //   EPI_BIAS_RESIDUAL  T(R + T(acc + bias)), R dense [M, N] (K1's out-proj,
 //                      K2's c_proj)
-//   EPI_F32            acc stored as fp32, no bias (K7's out-proj partial)
+//   EPI_F32            acc stored as fp32, no bias (the partials of K7's
+//                      out-proj and K8's c_proj)
 //   EPI_ACCUM          T(C + T(acc)) (K5's per-chunk c_proj)
 //
 // What bounds it: the block's products are far above the card's ~295

@@ -15,7 +15,11 @@ the entry the models call, is differentiable (TPU: ``pallas_attention`` /
 ``pallas_attention_masked`` :114-154): K6 forward, and for dq, dk, dv torch
 autograd over :func:`ovmr_tpu_torch.ops.layers.attention_plain` on the
 saved q, k, v. The JAX package has no backward kernel for K6, so neither
-has the port.
+has the port. Where no gradient is wanted (serving runs under
+``torch.no_grad()``) it calls the raw wrapper without the autograd
+Function: at the aggregator's shapes the host's time to issue a call, not
+the card, bounds K6, so the wrapper keeps its checks to one pass over the
+tensors' attributes.
 """
 
 from __future__ import annotations
@@ -38,40 +42,53 @@ def fused_attention_plain(q, k, v, mask: Optional[torch.Tensor] = None):
     return matmul_f32(probs.to(v.dtype), v).to(q.dtype)
 
 
+# csrc/attention.cu: at most K6_MAX_KEYS keys, and one warp's fp32 Q, K and
+# V within a block's 227 KB of shared memory
+K6_MAX_KEYS = 256
+_SMEM_BYTES = 227 * 1024
+
+
+def k6_smem_bytes(l: int, dh: int) -> int:
+    """Bytes of one warp's fp32 Q, K and V in ``csrc/attention.cu``: Q and V
+    rows ``dh`` floats apart, K rows ``k6_ldk(dh)`` apart (a stride that
+    keeps the lanes' reads on distinct banks)."""
+    ldk = (dh | 1) if dh % 4 else dh + (0 if (dh // 4) % 2 else 4)
+    return 4 * l * (2 * dh + ldk)
+
+
 def fused_attention_kernel(q, k, v, mask: Optional[torch.Tensor] = None):
     """K6 forward over [B, H, L, Dh]; ``mask`` is additive [L, L]. No
     autograd graph is recorded."""
-    if q.device.type == "cpu":
+    dev = q.device
+    if dev.type == "cpu":
         return fused_attention_plain(q, k, v, mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention: no kernel for device {q.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"fused_attention: no kernel for device {dev}")
     what = "fused_attention"
     cuda_lib.require_no_grad(what, q, k, v)
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+    shape, dtype = q.shape, q.dtype
+    if len(shape) != 4 or k.shape != shape or v.shape != shape:
         raise ValueError(f"{what}: q, k, v must share one [B, H, L, Dh] shape")
-    b, h, l, dh = q.shape
-    code = cuda_lib.dtype_code(q.dtype)
-    cuda_lib.require_cuda_args(what, q.dtype, q.device, q=q, k=k, v=v)
+    b, h, l, dh = shape
+    code = cuda_lib.dtype_code(dtype)
+    cuda_lib.require_cuda_args(what, dtype, dev, q=q, k=k, v=v)
     if mask is not None:
         if mask.shape != (l, l) or mask.dtype != torch.float32:
             raise ValueError(f"{what}: mask must be fp32 [{l}, {l}]")
-        if mask.device != q.device or not mask.is_contiguous():
-            raise ValueError(f"{what}: mask must be contiguous on {q.device}")
-    # 3 fp32 [L, Dh+1] tiles and the fp32 [L, L+1] scores in shared memory
-    if (3 * l * (dh + 1) + l * (l + 1)) * 4 > 227 * 1024:
-        raise ValueError(f"{what}: L={l}, Dh={dh} exceeds one block's shared memory")
+        if mask.device != dev or not mask.is_contiguous():
+            raise ValueError(f"{what}: mask must be contiguous on {dev}")
+    if l > K6_MAX_KEYS or k6_smem_bytes(l, dh) > _SMEM_BYTES:
+        raise ValueError(f"{what}: L={l}, Dh={dh} exceeds one warp's shared memory "
+                         f"(at most {K6_MAX_KEYS} keys)")
     lib = cuda_lib.library("attention")
-    with torch.cuda.device(q.device):
-        out = torch.empty_like(q)
-        cuda_lib.check(
-            lib,
-            lib.ovmr_fused_attention(
-                code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                mask.data_ptr() if mask is not None else None,
-                out.data_ptr(), b * h, l, dh, cuda_lib.stream_of(q),
-            ),
-            what,
+    out = torch.empty_like(q)
+    with cuda_lib.on_device(dev):
+        status = lib.ovmr_fused_attention(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            mask.data_ptr() if mask is not None else None,
+            out.data_ptr(), b * h, l, dh, cuda_lib.stream_of(q),
         )
+    cuda_lib.check(lib, status, what)
     cuda_lib.count_launch("fused_attention", q)
     return out
 
@@ -98,4 +115,6 @@ class _FusedAttention(torch.autograd.Function):
 def fused_attention(q, k, v, mask: Optional[torch.Tensor] = None):
     """K6, differentiable: fused attention over [B, H, L, Dh]; ``mask`` is
     additive [L, L] and gets no gradient."""
-    return _FusedAttention.apply(q, k, v, mask)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FusedAttention.apply(q, k, v, mask)
+    return fused_attention_kernel(q, k, v, mask)

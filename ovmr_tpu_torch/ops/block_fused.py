@@ -41,7 +41,7 @@ before each add.
   and then cast. In bf16/fp16 one register-resident tensor-core kernel
   takes every length and head width (a multiple of 8 up to 128), walking
   the keys in tiles in two passes that keep K1's rounding.
-- :func:`block_gemm`, one product of K1, K2, K5 or K7 with its epilogue
+- :func:`block_gemm`, one product of K1, K2, K5, K7 or K8 with its epilogue
   (bias, QuickGELU, residual, fp32 out, accumulate): in bf16/fp16 the
   wgmma/TMA GEMM of ``csrc/gemm_wgmma.cuh``, in fp32 gemm.cuh's FMA GEMM.
 
@@ -243,8 +243,8 @@ def _gemm(lib, code, a, w, bias, out, epilogue, stream, resid=None):
     w [K, N]; w may be a column slice of a wider matrix, and out a column
     slice of a wider buffer (their row strides are handed on). fp32 runs
     here for every half (through :func:`_block_gemm`); in bf16/fp16 only
-    K8's two products and K3's QKV recompute still do (the backward's
-    transposed products have their own ``_gemm_bwd``)."""
+    K3's QKV recompute still does (the backward's transposed products have
+    their own ``_gemm_bwd``)."""
     cuda_lib.check(
         lib,
         lib.ovmr_gemm(
@@ -262,7 +262,7 @@ _BLOCK_EPILOGUES = {"bias": _EPI_BIAS, "gelu": _EPI_BIAS_GELU, "residual": _EPI_
 
 
 def _block_gemm(lib, code, a, w, bias, out, epilogue, stream, resid=None):
-    """The products of K1, K2, K5 and K7: the wgmma/TMA GEMM
+    """The products of K1, K2, K5, K7 and K8: the wgmma/TMA GEMM
     (``csrc/gemm_wgmma.cuh``) in bf16/fp16, gemm.cuh's FMA GEMM in fp32
     (whose sums the fp32 1e-5 gates rest on)."""
     if a.dtype == torch.float32:
@@ -288,7 +288,7 @@ def block_gemm(a, w, bias=None, epilogue="gelu", resid=None, out=None):
     ``out`` (written for ``"bias"``/``"gelu"``/``"residual"``/``"f32"``,
     updated for ``"accum"``) a column slice of a wider buffer. ``out`` is
     fp32 for ``"f32"``, else ``a``'s dtype. On the card one launch of the
-    wgmma/TMA GEMM that K1, K2, K5 and K7 run, which takes bf16 and fp16."""
+    wgmma/TMA GEMM that K1, K2, K5, K7 and K8 run, which takes bf16 and fp16."""
     what = "block_gemm"
     if epilogue not in _BLOCK_EPILOGUES:
         raise ValueError(f"{what}: unknown epilogue {epilogue!r}")

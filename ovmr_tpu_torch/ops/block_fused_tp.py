@@ -43,8 +43,10 @@ are scaled after the fp32 product and the mask is added in fp32; the probs
 and each head's output are cast; the partial is fp32, uncast; QuickGELU
 runs in fp32 and is then cast. K7 and K8 take fp32, bf16 and fp16 and every
 width that is a multiple of 8, with head width at most 128. In bf16/fp16
-K7's four products run on the wgmma/TMA GEMM (the launches of
-:func:`ovmr_tpu_torch.ops.block_fused.block_gemm`), K8's on gemm.cuh's.
+K7's four products and K8's two run on the wgmma/TMA GEMM (the launches of
+:func:`ovmr_tpu_torch.ops.block_fused.block_gemm`: K8's c_fc with the
+bias + QuickGELU epilogue, its c_proj with the fp32-out one); in fp32 both
+keep gemm.cuh's FMA GEMM.
 """
 
 from __future__ import annotations
@@ -62,7 +64,6 @@ from ovmr_tpu_torch.ops.block_fused import (
     _attn_core,
     _block_gemm,
     _check_block_args,
-    _gemm,
     _layer_norm,
     _shapes_ok,
     attn_core_plain,
@@ -246,9 +247,9 @@ def tp_mlp_half_partial(x, c_fc_w, c_fc_b, c_proj_w, ln_s, ln_b):
         stream = cuda_lib.stream_of(x)
         xln = _layer_norm(lib, code, x, ln_s, ln_b, stream)
         h = torch.empty((b, l, hl), dtype=x.dtype, device=x.device)
-        _gemm(lib, code, xln, c_fc_w, c_fc_b, h, _EPI_BIAS_GELU, stream)
+        _block_gemm(lib, code, xln, c_fc_w, c_fc_b, h, _EPI_BIAS_GELU, stream)
         out = torch.empty((b, l, d), dtype=torch.float32, device=x.device)
-        _gemm(lib, code, h, c_proj_w, None, out, _EPI_F32, stream)
+        _block_gemm(lib, code, h, c_proj_w, None, out, _EPI_F32, stream)
     cuda_lib.count_launch(what, x, shape=(b, l, d, hl))
     return out
 

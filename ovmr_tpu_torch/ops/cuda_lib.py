@@ -19,6 +19,7 @@ input shapes (:data:`LAUNCH_SHAPES`).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -54,7 +55,7 @@ LAUNCHES: Dict[str, int] = {
     "tp_attn_half_partial": 0,
     "tp_attn_half_partial_masked": 0,
     "tp_mlp_half_partial": 0,
-    "gemm_wgmma": 0,  # the bf16/fp16 products of K1, K2, K5 and K7, by name only
+    "gemm_wgmma": 0,  # the bf16/fp16 products of K1, K2, K5, K7 and K8, by name only
 }
 # launches by (kernel, shape of its first input, dtype name); the
 # tensor-parallel partials add their shard's width to the shape, since one
@@ -109,7 +110,7 @@ def count_launch(name: str, x: torch.Tensor, shape=None) -> None:
 
 def count_inner_launch(name: str) -> None:
     """One launch of ``name``, a kernel that runs inside another kernel
-    wrapper's launches (the wgmma GEMM inside K1, K2, K5 and K7): counted by name
+    wrapper's launches (the wgmma GEMM inside K1, K2, K5, K7 and K8): counted by name
     only, since its caller's :data:`LAUNCH_SHAPES` entry fixes its shapes."""
     LAUNCHES[name] += 1
 
@@ -199,7 +200,21 @@ def dtype_code(dtype: torch.dtype) -> int:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s card (what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
+    building a Stream object, whose cost counts where a call is bound by
+    the host's time to issue it, as K6's is)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def on_device(device: torch.device):
+    """``torch.cuda.device(device)`` where ``device`` is not the current
+    card, else no context switch: a launcher runs on the current device,
+    and a wrapper whose host time bounds it (K6) skips the switch's cost
+    where it has nothing to do."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def require_no_grad(what: str, *tensors) -> None:

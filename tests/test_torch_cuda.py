@@ -197,14 +197,47 @@ def test_attn_core_refuses_what_it_does_not_take(cuda):
         attn_core(qkv.float().requires_grad_(True), None, 4)
 
 
+# K6 at the aggregator's L = 18 (ViT-B/16: 8 heads, ViT-L/14@336px: 12), the
+# fp32 TP check's L = 4, at one and past one chunk of 32 keys (32, 33) and
+# at the text length 77, masked and not; head widths that take the 16-byte
+# loads (32, 64), two column passes (72, 128) or element loads (20: L Dh is
+# no multiple of 8); the most keys (256) and the old kernel's longest head
+# at Dh 64 (162)
+K6_SHAPES = [((32, 8, 18, 64), False), ((2, 1, 17, 64), True), ((3, 2, 9, 32), False),
+             ((4, 2, 77, 64), True)] + [
+    ((3, h, l, 64), masked) for l in (4, 18, 32, 33, 77) for h in (8, 12)
+    for masked in (False, True)] + [
+    ((2, 3, 9, 20), True), ((2, 2, 40, 72), False), ((2, 2, 33, 128), True),
+    ((1, 2, 256, 32), True), ((1, 1, 162, 64), False)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("shape,masked", [((32, 8, 18, 64), False), ((2, 1, 17, 64), True),
-                                          ((3, 2, 9, 32), False), ((4, 2, 77, 64), True)])
+@pytest.mark.parametrize("shape,masked", K6_SHAPES)
 def test_fused_attention_matches_plain(cuda, dtype, shape, masked):
     g = torch.Generator().manual_seed(sum(shape))
     q, k, v = (torch.randn(*shape, generator=g).to(cuda, dtype) for _ in range(3))
     mask = causal_mask(shape[2], device=cuda) if masked else None
+    cuda_lib.reset_launches()
     _check(fused_attention(q, k, v, mask), fused_attention_plain(q, k, v, mask))
+    assert cuda_lib.LAUNCHES["fused_attention"] == 1
+
+
+def test_fused_attention_refuses_what_it_does_not_take(cuda):
+    """K6 refuses a tensor that requires grad (the raw wrapper records no
+    graph), a mask that is not fp32, and a head beyond its limits: more
+    than 256 keys, or one warp's fp32 Q, K and V above 227 KB of shared
+    memory; nothing is launched."""
+    q = torch.randn(2, 2, 18, 64, device=cuda)
+    cuda_lib.reset_launches()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fused_attention_kernel(q.clone().requires_grad_(True), q, q)
+    with pytest.raises(ValueError, match="fp32"):
+        fused_attention(q, q, q, causal_mask(18, device=cuda).to(torch.bfloat16))
+    for shape in ((1, 1, 257, 32), (1, 1, 64, 320)):
+        t = torch.randn(*shape, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="shared memory"):
+            fused_attention(t, t, t)
+    assert cuda_lib.LAUNCHES["fused_attention"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
@@ -354,6 +387,22 @@ def test_k1_and_k7_launch_the_wgmma_gemm_in_half_precision(cuda, dtype, masked, 
     _check_partial(tbtp.tp_attn_half_partial(*_k7_args(x, s), mask=mask, n_head=nh),
                    tbtp.tp_attn_half_partial_plain(*_k7_args(x, s), mask=mask, n_head=nh), dtype)
     assert cuda_lib.LAUNCHES["gemm_wgmma"] == (4 if half else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("b,l,d,hl", [(3, 17, 64, 128), (2, 33, 40, 80), (2, 77, 768, 1536),
+                                      (1, 577, 1024, 2048)])
+def test_k8_launches_the_wgmma_gemm_in_half_precision(cuda, dtype, b, l, d, hl):
+    """K8 runs its c_fc and fp32-out c_proj on the wgmma GEMM in bf16 and
+    fp16 (2 launches); fp32 keeps gemm.cuh's FMA GEMM. It still matches
+    its plain twin."""
+    s = _tp_shard(d, d // 2, hl, dtype, cuda, seed=b * 10 + l)
+    x = torch.randn(b, l, d, generator=torch.Generator().manual_seed(l)).to(cuda, dtype)
+    m = (x, s["c_fc_w"], s["c_fc_b"], s["c_proj_w"], s["ln_s"], s["ln_b"])
+    cuda_lib.reset_launches()
+    _check_partial(tbtp.tp_mlp_half_partial(*m), tbtp.tp_mlp_half_partial_plain(*m), dtype)
+    assert cuda_lib.LAUNCHES["gemm_wgmma"] == (0 if dtype == torch.float32 else 2)
+    assert cuda_lib.LAUNCHES["tp_mlp_half_partial"] == 1
 
 
 def test_mlp_gemm_refuses_what_it_does_not_take(cuda):

@@ -28,7 +28,7 @@ from ovmr_tpu_torch.ops import layers as tlayers
 from ovmr_tpu_torch.models import clip as tclip
 from ovmr_tpu_torch.models import ovmr as tovmr
 from ovmr_tpu_torch.models.aggregator import generate_vokens
-from ovmr_tpu_torch.ops.attention import fused_attention
+from ovmr_tpu_torch.ops.attention import K6_MAX_KEYS, fused_attention, k6_smem_bytes
 from ovmr_tpu_torch.ops.block_fused import (
     fused_attn_half,
     fused_mlp_half,
@@ -109,7 +109,11 @@ def test_fused_residual_block_plain_matches_pallas(layer_np, masked):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape,masked", [((2, 8, 18, 32), False), ((2, 1, 17, 64), False), ((1, 2, 24, 32), True)])
+# the aggregator's L = 18; the fp32 TP check's (8, 12, 4, 64); past 32 keys,
+# where the card kernel walks the keys in chunks of 32, masked
+@pytest.mark.parametrize("shape,masked", [((2, 8, 18, 32), False), ((2, 1, 17, 64), False),
+                                          ((1, 2, 24, 32), True), ((8, 12, 4, 64), False),
+                                          ((2, 4, 40, 64), True)])
 def test_fused_attention_plain_matches_pallas(dtype, shape, masked):
     jdt, tdt, tol = DTYPES[dtype]
     rng = np.random.RandomState(sum(shape))
@@ -120,6 +124,22 @@ def test_fused_attention_plain_matches_pallas(dtype, shape, masked):
     got = fused_attention(*(torch.tensor(a).to(tdt) for a in (q, k, v)), mt)
     assert got.dtype == tdt
     _close(got, ref, tol)
+
+
+def test_fused_attention_takes_every_shape_the_whole_head_kernel_took():
+    """K6's card kernel keeps one warp's Q, K and V in shared memory, up to
+    256 keys; the whole-head kernel it replaced kept a block's Q, K, V and
+    [L, L] scores ((3 L (Dh + 1) + L (L + 1)) fp32 within 227 KB). Every
+    head that one took, this one takes."""
+    smem = 227 * 1024
+    taken = 0
+    for l in range(1, 300):
+        dh = 1
+        while (3 * l * (dh + 1) + l * (l + 1)) * 4 <= smem:
+            assert l <= K6_MAX_KEYS and k6_smem_bytes(l, dh) <= smem, (l, dh)
+            dh += 1
+            taken += 1
+    assert taken > 100_000  # heads up to L = 237 and, at L = 1, Dh = 19369
 
 
 def test_plain_paths_launch_nothing(layer_np):
