@@ -32,7 +32,13 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    768 and 577 x 1024 and K4 at K5's shape, in bf16. The wgmma/TMA GEMM of
    K1, K2, K5, K7 and K8 alone at K5's c_fc/c_proj, K2's ViT-B/16 shapes,
    K1's QKV and out-proj, K7's q slice and fp32 out-proj and K8's c_fc and
-   fp32 c_proj at ViT-L/14@336px, with ``torch.matmul`` as its yardstick.
+   fp32 c_proj at ViT-L/14@336px, and at the six products of K3 and K4 in
+   the training step's text tower (the transposed weights read as they are
+   stored) and K4's one launch of both c_fc and g @ c_proj_w^T, with
+   ``torch.matmul`` as its yardstick. K3's attention-backward
+   core alone: the one-launch core at the training text tower's 192 x 77
+   (causal) and the query-tiled pair at phase 11's ViT-L/14@336px 32 x 577,
+   with ``torch.autograd.grad`` through SDPA as its yardstick.
    Beside every K1 and K7 case, the attention core those launch
    (``attn_core``) alone at the same B, L, width and heads, with SDPA on
    the same q/k/v as its library yardstick. Each case is checked as soon as it
@@ -55,8 +61,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    recipe (192 classes x 8 instances, adam, lr 2e-4, aggregator dropout
    0.1, n_ctx=2): one warm-up step and three timed steps at the split
    points 4, 3, 5. Per step the launch counts are exact (K1 24, K1-causal
-   24 and their attention cores 48, K2 48, K4 24, K3-masked 24, K6 0), the
-   loss is finite, and on the
+   24 and their attention cores 48, K2 48, K4 24, K3-masked 24 and every
+   one of its cores the one-launch short core, K6 0), the loss is finite,
+   and on the
    first step every aggregator leaf has a finite non-zero gradient and
    changes. A second run from the same seeds, taken apart into image
    passes, heads forward, backward and optimizer (each ending in a
@@ -97,9 +104,11 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    against the CPU (dx within 1e-4 of its scale), bf16 on the card finite.
 
 In bf16 every K1, K2 and K8 launches the wgmma GEMM twice, every K5 twice
-a chunk and every K7 four times (``gemm_wgmma``, counted by name); phases
-3, 5, 7, 9 and 11 check that count exactly, and phase 6 that fp32 launches
-none. K6 runs at the aggregator's shapes, where the host's time to issue a
+a chunk, every K4 twice (its c_fc recompute and GELU' product are one
+launch), every K3 three times and every K7 four times (``gemm_wgmma``,
+counted by name); phases 3, 5, 7, 9 and 11 check that
+count exactly, and phase 6 that fp32 launches none (and runs K3's tiled
+FMA core). K6 runs at the aggregator's shapes, where the host's time to issue a
 call may bound it: its rows add the host's milliseconds a call and the
 device's (torch.profiler), for the kernel and for SDPA.
 
@@ -488,6 +497,8 @@ def kernel_checks(torch, F):
     vision_bwd_cases(torch, F, randn, check, params, layer, library_attn_half, library_mlp_half,
                      library_dx)
     gemm_cases(torch, randn, check)
+    bwd_gemm_cases(torch, randn, check)
+    bwd_core_cases(torch, F, randn, check)
     tp_cases(torch, F, randn, check, check_core, sliced, both)
     return results
 
@@ -594,6 +605,117 @@ def gemm_cases(torch, randn, check):
             bytes=(m * k + k * n + (n if bias is not None else 0)) * 2 + m * n * out_bytes
             + (m * n * 2 if epilogue in ("accum", "residual") else 0),
             flops=2 * m * n * k, peak=PEAK_BF16, reps=10, rounds=5,
+        ))
+
+
+def bwd_gemm_cases(torch, randn, check):
+    """The wgmma/TMA GEMM alone at the six products K3 and K4 run in the
+    training step's text tower (192 prompts x 77 tokens, width 512, hidden
+    2048), bf16: K3's QKV recompute (K1's launch, plus the bias), dattn = g
+    @ w_out^T (cast), dxln = dqkv @ w_qkv^T (fp32, K = 1536); K4's h_pre =
+    xln @ c_fc_w + c_fc_b (fp32), dh_pre = (g @ c_proj_w^T) QuickGELU'(h_pre)
+    (cast) and dxln = dh_pre @ c_fc_w^T (fp32, K = 2048). The transposed
+    weights are read as they are stored. Then K4's launch that runs: the
+    c_fc recompute and the GELU' product in one (h_pre kept in registers).
+    Yardstick: torch.matmul of the same operands (no epilogue)."""
+    from ovmr_tpu_torch.ops.block_fused import block_gemm, block_gemm_plain
+    from ovmr_tpu_torch.ops.block_fused_bwd import (
+        block_gemm_bwd,
+        block_gemm_bwd_plain,
+        mlp_bwd_dh,
+        mlp_bwd_dh_plain,
+    )
+
+    m, d, hidden = 192 * 77, 512, 2048
+    for case, n, k, epilogue, replaces in (
+            ("text-k3-qkv", 3 * d, d, "bias", "block_fused_bwd.py:219"),
+            ("text-k3-dattn", d, d, "cast", "block_fused_bwd.py:219"),
+            ("text-k3-dxln", d, 3 * d, "f32", "block_fused_bwd.py:219"),
+            ("text-k4-h_pre", hidden, d, "bias_f32", "block_fused_bwd.py:57"),
+            ("text-k4-dh_pre", hidden, d, "gelu_grad", "block_fused_bwd.py:57"),
+            ("text-k4-dxln", d, hidden, "f32", "block_fused_bwd.py:57")):
+        a = randn(m, k).to(torch.bfloat16)
+        trans = epilogue in ("cast", "gelu_grad", "f32")
+        w = randn(*((n, k) if trans else (k, n)), std=k ** -0.5).to(torch.bfloat16)
+        bias = randn(n, std=0.02).to(torch.bfloat16) if epilogue in ("bias", "bias_f32") else None
+        h_pre = randn(m, n) if epilogue == "gelu_grad" else None
+        if epilogue == "bias":
+            kernel = lambda a=a, w=w, b=bias: block_gemm(a, w, b, "bias")
+            plain = lambda a=a, w=w, b=bias: block_gemm_plain(a, w, b, "bias")
+        else:
+            kernel = lambda a=a, w=w, b=bias, h=h_pre, e=epilogue: block_gemm_bwd(
+                a, w, e, bias=b, h_pre=h)
+            plain = lambda a=a, w=w, b=bias, h=h_pre, e=epilogue: block_gemm_bwd_plain(
+                a, w, e, bias=b, h_pre=h)
+        out_bytes = 4 if epilogue in ("f32", "bias_f32") else 2
+        check(dict(
+            name="gemm_wgmma", case=case, dtype=torch.bfloat16, shape=[m, n, k], x=a,
+            key_shape=(m, n, k), source="ovmr_tpu_torch/csrc/gemm_wgmma.cuh",
+            replaces="ovmr_tpu/ops/" + replaces, kernel=kernel, plain=plain,
+            library=(lambda a=a, w=w: torch.matmul(a, w.t())) if trans
+            else (lambda a=a, w=w: torch.matmul(a, w)),
+            # A and W read, C written, the bias and the fp32 h_pre read
+            bytes=(m * k + k * n + (n if bias is not None else 0)) * 2 + m * n * out_bytes
+            + (m * n * 4 if h_pre is not None else 0),
+            flops=2 * m * n * k, peak=PEAK_BF16, reps=10, rounds=5,
+        ))
+    xln, g = (randn(m, d).to(torch.bfloat16) for _ in range(2))
+    c_fc_w = randn(d, hidden, std=d ** -0.5).to(torch.bfloat16)
+    c_fc_b = randn(hidden, std=0.02).to(torch.bfloat16)
+    c_proj_w = randn(hidden, d, std=hidden ** -0.5).to(torch.bfloat16)
+    k4 = (xln, c_fc_w, c_fc_b, g, c_proj_w)
+    check(dict(
+        name="gemm_wgmma", case="text-k4-dh_pre-one-launch", dtype=torch.bfloat16,
+        shape=[m, hidden, d], x=xln, key_shape=(m, hidden, d),
+        source="ovmr_tpu_torch/csrc/gemm_wgmma.cuh", replaces="ovmr_tpu/ops/block_fused_bwd.py:57",
+        kernel=lambda: mlp_bwd_dh(*k4), plain=lambda: mlp_bwd_dh_plain(*k4),
+        library=lambda: (torch.matmul(xln, c_fc_w), torch.matmul(g, c_proj_w.t())),
+        # xln, g and both weights read, the bias read, dh_pre written
+        bytes=(2 * m * d + 2 * d * hidden + hidden + m * hidden) * 2,
+        flops=2 * 2 * m * hidden * d, peak=PEAK_BF16, reps=10, rounds=5,
+    ))
+
+
+def bwd_core_cases(torch, F, randn, check):
+    """K3's attention-backward core alone, bf16, on unit-variance q/k/v and
+    cotangent: the one-launch core at the training step's text tower (192
+    prompts x 77 tokens, width 512, 8 heads, causal) and the query-tiled
+    pair at phase 11's ViT-L/14@336px vision blocks (32 images x 577
+    tokens, width 1024, 16 heads). Yardstick: ``torch.autograd.grad``
+    through SDPA on the same q/k/v and mask, with the same cotangent."""
+    from ovmr_tpu_torch.ops.block_fused_bwd import attn_bwd_core, attn_bwd_core_plain
+    from ovmr_tpu_torch.ops.layers import causal_mask
+
+    for name, case, b, l, w, h, masked, replaces in (
+            ("attn_bwd_core_short", "text-train", 192, 77, 512, 8, True,
+             "ovmr_tpu/ops/block_fused_bwd.py:219"),
+            ("attn_bwd_core_tiled", "vitl336-vision-bwd", 32, 577, 1024, 16, False,
+             "ovmr_tpu/ops/block_fused_bwd.py:128")):
+        qkv = randn(b, l, 3 * w).to(torch.bfloat16)
+        dattn = randn(b, l, w).to(torch.bfloat16)
+        mask = causal_mask(l, device="cuda") if masked else None
+        lib_mask = None if mask is None else mask.to(torch.bfloat16)
+        q, k, v = (t.detach().requires_grad_(True)
+                   for t in qkv.view(b, l, 3, h, w // h).permute(2, 0, 3, 1, 4))
+        do = dattn.view(b, l, h, w // h).transpose(1, 2)
+
+        def library(q=q, k=k, v=v, do=do, m=lib_mask):
+            with torch.enable_grad():
+                o = F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+            return torch.autograd.grad(o, (q, k, v), do)
+
+        pairs = l * (l + 1) // 2 if masked else l * l
+        check(dict(
+            name=name, case=case, dtype=torch.bfloat16, shape=[b, l, w, h], x=qkv,
+            key_shape=(b, l, w, h), source="ovmr_tpu_torch/csrc/block_fused_bwd.cu",
+            replaces=replaces,
+            kernel=lambda qkv=qkv, d=dattn, m=mask, h=h: attn_bwd_core(qkv, d, m, h),
+            plain=lambda qkv=qkv, d=dattn, m=mask, h=h: attn_bwd_core_plain(qkv, d, m, h),
+            library=library,
+            # qkv and dattn read, dqkv written (and the fp32 mask read);
+            # q.k, dO.v, dS.k, dS^T.q and P^T.dO over the visible pairs
+            bytes=7 * b * l * w * 2 + (l * l * 4 if masked else 0),
+            flops=10 * b * pairs * w, peak=PEAK_BF16, reps=10, rounds=5,
         ))
 
 
@@ -1263,7 +1385,10 @@ def training_slice(torch, np, clip_params, agg_params):
         "tp_attn_half_partial": 0,                  # no model axis
         "tp_attn_half_partial_masked": 0,
         "tp_mlp_half_partial": 0,
-        "gemm_wgmma": 4 * (2 * cfg.vision_layers + 2 * layers),  # two inside each K1 and K2
+        # two inside each K1 and K2, three inside each K3, two inside each K4
+        "gemm_wgmma": 4 * (2 * cfg.vision_layers + 2 * layers) + 5 * 2 * layers,
+        "attn_bwd_core_short": 2 * layers,          # every K3: the text tower's 77 tokens
+        "attn_bwd_core_tiled": 0,
     }
 
     def fresh():
@@ -1371,7 +1496,7 @@ def fp32_train_step(torch, np, clip_params, agg_params):
                     "fused_mlp_half_chunked": 0, "attn_half_bwd_dx_masked": 24, "mlp_half_bwd_dx": 24,
                     "attn_half_bwd_dx": 0, "fused_attention": 4, "tp_attn_half_partial": 0,
                     "tp_attn_half_partial_masked": 0, "tp_mlp_half_partial": 0,
-                    "gemm_wgmma": 0}
+                    "gemm_wgmma": 0, "attn_bwd_core_short": 0, "attn_bwd_core_tiled": 24}
             if got != want:
                 raise AssertionError(f"fp32 train step: launches {got}, expected {want}")
         results[device] = (
@@ -1450,9 +1575,10 @@ def vision_backward(torch):
         if device == "cuda":
             torch.cuda.synchronize()
             want = {k: 0 for k in cuda_lib.LAUNCHES}
+            # bf16: K1 two GEMMs, K5 two a chunk, K4 two, K3 three
             want.update(fused_attn_half=2, attn_core=2, fused_mlp_half_chunked=2,
-                        mlp_half_bwd_dx=2, attn_half_bwd_dx=2,
-                        gemm_wgmma=0 if dtype == torch.float32 else 2 * (2 + 2 * chunks))
+                        mlp_half_bwd_dx=2, attn_half_bwd_dx=2, attn_bwd_core_tiled=2,
+                        gemm_wgmma=0 if dtype == torch.float32 else 2 * (2 + 2 * chunks + 5))
             if dict(cuda_lib.LAUNCHES) != want:
                 raise AssertionError(f"vision backward ({dtype}): launches "
                                      f"{dict(cuda_lib.LAUNCHES)}, expected {want}")

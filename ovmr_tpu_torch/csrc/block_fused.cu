@@ -60,16 +60,13 @@
 // the card's peak) against a few GB of activations: bound by tensor-core
 // issue; so are K1's QKV (1.86 TFLOP at the same shape) and out-proj, and
 // K7's four products and K8's two. In bf16/fp16 the products of K1, K2,
-// K5, K7 and K8 run on the wgmma/TMA GEMM (gemm_wgmma.cuh,
-// ovmr_gemm_wgmma): a TMA-fed mbarrier ring, two consumer warpgroups
-// issuing wgmma on a 128 x 128 tile, the epilogue on the accumulator
-// registers. fp32 and the backward halves (K3's QKV recompute and K3/K4's
-// transposed products) still use gemm.cuh's tiled kernel (ovmr_gemm): two
-// cp.async stages, WMMA fragments with fp32 accumulation, and an fp32
-// shared-memory round trip per output.
-// Both add the bias in fp32 and apply the activation or the residual in the
-// epilogue, with the same rounding. fp32 products are plain FMA on
-// gemm.cuh's kernel (TF32 would break the 1e-5 fp32 tolerance).
+// K5, K7 and K8 (and K3's recompute of K1's QKV) run on the wgmma/TMA GEMM
+// (gemm_wgmma.cuh, ovmr_gemm_wgmma): a TMA-fed mbarrier ring, two consumer
+// warpgroups issuing wgmma on a 128 x 128 tile, the epilogue on the
+// accumulator registers. fp32 products are plain FMA on gemm.cuh's kernel
+// (ovmr_gemm; TF32 would break the 1e-5 fp32 tolerance). Both add the bias
+// in fp32 and apply the activation or the residual in the epilogue, with
+// the same rounding.
 //
 // The attention core (ovmr_attn_core; K1 at width D, K7 at the shard's
 // width dl). In bf16/fp16 one register-resident core serves every sequence
@@ -564,39 +561,35 @@ __global__ void __launch_bounds__(RB_THREADS)
 // ---------------------------------------------------------------------------
 // host launchers
 // ---------------------------------------------------------------------------
-template <typename T>
-static void launch_fwd_gemm(const void* A, const void* W, const void* bias, const void* R,
-                            void* C, int M, int N, int K, int ldw, int ldc, int epi,
-                            cudaStream_t st) {
+static void launch_fwd_gemm_f32(const void* A, const void* W, const void* bias, const void* R,
+                                void* C, int M, int N, int K, int ldw, int ldc, int epi,
+                                cudaStream_t st) {
   if (epi == EPI_BIAS_GELU)
-    launch_gemm<T, false, EPI_BIAS_GELU>(A, W, bias, R, C, M, N, K, st, ldw, ldc);
+    launch_gemm_f32<false, EPI_BIAS_GELU>(A, W, bias, R, C, M, N, K, st, ldw, ldc);
   else if (epi == EPI_BIAS_RESIDUAL)
-    launch_gemm<T, false, EPI_BIAS_RESIDUAL>(A, W, bias, R, C, M, N, K, st, ldw, ldc);
+    launch_gemm_f32<false, EPI_BIAS_RESIDUAL>(A, W, bias, R, C, M, N, K, st, ldw, ldc);
   else if (epi == EPI_ACCUM)
-    launch_gemm<T, false, EPI_ACCUM>(A, W, bias, R, C, M, N, K, st, ldw, ldc);
+    launch_gemm_f32<false, EPI_ACCUM>(A, W, bias, R, C, M, N, K, st, ldw, ldc);
   else if (epi == EPI_F32)
-    launch_gemm<T, false, EPI_F32>(A, W, bias, R, C, M, N, K, st, ldw, ldc);
+    launch_gemm_f32<false, EPI_F32>(A, W, bias, R, C, M, N, K, st, ldw, ldc);
   else
-    launch_gemm<T, false, EPI_BIAS>(A, W, bias, R, C, M, N, K, st, ldw, ldc);
+    launch_gemm_f32<false, EPI_BIAS>(A, W, bias, R, C, M, N, K, st, ldw, ldc);
 }
 
 template <typename T>
 static cudaError_t launch_fwd_gemm_wgmma(const void* A, const void* W, const void* bias,
                                          const void* R, void* C, int M, int N, int K, int ldw,
                                          int ldc, int epi, cudaStream_t st) {
+#define OVMR_FWD(E) launch_gemm_wgmma<T, E, false>(A, W, bias, R, C, M, N, K, ldw, ldc, st)
   switch (epi) {
-    case EPI_BIAS:
-      return launch_gemm_wgmma<T, EPI_BIAS>(A, W, bias, R, C, M, N, K, ldw, ldc, st);
-    case EPI_BIAS_GELU:
-      return launch_gemm_wgmma<T, EPI_BIAS_GELU>(A, W, bias, R, C, M, N, K, ldw, ldc, st);
-    case EPI_BIAS_RESIDUAL:
-      return launch_gemm_wgmma<T, EPI_BIAS_RESIDUAL>(A, W, bias, R, C, M, N, K, ldw, ldc, st);
-    case EPI_F32:
-      return launch_gemm_wgmma<T, EPI_F32>(A, W, bias, R, C, M, N, K, ldw, ldc, st);
-    case EPI_ACCUM:
-      return launch_gemm_wgmma<T, EPI_ACCUM>(A, W, bias, R, C, M, N, K, ldw, ldc, st);
+    case EPI_BIAS: return OVMR_FWD(EPI_BIAS);
+    case EPI_BIAS_GELU: return OVMR_FWD(EPI_BIAS_GELU);
+    case EPI_BIAS_RESIDUAL: return OVMR_FWD(EPI_BIAS_RESIDUAL);
+    case EPI_F32: return OVMR_FWD(EPI_F32);
+    case EPI_ACCUM: return OVMR_FWD(EPI_ACCUM);
     default: return cudaErrorInvalidValue;
   }
+#undef OVMR_FWD
 }
 
 template <typename T>
@@ -677,31 +670,20 @@ OVMR_EXPORT int ovmr_layer_norm(int dtype, const void* x, const void* g, const v
   return (int)cudaGetLastError();
 }
 
-// C = epilogue(A @ W + bias), W's rows ldw and C's rows ldc elements apart:
-// 0 cast, 1 QuickGELU then cast, 2 cast then add the residual R, 6 (no bias)
-// the fp32 sum stored as fp32 (C is float), 7 (no bias) cast then add to
-// what C holds
+// fp32 only (bf16/fp16 products take ovmr_gemm_wgmma): C = epilogue(A @ W
+// + bias), W's rows ldw and C's rows ldc elements apart: 0 cast, 1
+// QuickGELU then cast, 2 cast then add the residual R, 6 (no bias) the fp32
+// sum, 7 (no bias) add to what C holds
 OVMR_EXPORT int ovmr_gemm(int dtype, const void* A, const void* W, const void* bias,
                           const void* R, void* C, int M, int N, int K, int ldw, int ldc,
                           int epilogue, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool known = epilogue == EPI_BIAS || epilogue == EPI_BIAS_GELU ||
                      epilogue == EPI_BIAS_RESIDUAL || epilogue == EPI_ACCUM ||
                      epilogue == EPI_F32;
-  if (!known || (epilogue == EPI_BIAS_RESIDUAL && !R) || ldw < N || ldc < N)
+  if (dtype != DT_F32 || !known || (epilogue == EPI_BIAS_RESIDUAL && !R) || ldw < N || ldc < N)
     return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case DT_F32:
-      launch_fwd_gemm<float>(A, W, bias, R, C, M, N, K, ldw, ldc, epilogue, st);
-      break;
-    case DT_BF16:
-      launch_fwd_gemm<__nv_bfloat16>(A, W, bias, R, C, M, N, K, ldw, ldc, epilogue, st);
-      break;
-    case DT_F16:
-      launch_fwd_gemm<__half>(A, W, bias, R, C, M, N, K, ldw, ldc, epilogue, st);
-      break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  launch_fwd_gemm_f32(A, W, bias, R, C, M, N, K, ldw, ldc, epilogue,
+                      static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }
 

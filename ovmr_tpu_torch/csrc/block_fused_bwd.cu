@@ -12,48 +12,68 @@
 //
 // What bounds them on the H100: at the training shape (192 prompts x 77
 // tokens, D = 512) K4 is three products of 2 x 14784 x 512 x 2048 FLOP
-// (93 GFLOP) and K3 about 54 GFLOP of projections plus 6 GFLOP of attention
-// products, against ~45 MB of activations: both are bound by tensor-core
-// operations, not bytes.
+// (93 GFLOP) and K3 about 54 GFLOP of projections plus 3-6 GFLOP of
+// attention products, against ~0.4 GB (K4, the fp32 h_pre written and read
+// back included) and ~0.2 GB (K3): both are bound by tensor-core
+// operations, not bytes (0.094 and 0.058 ms at the card's peaks).
 //
 // Design. Each kernel recomputes its half's forward intermediates, as the
 // TPU kernels do, but one prompt's recompute state (the fp32 [77, 2048]
 // h_pre alone is 631 KB) does not fit in 227 KB of shared memory, so each is
 // a few launches behind one Python wrapper with the intermediates in global
-// memory (keeping them on-chip is later work):
+// memory:
 //   K4 = layer_norm -> gemm(+c_fc_b, fp32 out: h_pre)
 //        -> gemm^T(g, c_proj_w; * QuickGELU'(h_pre), cast: dh_pre)
 //        -> gemm^T(dh_pre, c_fc_w; fp32 out: dxln) -> ln_bwd(+g)
 //   K3 = layer_norm -> gemm(+b_qkv, cast: qkv) -> gemm^T(g, w_out; cast: dattn)
 //        -> attention-backward core(qkv, dattn: dqkv)
 //        -> gemm^T(dqkv, w_qkv; fp32 out: dxln) -> ln_bwd(+g)
-// layer_norm and the QKV gemm are the forward's launches (block_fused.cu);
-// gemm^T multiplies by the transpose of the weight as it is stored
-// (gemm.cuh), so no transposed copy exists.
+// layer_norm and the QKV gemm are the forward's launches (block_fused.cu).
+// gemm^T multiplies by the transpose of the weight as it is stored, so no
+// transposed copy exists. In bf16/fp16 every product runs on the wgmma/TMA
+// GEMM (gemm_wgmma.cuh; ovmr_gemm_wgmma_bwd here for the backward
+// epilogues, the transposed weight read K-major, which is the layout of
+// A); in fp32 on gemm.cuh's FMA GEMM (ovmr_gemm_bwd; TF32 would break the
+// 1e-5 fp32 tolerance).
 //
 // The attention-backward core takes every length and every head width that
-// is a multiple of 8 up to 128. A whole head at a vision tower's L = 197
-// (Q, K, V, dO and two fp32 [L, L] matrices: ~416 KB in bf16) or L = 577
-// does not fit in a block, so the core is tiled over the queries and
-// recomputes the scores from the packed qkv instead of keeping them; no
-// atomics, two launches:
-//   q-side: one block per (128 queries, head, image). Three passes over the
-//     key tiles: the row maximum and sum (as the forward core's first pass),
-//     then delta_i = sum_j P_ij dP_ij with the normalised fp32 probs and dP =
-//     dO v^T, then dS = T(P (dP - delta) scale) and dq += dS k. Writes dq
-//     and each row's statistics (fp32 [B, H, 3, Lp]: max, sum, delta).
-//   kv-side: one block per (128 keys, head, image), walking the query tiles
-//     with their statistics: recomputes P and dP, dv += T(P)^T dO and dk +=
-//     dS^T q, fp32 sums cast once at the end.
-// At the vision shapes the core's products (five [L, L] x head-width
-// products, two of them recomputed once more) are ~10 B L^2 D FLOP against
-// q, k, v, dO and dqkv, so it is bound by tensor-core operations: in bf16
-// and fp16 every product is mma.sync m16n8k16 on fragments from ldmatrix
-// (the forward core's helpers, mma_frag.cuh), scores, probs, dP and dS live
-// in the accumulator registers, and K/V (q-side) or Q/dO (kv-side) tiles
-// stream through a 3-stage cp.async ring. fp32 stays plain FMA (TF32 would
-// break the 1e-5 fp32 tolerance), the same two launches in shared-memory
-// tiles; it is the correctness dtype, not a timed one.
+// is a multiple of 8 up to 128, routed by length (the wrapper picks the
+// route; nothing falls back):
+//   short (bf16/fp16, L <= 128: the text tower's 77 tokens) -- one launch,
+//     one block per (head, image) holding the head's Q, K, V and dO
+//     (~46 KB at 80 padded rows of width 64). Each of ceil(L / 16) warps
+//     owns 16 query rows and keeps their whole score rows in mma.sync
+//     accumulators: one pass over the keys gives the fp32 max, sum and
+//     normalised probs, dP = dO v^T, delta and dS = T(P (dP - delta)
+//     scale), and dq = dS k from the cast dS in registers. T(P) and T(dS)
+//     go to shared memory in the activation dtype, where the contract casts
+//     them; after one barrier each warp takes 16 keys for dv = T(P)^T dO and
+//     dk = T(dS)^T q. No statistics leave the block and several blocks share
+//     an SM; the tiled pair below spent a second launch recomputing P and dP
+//     and ran one 8-warp block an SM with 3 of 8 warps idle at L = 77.
+//   tiled (longer heads, and fp32 at every length) -- a whole head at a
+//     vision tower's L = 197 (Q, K, V, dO and two fp32 [L, L] matrices:
+//     ~416 KB in bf16) or L = 577 does not fit in a block, so the core is
+//     tiled over the queries and recomputes the scores from the packed qkv
+//     instead of keeping them; no atomics, two launches:
+//     q-side: one block per (128 queries, head, image). Three passes over
+//       the key tiles: the row maximum and sum (as the forward core's first
+//       pass), then delta_i = sum_j P_ij dP_ij with the normalised fp32
+//       probs and dP = dO v^T, then dS = T(P (dP - delta) scale) and dq +=
+//       dS k. Writes dq and each row's statistics (fp32 [B, H, 3, Lp]: max,
+//       sum, delta).
+//     kv-side: one block per (128 keys, head, image), walking the query
+//       tiles with their statistics: recomputes P and dP, dv += T(P)^T dO
+//       and dk += dS^T q, fp32 sums cast once at the end.
+//     At the vision shapes the core's products (five [L, L] x head-width
+//     products, two of them recomputed once more) are ~10 B L^2 D FLOP
+//     against q, k, v, dO and dqkv, so it is bound by tensor-core
+//     operations: in bf16 and fp16 every product is mma.sync m16n8k16 on
+//     fragments from ldmatrix (the forward core's helpers, mma_frag.cuh),
+//     scores, probs, dP and dS live in the accumulator registers, and K/V
+//     (q-side) or Q/dO (kv-side) tiles stream through a 3-stage cp.async
+//     ring. fp32 stays plain FMA, the same two launches in shared-memory
+//     tiles; it is the correctness dtype, not a timed one.
 //
 // Rounding follows the TPU kernels (block_fused_bwd.py:57-216): LN pieces in
 // fp32, the LN output cast; h_pre stays fp32; dh_pre is cast after the fp32
@@ -63,6 +83,7 @@
 // fp32; the LN cotangent is cast and then added to g in the activation
 // dtype.
 #include "gemm.cuh"
+#include "gemm_wgmma.cuh"
 #include "mma_frag.cuh"
 
 namespace ovmr {
@@ -561,6 +582,215 @@ __global__ void __launch_bounds__(BT_WARPS * 32, 1)
 }
 
 // ---------------------------------------------------------------------------
+// Short heads, bf16/fp16: the whole core of one (head, image) in one block
+// (see the header). ceil(L / 16) warps, warp w owning query rows 16 w ..
+// 16 w + 15 (lanes hold rows gid and gid + 8) and, after the barrier, keys
+// 16 w .. 16 w + 15. The scores of a row live in NT m16n8 accumulator tiles
+// (NT * 8 >= the padded length R; tiles past R are skipped, never computed).
+// Shared memory: Q, K, V and dO of the head (R rows of DHP + 8 elements,
+// rows past L and columns past Dh zero-filled), then T(P) and T(dS) (R rows
+// of NT * 8 + 8 elements, [query][key]).
+// ---------------------------------------------------------------------------
+constexpr int BS_MAX_L = 128;
+
+__host__ __device__ constexpr size_t bs_smem(int rows, int dhp, int nt) {
+  return (size_t)rows * (4 * (dhp + 8) + 2 * (nt * 8 + 8)) * 2;
+}
+
+// at most 80 rows (NT = 10, the text tower) a block has 5 warps, and three
+// share an SM (136 registers a thread, 3 x 73 KB of shared memory at width 64)
+template <typename T, int DHP, int NT>
+__global__ void __launch_bounds__(NT <= 10 ? 160 : BS_MAX_L / 16 * 32, NT <= 10 ? 3 : 1)
+    attn_bwd_short_kernel(const T* __restrict__ qkv, const T* __restrict__ dattn,
+                          const float* __restrict__ mask, T* __restrict__ dqkv, int L, int W,
+                          int Dh, float scale) {
+  constexpr int LD = DHP + 8, LDP = NT * 8 + 8, CPR = DHP / 8, KD = DHP / 16, DT = DHP / 8;
+  extern __shared__ __align__(128) unsigned char bs_smem_raw[];
+  const int nw = blockDim.x / 32, R = nw * 16;
+  T* Qs = reinterpret_cast<T*>(bs_smem_raw);
+  T* Ks = Qs + R * LD;
+  T* Vs = Ks + R * LD;
+  T* Os = Vs + R * LD;
+  T* Ps = Os + R * LD;
+  T* Ss = Ps + R * LDP;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const size_t rs = 3 * (size_t)W;
+  const T* base = qkv + (size_t)b * L * rs + (size_t)h * Dh;
+  const T* dbase = dattn + (size_t)b * L * W + (size_t)h * Dh;
+  for (int idx = tid; idx < R * CPR; idx += blockDim.x) {
+    const int r = idx / CPR, c8 = (idx % CPR) * 8;
+    const bool ok = r < L && c8 < Dh;
+    const T* row = ok ? base + (size_t)r * rs + c8 : base;
+    cp_async16(Qs + r * LD + c8, row, ok);
+    cp_async16(Ks + r * LD + c8, ok ? row + W : base, ok);
+    cp_async16(Vs + r * LD + c8, ok ? row + 2 * W : base, ok);
+    cp_async16(Os + r * LD + c8, ok ? dbase + (size_t)r * W + c8 : dbase, ok);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // scores = q . k and dP = dO . v^T over every key (tile pairs j2 < nw), fp32
+  const int q0 = warp * 16;
+  float sc[NT][4], dp[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+    dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    uint32_t qa[4], oa[4];
+    lds_a<T>(qa, Qs + q0 * LD, LD, kk * 16);
+    lds_a<T>(oa, Os + q0 * LD, LD, kk * 16);
+#pragma unroll
+    for (int j2 = 0; j2 < NT / 2; ++j2) {
+      if (j2 >= nw) continue;
+      uint32_t kb[4], vb[4];
+      lds_bt<T>(kb, Ks, LD, j2 * 16, kk * 16);
+      mma_16816<T>(sc[2 * j2], qa, kb[0], kb[1]);
+      mma_16816<T>(sc[2 * j2 + 1], qa, kb[2], kb[3]);
+      lds_bt<T>(vb, Vs, LD, j2 * 16, kk * 16);
+      mma_16816<T>(dp[2 * j2], oa, vb[0], vb[1]);
+      mma_16816<T>(dp[2 * j2 + 1], oa, vb[2], vb[3]);
+    }
+  }
+  // scaled after the product, then the fp32 mask; keys past L are -inf. A
+  // row past L (the last warp's padding) reads the mask row L - 1 and is
+  // zeroed below
+  const float* mrow[2] = {mask + (size_t)min(q0 + gid, L - 1) * L,
+                          mask + (size_t)min(q0 + gid + 8, L - 1) * L};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int kc = j * 8 + tig * 2 + e;
+      const bool in = kc < L;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float v = sc[j][2 * r + e] * scale;
+        if (mask && in) v += __ldg(mrow[r] + kc);
+        sc[j][2 * r + e] = in ? v : -INFINITY;
+      }
+    }
+  }
+  // fp32 softmax over the whole row (the quad holds it), normalised as the
+  // tiled core forms it: exp2(s log2(e) - m log2(e)) * (1 / sum); then delta
+  float delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float mxl = mx * BT_LOG2E;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = exp2f(fmaf(sc[j][2 * r + e], BT_LOG2E, -mxl));
+        sc[j][2 * r + e] = p;
+        sum += p;
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = 1.f / sum;
+    const bool live = q0 + gid + 8 * r < L;
+    float d = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = live ? sc[j][2 * r + e] * inv : 0.f;
+        sc[j][2 * r + e] = p;
+        d = fmaf(p, dp[j][2 * r + e], d);
+      }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    delta[r] = d;
+  }
+  // T(P) and dS = T(P (dP - delta) scale) into shared memory ([query][key]),
+  // and the cast dS straight into the A fragments of dq = dS . k
+  uint32_t da[NT / 2][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= 2 * nw) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float* p = &sc[j][2 * r];
+      const float* e = &dp[j][2 * r];
+      const uint32_t ds = pack2<T>(p[0] * (e[0] - delta[r]) * scale,
+                                   p[1] * (e[1] - delta[r]) * scale);
+      const int at = (q0 + gid + 8 * r) * LDP + j * 8 + tig * 2;
+      *reinterpret_cast<uint32_t*>(Ps + at) = pack2<T>(p[0], p[1]);
+      *reinterpret_cast<uint32_t*>(Ss + at) = ds;
+      da[j / 2][(j % 2) * 2 + r] = ds;
+    }
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+  for (int t = 0; t < NT / 2; ++t) {
+    if (t >= nw) continue;
+#pragma unroll
+    for (int d2 = 0; d2 < DT / 2; ++d2) {
+      uint32_t kb[4];
+      lds_b<T>(kb, Ks, LD, t * 16, d2 * 16);
+      mma_16816<T>(acc[2 * d2], da[t], kb[0], kb[1]);
+      mma_16816<T>(acc[2 * d2 + 1], da[t], kb[2], kb[3]);
+    }
+  }
+  // dq, cast per head, stored as column pairs of the rows below L
+  T* out = dqkv + (size_t)b * L * rs + (size_t)h * Dh;
+#pragma unroll
+  for (int n = 0; n < DT; ++n) {
+    const int col = n * 8 + tig * 2;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + gid + 8 * r;
+      if (row < L && col < Dh)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row * rs + col) =
+            pack2<T>(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
+  }
+  __syncthreads();  // every row's T(P) and T(dS) is in; K and V are read for the last time
+
+  // dv = T(P)^T . dO, then dk = T(dS)^T . q, for keys k0 .. k0 + 15; each is
+  // staged through the warp's own rows of V (K), which no warp reads any more
+  const int k0 = warp * 16;
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    const T* A = side == 0 ? Ps : Ss;
+    const T* Bm = side == 0 ? Os : Qs;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+    for (int t = 0; t < NT / 2; ++t) {
+      if (t >= nw) continue;
+      uint32_t a[4];
+      lds_at<T>(a, A, LDP, t * 16, k0);
+#pragma unroll
+      for (int d2 = 0; d2 < DT / 2; ++d2) {
+        uint32_t bb[4];
+        lds_b<T>(bb, Bm, LD, t * 16, d2 * 16);
+        mma_16816<T>(acc[2 * d2], a, bb[0], bb[1]);
+        mma_16816<T>(acc[2 * d2 + 1], a, bb[2], bb[3]);
+      }
+    }
+    if (side == 0)
+      store_rows<T, DHP>(Vs + k0 * LD, acc, out + 2 * W, rs, k0, L, Dh);
+    else
+      store_rows<T, DHP>(Ks + k0 * LD, acc, out + W, rs, k0, L, Dh);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fp32: the same two launches in shared-memory tiles, plain FMA, at every
 // length (shared memory depends on the head width only). q-side: one block
 // per (BF_Q queries, head, image), the keys in tiles of BF_K; kv-side: one
@@ -765,24 +995,40 @@ __global__ void __launch_bounds__(BF_THREADS)
 // ---------------------------------------------------------------------------
 // host launchers
 // ---------------------------------------------------------------------------
-template <typename T>
-static cudaError_t launch_bwd_gemm(const void* A, const void* W, const void* bias,
-                                   const void* aux, void* C, int M, int N, int K, int epi,
-                                   cudaStream_t st) {
+static cudaError_t launch_bwd_gemm_f32(const void* A, const void* W, const void* bias,
+                                       const void* aux, void* C, int M, int N, int K, int epi,
+                                       cudaStream_t st) {
   switch (epi) {
     case EPI_BIAS_F32:
       if (!bias) return cudaErrorInvalidValue;
-      launch_gemm<T, false, EPI_BIAS_F32>(A, W, bias, aux, C, M, N, K, st);
+      launch_gemm_f32<false, EPI_BIAS_F32>(A, W, bias, aux, C, M, N, K, st);
       break;
-    case EPI_CAST: launch_gemm<T, true, EPI_CAST>(A, W, bias, aux, C, M, N, K, st); break;
+    case EPI_CAST: launch_gemm_f32<true, EPI_CAST>(A, W, bias, aux, C, M, N, K, st); break;
     case EPI_GELU_GRAD:
       if (!aux) return cudaErrorInvalidValue;
-      launch_gemm<T, true, EPI_GELU_GRAD>(A, W, bias, aux, C, M, N, K, st);
+      launch_gemm_f32<true, EPI_GELU_GRAD>(A, W, bias, aux, C, M, N, K, st);
       break;
-    case EPI_F32: launch_gemm<T, true, EPI_F32>(A, W, bias, aux, C, M, N, K, st); break;
+    case EPI_F32: launch_gemm_f32<true, EPI_F32>(A, W, bias, aux, C, M, N, K, st); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaSuccess;
+}
+
+// the backward's epilogues on the wgmma/TMA GEMM: EPI_BIAS_F32 in the
+// forward form (W [K, N]), the others against W^T (W stored [N, K])
+template <typename T>
+static cudaError_t launch_bwd_gemm_wgmma(const void* A, const void* W, const void* bias,
+                                         const void* aux, void* C, int M, int N, int K, int ldw,
+                                         int ldc, int epi, cudaStream_t st) {
+#define OVMR_BWD(E, TR) launch_gemm_wgmma<T, E, TR>(A, W, bias, aux, C, M, N, K, ldw, ldc, st)
+  switch (epi) {
+    case EPI_BIAS_F32: return OVMR_BWD(EPI_BIAS_F32, false);
+    case EPI_CAST: return OVMR_BWD(EPI_CAST, true);
+    case EPI_GELU_GRAD: return OVMR_BWD(EPI_GELU_GRAD, true);
+    case EPI_F32: return OVMR_BWD(EPI_F32, true);
+    default: return cudaErrorInvalidValue;
+  }
+#undef OVMR_BWD
 }
 
 template <typename T>
@@ -855,25 +1101,109 @@ static cudaError_t launch_attn_bwd_core_tc(const void* qkv, const void* dattn, c
               : launch_attn_bwd_tiled<T, 128, false>(qkv, dattn, mask, dqkv, stats, B, L, D, H, st);
 }
 
+// bf16/fp16, L <= BS_MAX_L: the one-launch core. The scores of a row take
+// NT accumulator tiles: 10 (80 keys: the text tower's 77 tokens) or 16
+template <typename T, int DHP, int NT>
+static cudaError_t launch_attn_bwd_short(const void* qkv, const void* dattn, const float* mask,
+                                         void* dqkv, int B, int L, int D, int H,
+                                         cudaStream_t st) {
+  constexpr size_t most = bs_smem(NT * 8, DHP, NT);
+  static_assert(most <= 227 * 1024, "the short backward core's shared memory exceeds 227 KB");
+  auto kernel = attn_bwd_short_kernel<T, DHP, NT>;
+  const cudaError_t err = set_smem(kernel, most);
+  if (err != cudaSuccess) return err;
+  const int nw = ceil_div(L, 16), Dh = D / H;
+  kernel<<<dim3(H, B), nw * 32, bs_smem(nw * 16, DHP, NT), st>>>(
+      (const T*)qkv, (const T*)dattn, mask, (T*)dqkv, L, D, Dh, (float)(1.0 / sqrt((double)Dh)));
+  return cudaSuccess;
+}
+
+template <typename T>
+static cudaError_t launch_attn_bwd_short_tc(const void* qkv, const void* dattn, const float* mask,
+                                            void* dqkv, int B, int L, int D, int H,
+                                            cudaStream_t st) {
+  const int Dh = D / H;
+  const bool eighty = ceil_div(L, 16) * 16 <= 80;
+  if (Dh <= 64)
+    return eighty ? launch_attn_bwd_short<T, 64, 10>(qkv, dattn, mask, dqkv, B, L, D, H, st)
+                  : launch_attn_bwd_short<T, 64, 16>(qkv, dattn, mask, dqkv, B, L, D, H, st);
+  return eighty ? launch_attn_bwd_short<T, 128, 10>(qkv, dattn, mask, dqkv, B, L, D, H, st)
+                : launch_attn_bwd_short<T, 128, 16>(qkv, dattn, mask, dqkv, B, L, D, H, st);
+}
+
 }  // namespace ovmr
 
 using namespace ovmr;
 
-// C = epilogue(A @ op(W)) for the backward halves. epilogue 3: op(W) = W
-// [K, N], C = fp32(acc + bias). epilogues 4-6: op(W) = W^T with W stored
-// [N, K]; 4: C = T(acc); 5: C = T(acc * QuickGELU'(aux)), aux fp32 [M, N];
-// 6: C = fp32(acc)
+// fp32 only (bf16/fp16 take ovmr_gemm_wgmma_bwd): C = epilogue(A @ op(W))
+// for the backward halves. epilogue 3: op(W) = W [K, N], C = fp32(acc +
+// bias). epilogues 4-6: op(W) = W^T with W stored [N, K]; 4: C = T(acc);
+// 5: C = T(acc * QuickGELU'(aux)), aux fp32 [M, N]; 6: C = fp32(acc)
 OVMR_EXPORT int ovmr_gemm_bwd(int dtype, const void* A, const void* W, const void* bias,
                               const void* aux, void* C, int M, int N, int K, int epilogue,
                               void* stream) {
+  if (dtype != DT_F32) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = launch_bwd_gemm_f32(A, W, bias, aux, C, M, N, K, epilogue,
+                                              static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// ovmr_gemm_bwd's epilogues in bf16/fp16 on the wgmma/TMA GEMM
+// (gemm_wgmma.cuh), W's rows ldw and C's rows ldc elements apart (C's own
+// type). A bias is given exactly for 3 and the fp32 h_pre (aux, dense
+// [M, N], 8-byte aligned) exactly for 5; N, K and ldw multiples of 8, ldw
+// at least N (3) or K (4-6); A and W 16-byte aligned; ldc at least N and
+// even, C aligned to a pair of its elements, the bias to 4 bytes
+OVMR_EXPORT int ovmr_gemm_wgmma_bwd(int dtype, const void* A, const void* W, const void* bias,
+                                    const void* aux, void* C, int M, int N, int K, int ldw,
+                                    int ldc, int epilogue, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool trans = epilogue == EPI_CAST || epilogue == EPI_GELU_GRAD || epilogue == EPI_F32;
+  const uintptr_t pair = epi_out_f32(epilogue) ? 8 : 4;
+  if (!(trans || epilogue == EPI_BIAS_F32) || (epilogue == EPI_BIAS_F32) != (bias != nullptr) ||
+      (epilogue == EPI_GELU_GRAD) != (aux != nullptr) || N % 8 || K % 8 || ldw % 8 ||
+      ldw < (trans ? K : N) || ldc < N || ldc % 2 || reinterpret_cast<uintptr_t>(A) % 16 ||
+      reinterpret_cast<uintptr_t>(W) % 16 || reinterpret_cast<uintptr_t>(C) % pair ||
+      reinterpret_cast<uintptr_t>(bias) % 4 || reinterpret_cast<uintptr_t>(aux) % 8)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err;
   switch (dtype) {
-    case DT_F32: err = launch_bwd_gemm<float>(A, W, bias, aux, C, M, N, K, epilogue, st); break;
     case DT_BF16:
-      err = launch_bwd_gemm<__nv_bfloat16>(A, W, bias, aux, C, M, N, K, epilogue, st);
+      err = launch_bwd_gemm_wgmma<__nv_bfloat16>(A, W, bias, aux, C, M, N, K, ldw, ldc, epilogue,
+                                                 st);
       break;
-    case DT_F16: err = launch_bwd_gemm<__half>(A, W, bias, aux, C, M, N, K, epilogue, st); break;
+    case DT_F16:
+      err = launch_bwd_gemm_wgmma<__half>(A, W, bias, aux, C, M, N, K, ldw, ldc, epilogue, st);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// K4's dh_pre = T((g @ c_proj_w^T) * QuickGELU'(xln @ c_fc_w + c_fc_b)) in one
+// wgmma/TMA launch, bf16/fp16: xln, g [M, K]; c_fc_w [K, N]; c_proj_w
+// [N, K]; dh_pre [M, N]; all dense and 16-byte aligned, N and K multiples
+// of 8 (the fp32 h_pre is never stored)
+OVMR_EXPORT int ovmr_mlp_bwd_dh(int dtype, const void* xln, const void* c_fc_w,
+                                const void* c_fc_b, const void* g, const void* c_proj_w,
+                                void* dh_pre, int M, int N, int K, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uintptr_t any16 = reinterpret_cast<uintptr_t>(xln) | reinterpret_cast<uintptr_t>(c_fc_w) |
+                          reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(c_proj_w) |
+                          reinterpret_cast<uintptr_t>(dh_pre);
+  if (!c_fc_b || any16 % 16 || reinterpret_cast<uintptr_t>(c_fc_b) % 4 || N % 8 || K % 8)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  switch (dtype) {
+    case DT_BF16:
+      err = launch_gemm_wgmma_dual<__nv_bfloat16>(xln, c_fc_w, c_fc_b, g, c_proj_w, dh_pre, M, N,
+                                                  K, st);
+      break;
+    case DT_F16:
+      err = launch_gemm_wgmma_dual<__half>(xln, c_fc_w, c_fc_b, g, c_proj_w, dh_pre, M, N, K, st);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
@@ -895,8 +1225,10 @@ OVMR_EXPORT int ovmr_ln_bwd(int dtype, const void* x, const void* dxln, const vo
 }
 
 // dqkv = the attention-backward core of (qkv, dattn) for B sequences of L
-// tokens, width D in H heads (a multiple of 8 up to 128 each); stats is
-// fp32 scratch of B H 3 Lp floats, Lp = L rounded up to 128
+// tokens, width D in H heads (a multiple of 8 up to 128 each), tiled over
+// the queries (two launches; the route of every fp32 core and of bf16/fp16
+// beyond BS_MAX_L tokens); stats is fp32 scratch of B H 3 Lp floats, Lp = L
+// rounded up to 128
 OVMR_EXPORT int ovmr_attn_bwd_core(int dtype, const void* qkv, const void* dattn,
                                    const void* mask, void* dqkv, void* stats, int B, int L,
                                    int D, int H, void* stream) {
@@ -913,6 +1245,26 @@ OVMR_EXPORT int ovmr_attn_bwd_core(int dtype, const void* qkv, const void* dattn
     case DT_F16:
       err = launch_attn_bwd_core_tc<__half>(qkv, dattn, m, dqkv, sp, B, L, D, H, st);
       break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// the same core for 1 <= L <= 128 tokens in one launch, bf16/fp16 only
+OVMR_EXPORT int ovmr_attn_bwd_core_short(int dtype, const void* qkv, const void* dattn,
+                                         const void* mask, void* dqkv, int B, int L, int D,
+                                         int H, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mask);
+  if (H <= 0 || D % H || (D / H) % 8 || D / H > 128 || L < 1 || L > BS_MAX_L)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  switch (dtype) {
+    case DT_BF16:
+      err = launch_attn_bwd_short_tc<__nv_bfloat16>(qkv, dattn, m, dqkv, B, L, D, H, st);
+      break;
+    case DT_F16: err = launch_attn_bwd_short_tc<__half>(qkv, dattn, m, dqkv, B, L, D, H, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;

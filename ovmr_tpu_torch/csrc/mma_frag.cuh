@@ -76,6 +76,15 @@ __device__ __forceinline__ void lds_bt(uint32_t (&b)[4], const T* p, int ld, int
   ldsm_x4(b, p + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + c0 + ((lane >> 3) & 1) * 8);
 }
 
+// The A fragment of the transpose of a row-major tile: A rows are the
+// tile's columns c0 .. c0 + 15, A columns (k) its rows r0 .. r0 + 15 (the
+// operand of P^T . dO with P stored [query][key])
+template <typename T>
+__device__ __forceinline__ void lds_at(uint32_t (&a)[4], const T* p, int ld, int r0, int c0) {
+  const int lane = threadIdx.x % 32;
+  ldsm_x4_trans(a, p + (r0 + (lane & 7) + ((lane >> 4) << 3)) * ld + c0 + ((lane >> 3) & 1) * 8);
+}
+
 // B fragments of rows (k) k0 .. k0 + 15 and columns (n) c0 .. c0 + 7 (b[0],
 // b[1]) and c0 + 8 .. + 15 (b[2], b[3]) of a row-major tile read as B: the
 // operand of probs . v

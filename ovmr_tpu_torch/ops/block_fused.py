@@ -41,7 +41,8 @@ before each add.
   and then cast. In bf16/fp16 one register-resident tensor-core kernel
   takes every length and head width (a multiple of 8 up to 128), walking
   the keys in tiles in two passes that keep K1's rounding.
-- :func:`block_gemm`, one product of K1, K2, K5, K7 or K8 with its epilogue
+- :func:`block_gemm`, one product of K1, K2, K5, K7 or K8 (or K3's
+  recompute of K1's QKV) with its epilogue
   (bias, QuickGELU, residual, fp32 out, accumulate): in bf16/fp16 the
   wgmma/TMA GEMM of ``csrc/gemm_wgmma.cuh``, in fp32 gemm.cuh's FMA GEMM.
 
@@ -239,12 +240,11 @@ def _layer_norm(lib, code, x, ln_s, ln_b, stream):
 
 
 def _gemm(lib, code, a, w, bias, out, epilogue, stream, resid=None):
-    """out = epilogue(a @ w + bias) on gemm.cuh's kernel, for a [..., K] and
-    w [K, N]; w may be a column slice of a wider matrix, and out a column
-    slice of a wider buffer (their row strides are handed on). fp32 runs
-    here for every half (through :func:`_block_gemm`); in bf16/fp16 only
-    K3's QKV recompute still does (the backward's transposed products have
-    their own ``_gemm_bwd``)."""
+    """out = epilogue(a @ w + bias) on gemm.cuh's fp32 FMA kernel, for a
+    [..., K] and w [K, N]; w may be a column slice of a wider matrix, and
+    out a column slice of a wider buffer (their row strides are handed
+    on). Every fp32 product of the forward halves runs here, through
+    :func:`_block_gemm`."""
     cuda_lib.check(
         lib,
         lib.ovmr_gemm(
@@ -262,9 +262,9 @@ _BLOCK_EPILOGUES = {"bias": _EPI_BIAS, "gelu": _EPI_BIAS_GELU, "residual": _EPI_
 
 
 def _block_gemm(lib, code, a, w, bias, out, epilogue, stream, resid=None):
-    """The products of K1, K2, K5, K7 and K8: the wgmma/TMA GEMM
-    (``csrc/gemm_wgmma.cuh``) in bf16/fp16, gemm.cuh's FMA GEMM in fp32
-    (whose sums the fp32 1e-5 gates rest on)."""
+    """The products of K1, K2, K5, K7 and K8 (and K3's recompute of K1's
+    QKV): the wgmma/TMA GEMM (``csrc/gemm_wgmma.cuh``) in bf16/fp16,
+    gemm.cuh's FMA GEMM in fp32 (whose sums the fp32 1e-5 gates rest on)."""
     if a.dtype == torch.float32:
         _gemm(lib, code, a, w, bias, out, epilogue, stream, resid=resid)
         return
@@ -288,7 +288,8 @@ def block_gemm(a, w, bias=None, epilogue="gelu", resid=None, out=None):
     ``out`` (written for ``"bias"``/``"gelu"``/``"residual"``/``"f32"``,
     updated for ``"accum"``) a column slice of a wider buffer. ``out`` is
     fp32 for ``"f32"``, else ``a``'s dtype. On the card one launch of the
-    wgmma/TMA GEMM that K1, K2, K5, K7 and K8 run, which takes bf16 and fp16."""
+    wgmma/TMA GEMM that K1-K5, K7 and K8 run, which takes bf16 and fp16
+    (the backward's epilogues: :func:`ovmr_tpu_torch.ops.block_fused_bwd.block_gemm_bwd`)."""
     what = "block_gemm"
     if epilogue not in _BLOCK_EPILOGUES:
         raise ValueError(f"{what}: unknown epilogue {epilogue!r}")

@@ -55,7 +55,11 @@ LAUNCHES: Dict[str, int] = {
     "tp_attn_half_partial": 0,
     "tp_attn_half_partial_masked": 0,
     "tp_mlp_half_partial": 0,
-    "gemm_wgmma": 0,  # the bf16/fp16 products of K1, K2, K5, K7 and K8, by name only
+    "gemm_wgmma": 0,  # the bf16/fp16 products of K1-K5, K7 and K8, by name only
+    # K3's attention-backward core, by route: one launch for short heads,
+    # the query-tiled pair otherwise (counted once a call)
+    "attn_bwd_core_short": 0,
+    "attn_bwd_core_tiled": 0,
 }
 # launches by (kernel, shape of its first input, dtype name); the
 # tensor-parallel partials add their shard's width to the shape, since one
@@ -81,10 +85,16 @@ _SIGNATURES = {
     "block_fused_bwd": {
         # dtype, A, W, bias, aux, C, M, N, K, epilogue, stream
         "ovmr_gemm_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # dtype, A, W, bias, aux, C, M, N, K, ldw, ldc, epilogue, stream
+        "ovmr_gemm_wgmma_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # dtype, xln, c_fc_w, c_fc_b, g, c_proj_w, dh_pre, M, N, K, stream
+        "ovmr_mlp_bwd_dh": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         # dtype, x, dxln, g, ln_g, out, M, K, stream
         "ovmr_ln_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
         # dtype, qkv, dattn, mask, dqkv, stats, B, L, D, H, stream
         "ovmr_attn_bwd_core": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # dtype, qkv, dattn, mask, dqkv, B, L, D, H, stream
+        "ovmr_attn_bwd_core_short": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "attention": {
         # dtype, q, k, v, mask, out, BH, L, Dh, stream
@@ -110,8 +120,9 @@ def count_launch(name: str, x: torch.Tensor, shape=None) -> None:
 
 def count_inner_launch(name: str) -> None:
     """One launch of ``name``, a kernel that runs inside another kernel
-    wrapper's launches (the wgmma GEMM inside K1, K2, K5, K7 and K8): counted by name
-    only, since its caller's :data:`LAUNCH_SHAPES` entry fixes its shapes."""
+    wrapper's launches (the wgmma GEMM inside K1-K5, K7 and K8; K3's
+    attention-backward core): counted by name only, since its caller's
+    :data:`LAUNCH_SHAPES` entry fixes its shapes."""
     LAUNCHES[name] += 1
 
 

@@ -221,12 +221,12 @@ def test_require_no_grad_guards_the_raw_wrappers():
 
 
 def test_attn_bwd_core_shared_memory_limit():
-    """K3's core is tiled over the queries at every length and dtype, so a
-    block's shared memory depends on the head width alone: at every width
-    the core takes (a multiple of 8 up to 128) each of its four launches
-    (q-side and kv-side, tensor-core and fp32 FMA) fits in a block's 227 KB,
-    which the launchers also assert at compile time. Sizes from the tile
-    constants of csrc/block_fused_bwd.cu."""
+    """K3's tiled core (fp32 at every length, bf16/fp16 beyond 128 tokens)
+    is tiled over the queries, so a block's shared memory depends on the
+    head width alone: at every width the core takes (a multiple of 8 up to
+    128) each of its four launches (q-side and kv-side, tensor-core and fp32
+    FMA) fits in a block's 227 KB, which the launchers also assert at
+    compile time. Sizes from the tile constants of csrc/block_fused_bwd.cu."""
     text = (cuda_lib.CSRC / "block_fused_bwd.cu").read_text()
     c = {}
     for decl in re.findall(r"constexpr int ((?:BT_WARPS|BF_Q) =[^;]*);", text):

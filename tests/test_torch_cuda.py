@@ -38,9 +38,16 @@ from ovmr_tpu_torch.ops.block_fused import (
     block_gemm_plain,
     fused_residual_block,
 )
+from ovmr_tpu_torch.ops import block_fused as tbf
 from ovmr_tpu_torch.ops.block_fused_bwd import (
+    attn_bwd_core,
+    attn_bwd_core_plain,
     attn_half_bwd_dx,
     attn_half_bwd_dx_plain,
+    block_gemm_bwd,
+    block_gemm_bwd_plain,
+    mlp_bwd_dh,
+    mlp_bwd_dh_plain,
     mlp_half_bwd_dx,
     mlp_half_bwd_dx_plain,
 )
@@ -294,7 +301,8 @@ def test_attn_bwd_tiled_core_matches_plain(cuda, dtype, mask_kind, dh, l):
     """K3 across the tiled core's key (64) and query (32, 64, 128) tile
     edges, at the paths' 77, 197 and 577 tokens, at head widths zero-padded
     to 64 (16, 40) or 128, with no mask, the causal mask and a random one;
-    fp32 runs the tiled FMA launches at every length."""
+    fp32 runs the tiled FMA launches at every length, bf16/fp16 the
+    one-launch core up to 128 tokens and the tiled pair beyond."""
     b, h = 2, 2
     d = h * dh
     p = _layer(d, dtype, cuda, seed=l * 131 + dh)
@@ -438,6 +446,213 @@ def test_mlp_gemm_refuses_what_it_does_not_take(cuda):
         block_gemm(a, w.clone().requires_grad_(True), b)
 
 
+def _ulps(ref, n):
+    """n units in the last place at ref's largest magnitude (1e-5 of it in fp32)."""
+    peak = max(float(ref.abs().max()), 1.0)
+    bits = MANTISSA[ref.dtype]
+    return n * 1e-5 * peak if bits is None else n * 2.0 ** (math.floor(math.log2(peak)) - bits)
+
+
+def _tiled_core(qkv, dattn, mask, heads):
+    """K3's query-tiled core pair at any length, launched directly."""
+    b, l, w3 = qkv.shape
+    lib = cuda_lib.library("block_fused_bwd")
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((b, heads, 3, -(-l // 128) * 128), dtype=torch.float32, device=qkv.device)
+    cuda_lib.check(lib, lib.ovmr_attn_bwd_core(
+        cuda_lib.dtype_code(qkv.dtype), qkv.data_ptr(), dattn.data_ptr(),
+        mask.data_ptr() if mask is not None else None, dqkv.data_ptr(), stats.data_ptr(), b, l,
+        w3 // 3, heads, cuda_lib.stream_of(qkv)), "ovmr_attn_bwd_core")
+    return dqkv
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mask_kind", ["none", "causal", "random"])
+@pytest.mark.parametrize("dh", [16, 40, 64, 128])
+@pytest.mark.parametrize("l", [1, 16, 17, 65, 77, 80, 81, 127, 128])
+def test_attn_bwd_short_core_matches_tiled_and_plain(cuda, dtype, mask_kind, dh, l):
+    """The one-launch core for heads of up to 128 tokens (one block per
+    head and image, a warp per 16 query rows; 80 padded keys or 128)
+    against the plain core, two units in the last place, and against the
+    tiled pair on the same inputs, within the sum of their allowances."""
+    b, h = 3, 2
+    gen = torch.Generator().manual_seed(l * 13 + dh)
+    qkv = torch.randn(b, l, 3 * h * dh, generator=gen).to(cuda, dtype)
+    dattn = torch.randn(b, l, h * dh, generator=gen).to(cuda, dtype)
+    mask = _core_mask(mask_kind, l, cuda)
+    ref = attn_bwd_core_plain(qkv, dattn, mask, h)
+    cuda_lib.reset_launches()
+    got = attn_bwd_core(qkv, dattn, mask, h)
+    assert cuda_lib.LAUNCHES["attn_bwd_core_short"] == 1
+    assert cuda_lib.LAUNCHES["attn_bwd_core_tiled"] == 0
+    _check(got, ref)
+    tiled = _tiled_core(qkv, dattn, mask, h)
+    _check(tiled, ref)
+    assert float((got.float() - tiled.float()).abs().max()) <= _ulps(ref, 4)
+
+
+_BWD_GEMM_SHAPES = [(72, 8, 64), (300, 120, 72), (4100, 136, 512), (1, 8, 8), (2464, 2048, 512),
+                    (2464, 512, 1536), (129, 512, 2048)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("epilogue", ["bias_f32", "cast", "gelu_grad", "f32"])
+@pytest.mark.parametrize("m,n,k", _BWD_GEMM_SHAPES)
+@pytest.mark.parametrize("sliced", [False, True])
+def test_bwd_gemm_matches_plain(cuda, dtype, epilogue, m, n, k, sliced):
+    """The wgmma/TMA GEMM's backward epilogues against their plain twins:
+    ``"bias_f32"`` with W [K, N], the others with W^T read K-major from W
+    [N, K] as it is stored; N of 8, 120 and 136 (one ragged 128-wide tile),
+    ragged M, K3's and K4's text-tower shapes; ``sliced`` reads W as a
+    column slice of a wider weight and writes C into a column slice of a
+    wider buffer. fp32 outputs are held at the input dtype's tolerance."""
+    gen = torch.Generator().manual_seed(m + 3 * n + k)
+    a = torch.randn(m, k, generator=gen).to(cuda, dtype)
+    rows, cols = (k, n) if epilogue == "bias_f32" else (n, k)
+    w_full = (torch.randn(rows, cols + (24 if sliced else 0), generator=gen)
+              * k ** -0.5).to(cuda, dtype)
+    w = w_full[:, 16:16 + cols] if sliced else w_full
+    bias = (torch.randn(n, generator=gen) * 0.1).to(cuda, dtype) if epilogue == "bias_f32" else None
+    h_pre = torch.randn(m, n, generator=gen).to(cuda) if epilogue == "gelu_grad" else None
+    out_dtype = torch.float32 if epilogue in ("bias_f32", "f32") else dtype
+    c_full = torch.randn(m, n + (40 if sliced else 0), generator=gen).to(cuda, out_dtype)
+    c = c_full[:, 8:8 + n] if sliced else c_full
+    before = c_full.clone()
+    ref = block_gemm_bwd_plain(a, w, epilogue, bias=bias, h_pre=h_pre)
+    cuda_lib.reset_launches()
+    got = block_gemm_bwd(a, w, epilogue, bias=bias, h_pre=h_pre, out=c)
+    assert got.data_ptr() == c.data_ptr() and cuda_lib.LAUNCHES["gemm_wgmma"] == 1
+    if out_dtype == torch.float32:
+        _check_partial(got, ref, dtype)
+    else:
+        _check(got, ref)
+    if sliced:  # the columns beside the slice are untouched
+        assert torch.equal(c_full[:, :8], before[:, :8])
+        assert torch.equal(c_full[:, 8 + n:], before[:, 8 + n:])
+
+
+def test_bwd_gemm_refuses_what_it_does_not_take(cuda):
+    bf = torch.bfloat16
+    a = torch.randn(9, 64, device=cuda, dtype=bf)
+    w = torch.randn(128, 64, device=cuda, dtype=bf)  # [N, K]
+    h = torch.randn(9, 128, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16 or float16"):
+        block_gemm_bwd(a.float(), w.float(), "f32")
+    with pytest.raises(ValueError, match=r"w must be \[N, 64\]"):
+        block_gemm_bwd(a, w.t().contiguous(), "cast")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        block_gemm_bwd(a, w[:100], "cast")
+    with pytest.raises(ValueError, match="16-byte boundary"):  # TMA reads W from an aligned base
+        block_gemm_bwd(a, torch.empty(128 * 72 + 4, device=cuda, dtype=bf)[4:].view(128, 72)
+                       [:, :64], "cast")
+    with pytest.raises(ValueError, match="needs a contiguous fp32 h_pre"):
+        block_gemm_bwd(a, w, "gelu_grad")
+    with pytest.raises(ValueError, match="h_pre must be torch.float32"):
+        block_gemm_bwd(a, w, "gelu_grad", h_pre=h.to(bf))
+    with pytest.raises(ValueError, match="8-byte aligned"):  # h_pre is read in fp32 pairs
+        block_gemm_bwd(a, w, "gelu_grad", h_pre=torch.empty(9 * 128 + 1, device=cuda)[1:]
+                       .view(9, 128))
+    with pytest.raises(ValueError, match="takes no bias"):
+        block_gemm_bwd(a, w, "cast", bias=torch.zeros(128, device=cuda, dtype=bf))
+    with pytest.raises(ValueError, match="takes no h_pre"):
+        block_gemm_bwd(a, w, "f32", h_pre=h)
+    with pytest.raises(ValueError, match="needs a bias"):
+        block_gemm_bwd(a, w.t().contiguous(), "bias_f32")
+    with pytest.raises(RuntimeError, match="requires grad"):
+        block_gemm_bwd(a, w.clone().requires_grad_(True), "cast")
+    # the export's own refusals: W's rows closer than K, fp32, a misaligned A
+    lib, out = cuda_lib.library("block_fused_bwd"), torch.empty(9, 128, device=cuda, dtype=bf)
+    st = cuda_lib.stream_of(a)
+
+    def export(code, a_ptr, ldw, epilogue=4):
+        return lib.ovmr_gemm_wgmma_bwd(code, a_ptr, w.data_ptr(), None, None, out.data_ptr(),
+                                       9, 128, 64, ldw, 128, epilogue, st)
+
+    assert export(1, a.data_ptr(), 64) == 0
+    torch.cuda.synchronize()
+    assert export(1, a.data_ptr(), 56) != 0  # ldw < K
+    assert export(0, a.data_ptr(), 64) != 0  # fp32 takes gemm.cuh's FMA GEMM
+    assert export(1, a.data_ptr() + 2, 64) != 0
+    assert export(1, a.data_ptr(), 64, epilogue=0) != 0  # a forward-only epilogue
+
+
+def test_fp32_gemm_exports_refuse_half_precision(cuda):
+    """gemm.cuh keeps only the fp32 FMA kernel: its exports refuse bf16 and
+    fp16, and the wrappers raise on the refusal."""
+    for dtype in (torch.bfloat16, torch.float16):
+        code = cuda_lib.dtype_code(dtype)
+        a = torch.randn(9, 64, device=cuda, dtype=dtype)
+        w = torch.randn(64, 128, device=cuda, dtype=dtype)
+        b = torch.randn(128, device=cuda, dtype=dtype)
+        out = torch.empty(9, 128, device=cuda, dtype=dtype)
+        st = cuda_lib.stream_of(a)
+        with pytest.raises(RuntimeError, match="ovmr_gemm: CUDA error"):
+            tbf._gemm(cuda_lib.library("block_fused"), code, a, w, b, out, 0, st)
+        with pytest.raises(RuntimeError, match="ovmr_gemm_bwd: CUDA error"):
+            lib = cuda_lib.library("block_fused_bwd")
+            cuda_lib.check(lib, lib.ovmr_gemm_bwd(code, a.data_ptr(), w.t().contiguous().data_ptr(),
+                                                  None, None, out.data_ptr(), 9, 128, 64, 4, st),
+                           "ovmr_gemm_bwd")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("b,l,d,h,masked", [(3, 17, 64, 2, True), (2, 77, 512, 8, True),
+                                            (2, 33, 40, 5, False), (1, 197, 768, 12, False)])
+def test_k3_and_k4_launch_the_wgmma_gemm_in_half_precision(cuda, dtype, b, l, d, h, masked):
+    """In bf16 and fp16 K3 runs its QKV recompute, dattn and dxln products
+    on the wgmma GEMM (3 launches) and K4 its dh_pre (the c_fc recompute
+    and the GELU' product in one launch) and dxln (2 launches), K3's core
+    by length (one launch up to 128 tokens, else the tiled pair); fp32
+    keeps gemm.cuh's FMA GEMM and the tiled FMA core. Each matches its
+    plain twin."""
+    p = _layer(d, dtype, cuda, seed=b * 7 + l)
+    gen = torch.Generator().manual_seed(l + d)
+    x = torch.randn(b, l, d, generator=gen).to(cuda, dtype)
+    g = torch.randn(b, l, d, generator=gen).to(cuda, dtype)
+    mask = causal_mask(l, device=cuda) if masked else None
+    half = dtype != torch.float32
+    route = "short" if half and l <= 128 else "tiled"
+    a = (x, g, p["w_qkv"], p["b_qkv"], p["w_out"], p["ln_s"], p["ln_b"])
+    cuda_lib.reset_launches()
+    _check(attn_half_bwd_dx(*a, mask=mask, n_head=h), attn_half_bwd_dx_plain(*a, mask=mask, n_head=h))
+    assert cuda_lib.LAUNCHES["gemm_wgmma"] == (3 if half else 0)
+    assert cuda_lib.LAUNCHES["attn_bwd_core_" + route] == 1
+    assert cuda_lib.LAUNCHES["attn_bwd_core_short"] + cuda_lib.LAUNCHES["attn_bwd_core_tiled"] == 1
+    m = (x, g, p["c_fc_w"], p["c_fc_b"], p["c_proj_w"], p["ln_s"], p["ln_b"])
+    cuda_lib.reset_launches()
+    _check(mlp_half_bwd_dx(*m), mlp_half_bwd_dx_plain(*m))
+    assert cuda_lib.LAUNCHES["gemm_wgmma"] == (2 if half else 0)
+    assert cuda_lib.LAUNCHES["mlp_half_bwd_dx"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,l,d,hidden", [(3, 17, 64, 256), (2, 77, 512, 2048), (1, 9, 40, 120),
+                                          (2, 33, 136, 136), (1, 577, 1024, 4096)])
+def test_mlp_bwd_dh_is_the_pair_of_launches_bit_for_bit(cuda, dtype, b, l, d, hidden):
+    """K4's one-launch dh_pre (both products' accumulators in registers,
+    h_pre never stored) equals the "bias_f32" and "gelu_grad" launches bit
+    for bit (same instruction shapes, same k order, the same fp32
+    arithmetic) and its plain twin within two units in the last place; N of
+    120 and 136 leave a ragged 128-wide tile."""
+    gen = torch.Generator().manual_seed(b * l + hidden)
+    xln, g = (torch.randn(b, l, d, generator=gen).to(cuda, dtype) for _ in range(2))
+    c_fc_w = (torch.randn(d, hidden, generator=gen) * d ** -0.5).to(cuda, dtype)
+    c_fc_b = (torch.randn(hidden, generator=gen) * 0.1).to(cuda, dtype)
+    c_proj_w = (torch.randn(hidden, d, generator=gen) * hidden ** -0.5).to(cuda, dtype)
+    cuda_lib.reset_launches()
+    got = mlp_bwd_dh(xln, c_fc_w, c_fc_b, g, c_proj_w)
+    assert cuda_lib.LAUNCHES["gemm_wgmma"] == 1
+    h_pre = block_gemm_bwd(xln, c_fc_w, "bias_f32", bias=c_fc_b)
+    pair = block_gemm_bwd(g, c_proj_w, "gelu_grad", h_pre=h_pre)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pair)
+    _check(got, mlp_bwd_dh_plain(xln, c_fc_w, c_fc_b, g, c_proj_w))
+    with pytest.raises(TypeError, match="bfloat16 or float16"):
+        mlp_bwd_dh(xln.float(), c_fc_w.float(), c_fc_b.float(), g.float(), c_proj_w.float())
+    with pytest.raises(ValueError, match="c_proj_w has shape"):
+        mlp_bwd_dh(xln, c_fc_w, c_fc_b, g, c_proj_w[:8])
+
+
 def _block_params(d, dtype, device, seed):
     p = _layer(d, dtype, device, seed)
     p.update(ln_1_scale=p["ln_s"], ln_1_bias=p["ln_b"],
@@ -560,6 +775,7 @@ def test_train_step_on_card_matches_cpu(cuda):
                 "fused_mlp_half_chunked": 0, "fused_attention": 2, "attn_half_bwd_dx": 0, "attn_half_bwd_dx_masked": 4,
                 "mlp_half_bwd_dx": 4, "tp_attn_half_partial": 0, "tp_attn_half_partial_masked": 0,
                 "tp_mlp_half_partial": 0, "gemm_wgmma": 0,
+                "attn_bwd_core_short": 0, "attn_bwd_core_tiled": 4,
             }, cuda_lib.LAUNCHES
         results[str(device)] = [loss.cpu()] + [leaf.detach().cpu() for leaf in param_leaves(agg)]
     for got, ref in zip(results["cuda"], results["cpu"]):
@@ -660,11 +876,12 @@ def test_slice_on_card_matches_cpu(cuda):
     cuda_lib.reset_launches()
     gpu = OVMRGenerator(cp, tclip.TINY, ap, dtype=torch.float32, device="cuda").generate(names, images)
     # serving launches every forward kernel of a TINY tower (its MLP half is
-    # K2, not the chunked K5) and no backward or tensor-parallel one
+    # K2, not the chunked K5) and no backward (nor K3's core) or
+    # tensor-parallel one
     for name, count in cuda_lib.LAUNCHES.items():
         # (nor, at fp32, the bf16/fp16 wgmma GEMM)
         idle = (name.endswith(("bwd_dx", "bwd_dx_masked")) or name == "fused_mlp_half_chunked"
-                or name.startswith("tp_") or name == "gemm_wgmma")
+                or name.startswith(("tp_", "attn_bwd_core")) or name == "gemm_wgmma")
         assert (count == 0) == idle, cuda_lib.LAUNCHES
     cpu = OVMRGenerator(cp, tclip.TINY, ap, dtype=torch.float32, device="cpu").generate(names, images)
     for key in ("mm_classifier", "vision_classifier", "text_classifier", "visual_tokens"):

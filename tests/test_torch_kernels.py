@@ -200,7 +200,7 @@ def test_launch_counts_by_shape():
         "fused_mlp_half_chunked", "fused_attention",
         "attn_half_bwd_dx", "attn_half_bwd_dx_masked", "mlp_half_bwd_dx",
         "tp_attn_half_partial", "tp_attn_half_partial_masked", "tp_mlp_half_partial",
-        "gemm_wgmma",
+        "gemm_wgmma", "attn_bwd_core_short", "attn_bwd_core_tiled",
     }
     for name in ("attn_half_bwd_dx", "attn_half_bwd_dx_masked", "mlp_half_bwd_dx"):
         cuda_lib.count_launch(name, x)
@@ -216,10 +216,12 @@ def test_launch_counts_by_shape():
     # the attention core by (B, L, W, heads)
     cuda_lib.count_launch("attn_core", x, shape=(2, 9, 64, 2))
     assert cuda_lib.LAUNCH_SHAPES[("attn_core", (2, 9, 64, 2), "bfloat16")] == 1
-    # the GEMM inside K2 and K5 is counted by name only
+    # the GEMM inside K1-K5, K7 and K8 and K3's core are counted by name only
     shapes = dict(cuda_lib.LAUNCH_SHAPES)
     cuda_lib.count_inner_launch("gemm_wgmma")
+    cuda_lib.count_inner_launch("attn_bwd_core_short")
     assert cuda_lib.LAUNCHES["gemm_wgmma"] == 1 and dict(cuda_lib.LAUNCH_SHAPES) == shapes
+    assert cuda_lib.LAUNCHES["attn_bwd_core_short"] == 1
     cuda_lib.reset_launches()
     assert not cuda_lib.LAUNCH_SHAPES and not any(cuda_lib.LAUNCHES.values())
 
