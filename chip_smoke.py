@@ -13,9 +13,11 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    K1 (vision, unmasked, at generate()'s 512 exemplars and classify()'s 256
    queries; text, causal, at each 32-class prompt set, and at the three sets
    as one batch of 96), K2 (both towers, same shapes), K6 (aggregator). Training:
-   K1 and K2 at the image-tower batches 768, 576 and 960 (bf16), and at the
+   K1 and K2 at the image-tower batches 768, 576 and 960 (bf16), and 384
+   and 1152 (phase 12's splits of 2 and 6), and at the
    192 prompts of a class-grouped batch K1-causal, K2 and the dx backward
-   kernels K3 (masked and unmasked) and K4, in bf16 and fp32. Serving at
+   kernels K3 (masked and unmasked) and K4, in bf16 and fp32; K6 at phase
+   12's eval heads (192 classes x (8 shots + 2 vokens), bf16). Serving at
    ViT-L/14@336px (last, so the earlier cases run as they always did): K1
    (vision, 577 tokens x 1024, 16 heads) and
    K5 (the chunked MLP half, 2 chunks) at generate()'s 512 exemplars and
@@ -102,11 +104,28 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 11. ``loss.backward()`` through two ViT-L/14@336px vision blocks (K1 + K5
    forward, K4 + K3 backward, exact launch counts): fp32 on the card
    against the CPU (dx within 1e-4 of its scale), bf16 on the card finite.
+12. The MM_CLS_OP trainer through its entry point,
+   ``ovmr_tpu_torch.train.main`` called in this process with the flagship
+   recipe as command-line options (ViT-B/16 full width and depth, bf16,
+   seeded random towers; RandomClassSampler 192 classes x 8 instances,
+   adam lr 2e-4 with a constant 1e-5 warm-up epoch and cosine, n_ctx 2,
+   test batch 256; the flagship's train transforms where PIL is
+   installed) over ``Synthetic`` at ``OVMR_SYNTHETIC=192,16,224`` with 8
+   shots, so an epoch is one batch of 1536 images and 768 test images
+   remain. Train 2 epochs (a checkpoint each), run again to 3 epochs on the
+   same output directory (it must resume at epoch 2 with adam's step count
+   and moments as saved; its epoch is profiled), then the fusion eval of
+   epoch 3. Every step's launches are exact (phase 5's counts), the loss
+   finite, the checkpoint files and pointer are written, and the eval
+   writes ``mm_classifiers.pt`` at 192 classes with unit rows and fusion
+   rows summing to 1, the CSVs and the ``=> result`` block. Prints step and
+   epoch walls with the trainer's data meter, the eval's split, the
+   device's busy share over the profiled epoch and peak memory.
 
 In bf16 every K1, K2 and K8 launches the wgmma GEMM twice, every K5 twice
 a chunk, every K4 twice (its c_fc recompute and GELU' product are one
 launch), every K3 three times and every K7 four times (``gemm_wgmma``,
-counted by name); phases 3, 5, 7, 9 and 11 check that
+counted by name); phases 3, 5, 7, 9, 11 and 12 check that
 count exactly, and phase 6 that fp32 launches none (and runs K3's tiled
 FMA core). K6 runs at the aggregator's shapes, where the host's time to issue a
 call may bound it: its rows add the host's milliseconds a call and the
@@ -121,6 +140,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -369,6 +389,10 @@ def kernel_checks(torch, F):
             ("vision-train-768", 768, 197, 768, 12, False, both[:1], False),
             ("vision-train-576", 576, 197, 768, 12, False, both[:1], False),
             ("vision-train-960", 960, 197, 768, 12, False, both[:1], False),
+            # phase 12's trainer draws its split from [2, 6): 192 x 2 queries
+            # beside 192 x 6 exemplars
+            ("vision-train-384", 384, 197, 768, 12, False, both[:1], False),
+            ("vision-train-1152", 1152, 197, 768, 12, False, both[:1], False),
             ("text-train", 192, 77, 512, 8, True, both, True),
             # ViT-L/14@336px serving: the exemplar encode, classify()'s
             # queries, the fp32 phase's 4 images, one 32-class prompt set
@@ -475,8 +499,10 @@ def kernel_checks(torch, F):
                 peak=peak, **timing,
             ))
     # the aggregator at embed width 512 (8 heads) and ViT-L's 768 (12 heads);
-    # on the fp32 TP check's 2 classes padded to 8, 2 shots + 2 vokens
+    # on the fp32 TP check's 2 classes padded to 8, 2 shots + 2 vokens; at
+    # phase 12's eval, 192 classes of 8 shots + 2 vokens
     for case, n, h, l, dh, dtypes in (("aggregator", 32, 8, 18, 64, both),
+                                      ("trainer-aggregator", 192, 8, 10, 64, bf16),
                                       ("vitl336-aggregator", 32, 12, 18, 64, both),
                                       ("vitl336-tp-fp32-aggregator", 8, 12, 4, 64, fp32)):
         for dtype in dtypes:
@@ -1352,6 +1378,29 @@ def prompt_inputs(torch, np, n_cls, device):
     return tuple(torch.as_tensor(np.asarray(a), device=device) for a in (ptok, eot, vtok))
 
 
+def train_step_launches(cfg):
+    """Exact launches of one bf16 training step at dropout 0.1, by kernel."""
+    layers = cfg.transformer_layers
+    return {
+        "fused_attn_half": 2 * cfg.vision_layers,   # two image passes
+        "fused_attn_half_masked": 2 * layers,       # the mm and v prompt sets
+        "attn_core": 2 * cfg.vision_layers + 2 * layers,  # inside each K1
+        "fused_mlp_half": 2 * cfg.vision_layers + 2 * layers,
+        "fused_mlp_half_chunked": 0,                # ViT-B/16's MLP weights stay resident
+        "attn_half_bwd_dx_masked": 2 * layers,
+        "mlp_half_bwd_dx": 2 * layers,
+        "attn_half_bwd_dx": 0,
+        "fused_attention": 0,                       # dropout expands the attention
+        "tp_attn_half_partial": 0,                  # no model axis
+        "tp_attn_half_partial_masked": 0,
+        "tp_mlp_half_partial": 0,
+        # two inside each K1 and K2, three inside each K3, two inside each K4
+        "gemm_wgmma": 4 * (2 * cfg.vision_layers + 2 * layers) + 5 * 2 * layers,
+        "attn_bwd_core_short": 2 * layers,          # every K3: the text tower's 77 tokens
+        "attn_bwd_core_tiled": 0,
+    }
+
+
 def training_slice(torch, np, clip_params, agg_params):
     from ovmr_tpu_torch.engine.optimizers import build_optimizer, param_leaves, set_lr
     from ovmr_tpu_torch.engine.schedule import lr_schedule_from_cfg
@@ -1371,25 +1420,7 @@ def training_slice(torch, np, clip_params, agg_params):
     ptok, eot, vtok = prompt_inputs(torch, np, n_cls, "cuda")
     lr = lr_schedule_from_cfg(FlagshipOptim)[1]  # the first epoch after the warm-up: 2e-4
     step_fn = make_train_step(cfg, dropout=dropout)
-    layers = cfg.transformer_layers
-    expected = {
-        "fused_attn_half": 2 * cfg.vision_layers,   # two image passes
-        "fused_attn_half_masked": 2 * layers,       # the mm and v prompt sets
-        "attn_core": 2 * cfg.vision_layers + 2 * layers,  # inside each K1
-        "fused_mlp_half": 2 * cfg.vision_layers + 2 * layers,
-        "fused_mlp_half_chunked": 0,                # ViT-B/16's MLP weights stay resident
-        "attn_half_bwd_dx_masked": 2 * layers,
-        "mlp_half_bwd_dx": 2 * layers,
-        "attn_half_bwd_dx": 0,
-        "fused_attention": 0,                       # dropout expands the attention
-        "tp_attn_half_partial": 0,                  # no model axis
-        "tp_attn_half_partial_masked": 0,
-        "tp_mlp_half_partial": 0,
-        # two inside each K1 and K2, three inside each K3, two inside each K4
-        "gemm_wgmma": 4 * (2 * cfg.vision_layers + 2 * layers) + 5 * 2 * layers,
-        "attn_bwd_core_short": 2 * layers,          # every K3: the text tower's 77 tokens
-        "attn_bwd_core_tiled": 0,
-    }
+    expected = train_step_launches(cfg)
 
     def fresh():
         agg = trainable_aggregator(torch, agg_params, "cuda")
@@ -1599,6 +1630,247 @@ def vision_backward(torch):
         raise AssertionError(f"vision backward: fp32 dx differs by {err} between card and CPU")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the MM_CLS_OP trainer through its entry point
+# ---------------------------------------------------------------------------
+
+# the flagship recipe of
+# configs/trainers/MM_CLS_OP/vit_b16_c4_ep50_imagenet21k_pretrain.yaml, as
+# command-line options over the defaults (no yaml is read)
+FLAGSHIP_TRANSFORMS = ["random_resized_crop", "random_flip", "colorjitter", "gaussian_noise",
+                       "normalize"]
+FLAGSHIP_OPTS = [
+    "MODEL.BACKBONE.NAME", "ViT-B/16", "INPUT.SIZE", "(224, 224)",
+    "INPUT.INTERPOLATION", "bicubic",
+    "INPUT.PIXEL_MEAN", "[0.48145466, 0.4578275, 0.40821073]",
+    "INPUT.PIXEL_STD", "[0.26862954, 0.26130258, 0.27577711]",
+    "INPUT.RRCROP_SCALE", "(0.25, 1.0)",
+    "DATALOADER.TRAIN_X.SAMPLER", "RandomClassSampler", "DATALOADER.TRAIN_X.BATCH_SIZE", "1536",
+    "DATALOADER.TRAIN_X.N_INS", "8", "DATALOADER.TEST.BATCH_SIZE", "256",
+    "DATALOADER.TEST.N_INS", "16", "DATALOADER.NUM_WORKERS", "8", "DATALOADER.K_TRANSFORMS", "1",
+    "OPTIM.NAME", "adam", "OPTIM.LR", "0.0002", "OPTIM.LR_SCHEDULER", "cosine",
+    "OPTIM.WARMUP_EPOCH", "1", "OPTIM.WARMUP_TYPE", "constant", "OPTIM.WARMUP_CONS_LR", "1e-5",
+    "TRAINER.COCOOP.CTX_INIT", "' ?'", "TRAINER.COCOOP.PREC", "fp16",
+    "CUDA.DTYPE", "bfloat16", "CUDA.DEVICE", "cuda",
+]
+TRAINER_CLASSES, TRAINER_SHOTS = 192, 8
+
+
+class Recorder:
+    """Wraps trainer methods at the class level for one phase: times each
+    call to a device synchronise, and keeps per-call notes."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.saved = []
+        self.times = {}
+
+    def wrap(self, owner, name, before=None, after=None):
+        orig = getattr(owner, name)
+        torch = self.torch
+
+        def wrapper(*args, **kwargs):
+            if before is not None:
+                before(*args)
+            t = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.times.setdefault(name, []).append(time.perf_counter() - t)
+            if after is not None:
+                after(*args, out=out)
+            return out
+
+        self.saved.append((owner, name, orig))
+        setattr(owner, name, wrapper)
+
+    def restore(self):
+        for owner, name, orig in reversed(self.saved):
+            setattr(owner, name, orig)
+
+
+def run_entry(parser, entry, argv):
+    """``python -m ovmr_tpu_torch.train ARGV`` in this process; its log tee
+    is closed and stdout restored after it."""
+    stdout = sys.stdout
+    try:
+        return entry.main(parser.parse_args(argv))
+    finally:
+        tee, sys.stdout = sys.stdout, stdout
+        if tee is not stdout:
+            tee.close()
+
+
+def trainer_phase(torch, np):
+    """Phase 12: MM_CLS_OP through ``ovmr_tpu_torch.train.main`` on the card
+    at ViT-B/16, bf16, the flagship recipe, over Synthetic (192 classes x 16
+    images at 224 px, 8 shots): train 2 epochs, resume to 3, then the
+    fusion eval. Returns the launches and launches by shape over the three
+    runs."""
+    import importlib.util
+    import os
+
+    from ovmr_tpu_torch import train as entry
+    from ovmr_tpu_torch.engine import checkpoint as ckpt
+    from ovmr_tpu_torch.engine import trainer as trainer_mod
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    cfg = tclip.VIT_B16
+    have_pil = importlib.util.find_spec("PIL") is not None
+    choices = FLAGSHIP_TRANSFORMS if have_pil else ["random_flip", "normalize"]
+    print(f"[trainer] PIL {'is' if have_pil else 'is not'} installed: train transforms "
+          f"{choices}", flush=True)
+    work = Path(tempfile.mkdtemp(prefix="ovmr_trainer_smoke_"))  # removed at the end
+    os.environ["OVMR_SYNTHETIC"] = f"{TRAINER_CLASSES},16,224"
+    out, eval_out = work / "train_out", work / "eval_out"
+    common = ["--root", str(work / "data"), "--seed", "1", "--trainer", "MM_CLS_OP",
+              "--n_ctx", "2"]
+    opts = FLAGSHIP_OPTS + ["INPUT.TRANSFORMS", repr(choices), "DATASET.NAME", "Synthetic",
+                            "DATASET.NUM_SHOTS", str(TRAINER_SHOTS), "TRAIN.CHECKPOINT_FREQ", "1",
+                            "TRAIN.PRINT_FREQ", "1"]
+    parser = entry.build_parser()
+    expected = train_step_launches(cfg)
+    steps, resumed = [], {}
+    rec = Recorder(torch)
+
+    def after_step(trainer, batch, out):
+        now = dict(cuda_lib.LAUNCHES)
+        got = {k: now[k] - rec.before[k] for k in now}
+        rec.before = now
+        if got != expected:
+            raise AssertionError(f"trainer step {len(steps)}: launches {got}, expected {expected}")
+        if not math.isfinite(out["loss"]):
+            raise AssertionError(f"trainer step {len(steps)}: loss {out['loss']}")
+        steps.append(dict(epoch=trainer.epoch + 1, loss=out["loss"], lr=out["lr"],
+                          wall=rec.times["forward_backward"][-1], data=trainer.data_time.val))
+
+    def after_resume(trainer, directory, out):
+        resumed["epoch"] = out
+        resumed["state"] = ckpt.optimizer_state_arrays(trainer.optimizer, trainer.agg_params)
+
+    def before_step(trainer, batch):
+        rec.before = dict(cuda_lib.LAUNCHES)
+
+    cls = trainer_mod.MM_CLS_OP
+    rec.wrap(cls, "forward_backward", before=before_step, after=after_step)
+    rec.wrap(cls, "resume_model_if_exist", after=after_resume)
+    rec.wrap(cls, "build_data_manager")
+    rec.wrap(trainer_mod.TrainerBase, "run_epoch")
+    rec.wrap(cls, "test")
+    rec.wrap(trainer_mod, "collect_exemplar_features")
+    rec.wrap(trainer_mod, "mm_generate_classifiers")
+    try:
+        cuda_lib.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        run_entry(parser, entry, common + ["--output-dir", str(out)] + opts
+                  + ["OPTIM.MAX_EPOCH", "2", "TEST.NO_TEST", "True"])
+        run1_s = time.perf_counter() - t
+        if resumed.get("epoch") != 0 or len(steps) != 2:
+            raise AssertionError(f"first run: resumed at {resumed.get('epoch')}, {len(steps)} steps")
+        pl = out / "prompt_learner"
+        for name in ("model-1.npz", "model-2.npz", "model.pth.tar-1", "model.pth.tar-2",
+                     "checkpoint"):
+            if not (pl / name).is_file():
+                raise AssertionError(f"first run wrote no {name}")
+        if (pl / "checkpoint").read_text() != "model-2.npz":
+            raise AssertionError("the checkpoint pointer does not name model-2.npz")
+
+        os.environ["OVMR_PROFILE_DIR"] = str(work / "profile")
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        trainer = run_entry(parser, entry, common + ["--output-dir", str(out)] + opts
+                            + ["OPTIM.MAX_EPOCH", "3", "TEST.NO_TEST", "True"])
+        run2_s = time.perf_counter() - t
+        os.environ.pop("OVMR_PROFILE_DIR")
+        train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if resumed["epoch"] != 2 or trainer.start_epoch != 2 or len(steps) != 3:
+            raise AssertionError(f"second run: resumed at {resumed['epoch']}, {len(steps)} steps")
+        # the learning rate is the schedule's, set before each epoch
+        with np.load(pl / "model-2.npz") as saved:
+            want = {k[len("opt//"):]: saved[k] for k in saved.files
+                    if k.startswith("opt//") and k != "opt//.hyperparams//lr"}
+        got = {k: v for k, v in resumed["state"].items() if k != ".hyperparams//lr"}
+        differ = sorted(set(got) ^ set(want)) + [
+            k for k in want if k in got and not np.array_equal(got[k], want[k])]
+        if differ:
+            raise AssertionError(f"the resumed adam state differs from the one saved at epoch 2 "
+                                 f"in {differ[:4]}")
+        if int(got[".inner_state//1//.count"]) != 2:
+            raise AssertionError(f"resumed adam step count {got['.inner_state//1//.count']}, not 2")
+        print(f"[trainer] resumed at epoch 2: adam step count 2 and all {len(want) - 2} moments "
+              "equal to those saved", flush=True)
+        prof, epoch_s = trainer.epoch_profile
+        busy_ms = sum(
+            (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0))
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        evaluator = run_entry(parser, entry, common + [
+            "--output-dir", str(eval_out), "--model-dir", str(out), "--load-epoch", "3",
+            "--eval-only", "--eval_mode", "fusion", "--eval_tau", "10"] + opts
+            + ["OPTIM.MAX_EPOCH", "3"])
+        run3_s = time.perf_counter() - t
+        eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches, shapes = dict(cuda_lib.LAUNCHES), dict(cuda_lib.LAUNCH_SHAPES)
+
+        art = torch.load(eval_out / "mm_classifiers.pt", weights_only=False)
+        vt = torch.load(eval_out / "visual_tokens.pt", weights_only=False)["visual_tokens"]
+        outs = {k: v.numpy() for k, v in art.items()}
+        outs["visual_tokens"] = vt.numpy()
+        check_classifiers(np, outs, TRAINER_CLASSES, cfg.embed_dim, 2, unit_tol=1e-2)
+        log = (eval_out / "log.txt").read_text()
+        for name in ("acc_per_class.csv", "f1_per_class.csv"):
+            if not (eval_out / name).is_file():
+                raise AssertionError(f"the eval wrote no {name}")
+    finally:
+        rec.restore()
+        os.environ.pop("OVMR_SYNTHETIC", None)
+        shutil.rmtree(work, ignore_errors=True)
+    if "=> result" not in log or "* accuracy:" not in log or "(epoch = 3)" not in log:
+        raise AssertionError("the eval log lacks the => result block or the epoch-3 load")
+    result = log[log.index("=> result"):].splitlines()[:6]
+    n_test = TRAINER_CLASSES * 4
+    if f"* total: {n_test:,}" not in result:
+        raise AssertionError(f"the eval did not score {n_test} test images: {result}")
+    if launches["fused_attention"] != 4:
+        raise AssertionError(f"the eval launched K6 {launches['fused_attention']} times, not 4")
+    for kernel in ("fused_attn_half", "fused_attn_half_masked", "fused_mlp_half",
+                   "attn_half_bwd_dx_masked", "mlp_half_bwd_dx", "gemm_wgmma", "attn_core",
+                   "attn_bwd_core_short", "fused_attention"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"kernel {kernel} was not launched on the trainer path")
+
+    smi = nvidia_smi_line()
+    print(f"[trainer] ({smi}) Synthetic dataset written and read in "
+          f"{rec.times['build_data_manager'][0]:.1f} s; runs: train 2 epochs {run1_s:.1f} s, "
+          f"resume to 3 {run2_s:.1f} s, eval {run3_s:.1f} s", flush=True)
+    for s in steps:
+        print(f"[trainer] ({smi}) epoch {s['epoch']} step: loss {s['loss']:.4f}, lr {s['lr']:.3g}, "
+              f"step wall {s['wall'] * 1e3:.1f} ms (the trainer's meters: data "
+              f"{s['data'] * 1e3:.1f} ms before it)", flush=True)
+    print(f"[trainer] ({smi}) epoch walls: "
+          f"{', '.join(f'{x:.2f} s' for x in rec.times['run_epoch'])}", flush=True)
+    print(f"[trainer] ({smi}) device busy over the profiled epoch {busy_ms:.1f} ms of "
+          f"{epoch_s * 1e3:.1f} ms ({100 * busy_ms / (epoch_s * 1e3):.1f}%)", flush=True)
+    encode_s = rec.times["collect_exemplar_features"][0]
+    gen_s = rec.times["mm_generate_classifiers"][0]
+    test_s = rec.times["test"][0]
+    print(f"[trainer] ({smi}) eval: exemplar encode {encode_s:.2f} s "
+          f"({TRAINER_CLASSES * TRAINER_SHOTS} images), generation {gen_s:.2f} s, test pass "
+          f"{test_s - encode_s - gen_s:.2f} s ({n_test} images); {' '.join(result[1:])}",
+          flush=True)
+    print(f"[trainer] ({smi}) peak device memory: training {train_peak:.2f} GiB, eval "
+          f"{eval_peak:.2f} GiB", flush=True)
+    print(f"[trainer] launches over the three runs: {launches}", flush=True)
+    for key, count in sorted(shapes.items()):
+        print(f"[trainer]   {key[0]} {list(key[1])} {key[2]}: {count}", flush=True)
+    del trainer, evaluator
+    return launches, shapes
+
+
 def main() -> int:
     if not (ROOT / "ovmr_tpu_torch").is_dir():
         print("chip_smoke: the ovmr_tpu_torch package is not beside this script",
@@ -1685,12 +1957,16 @@ def main() -> int:
                                                  cpu_out, cpu_probs))
     torch.cuda.empty_cache()
     vision_backward(torch)
+    torch.cuda.empty_cache()
+    paths["trainer"] = trainer_phase(torch, np)
+    all_checked("trainer", paths["trainer"][1])
 
     for entry in kernels:
         # launches: the wrapper's count over the three ViT-B/16 requests +
         # classify, the three timed training steps, the two ViT-L/14@336px
-        # requests + classify and the two on a model axis of 2 + classify
-        # (each read with the counts zeroed just before); launches_at_shape:
+        # requests + classify, the two on a model axis of 2 + classify and
+        # phase 12's three trainer runs (each read with the counts zeroed
+        # just before); launches_at_shape:
         # those at this entry's shape and dtype
         key = entry.pop("shape_key")
         for path, (launches, shapes) in paths.items():

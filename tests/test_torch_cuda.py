@@ -1070,3 +1070,67 @@ def test_tp_block_takes_the_kernels_at_every_shard_size(cuda):
         ("tp_mlp_half_partial", (2, 17, d, 4 * d), "float32"): 1,
     }, cuda_lib.LAUNCH_SHAPES
     assert float((got.cpu() - ref).abs().max()) <= 1e-4 * max(float(ref.abs().max()), 1.0)
+
+
+def test_mm_cls_op_trainer_on_card(cuda, tmp_path, monkeypatch):
+    """MM_CLS_OP at TINY through ``build_trainer`` on the card in fp32: one
+    epoch of two steps launches K1/K2/K4/K3 at the exact per-step counts,
+    the loss is finite and the checkpoint is written; then the fusion eval
+    on the card against the same weights on the CPU (classifiers 1e-4,
+    fusion weights 1e-3)."""
+    from ovmr_tpu_torch.engine.trainer import build_trainer
+    from ovmr_tpu_torch.utils import get_cfg_default
+
+    monkeypatch.setenv("OVMR_SYNTHETIC", "4,8,32")
+
+    def cfg_for(device, out):
+        cfg = get_cfg_default()
+        cfg.merge_from_list([
+            "OUTPUT_DIR", str(tmp_path / out), "SEED", "1",
+            "DATASET.ROOT", str(tmp_path / "data"), "DATASET.NAME", "Synthetic",
+            "DATASET.NUM_SHOTS", "4", "INPUT.SIZE", "(32, 32)",
+            "INPUT.TRANSFORMS", "['normalize']",
+            "DATALOADER.TRAIN_X.SAMPLER", "RandomClassSampler",
+            "DATALOADER.TRAIN_X.BATCH_SIZE", "8", "DATALOADER.TRAIN_X.N_INS", "4",
+            "DATALOADER.TEST.BATCH_SIZE", "8", "DATALOADER.NUM_WORKERS", "2",
+            "MODEL.BACKBONE.NAME", "TINY", "TRAINER.NAME", "MM_CLS_OP",
+            "TRAINER.COCOOP.N_CTX", "2", "OPTIM.MAX_EPOCH", "1", "TEST.NO_TEST", "True",
+            "EVAL_MODE", "fusion", "CUDA.DTYPE", "float32", "CUDA.DEVICE", device,
+        ])
+        return cfg
+
+    card = build_trainer(cfg_for("cuda", "card"))
+    losses = []
+    orig = card.forward_backward
+
+    def fb(batch):
+        out = orig(batch)
+        losses.append(out["loss"])
+        return out
+
+    monkeypatch.setattr(card, "forward_backward", fb)
+    cuda_lib.reset_launches()
+    card.train()
+    torch.cuda.synchronize()
+    steps = len(losses)
+    assert steps == 2 and all(math.isfinite(v) for v in losses)
+    v_layers, t_layers = card.clip_cfg.vision_layers, card.clip_cfg.transformer_layers
+    per_step = {"fused_attn_half": 2 * v_layers, "fused_attn_half_masked": 2 * t_layers,
+                "fused_mlp_half": 2 * (v_layers + t_layers), "mlp_half_bwd_dx": 2 * t_layers,
+                "attn_half_bwd_dx_masked": 2 * t_layers, "attn_half_bwd_dx": 0,
+                "fused_attention": 0}
+    for key, n in per_step.items():
+        assert cuda_lib.LAUNCHES[key] == steps * n, (key, dict(cuda_lib.LAUNCHES))
+    pl = tmp_path / "card" / "prompt_learner"
+    assert (pl / "model-1.npz").is_file() and (pl / "model.pth.tar-1").is_file()
+
+    cpu = build_trainer(cfg_for("cpu", "cpu"))
+    cpu.load_model(str(tmp_path / "card"), epoch=1)
+    card.test()
+    cpu.test()
+    got = torch.load(tmp_path / "card" / "mm_classifiers.pt", weights_only=False)
+    want = torch.load(tmp_path / "cpu" / "mm_classifiers.pt", weights_only=False)
+    assert sorted(got) == sorted(want)
+    for key in ("mm_classifier", "vision_classifier", "text_classifier"):
+        torch.testing.assert_close(got[key], want[key], atol=1e-4, rtol=0)
+    torch.testing.assert_close(got["fusion_weight"], want["fusion_weight"], atol=1e-3, rtol=0)

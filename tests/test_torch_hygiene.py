@@ -31,7 +31,12 @@ def test_port_imports_no_jax_and_nothing_of_ovmr_tpu():
     for module in ("ops/block_fused_bwd.py", "engine/train_step.py", "engine/optimizers.py",
                    "engine/schedule.py", "engine/checkpoint.py", "ops/block_fused.py",
                    "ops/block_fused_tp.py", "parallel/mesh.py", "engine/trainer.py",
-                   "ops/preprocess.py"):
+                   "ops/preprocess.py", "utils/config.py", "utils/defaults.py",
+                   "utils/logger.py", "utils/meters.py", "utils/registry.py", "utils/tools.py",
+                   "utils/tensorboard.py", "evaluation/evaluator.py", "data/datum.py",
+                   "data/registry.py", "data/samplers.py", "data/transforms.py",
+                   "data/prefetch.py", "data/manager.py", "data/datasets/common.py",
+                   "data/datasets/fine_grained.py", "data/datasets/synthetic.py", "train.py"):
         assert f"ovmr_tpu_torch/{module}" in names, module
     bad = []
     for path in files:
@@ -77,3 +82,14 @@ def test_kernel_sources_present():
             assert f"OVMR_EXPORT int {fn}(" in text, (name, fn)
     assert "fused_mlp_half_chunked" in cuda_lib.LAUNCHES
     assert os.path.isfile(PORT / "text" / "assets" / "bpe_simple_vocab_16e6.txt.gz")
+
+
+def test_no_module_level_pil_or_yaml():
+    """PIL and yaml are imported only inside the functions that need them,
+    so the port imports where neither is installed."""
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), str(path))
+        for node in tree.body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = [a.name for a in node.names] + [getattr(node, "module", "") or ""]
+                assert not any(n.split(".")[0] in ("PIL", "yaml") for n in names), path
