@@ -121,6 +121,21 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    rows summing to 1, the CSVs and the ``=> result`` block. Prints step and
    epoch walls with the trainer's data meter, the eval's split, the
    device's busy share over the profiled epoch and peak memory.
+13. The device-augmented trainer: ``ops/augment.augment_batch`` on the card
+   against the CPU with the same draws at 8 x 256² -> 224 (fp32 within 1e-5
+   of scale, bf16 within 2 ulp), its device time at the trainer's 1536 x
+   256² -> 224 (bf16, NHWC) beside its bound, and the host-to-device copy
+   of a uint8 batch beside phase 12's fp32 one; then phase 12's three runs
+   with ``CUDA.DEVICE_AUGS True`` and ``CUDA.CACHE_SIDE 256`` over an
+   ``ImageNet21kP`` tree (``imagenet_21k_P/split_fewshot/shot_8-seed_1.pkl``
+   written with ``save_fewshot_pickle`` over phase 12's PNGs, 192 classes x
+   8 shots; its eval scores the 1536 training images, ``test=train``). The
+   trainer builds the decode-once cache under ``OVMR_CACHE_DIR`` in its
+   first epoch; a second build in another directory must be bit-equal to
+   that file. Every step's launches equal phase 5's exactly (the
+   augmentation launches no counted kernel). Prints the cache build, the
+   epochs, the data meter, the step, the augmentation, the copy, the busy
+   share and peak memory.
 
 In bf16 every K1, K2 and K8 launches the wgmma GEMM twice, every K5 twice
 a chunk, every K4 twice (its c_fc recompute and GELU' product are one
@@ -1700,13 +1715,15 @@ def run_entry(parser, entry, argv):
             tee.close()
 
 
-def trainer_phase(torch, np):
-    """Phase 12: MM_CLS_OP through ``ovmr_tpu_torch.train.main`` on the card
-    at ViT-B/16, bf16, the flagship recipe, over Synthetic (192 classes x 16
-    images at 224 px, 8 shots): train 2 epochs, resume to 3, then the
-    fusion eval. Returns the launches and launches by shape over the three
-    runs."""
-    import importlib.util
+def trainer_runs(torch, np, work, tag, data_opts, n_test, wraps=()):
+    """MM_CLS_OP through ``ovmr_tpu_torch.train.main`` on the card at
+    ViT-B/16, bf16, the flagship recipe plus ``data_opts``, with the data
+    under ``work/data`` and the outputs under ``work/tag``: train 2 epochs,
+    resume to 3 (its epoch profiled), then the fusion eval, which must score
+    ``n_test`` images. Every step's launches are exact. ``wraps`` are more
+    (owner, method) pairs the Recorder times. Prints the runs' numbers and
+    returns the launches and launches by shape over the three runs, and the
+    Recorder, the steps and the summary numbers."""
     import os
 
     from ovmr_tpu_torch import train as entry
@@ -1716,18 +1733,10 @@ def trainer_phase(torch, np):
     from ovmr_tpu_torch.ops import cuda_lib
 
     cfg = tclip.VIT_B16
-    have_pil = importlib.util.find_spec("PIL") is not None
-    choices = FLAGSHIP_TRANSFORMS if have_pil else ["random_flip", "normalize"]
-    print(f"[trainer] PIL {'is' if have_pil else 'is not'} installed: train transforms "
-          f"{choices}", flush=True)
-    work = Path(tempfile.mkdtemp(prefix="ovmr_trainer_smoke_"))  # removed at the end
-    os.environ["OVMR_SYNTHETIC"] = f"{TRAINER_CLASSES},16,224"
-    out, eval_out = work / "train_out", work / "eval_out"
+    out, eval_out = work / tag / "train_out", work / tag / "eval_out"
     common = ["--root", str(work / "data"), "--seed", "1", "--trainer", "MM_CLS_OP",
               "--n_ctx", "2"]
-    opts = FLAGSHIP_OPTS + ["INPUT.TRANSFORMS", repr(choices), "DATASET.NAME", "Synthetic",
-                            "DATASET.NUM_SHOTS", str(TRAINER_SHOTS), "TRAIN.CHECKPOINT_FREQ", "1",
-                            "TRAIN.PRINT_FREQ", "1"]
+    opts = FLAGSHIP_OPTS + data_opts + ["TRAIN.CHECKPOINT_FREQ", "1", "TRAIN.PRINT_FREQ", "1"]
     parser = entry.build_parser()
     expected = train_step_launches(cfg)
     steps, resumed = [], {}
@@ -1738,9 +1747,9 @@ def trainer_phase(torch, np):
         got = {k: now[k] - rec.before[k] for k in now}
         rec.before = now
         if got != expected:
-            raise AssertionError(f"trainer step {len(steps)}: launches {got}, expected {expected}")
+            raise AssertionError(f"{tag} step {len(steps)}: launches {got}, expected {expected}")
         if not math.isfinite(out["loss"]):
-            raise AssertionError(f"trainer step {len(steps)}: loss {out['loss']}")
+            raise AssertionError(f"{tag} step {len(steps)}: loss {out['loss']}")
         steps.append(dict(epoch=trainer.epoch + 1, loss=out["loss"], lr=out["lr"],
                           wall=rec.times["forward_backward"][-1], data=trainer.data_time.val))
 
@@ -1759,6 +1768,8 @@ def trainer_phase(torch, np):
     rec.wrap(cls, "test")
     rec.wrap(trainer_mod, "collect_exemplar_features")
     rec.wrap(trainer_mod, "mm_generate_classifiers")
+    for owner, name in wraps:
+        rec.wrap(owner, name)
     try:
         cuda_lib.reset_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -1776,7 +1787,7 @@ def trainer_phase(torch, np):
         if (pl / "checkpoint").read_text() != "model-2.npz":
             raise AssertionError("the checkpoint pointer does not name model-2.npz")
 
-        os.environ["OVMR_PROFILE_DIR"] = str(work / "profile")
+        os.environ["OVMR_PROFILE_DIR"] = str(work / tag / "profile")
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         trainer = run_entry(parser, entry, common + ["--output-dir", str(out)] + opts
@@ -1798,7 +1809,7 @@ def trainer_phase(torch, np):
                                  f"in {differ[:4]}")
         if int(got[".inner_state//1//.count"]) != 2:
             raise AssertionError(f"resumed adam step count {got['.inner_state//1//.count']}, not 2")
-        print(f"[trainer] resumed at epoch 2: adam step count 2 and all {len(want) - 2} moments "
+        print(f"[{tag}] resumed at epoch 2: adam step count 2 and all {len(want) - 2} moments "
               "equal to those saved", flush=True)
         prof, epoch_s = trainer.epoch_profile
         busy_ms = sum(
@@ -1827,12 +1838,9 @@ def trainer_phase(torch, np):
                 raise AssertionError(f"the eval wrote no {name}")
     finally:
         rec.restore()
-        os.environ.pop("OVMR_SYNTHETIC", None)
-        shutil.rmtree(work, ignore_errors=True)
     if "=> result" not in log or "* accuracy:" not in log or "(epoch = 3)" not in log:
         raise AssertionError("the eval log lacks the => result block or the epoch-3 load")
     result = log[log.index("=> result"):].splitlines()[:6]
-    n_test = TRAINER_CLASSES * 4
     if f"* total: {n_test:,}" not in result:
         raise AssertionError(f"the eval did not score {n_test} test images: {result}")
     if launches["fused_attention"] != 4:
@@ -1844,30 +1852,211 @@ def trainer_phase(torch, np):
             raise AssertionError(f"kernel {kernel} was not launched on the trainer path")
 
     smi = nvidia_smi_line()
-    print(f"[trainer] ({smi}) Synthetic dataset written and read in "
+    print(f"[{tag}] ({smi}) data manager built in "
           f"{rec.times['build_data_manager'][0]:.1f} s; runs: train 2 epochs {run1_s:.1f} s, "
           f"resume to 3 {run2_s:.1f} s, eval {run3_s:.1f} s", flush=True)
     for s in steps:
-        print(f"[trainer] ({smi}) epoch {s['epoch']} step: loss {s['loss']:.4f}, lr {s['lr']:.3g}, "
+        print(f"[{tag}] ({smi}) epoch {s['epoch']} step: loss {s['loss']:.4f}, lr {s['lr']:.3g}, "
               f"step wall {s['wall'] * 1e3:.1f} ms (the trainer's meters: data "
               f"{s['data'] * 1e3:.1f} ms before it)", flush=True)
-    print(f"[trainer] ({smi}) epoch walls: "
+    print(f"[{tag}] ({smi}) epoch walls: "
           f"{', '.join(f'{x:.2f} s' for x in rec.times['run_epoch'])}", flush=True)
-    print(f"[trainer] ({smi}) device busy over the profiled epoch {busy_ms:.1f} ms of "
+    print(f"[{tag}] ({smi}) device busy over the profiled epoch {busy_ms:.1f} ms of "
           f"{epoch_s * 1e3:.1f} ms ({100 * busy_ms / (epoch_s * 1e3):.1f}%)", flush=True)
     encode_s = rec.times["collect_exemplar_features"][0]
     gen_s = rec.times["mm_generate_classifiers"][0]
     test_s = rec.times["test"][0]
-    print(f"[trainer] ({smi}) eval: exemplar encode {encode_s:.2f} s "
+    print(f"[{tag}] ({smi}) eval: exemplar encode {encode_s:.2f} s "
           f"({TRAINER_CLASSES * TRAINER_SHOTS} images), generation {gen_s:.2f} s, test pass "
           f"{test_s - encode_s - gen_s:.2f} s ({n_test} images); {' '.join(result[1:])}",
           flush=True)
-    print(f"[trainer] ({smi}) peak device memory: training {train_peak:.2f} GiB, eval "
+    print(f"[{tag}] ({smi}) peak device memory: training {train_peak:.2f} GiB, eval "
           f"{eval_peak:.2f} GiB", flush=True)
-    print(f"[trainer] launches over the three runs: {launches}", flush=True)
+    print(f"[{tag}] launches over the three runs: {launches}", flush=True)
     for key, count in sorted(shapes.items()):
-        print(f"[trainer]   {key[0]} {list(key[1])} {key[2]}: {count}", flush=True)
+        print(f"[{tag}]   {key[0]} {list(key[1])} {key[2]}: {count}", flush=True)
     del trainer, evaluator
+    summary = dict(busy_ms=busy_ms, epoch_s=epoch_s, train_peak=train_peak,
+                   eval_peak=eval_peak, runs_s=(run1_s, run2_s, run3_s))
+    return launches, shapes, rec, steps, summary
+
+
+def trainer_phase(torch, np, work):
+    """Phase 12: :func:`trainer_runs` over Synthetic (192 classes x 16
+    images at 224 px, 8 shots, written under ``work/data``, which phase 13
+    reads again). Returns the launches and launches by shape."""
+    import importlib.util
+    import os
+
+    have_pil = importlib.util.find_spec("PIL") is not None
+    choices = FLAGSHIP_TRANSFORMS if have_pil else ["random_flip", "normalize"]
+    print(f"[trainer] PIL {'is' if have_pil else 'is not'} installed: train transforms "
+          f"{choices}", flush=True)
+    os.environ["OVMR_SYNTHETIC"] = f"{TRAINER_CLASSES},16,224"
+    try:
+        launches, shapes, *_ = trainer_runs(
+            torch, np, work, "trainer",
+            ["INPUT.TRANSFORMS", repr(choices), "DATASET.NAME", "Synthetic",
+             "DATASET.NUM_SHOTS", str(TRAINER_SHOTS)], n_test=TRAINER_CLASSES * 4)
+    finally:
+        os.environ.pop("OVMR_SYNTHETIC", None)
+    return launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the device-augmented trainer over an ImageNet21kP tree
+# ---------------------------------------------------------------------------
+
+CACHE_SIDE = 256
+
+
+def augment_check(torch, np):
+    """``augment_batch`` on the card against the CPU with the same draws, at
+    one batch of 8 x 256² -> 224 (NHWC): fp32 within 1e-5 of scale, bf16
+    within 2 ulp at the output's largest magnitude. Returns the errors."""
+    from ovmr_tpu_torch.ops.augment import augment_batch, sample_augment_draws
+
+    draws = sample_augment_draws(torch.Generator().manual_seed(0), 8, CACHE_SIDE, out_size=224)
+    card_draws = {k: None if v is None else v.cuda() for k, v in draws.items()}
+    imgs = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (8, CACHE_SIDE, CACHE_SIDE, 3), dtype=np.uint8))
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = augment_batch(imgs, draws, out_size=224, out_dtype=dtype, out_layout="NHWC")
+        got = augment_batch(imgs.cuda(), card_draws, out_size=224, out_dtype=dtype,
+                            out_layout="NHWC")
+        torch.cuda.synchronize()
+        name = str(dtype).removeprefix("torch.")
+        if got.dtype != dtype or got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"augment_batch {name} on the card: {got.dtype} {got.shape}")
+        err, tol = float((got.cpu().float() - ref.float()).abs().max()), tolerance(dtype, ref)
+        if err > tol:
+            raise AssertionError(f"augment_batch {name} card vs CPU: {err:.3g} > {tol:.3g}")
+        errs[name] = (err, tol)
+        print(f"[augs] augment_batch 8 x {CACHE_SIDE}^2 -> 224 {name} card vs CPU: max_abs_err "
+              f"{err:.3g} (tol {tol:.3g})", flush=True)
+    return errs
+
+
+def augment_times(torch, np, n=TRAINER_CLASSES * TRAINER_SHOTS):
+    """Device ms of the step's augmentation at the trainer's batch (draws and
+    ``augment_batch``, bf16 NHWC), its bound, and the host-to-device copy of
+    the uint8 batch beside phase 12's fp32 one, as the trainer sends them."""
+    from ovmr_tpu_torch.ops.augment import augment_batch, sample_augment_draws
+
+    smi = nvidia_smi_line()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    imgs = torch.randint(0, 256, (n, CACHE_SIDE, CACHE_SIDE, 3), dtype=torch.uint8,
+                         device="cuda", generator=gen)
+    draws = sample_augment_draws(gen, n, CACHE_SIDE, out_size=224)
+    aug = cuda_ms(lambda: augment_batch(imgs, draws, out_size=224, out_dtype=torch.bfloat16,
+                                        out_layout="NHWC"), reps=3, rounds=3)
+    draw = cuda_ms(lambda: sample_augment_draws(gen, n, CACHE_SIDE, out_size=224),
+                   reps=3, rounds=3)
+    # the crop's two products in fp32, and each input read once and the
+    # bf16 output written once (the noise is an input)
+    flops = 2.0 * n * 224 * CACHE_SIDE * CACHE_SIDE * 3 + 2.0 * n * 224 * 224 * CACHE_SIDE * 3
+    moved = n * (CACHE_SIDE ** 2 * 3 + 224 * 224 * 3 * (4 + 2))
+    bound, by = bound_ms(moved, flops, PEAK_FP32)
+    print(f"[augs] ({smi}) augment_batch {n} x {CACHE_SIDE}^2 -> 224 bf16 NHWC: {aug[0]:.2f} ms "
+          f"({aug[1]:.2f}-{aug[2]:.2f}); its draws {draw[0]:.2f} ms; bound {bound:.2f} ms "
+          f"({by}: {flops / 1e9:.0f} GFLOP fp32, {moved / 1e6:.0f} MB)", flush=True)
+    profile_call(torch, f"augment_batch {n} x {CACHE_SIDE}^2 -> 224", lambda: augment_batch(
+        imgs, draws, out_size=224, out_dtype=torch.bfloat16, out_layout="NHWC"))
+    del imgs, draws
+    torch.cuda.empty_cache()
+
+    def copy_ms(arr):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            torch.as_tensor(arr).to("cuda")
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return sorted(times)[1]
+
+    u8 = np.random.default_rng(0).integers(0, 256, (TRAINER_CLASSES, TRAINER_SHOTS, CACHE_SIDE,
+                                                    CACHE_SIDE, 3), dtype=np.uint8)
+    f32 = np.full((TRAINER_CLASSES, TRAINER_SHOTS, 3, 224, 224), 0.5, np.float32)
+    u8_ms, f32_ms = copy_ms(u8), copy_ms(f32)
+    print(f"[augs] ({smi}) host-to-device copy from pageable memory: uint8 batch "
+          f"{u8.nbytes / 1e6:.0f} MB {u8_ms:.1f} ms; phase 12's fp32 batch {f32.nbytes / 1e6:.0f} "
+          f"MB {f32_ms:.1f} ms", flush=True)
+    torch.cuda.empty_cache()
+    return aug[0], u8_ms
+
+
+def augs_trainer_phase(torch, np, work):
+    """Phase 13: :func:`trainer_runs` with ``CUDA.DEVICE_AUGS True`` over an
+    ``ImageNet21kP`` tree: the prebuilt split pickle this phase writes over
+    phase 12's Synthetic PNGs (192 classes x 8 shots). The trainer builds the
+    decode-once cache at ``CUDA.CACHE_SIDE`` 256 under ``OVMR_CACHE_DIR``
+    (a directory of ``work``) in its first epoch; a second build in another
+    directory must be bit-equal to the file it wrote. Returns the launches
+    and launches by shape."""
+    import importlib.util
+    import os
+
+    from ovmr_tpu_torch.data import cache as cache_mod
+    from ovmr_tpu_torch.data.datasets.synthetic import Synthetic
+    from ovmr_tpu_torch.data.datum import load_fewshot_pickle, save_fewshot_pickle
+    from ovmr_tpu_torch.utils import get_cfg_default
+
+    if importlib.util.find_spec("PIL") is None:
+        raise AssertionError("phase 13 decodes the cache with PIL, which is not installed")
+    errs = augment_check(torch, np)
+    aug_ms, u8_ms = augment_times(torch, np)
+
+    cfg = get_cfg_default()
+    cfg.DATASET.ROOT, cfg.DATASET.NUM_SHOTS, cfg.SEED = str(work / "data"), TRAINER_SHOTS, 1
+    os.environ["OVMR_SYNTHETIC"] = f"{TRAINER_CLASSES},16,224"
+    try:
+        train = Synthetic(cfg).train_x  # phase 12's PNGs, read again
+    finally:
+        os.environ.pop("OVMR_SYNTHETIC")
+    split = work / "data" / "imagenet_21k_P" / "split_fewshot" / f"shot_{TRAINER_SHOTS}-seed_1.pkl"
+    save_fewshot_pickle(str(split), {"train": train})
+    print(f"[augs] wrote {split.relative_to(work)}: {len(train)} Datums over "
+          f"{len({d.label for d in train})} classes", flush=True)
+
+    os.environ["OVMR_CACHE_DIR"] = str(work / "cache")
+    try:
+        launches, shapes, rec, steps, summary = trainer_runs(
+            torch, np, work, "augs",
+            ["INPUT.TRANSFORMS", repr(FLAGSHIP_TRANSFORMS), "DATASET.NAME", "ImageNet21kP",
+             "DATASET.NUM_SHOTS", str(TRAINER_SHOTS), "CUDA.DEVICE_AUGS", "True",
+             "CUDA.CACHE_SIDE", str(CACHE_SIDE)],
+            n_test=TRAINER_CLASSES * TRAINER_SHOTS,
+            wraps=[(cache_mod.ImageArrayCache, "_build")])
+    finally:
+        os.environ.pop("OVMR_CACHE_DIR")
+    builds = rec.times.get("_build", [])
+    files = sorted((work / "cache").glob("imgs_*.npy"))
+    if len(builds) != 1 or len(files) != 1:
+        raise AssertionError(f"the trainer built the cache {len(builds)} times into {files}")
+    items = load_fewshot_pickle(str(split))["train"]
+    t = time.perf_counter()
+    again = cache_mod.ImageArrayCache(items, side=CACHE_SIDE, cache_dir=str(work / "cache2"))
+    rebuild_s = time.perf_counter() - t
+    written = np.load(files[0])
+    if written.shape != (len(items), CACHE_SIDE, CACHE_SIDE, 3) or written.dtype != np.uint8:
+        raise AssertionError(f"cache file {written.shape} {written.dtype}")
+    if Path(again.path).name != files[0].name or not np.array_equal(written, again.images):
+        raise AssertionError("a second build of the cache differs from the trainer's file")
+    smi = nvidia_smi_line()
+    print(f"[augs] ({smi}) cache {files[0].name}: {written.nbytes / 1e6:.0f} MB, built by the "
+          f"trainer in {builds[0]:.2f} s; a second build in {rebuild_s:.2f} s is bit-equal",
+          flush=True)
+    walls = rec.times["run_epoch"]
+    print(f"[augs] ({smi}) summary beside phase 12: epoch walls "
+          f"{', '.join(f'{x:.2f} s' for x in walls)} (the first holds the cache build); data "
+          f"meter a step {', '.join(f'{s['data'] * 1e3:.1f}' for s in steps)} ms; step walls "
+          f"{', '.join(f'{s['wall'] * 1e3:.1f}' for s in steps)} ms; augment {aug_ms:.2f} ms; "
+          f"uint8 copy {u8_ms:.1f} ms; busy {100 * summary['busy_ms'] / (summary['epoch_s'] * 1e3):.1f}% "
+          f"of the profiled epoch; peak {summary['train_peak']:.2f} GiB training, "
+          f"{summary['eval_peak']:.2f} GiB eval; augment card vs CPU "
+          f"{', '.join(f'{k} {v[0]:.3g} (tol {v[1]:.3g})' for k, v in errs.items())}", flush=True)
     return launches, shapes
 
 
@@ -1958,15 +2147,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     vision_backward(torch)
     torch.cuda.empty_cache()
-    paths["trainer"] = trainer_phase(torch, np)
-    all_checked("trainer", paths["trainer"][1])
+    work = Path(tempfile.mkdtemp(prefix="ovmr_trainer_smoke_"))
+    try:
+        paths["trainer"] = trainer_phase(torch, np, work)
+        all_checked("trainer", paths["trainer"][1])
+        torch.cuda.empty_cache()
+        paths["trainer_augs"] = augs_trainer_phase(torch, np, work)
+        all_checked("trainer_augs", paths["trainer_augs"][1])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     for entry in kernels:
         # launches: the wrapper's count over the three ViT-B/16 requests +
         # classify, the three timed training steps, the two ViT-L/14@336px
-        # requests + classify, the two on a model axis of 2 + classify and
-        # phase 12's three trainer runs (each read with the counts zeroed
-        # just before); launches_at_shape:
+        # requests + classify, the two on a model axis of 2 + classify, and
+        # phase 12's and phase 13's three trainer runs each (each read with
+        # the counts zeroed just before); launches_at_shape:
         # those at this entry's shape and dtype
         key = entry.pop("shape_key")
         for path, (launches, shapes) in paths.items():

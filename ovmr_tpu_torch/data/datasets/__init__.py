@@ -1,3 +1,3 @@
 """Importing this package registers every bundled dataset loader."""
 
-from . import fine_grained, synthetic  # noqa: F401
+from . import detection, fine_grained, imagenet, synthetic  # noqa: F401

@@ -1,7 +1,7 @@
 """The 11-dataset CoOp suite loaders (minus ImageNet).
 
 The port's copy of ``ovmr_tpu/data/datasets/fine_grained.py``; ImageNet
-and its variants (the JAX package's ``imagenet.py``) are not ported yet.
+and its variants are in :mod:`.imagenet`.
 
 Each mirrors one reference loader under ``datasets/`` — same directory
 layout, split json name, classname munging and label conventions — so

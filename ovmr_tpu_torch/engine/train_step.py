@@ -18,8 +18,9 @@ Counterpart of ``ovmr_tpu/engine/train_step.py`` ``make_train_step`` :53-149
 The aggregator leaves are ``requires_grad`` tensors owned by the
 ``torch.optim`` optimizer, which also holds the moments, so the step takes
 the optimizer where the JAX step takes ``opt_state`` and returns the loss
-only. The on-device augmentation branch (``DEVICE_AUGS``) and the
-multi-device step are not ported yet.
+only. With ``augment`` (``DEVICE_AUGS``, :58-92) the step takes the raw
+uint8 class-grouped batch and runs the augmentation on its device first.
+The multi-device step is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 
 from ovmr_tpu_torch.models import clip as tclip
 from ovmr_tpu_torch.models import ovmr
+from ovmr_tpu_torch.ops.augment import augment_batch, sample_augment_draws
 from ovmr_tpu_torch.ops.attention import fused_attention
 from ovmr_tpu_torch.ops.block_fused import fused_residual_block
 from ovmr_tpu_torch.ops.layers import (
@@ -51,18 +53,21 @@ def _text_tower_block_fn(block_fn):
 
 
 def frozen_features(clip_params, clip_cfg, images, prompt_tokens, vis_tokens, split_point,
-                    block_fn=fused_residual_block):
+                    block_fn=fused_residual_block, layout: str = "NCHW"):
     """The step's part without gradients (:94-122): normalized query
     features [num_cls * split, D], exemplar features [num_cls, n_ins - split,
-    D], prompt and visual-template embeddings, labels and the logit scale."""
+    D], prompt and visual-template embeddings, labels and the logit scale.
+    ``images`` is [num_cls, n_ins, 3, H, W], or [num_cls, n_ins, H, W, 3]
+    with ``layout="NHWC"``."""
     num_cls, n_ins = images.shape[:2]
     img_shape = images.shape[2:]
     with torch.no_grad():
         query = images[:, :split_point].reshape(num_cls * split_point, *img_shape)
         exemplar = images[:, split_point:].reshape(num_cls * (n_ins - split_point), *img_shape)
-        q_feats = l2_normalize(tclip.encode_image(clip_params, clip_cfg, query, block_fn=block_fn))
+        q_feats = l2_normalize(tclip.encode_image(clip_params, clip_cfg, query,
+                                                  block_fn=block_fn, layout=layout))
         e_feats = l2_normalize(
-            tclip.encode_image(clip_params, clip_cfg, exemplar, block_fn=block_fn)
+            tclip.encode_image(clip_params, clip_cfg, exemplar, block_fn=block_fn, layout=layout)
         ).reshape(num_cls, n_ins - split_point, -1)
         prompt_embeds, vis_embeds = ovmr.prompt_embeddings(
             clip_params, e_feats, prompt_tokens, vis_tokens
@@ -90,23 +95,60 @@ def classifier_loss(clip_params, clip_cfg, agg_params, frozen, eot_idx, dropout=
     return F.cross_entropy(mm_logits, labels) + F.cross_entropy(v_logits, labels)
 
 
+# the keys of an ``augment`` dict that the draws take, and those that the
+# draw-free augmentation takes
+_DRAW_KEYS = ("out_size", "scale", "jitter", "gn_std")
+_APPLY_KEYS = ("out_size", "mean", "std", "out_dtype")
+
+
+def augment_images(images_u8, augment: dict, generator=None, draws=None):
+    """A uint8 class-grouped batch [num_cls, n_ins, S, S, 3] -> the
+    augmented NHWC batch [num_cls, n_ins, out, out, 3] (:82-92), on the
+    batch's device: flattened, augmented with ``draws`` (by default drawn
+    from ``generator``, :func:`ovmr_tpu_torch.ops.augment.sample_augment_draws`)
+    and reshaped. ``augment`` holds the JAX step's keys: ``out_size``,
+    ``scale``, ``jitter``, ``gn_std``, ``mean``, ``std``, ``out_dtype``."""
+    num_cls, n_ins, s = images_u8.shape[:3]
+    flat = images_u8.reshape(num_cls * n_ins, *images_u8.shape[2:])
+    if draws is None:
+        if generator is None:
+            raise ValueError("the augmenting step needs a generator or injected draws")
+        draws = sample_augment_draws(generator, flat.shape[0], s,
+                                     **{k: augment[k] for k in _DRAW_KEYS if k in augment})
+    out = augment_batch(flat, draws, out_layout="NHWC",
+                        **{k: augment[k] for k in _APPLY_KEYS if k in augment})
+    return out.reshape(num_cls, n_ins, *out.shape[1:])
+
+
 def make_train_step(
     clip_cfg: tclip.CLIPConfig,
     dropout: float = 0.1,
     attn_fn=fused_attention,
     block_fn=fused_residual_block,
+    augment: Optional[dict] = None,
 ):
     """Returns ``train_step(agg_params, optimizer, clip_params, images,
-    prompt_tokens, eot_idx, vis_tokens, generator, split_point) -> loss``.
-    ``images`` is [num_cls, n_ins, 3, H, W]; ``generator`` seeds the dropout
-    masks (on the tensors' device; None switches dropout off);
-    ``agg_params`` holds the leaves ``optimizer`` updates in place."""
+    prompt_tokens, eot_idx, vis_tokens, generator, split_point,
+    augment_draws=None) -> loss``. ``images`` is [num_cls, n_ins, 3, H, W];
+    ``generator`` seeds the dropout masks (on the tensors' device; None
+    switches dropout off); ``agg_params`` holds the leaves ``optimizer``
+    updates in place.
+
+    With ``augment`` (:func:`augment_images`' dict) ``images`` is the raw
+    uint8 batch [num_cls, n_ins, S, S, 3]: it is augmented on its device,
+    with draws from ``generator`` taken before the dropout masks, or with
+    ``augment_draws`` when given, and the towers read it as NHWC."""
 
     def train_step(agg_params, optimizer, clip_params, images, prompt_tokens, eot_idx,
-                   vis_tokens, generator, split_point: int):
+                   vis_tokens, generator, split_point: int, augment_draws=None):
+        layout = "NCHW"
+        if augment is not None:
+            with torch.no_grad():
+                images = augment_images(images, augment, generator, augment_draws)
+            layout = "NHWC"
         frozen = frozen_features(
             clip_params, clip_cfg, images, prompt_tokens, vis_tokens, split_point,
-            block_fn=block_fn,
+            block_fn=block_fn, layout=layout,
         )
         optimizer.zero_grad(set_to_none=True)
         loss = classifier_loss(

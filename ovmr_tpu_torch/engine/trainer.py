@@ -30,9 +30,10 @@ Under a model axis the JAX package runs its seams inside ``shard_map`` over
 (``:195``, ``:269``) because ``pallas_call`` has no SPMD partitioning rule.
 Nothing here is partitioned by a compiler: the TP block calls the per-shard
 kernels itself, so the aggregator keeps its kernel (K6) under TP too. The
-trainer itself trains on one device: the on-device augmentation path
-(``CUDA.DEVICE_AUGS``), the region-augmented eval (``DATASET.REGION_AUG``),
-training on a model axis and ResNet towers are not ported yet and raise.
+trainer itself trains on one device: training on a model axis and ResNet
+towers are not ported yet and raise. ``CUDA.DEVICE_AUGS`` trains from the
+decode-once uint8 cache (:mod:`ovmr_tpu_torch.data.cache`) with the
+augmentation in the step, on the trainer's device.
 """
 
 from __future__ import annotations
@@ -460,13 +461,28 @@ class TrainerBase:
             loader = self.dm.test_loader
         self.prepare_test()
         print(f"Evaluate on the *{split}* set")
-        self.evaluator.reset()
-        for batch in prefetch_batches(loader):
-            output = self.model_inference(batch)
-            self.evaluator.process(output, batch["label"])
-        results = self.evaluator.evaluate()
-        for k, v in results.items():
-            self.write_scalar(f"{split}/{k}", v, self.epoch)
+
+        def eval_pass(scale_no):
+            self.evaluator.reset()
+            for batch in prefetch_batches(loader):
+                output = self.model_inference(batch, scale_no=scale_no)
+                self.evaluator.process(output, batch["label"])
+            results = self.evaluator.evaluate()
+            for k, v in results.items():
+                self.write_scalar(f"{split}/{k}", v, self.epoch)
+            return results
+
+        if not cfg.DATASET.REGION_AUG:
+            results = eval_pass(0)
+        else:
+            # multi-scale region eval: each scale twice, the single text
+            # embedding then the mean text embeddings (reference :488-505)
+            scales = list(cfg.DATASET.REGION_SCALE)
+            for test_no in range(len(scales) * 2):
+                kind = ("mean text embeddings" if test_no >= len(scales)
+                        else "corresponding single text embedding")
+                print("## eval region scale %d using %s" % (scales[test_no % len(scales)], kind))
+                results = eval_pass(test_no)
         return list(results.values())[0]
 
 
@@ -480,15 +496,10 @@ class MM_CLS_OP(TrainerBase):
         from ovmr_tpu_torch.models.import_torch import load_prompt_learner
 
         cfg = self.cfg
-        for key, value, item in (
-            ("CUDA.DEVICE_AUGS", cfg.CUDA.DEVICE_AUGS, "item 1b'"),
-            ("DATASET.REGION_AUG", cfg.DATASET.REGION_AUG, "item 1b'"),
-            ("CUDA.MESH.MODEL > 1", cfg.CUDA.MESH.MODEL > 1, "item 4"),
-        ):
-            if value:
-                raise NotImplementedError(
-                    f"MM_CLS_OP: {key} is not ported yet (ROADMAP Queue 1 {item}); the "
-                    "serving seams take a model axis, training does not")
+        if cfg.CUDA.MESH.MODEL > 1:
+            raise NotImplementedError(
+                "MM_CLS_OP: CUDA.MESH.MODEL > 1 is not ported yet (ROADMAP Queue 1 item 4); "
+                "the serving seams take a model axis, training does not")
         self.device = resolve_device(cfg.CUDA.DEVICE)
         self.dtype = _DTYPES[cfg.CUDA.DTYPE]
 
@@ -518,7 +529,20 @@ class MM_CLS_OP(TrainerBase):
 
         self.optimizer = build_optimizer(cfg.OPTIM, self.agg_params)
         self.lr_table = lr_schedule_from_cfg(cfg.OPTIM)
-        self.train_step = make_train_step(self.clip_cfg, dropout=0.1)
+        augment = None
+        self._cached_train_loader = None
+        if cfg.CUDA.DEVICE_AUGS:
+            augment = dict(
+                out_size=cfg.INPUT.SIZE[0],
+                scale=tuple(cfg.INPUT.RRCROP_SCALE),
+                jitter=(cfg.INPUT.COLORJITTER_B, cfg.INPUT.COLORJITTER_C,
+                        cfg.INPUT.COLORJITTER_S, cfg.INPUT.COLORJITTER_H),
+                gn_std=cfg.INPUT.GN_STD if "gaussian_noise" in cfg.INPUT.TRANSFORMS else 0.0,
+                mean=tuple(cfg.INPUT.PIXEL_MEAN),
+                std=tuple(cfg.INPUT.PIXEL_STD),
+                out_dtype=self.dtype,
+            )
+        self.train_step = make_train_step(self.clip_cfg, dropout=0.1, augment=augment)
         self._features = make_feature_extractor(
             self.clip_cfg, self.dtype, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD,
             cfg.DATALOADER.TEST.BATCH_SIZE, device=self.device,
@@ -533,6 +557,26 @@ class MM_CLS_OP(TrainerBase):
                                            self.optimizer)
 
     # ---- training -----------------------------------------------------
+    @property
+    def train_loader(self):
+        """With ``CUDA.DEVICE_AUGS``: class-grouped uint8 batches from the
+        decode-once cache at ``CUDA.CACHE_SIDE``, built on first use
+        (JAX :771-796)."""
+        if not self.cfg.CUDA.DEVICE_AUGS:
+            return self.dm.train_loader_x
+        if self._cached_train_loader is None:
+            from ovmr_tpu_torch.data.cache import CachedClassBatchLoader, ImageArrayCache
+            from ovmr_tpu_torch.data.samplers import build_sampler
+
+            cfg = self.cfg
+            cache = ImageArrayCache(self.dm.dataset.train_x, side=cfg.CUDA.CACHE_SIDE)
+            sampler = build_sampler(cfg.DATALOADER.TRAIN_X.SAMPLER, self.dm.dataset.train_x,
+                                    cfg.DATALOADER.TRAIN_X.BATCH_SIZE,
+                                    cfg.DATALOADER.TRAIN_X.N_INS)
+            self._cached_train_loader = CachedClassBatchLoader(
+                cache, sampler, cfg.DATALOADER.TRAIN_X.BATCH_SIZE, seed=max(cfg.SEED, 0))
+        return self._cached_train_loader
+
     def before_epoch(self):
         set_lr(self.optimizer, self.lr_table[self.epoch])
 
@@ -541,7 +585,10 @@ class MM_CLS_OP(TrainerBase):
         # K_TRANSFORMS>1 expands every instance into K adjacent augmented
         # copies, scaling the per-class group size
         n_ins = cfg.DATALOADER.TRAIN_X.N_INS * max(cfg.DATALOADER.K_TRANSFORMS, 1)
-        images, labels = batch["img"], batch["label"]
+        # a cached batch is uint8 NHWC: it goes to the device as uint8 and
+        # the step augments it there
+        images = batch["img_u8"] if "img_u8" in batch else batch["img"]
+        labels = batch["label"]
         num_cls = images.shape[0] // n_ins
         if num_cls == 0:
             return None
@@ -550,7 +597,9 @@ class MM_CLS_OP(TrainerBase):
         exemplar_label = torch.as_tensor(labels[:usable].reshape(num_cls, n_ins)[:, 0],
                                          dtype=torch.long, device=self.device)
         split_point = sample_split_point(self.py_rng, n_ins)
-        images_dev = torch.as_tensor(images).to(self.device).to(self.dtype)
+        images_dev = torch.as_tensor(images).to(self.device)
+        if images_dev.dtype != torch.uint8:
+            images_dev = images_dev.to(self.dtype)
         loss = self.train_step(
             self.agg_params, self.optimizer, self.clip_params, images_dev,
             self.prompt_tokens[exemplar_label], self.eot_idx[exemplar_label],

@@ -217,13 +217,24 @@ def run_blocks(
     return x
 
 
-def patch_embed_grid(images: torch.Tensor, w: torch.Tensor, patch: int) -> torch.Tensor:
-    """NCHW images -> [B, gh, gw, width] patch embeddings, fp32 accumulation.
-    ``w`` is [3*p*p, width] with rows in (channel, row, column) order."""
-    b, c, hgt, wid = images.shape
-    gh, gw = hgt // patch, wid // patch
-    x = images[:, :, : gh * patch, : gw * patch]
-    x = x.reshape(b, c, gh, patch, gw, patch).permute(0, 2, 4, 1, 3, 5)
+def patch_embed_grid(images: torch.Tensor, w: torch.Tensor, patch: int,
+                     layout: str = "NCHW") -> torch.Tensor:
+    """Images (NCHW, or NHWC as the augmentation emits them) -> [B, gh, gw,
+    width] patch embeddings, fp32 accumulation. ``w`` is [3*p*p, width]
+    with rows in (channel, row, column) order; both layouts patchify into
+    that order, so the NHWC batch needs no relayout before this."""
+    if layout == "NCHW":
+        b, c, hgt, wid = images.shape
+        gh, gw = hgt // patch, wid // patch
+        x = images[:, :, : gh * patch, : gw * patch]
+        x = x.reshape(b, c, gh, patch, gw, patch).permute(0, 2, 4, 1, 3, 5)
+    elif layout == "NHWC":
+        b, hgt, wid, c = images.shape
+        gh, gw = hgt // patch, wid // patch
+        x = images[:, : gh * patch, : gw * patch, :]
+        x = x.reshape(b, gh, patch, gw, patch, c).permute(0, 1, 3, 5, 2, 4)
+    else:
+        raise ValueError(f"layout {layout!r}: expected NCHW or NHWC")
     x = x.reshape(b, gh, gw, c * patch * patch)
     return matmul_f32(x, w.to(images.dtype)).to(images.dtype)
 
@@ -262,14 +273,17 @@ def encode_image(
     cfg: CLIPConfig,
     images: torch.Tensor,
     block_fn=fused_residual_block,
+    layout: str = "NCHW",
 ) -> torch.Tensor:
     """Image tower forward: patchify -> +cls/pos -> ln_pre -> blocks ->
-    ln_post[0] @ proj (reference ``clip/model.py:411-428``). [B, embed_dim]."""
+    ln_post[0] @ proj (reference ``clip/model.py:411-428``). [B, embed_dim].
+    ``images`` is NCHW, or NHWC with ``layout="NHWC"``."""
     if cfg.is_resnet:
         raise NotImplementedError("ResNet towers are not ported yet")
     v = params["visual"]
     dtype = v["patch_embed_w"].dtype
-    xg = patch_embed_grid(images.to(dtype), v["patch_embed_w"], cfg.vision_patch_size)
+    xg = patch_embed_grid(images.to(dtype), v["patch_embed_w"], cfg.vision_patch_size,
+                          layout)
     b, gh, gw, width = xg.shape
     cls = v["class_embedding"].to(dtype).expand(b, 1, width)
     x = torch.cat([cls, xg.reshape(b, gh * gw, width)], dim=1)

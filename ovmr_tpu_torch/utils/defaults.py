@@ -264,7 +264,7 @@ def get_cfg_default() -> CfgNode:
     # eval modes refuse
     c.CUDA.TEXT_CLS_MAX_CLASSES = 5000
     # training input path of decode-once uint8 caches augmented on the
-    # device (not ported yet: True raises)
+    # device (ops/augment.py, data/cache.py)
     c.CUDA.DEVICE_AUGS = False
     # cache side for that decode-once store
     c.CUDA.CACHE_SIDE = 256

@@ -1134,3 +1134,42 @@ def test_mm_cls_op_trainer_on_card(cuda, tmp_path, monkeypatch):
     for key in ("mm_classifier", "vision_classifier", "text_classifier"):
         torch.testing.assert_close(got[key], want[key], atol=1e-4, rtol=0)
     torch.testing.assert_close(got["fusion_weight"], want["fusion_weight"], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["NHWC", "NCHW"])
+def test_augment_batch_on_card_matches_cpu(cuda, out_dtype, layout):
+    """``augment_batch`` on the card against the CPU with the same draws
+    (made on the CPU and moved), at one batch of 8 x 256² -> 224: the crop's
+    two products sum two exact products per output, so they agree bit for
+    bit once the weights do; the jitter's transcendentals and means differ
+    in the last bits."""
+    from ovmr_tpu_torch.ops.augment import augment_batch, sample_augment_draws
+
+    draws = sample_augment_draws(torch.Generator().manual_seed(0), 8, 256, out_size=224)
+    imgs = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (8, 256, 256, 3))
+                            .astype(np.uint8))
+    ref = augment_batch(imgs, draws, out_size=224, out_dtype=out_dtype, out_layout=layout)
+    got = augment_batch(imgs.to(cuda), {k: None if v is None else v.to(cuda)
+                                        for k, v in draws.items()},
+                        out_size=224, out_dtype=out_dtype, out_layout=layout)
+    assert got.device.type == "cuda"
+    _check(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("shape", [(4, 300, 400, 3), (4, 400, 300, 3), (4, 256, 256, 3)])
+@pytest.mark.parametrize("method", ["bicubic", "bilinear"])
+def test_preprocess_batch_on_card_matches_cpu(cuda, shape, method):
+    """``preprocess_batch`` (``F.interpolate`` with antialias) on the card
+    against the CPU, fp32, within 1e-4: CUDA's antialiased resampling
+    computes and sums its filter taps in another order than the CPU's
+    (up to ~5e-5 after the division by the std), the tolerance of the
+    CPU's parity with ``jax.image.resize``."""
+    from ovmr_tpu_torch.ops.preprocess import preprocess_batch
+
+    imgs = torch.from_numpy(np.random.RandomState(1).randint(0, 256, shape).astype(np.uint8))
+    ref = preprocess_batch(imgs, size=224, method=method, out_dtype=torch.float32)
+    got = preprocess_batch(imgs.to(cuda), size=224, method=method, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=0)

@@ -13,7 +13,7 @@
 - ``python -m ovmr_tpu_torch.train`` on ``Synthetic`` at ``TINY``: one
   epoch, then ``--eval-only`` fusion.
 - Two epochs equal one epoch plus a resume (dropout 0).
-- The refusals of the trainer and its config.
+- The refusals of the trainer and its config; the region eval's passes.
 """
 
 import os
@@ -367,8 +367,6 @@ def test_cli_trains_then_evaluates(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("CUDA.DEVICE_AUGS", True, "item 1b'"),
-    ("DATASET.REGION_AUG", True, "item 1b'"),
     ("CUDA.MESH.MODEL", 2, "item 4"),
     ("MODEL.BACKBONE.NAME", "RN50", "item 5"),
 ])
@@ -376,6 +374,35 @@ def test_trainer_refuses_what_waits(tmp_path, monkeypatch, key, value, match):
     monkeypatch.setenv("OVMR_SYNTHETIC", "4,8,32")
     with pytest.raises(NotImplementedError, match=match):
         build_trainer(_tiny_cfg(tmp_path, **{key: value}))
+
+
+def test_region_eval_runs_each_scale_twice(tmp_path, monkeypatch, capsys):
+    """``DATASET.REGION_AUG``: the eval pass runs twice per scale of
+    ``REGION_SCALE`` (the single text embedding, then the mean ones), with
+    the JAX trainer's log lines; ``model_inference`` gets the pass number."""
+    monkeypatch.setenv("OVMR_SYNTHETIC", "4,8,32")
+    trainer = build_trainer(_tiny_cfg(tmp_path, **{"DATASET.REGION_AUG": True,
+                                                   "DATASET.REGION_SCALE": [224, 320],
+                                                   "EVAL_MODE": "fusion"}))
+    seen = []
+    orig = trainer.model_inference
+
+    def spy(batch, scale_no=0):
+        seen.append(scale_no)
+        return orig(batch, scale_no=scale_no)
+
+    trainer.model_inference = spy
+    acc = trainer.test()
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if ln.startswith("## eval region scale")]
+    assert lines == ["## eval region scale 224 using corresponding single text embedding",
+                     "## eval region scale 320 using corresponding single text embedding",
+                     "## eval region scale 224 using mean text embeddings",
+                     "## eval region scale 320 using mean text embeddings"]
+    assert out.count("=> result") == 4
+    n_batches = len(trainer.dm.test_loader)
+    assert sorted(set(seen)) == [0, 1, 2, 3] and len(seen) == 4 * n_batches
+    assert 0.0 <= acc <= 100.0
 
 
 def test_trainer_on_cuda_without_a_card_raises(tmp_path, monkeypatch):
