@@ -17,7 +17,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    and 1152 (phase 12's splits of 2 and 6), and at the
    192 prompts of a class-grouped batch K1-causal, K2 and the dx backward
    kernels K3 (masked and unmasked) and K4, in bf16 and fp32; K6 at phase
-   12's eval heads (192 classes x (8 shots + 2 vokens), bf16). Serving at
+   12's eval heads (192 classes x (8 shots + 2 vokens), bf16). OVMR† stage
+   2 (phases 14-15, bf16): K1 and K2 at the image tower's batch 1 and test
+   batch 100, and K1-causal, K2, K3 and K4 at ImageNet's 1000 prompts x 77. Serving at
    ViT-L/14@336px (last, so the earlier cases run as they always did): K1
    (vision, 577 tokens x 1024, 16 heads) and
    K5 (the chunked MLP half, 2 chunks) at generate()'s 512 exemplars and
@@ -136,6 +138,30 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    augmentation launches no counted kernel). Prints the cache build, the
    epochs, the data meter, the step, the augmentation, the copy, the busy
    share and peak memory.
+14. OVMR† stage 2: the CoOp trainer (registered as ``MM_CLS``) through
+   ``ovmr_tpu_torch.train.main`` with
+   ``configs/trainers/MM_CLS/vit_b16_c16_ep10_batch1.yaml`` as it is
+   (ViT-B/16, bf16, sgd lr 0.002, batch 1, n_ctx 16) over phase 12's 192
+   classes at 1 shot, with the ``visual_tokens.pt`` phase 12's eval
+   exported as its frozen vokens: train 1 epoch (192 steps), resume to 2
+   (sgd's count and momentum as saved; its epoch profiled), then the
+   fusion eval of epoch 2 (768 test images). Every step launches exactly
+   K1 12, K1-causal 36, K2 48, K4 36 and K3-causal 36 (each with its
+   short core; 372 wgmma GEMMs). Prints the epochs, the warm step, the
+   data meter, the busy share and peak memory. Then CoOp's one-prompt step
+   at ImageNet's 1000 classes timed directly (K1 12 + 12 causal, K2 24, K3
+   12, K4 12 a step), and one fp32 CoOp step over 4 classes on the card
+   against the CPU (loss within 1e-4, the ctx gradient within 1e-4 of its
+   scale).
+15. ``ZeroshotCLIP2`` through the entry point over the same 192 classes
+   (7 SELECT templates plus the custom one; the test pass at batch 100,
+   exact launches), ``clip_compat.load("ViT-B/16")`` in smoke mode (a bf16
+   contrastive forward of 100 preprocessed PNGs x 192 prompts, read as a
+   path of its own with exact launches; fp32 logits card vs CPU within
+   1e-4), and ``python -m ovmr_tpu_torch.infer`` as
+   three processes at once over 32 of phase 12's PNGs with phase 12's
+   ``mm_classifiers.pt``: bf16 on the card, and fp32 on the card and on
+   the CPU, whose top-5 labels must be equal (scores within 1e-4).
 
 In bf16 every K1, K2 and K8 launches the wgmma GEMM twice, every K5 twice
 a chunk, every K4 twice (its c_fc recompute and GELU' product are one
@@ -227,8 +253,8 @@ def device_ms(torch, fn, reps: int) -> float:
     kernels' time (torch.profiler) over ``reps`` calls, over ``reps``."""
     fn()
     torch.cuda.synchronize()
-    _, rows = device_times(torch, lambda: [fn() for _ in range(reps)])
-    return sum(r[0] for r in rows) / reps
+    _, busy_ms, _ = device_times(torch, lambda: [fn() for _ in range(reps)])
+    return busy_ms / reps
 
 
 def tolerance(dtype, ref) -> float:
@@ -409,6 +435,13 @@ def kernel_checks(torch, F):
             ("vision-train-384", 384, 197, 768, 12, False, both[:1], False),
             ("vision-train-1152", 1152, 197, 768, 12, False, both[:1], False),
             ("text-train", 192, 77, 512, 8, True, both, True),
+            # OVMR† stage 2 (phase 14): the image tower at batch 1 and at the
+            # recipe's test batch of 100 (phase 15's zero-shot and clip_compat
+            # too), and one prompt over ImageNet's 1000 classes, forward and
+            # backward
+            ("vision-stage2-1", 1, 197, 768, 12, False, both[:1], False),
+            ("vision-test-100", 100, 197, 768, 12, False, both[:1], False),
+            ("text-imagenet-1000", 1000, 77, 512, 8, True, both[:1], True),
             # ViT-L/14@336px serving: the exemplar encode, classify()'s
             # queries, the fp32 phase's 4 images, one 32-class prompt set
             ("vitl336-vision-encode", 512, 577, 1024, 16, False, bf16, False),
@@ -1052,8 +1085,9 @@ def serving_slice(torch, np, tag, gen, n_requests, warmups=0):
 
 def device_times(torch, fn):
     """The wall milliseconds of one call of ``fn`` (to a synchronise) under
-    torch.profiler, and the device's (ms, kernel name, launches) by kernel,
-    largest first."""
+    torch.profiler, the device's busy milliseconds (:func:`device_busy_ms`)
+    and its (ms, kernel name, launches) by kernel, largest first, without
+    the annotation spans."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1063,7 +1097,8 @@ def device_times(torch, fn):
         wall_ms = (time.perf_counter() - t) * 1e3
     rows = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation",
+                                                                      False):
             continue  # host ops: their device time is their kernels' time
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1071,14 +1106,25 @@ def device_times(torch, fn):
         if us > 0:
             rows.append((us / 1e3, e.key, e.count))
     rows.sort(reverse=True)
-    return wall_ms, rows
+    return wall_ms, device_busy_ms(torch, prof), rows
+
+
+def device_busy_ms(torch, prof):
+    """The device's busy milliseconds in a finished torch.profiler profile:
+    the summed durations of its kernels, copies and sets, read from the raw
+    events. Not ``key_averages``: it builds a Python object for each of an
+    epoch's ~10^6 events first, which takes minutes, and it counts the
+    spans that annotations such as ``Optimizer.step`` project onto the
+    device as device time too."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda and not e.is_user_annotation()) / 1e6
 
 
 def profile_call(torch, what, fn):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of the call's wall time."""
-    wall_ms, rows = device_times(torch, fn)
-    busy_ms = sum(r[0] for r in rows)
+    wall_ms, busy_ms, rows = device_times(torch, fn)
     print(f"[profile] {what}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%)", flush=True)
     for ms, key, count in rows[:8]:
@@ -1812,10 +1858,7 @@ def trainer_runs(torch, np, work, tag, data_opts, n_test, wraps=()):
         print(f"[{tag}] resumed at epoch 2: adam step count 2 and all {len(want) - 2} moments "
               "equal to those saved", flush=True)
         prof, epoch_s = trainer.epoch_profile
-        busy_ms = sum(
-            (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0))
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        busy_ms = device_busy_ms(torch, prof)
 
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
@@ -2060,6 +2103,491 @@ def augs_trainer_phase(torch, np, work):
     return launches, shapes
 
 
+
+# ---------------------------------------------------------------------------
+# phase 14: OVMR† stage 2 (CoOp on frozen vokens) through its entry point
+# ---------------------------------------------------------------------------
+
+# OVMR†'s recipe: ViT-B/16, sgd at lr 0.002, batch 1, n_ctx 16, bf16
+STAGE2_YAML = "configs/trainers/MM_CLS/vit_b16_c16_ep10_batch1.yaml"
+STAGE2_SHOTS = 1
+IMAGENET_CLASSES = 1000
+
+
+def coop_step_launches(cfg, prompts):
+    """Exact launches of one bf16 CoOp step at batch 1: the image tower once
+    (no gradient), and ``prompts`` text-tower passes forward (K1-causal, K2)
+    and backward (K4, K3-causal, each K3 with its one-launch short core)."""
+    v, t = cfg.vision_layers, cfg.transformer_layers * prompts
+    return {
+        "fused_attn_half": v, "fused_attn_half_masked": t, "attn_core": v + t,
+        "fused_mlp_half": v + t, "fused_mlp_half_chunked": 0,
+        "attn_half_bwd_dx_masked": t, "mlp_half_bwd_dx": t, "attn_half_bwd_dx": 0,
+        "fused_attention": 0, "tp_attn_half_partial": 0, "tp_attn_half_partial_masked": 0,
+        "tp_mlp_half_partial": 0,
+        # two inside each K1, K2 and K4, three inside each K3
+        "gemm_wgmma": 4 * (v + t) + 5 * t,
+        "attn_bwd_core_short": t, "attn_bwd_core_tiled": 0,
+    }
+
+
+def stage2_runs(torch, np, work):
+    """CoOp (registered as MM_CLS) through ``ovmr_tpu_torch.train.main`` with
+    OVMR†'s yaml over phase 12's Synthetic PNGs (192 classes, 1 shot, so an
+    epoch is 192 steps of batch 1) and the ``visual_tokens.pt`` phase 12's
+    fusion eval exported: train 1 epoch, resume to 2 (its epoch profiled;
+    sgd's count and momentum as saved), then the fusion eval of epoch 2.
+    Every step's launches are exact. Returns the launches and launches by
+    shape over the three runs."""
+    import os
+
+    from ovmr_tpu_torch import train as entry
+    from ovmr_tpu_torch.engine import checkpoint as ckpt
+    from ovmr_tpu_torch.engine import coop as coop_mod
+    from ovmr_tpu_torch.engine import trainer as trainer_mod
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    cfg = tclip.VIT_B16
+    vt_path = work / "trainer" / "eval_out" / "visual_tokens.pt"
+    vt = torch.load(vt_path, weights_only=False)["visual_tokens"]
+    if tuple(vt.shape) != (TRAINER_CLASSES, 2, cfg.embed_dim):
+        raise AssertionError(f"phase 12 exported vokens of shape {tuple(vt.shape)}")
+    out, eval_out = work / "stage2" / "train_out", work / "stage2" / "eval_out"
+    common = ["--root", str(work / "data"), "--seed", "1", "--trainer", "MM_CLS",
+              "--config-file", str(ROOT / STAGE2_YAML), "--visual_token_path", str(vt_path)]
+    opts = ["DATASET.NAME", "Synthetic", "DATASET.NUM_SHOTS", str(STAGE2_SHOTS),
+            "CUDA.DEVICE", "cuda", "TRAIN.CHECKPOINT_FREQ", "1"]
+    n_steps = TRAINER_CLASSES * STAGE2_SHOTS
+    n_test = TRAINER_CLASSES * 4
+    parser = entry.build_parser()
+    expected = coop_step_launches(cfg, 3)
+    steps, resumed = [], {}
+    rec = Recorder(torch)
+
+    def before_step(trainer, batch):
+        rec.before = dict(cuda_lib.LAUNCHES)
+
+    def after_step(trainer, batch, out):
+        now = dict(cuda_lib.LAUNCHES)
+        got = {k: now[k] - rec.before[k] for k in now}
+        if got != expected:
+            raise AssertionError(f"stage 2 step {len(steps)}: launches {got}, expected {expected}")
+        if not math.isfinite(out["loss"]):
+            raise AssertionError(f"stage 2 step {len(steps)}: loss {out['loss']}")
+        steps.append(dict(epoch=trainer.epoch + 1, loss=out["loss"], acc=out["acc"],
+                          wall=rec.times["forward_backward"][-1], data=trainer.data_time.val))
+
+    def after_resume(trainer, directory, out):
+        resumed["epoch"] = out
+        resumed["state"] = ckpt.optimizer_state_arrays(trainer.optimizer, trainer.params)
+
+    cls = coop_mod.CoOp
+    rec.wrap(cls, "forward_backward", before=before_step, after=after_step)
+    rec.wrap(cls, "resume_model_if_exist", after=after_resume)
+    rec.wrap(trainer_mod.TrainerBase, "run_epoch")
+    rec.wrap(cls, "test")
+    rec.wrap(cls, "get_fusion_weight")
+    os.environ["OVMR_SYNTHETIC"] = f"{TRAINER_CLASSES},16,224"
+    try:
+        cuda_lib.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        first = run_entry(parser, entry, common + ["--output-dir", str(out)] + opts
+                          + ["OPTIM.MAX_EPOCH", "1", "TEST.NO_TEST", "True"])
+        run1_s = time.perf_counter() - t
+        if (resumed.get("epoch") != 0 or len(steps) != n_steps or first.n_cls != TRAINER_CLASSES
+                or first.cfg.OPTIM.NAME != "sgd" or first.n_ctx != 16):
+            raise AssertionError(f"first run: resumed at {resumed.get('epoch')}, {len(steps)} "
+                                 f"steps, {first.n_cls} classes, {first.cfg.OPTIM.NAME}")
+        if not torch.equal(first.visual_tokens.cpu(), vt.float()):
+            raise AssertionError("stage 2 did not load phase 12's vokens")
+        pl = out / "prompt_learner"
+        if (pl / "checkpoint").read_text() != "model-1.npz":
+            raise AssertionError("the checkpoint pointer does not name model-1.npz")
+        del first
+
+        os.environ["OVMR_PROFILE_DIR"] = str(work / "stage2" / "profile")
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        trainer = run_entry(parser, entry, common + ["--output-dir", str(out)] + opts
+                            + ["OPTIM.MAX_EPOCH", "2", "TEST.NO_TEST", "True"])
+        run2_s = time.perf_counter() - t
+        os.environ.pop("OVMR_PROFILE_DIR")
+        train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if resumed["epoch"] != 1 or trainer.start_epoch != 1 or len(steps) != 2 * n_steps:
+            raise AssertionError(f"second run: resumed at {resumed['epoch']}, {len(steps)} steps")
+        # sgd's state in optax's layout: the count and the momentum as saved
+        with np.load(pl / "model-1.npz") as saved:
+            want = {k[len("opt//"):]: saved[k] for k in saved.files
+                    if k.startswith("opt//") and k != "opt//.hyperparams//lr"}
+        got = {k: v for k, v in resumed["state"].items() if k != ".hyperparams//lr"}
+        differ = sorted(set(got) ^ set(want)) + [
+            k for k in want if k in got and not np.array_equal(got[k], want[k])]
+        if differ or int(got[".count"]) != n_steps:
+            raise AssertionError(f"the resumed sgd state differs from the one saved at epoch 1 "
+                                 f"in {differ[:4]} (count {got.get('.count')})")
+        print(f"[stage2] resumed at epoch 1: sgd count {n_steps} and the momentum "
+              f"({', '.join(sorted(want))}) equal to those saved", flush=True)
+        prof, epoch_s = trainer.epoch_profile
+        busy_ms = device_busy_ms(torch, prof)
+        del trainer, prof
+
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        evaluator = run_entry(parser, entry, common + [
+            "--output-dir", str(eval_out), "--model-dir", str(out), "--load-epoch", "2",
+            "--eval-only"] + opts + ["OPTIM.MAX_EPOCH", "2"])
+        run3_s = time.perf_counter() - t
+        eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches, shapes = dict(cuda_lib.LAUNCHES), dict(cuda_lib.LAUNCH_SHAPES)
+        fw = evaluator.classifiers["fusion_weight"]
+        for key in ("mm_classifier", "vision_classifier", "text_classifier"):
+            v = evaluator.classifiers[key]
+            if v.shape != (TRAINER_CLASSES, cfg.embed_dim) or not np.isfinite(v).all():
+                raise AssertionError(f"stage 2 {key}: {v.shape}")
+        if fw.shape != (TRAINER_CLASSES, 3) or np.abs(fw.sum(-1) - 1).max() > 1e-5:
+            raise AssertionError(f"stage 2 fusion weight {fw.shape}")
+        log = (eval_out / "log.txt").read_text()
+        del evaluator
+    finally:
+        rec.restore()
+        os.environ.pop("OVMR_SYNTHETIC", None)
+    if ("=> result" not in log or "(eval mode: CoOp fusion)" not in log
+            or "(epoch = 2)" not in log):
+        raise AssertionError("the stage-2 eval log lacks the => result block or the epoch-2 load")
+    result = log[log.index("=> result"):].splitlines()[:6]
+    if f"* total: {n_test:,}" not in result:
+        raise AssertionError(f"the stage-2 eval did not score {n_test} test images: {result}")
+    for kernel in ("fused_attn_half", "fused_attn_half_masked", "fused_mlp_half",
+                   "attn_half_bwd_dx_masked", "mlp_half_bwd_dx", "gemm_wgmma", "attn_core",
+                   "attn_bwd_core_short"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"kernel {kernel} was not launched on the stage-2 path")
+
+    smi = nvidia_smi_line()
+    walls = [s["wall"] * 1e3 for s in steps]
+    for epoch in (1, 2):
+        ep = [s for s in steps if s["epoch"] == epoch]
+        w = sorted(s["wall"] * 1e3 for s in ep[3:])  # warm: after the first three
+        d = sorted(s["data"] * 1e3 for s in ep[3:])
+        print(f"[stage2] ({smi}) epoch {epoch}: {len(ep)} steps, loss {ep[0]['loss']:.4f} -> "
+              f"{ep[-1]['loss']:.4f} (mean {sum(s['loss'] for s in ep) / len(ep):.4f}), step "
+              f"wall warm median {w[len(w) // 2]:.1f} ms ({w[0]:.1f}-{w[-1]:.1f}), first "
+              f"{walls[(epoch - 1) * n_steps]:.1f} ms; data meter median {d[len(d) // 2]:.2f} ms",
+              flush=True)
+    print(f"[stage2] ({smi}) epoch walls: "
+          f"{', '.join(f'{x:.2f} s' for x in rec.times['run_epoch'])} (the second profiled); "
+          f"runs: train {run1_s:.1f} s, resume {run2_s:.1f} s, eval {run3_s:.1f} s", flush=True)
+    print(f"[stage2] ({smi}) device busy over the profiled epoch {busy_ms:.1f} ms of "
+          f"{epoch_s * 1e3:.1f} ms ({100 * busy_ms / (epoch_s * 1e3):.1f}%)", flush=True)
+    fuse_s = rec.times["get_fusion_weight"][0]
+    print(f"[stage2] ({smi}) eval: fusion weight (exemplar encode + F1) {fuse_s:.2f} s, test "
+          f"{rec.times['test'][0]:.2f} s in all ({n_test} images); {' '.join(result[1:])}",
+          flush=True)
+    print(f"[stage2] ({smi}) peak device memory: training {train_peak:.2f} GiB, eval "
+          f"{eval_peak:.2f} GiB; launches a step {expected}", flush=True)
+    for key, count in sorted(shapes.items()):
+        print(f"[stage2]   {key[0]} {list(key[1])} {key[2]}: {count}", flush=True)
+    return launches, shapes
+
+
+def coop_trainer(torch, n_cls, device, dtype):
+    """CoOp at ViT-B/16 full width with OVMR†'s yaml (seeded random towers,
+    n_ctx 16, sgd) over ``n_cls`` class names, built as ``build_trainer``
+    builds it but with no data manager, with random ctx and vokens."""
+    from types import SimpleNamespace
+
+    from ovmr_tpu_torch.engine.coop import CoOp
+    from ovmr_tpu_torch.utils import get_cfg_default
+
+    cfg = get_cfg_default()
+    cfg.merge_from_file(str(ROOT / STAGE2_YAML))
+    cfg.merge_from_list(["CUDA.DEVICE", device, "CUDA.DTYPE", dtype, "SEED", "1"])
+    trainer = CoOp.__new__(CoOp)
+    trainer.cfg = cfg
+    names = [f"{VOCAB[i % len(VOCAB)]} {i}" for i in range(n_cls)]
+    trainer.dm = SimpleNamespace(dataset=SimpleNamespace(classnames=names))
+    trainer.build_model()
+    gen = torch.Generator().manual_seed(11)
+    width = trainer.clip_cfg.transformer_width
+    trainer.visual_tokens = (0.02 * torch.randn(n_cls, 2, width, generator=gen)).to(trainer.device)
+    with torch.no_grad():
+        trainer.params["ctx"].copy_(0.02 * torch.randn(trainer.params["ctx"].shape, generator=gen))
+    return trainer
+
+
+def imagenet_stage2_steps(torch):
+    """CoOp's step at ImageNet's 1000 classes, where it trains one prompt a
+    step, timed directly: a warm-up of each prompt, then three timed steps of
+    each (batch 1, bf16), each with exact launches. Returns the launches and
+    launches by shape over the timed steps."""
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    t = time.perf_counter()
+    trainer = coop_trainer(torch, IMAGENET_CLASSES, "cuda", "bfloat16")
+    print(f"[stage2-1000] CoOp over {IMAGENET_CLASSES} classes ready in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    images = torch.randn(1, 3, 224, 224, generator=gen, device="cuda").to(torch.bfloat16)
+    labels = torch.tensor([417], device="cuda")
+    expected = coop_step_launches(tclip.VIT_B16, 1)
+    for ind in range(3):
+        trainer.train_step(images, labels, ind)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, shapes, walls = {k: 0 for k in cuda_lib.LAUNCHES}, {}, {0: [], 1: [], 2: []}
+    for i in range(9):
+        ind = i % 3
+        cuda_lib.reset_launches()
+        t = time.perf_counter()
+        loss, _ = trainer.train_step(images, labels, ind)
+        torch.cuda.synchronize()
+        walls[ind].append((time.perf_counter() - t) * 1e3)
+        got = dict(cuda_lib.LAUNCHES)
+        if got != expected or not math.isfinite(float(loss)):
+            raise AssertionError(f"1000-class step {i}: launches {got}, loss {float(loss)}")
+        for key, n in got.items():
+            launches[key] += n
+        for key, n in cuda_lib.LAUNCH_SHAPES.items():
+            shapes[key] = shapes.get(key, 0) + n
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    smi = nvidia_smi_line()
+    print(f"[stage2-1000] ({smi}) one-prompt step at {IMAGENET_CLASSES} classes, batch 1: "
+          + "; ".join(f"{('mm', 'v', 't')[k]} {', '.join(f'{w:.1f}' for w in v)} ms"
+                      for k, v in walls.items())
+          + f"; peak {peak:.2f} GiB; launches a step {expected}", flush=True)
+    profile_call(torch, f"one CoOp step at {IMAGENET_CLASSES} classes",
+                 lambda: trainer.train_step(images, labels, 0))
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, shapes
+
+
+def fp32_coop_step(torch):
+    """One fp32 CoOp step at ViT-B/16 over 4 classes (three prompts, batch
+    1) on the card and on the CPU from the same ctx, vokens and image: the
+    loss within 1e-4 and the ctx gradient within 1e-4 of its scale."""
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    image = torch.randn(1, 3, 224, 224, generator=torch.Generator().manual_seed(13))
+    labels = torch.tensor([2])
+    results = {}
+    for device in ("cuda", "cpu"):
+        trainer = coop_trainer(torch, 4, device, "float32")
+        ctx = trainer.params["ctx"]
+        step = trainer.optimizer.step
+        grads = []
+        trainer.optimizer.step = lambda: (grads.append(ctx.grad.detach().cpu()), step())
+        cuda_lib.reset_launches()
+        t = time.perf_counter()
+        loss, _ = trainer.train_step(image.to(device), labels.to(device), 0)
+        loss = float(loss)
+        print(f"[fp32-coop] {device}: one step {time.perf_counter() - t:.2f} s, loss {loss:.6f}",
+              flush=True)
+        if device == "cuda":
+            want = dict(coop_step_launches(trainer.clip_cfg, 3), gemm_wgmma=0,
+                        attn_bwd_core_short=0, attn_bwd_core_tiled=36)
+            if dict(cuda_lib.LAUNCHES) != want:
+                raise AssertionError(f"fp32 CoOp step: launches {dict(cuda_lib.LAUNCHES)}, "
+                                     f"expected {want}")
+        results[device] = (loss, grads[0])
+        del trainer
+    (g_loss, g_grad), (c_loss, c_grad) = results["cuda"], results["cpu"]
+    scale = max(float(c_grad.abs().max()), 1e-12)
+    rel = float((g_grad - c_grad).abs().max()) / scale
+    print(f"[fp32-coop] card vs CPU: loss {abs(g_loss - c_loss):.3g} (tol 1e-4), ctx gradient "
+          f"{rel:.3g} of its scale (tol 1e-4)", flush=True)
+    if not (abs(g_loss - c_loss) <= 1e-4 and rel <= 1e-4):
+        raise AssertionError(f"fp32 CoOp step: loss {g_loss} vs {c_loss}, gradient {rel}")
+    return abs(g_loss - c_loss), rel
+
+
+def stage2_phase(torch, np, work):
+    """Phase 14: the stage-2 runs, the 1000-class step and the fp32 check.
+    Returns the launches of the entry-point runs and of the timed 1000-class
+    steps, each with their launches by shape."""
+    runs = stage2_runs(torch, np, work)
+    torch.cuda.empty_cache()
+    imagenet = imagenet_stage2_steps(torch)
+    fp32_coop_step(torch)
+    return runs, imagenet
+
+
+# ---------------------------------------------------------------------------
+# phase 15: zero-shot, clip_compat and the infer CLI
+# ---------------------------------------------------------------------------
+
+ZS_TEST_BATCH = 100  # the stage-2 yaml's test batch, so phase 2's vision-100 rows hold
+
+
+def infer_runs(work):
+    """``python -m ovmr_tpu_torch.infer`` as three processes at once over 32
+    of phase 12's PNGs with phase 12's ``mm_classifiers.pt``: on the card in
+    bf16 (the default), on the card in fp32, on the CPU in fp32. The fp32
+    runs' top-5 labels must be equal and their scores within 1e-4."""
+    data = work / "data" / "synthetic" / f"c{TRAINER_CLASSES}_n16_s224"
+    args = [str(data / "000"), str(data / "001"), "--classifiers",
+            str(work / "trainer" / "eval_out" / "mm_classifiers.pt"), "--clip", "ViT-B/16"]
+    runs = {"cuda-bf16": [], "cuda-fp32": ["--dtype", "float32"],
+            "cpu-fp32": ["--device", "cpu", "--dtype", "float32"]}
+    t = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-m", "ovmr_tpu_torch.infer"] + args + extra,
+                                    cwd=str(ROOT), stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, extra in runs.items()}
+    lines = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"infer {name} exited {proc.returncode}: {stderr[-2000:]}")
+        lines[name] = [json.loads(x) for x in stdout.splitlines() if x.startswith("{")]
+        if len(lines[name]) != 32:
+            raise AssertionError(f"infer {name}: {len(lines[name])} lines, not 32")
+        for row in lines[name]:
+            scores = [p["score"] for p in row["predictions"]]
+            if len(scores) != 5 or not all(math.isfinite(x) for x in scores):
+                raise AssertionError(f"infer {name}: {row}")
+    wall = time.perf_counter() - t
+    card, cpu, bf16 = lines["cuda-fp32"], lines["cpu-fp32"], lines["cuda-bf16"]
+    err = 0.0
+    for a, b in zip(card, cpu):
+        if a["image"] != b["image"] or [p["label"] for p in a["predictions"]] != [
+                p["label"] for p in b["predictions"]]:
+            raise AssertionError(f"infer top-5 on the card {a} differs from the CPU's {b}")
+        err = max(err, max(abs(p["score"] - q["score"])
+                           for p, q in zip(a["predictions"], b["predictions"])))
+    if err > 1e-4:
+        raise AssertionError(f"infer scores card vs CPU differ by {err}")
+    top1 = sum(a["predictions"][0]["label"] == b["predictions"][0]["label"]
+               for a, b in zip(bf16, cpu))
+    print(f"[infer] three processes in {wall:.1f} s: fp32 card vs CPU the same top-5 labels for "
+          f"all 32 images, scores within {err:.3g} (tol 1e-4); bf16 card top-1 equal to the "
+          f"fp32 CPU's for {top1} of 32", flush=True)
+
+
+def zeroshot_phase(torch, np, work):
+    """Phase 15: ``ZeroshotCLIP2`` through ``ovmr_tpu_torch.train.main`` over
+    phase 12's 192 classes (7 SELECT templates + the custom one, then the
+    test pass), ``clip_compat.load("ViT-B/16")`` in smoke mode (a bf16
+    contrastive forward of 100 preprocessed PNGs x 192 prompts with exact
+    launches; fp32 logits card vs CPU within 1e-4) and the infer CLI.
+    Returns the launches of the zero-shot run and those of the bf16
+    clip_compat forward, each with launches by shape and each read with the
+    counts zeroed just before."""
+    import os
+
+    from PIL import Image
+
+    from ovmr_tpu_torch import clip_compat
+    from ovmr_tpu_torch import train as entry
+    from ovmr_tpu_torch.engine import zsclip
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    cfg = tclip.VIT_B16
+    n_test = TRAINER_CLASSES * 4
+    out = work / "zeroshot"
+    argv = ["--root", str(work / "data"), "--seed", "1", "--trainer", "ZeroshotCLIP2",
+            "--output-dir", str(out), "DATASET.NAME", "Synthetic", "DATASET.NUM_SHOTS",
+            str(STAGE2_SHOTS), "MODEL.BACKBONE.NAME", "ViT-B/16", "INPUT.SIZE", "(224, 224)",
+            "INPUT.INTERPOLATION", "bicubic", "INPUT.TRANSFORMS", "['normalize']",
+            "DATALOADER.TEST.BATCH_SIZE", str(ZS_TEST_BATCH), "DATALOADER.NUM_WORKERS", "8",
+            "CUDA.DTYPE", "bfloat16", "CUDA.DEVICE", "cuda"]
+    rec = Recorder(torch)
+    rec.wrap(zsclip.ZeroshotCLIP, "build_model")
+    rec.wrap(zsclip.ZeroshotCLIP, "test")
+    os.environ["OVMR_SYNTHETIC"] = f"{TRAINER_CLASSES},16,224"
+    try:
+        cuda_lib.reset_launches()
+        t = time.perf_counter()
+        trainer = run_entry(entry.build_parser(), entry, argv)
+        zs_s = time.perf_counter() - t
+    finally:
+        rec.restore()
+        os.environ.pop("OVMR_SYNTHETIC")
+    templates = trainer.get_templates()
+    if type(trainer) is not zsclip.ZeroshotCLIP2 or len(templates) != 8:
+        raise AssertionError(f"zero-shot: {type(trainer).__name__} with {len(templates)} templates")
+    if trainer.text_classifier.shape != (TRAINER_CLASSES, cfg.embed_dim):
+        raise AssertionError(f"zero-shot text classifier {trainer.text_classifier.shape}")
+    batches = -(-n_test // ZS_TEST_BATCH)
+    text, vision = len(templates) * cfg.transformer_layers, batches * cfg.vision_layers
+    want = {"fused_attn_half": vision, "fused_attn_half_masked": text,
+            "fused_mlp_half": vision + text, "attn_core": vision + text}
+    got = {k: cuda_lib.LAUNCHES[k] for k in want}
+    if got != want:
+        raise AssertionError(f"zero-shot launches {got}, expected {want}")
+    log = (out / "log.txt").read_text()
+    result = log[log.index("=> result"):].splitlines()[:6] if "=> result" in log else []
+    if f"* total: {n_test:,}" not in result or "running test()" not in log:
+        raise AssertionError(f"the zero-shot run did not test {n_test} images: {result}")
+    zeroshot = dict(cuda_lib.LAUNCHES), dict(cuda_lib.LAUNCH_SHAPES)
+    del trainer
+
+    # clip_compat: the bf16 forward on the main path (towers random from seed 0)
+    data = work / "data" / "synthetic" / f"c{TRAINER_CLASSES}_n16_s224"
+    pngs = [data / f"{c:03d}" / f"{i:04d}.png" for c in range(25) for i in range(4)]
+    names = [f"a photo of a {VOCAB[i % len(VOCAB)]} {i}." for i in range(TRAINER_CLASSES)]
+    os.environ.pop("OVMR_CLIP_CKPT", None)
+    t = time.perf_counter()
+    model, preprocess = clip_compat.load("ViT-B/16")
+    load_s = time.perf_counter() - t
+    images = np.stack([preprocess(Image.open(p)) for p in pngs])
+    tokens = clip_compat.tokenize(names)
+    cuda_lib.reset_launches()
+    t = time.perf_counter()
+    lpi, lpt = model(images, tokens)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t) * 1e3
+    if (tuple(lpi.shape) != (100, TRAINER_CLASSES) or not torch.equal(lpi.T, lpt)
+            or not bool(torch.isfinite(lpi).all()) or model.dtype != torch.bfloat16):
+        raise AssertionError(f"clip_compat bf16 logits {tuple(lpi.shape)} {lpi.dtype}")
+    compat = dict(cuda_lib.LAUNCHES), dict(cuda_lib.LAUNCH_SHAPES)
+    # each tower once: K1 (K1-causal for the text) and K2 a layer, one
+    # attention core inside each K1 and two wgmma GEMMs inside each K1 and K2
+    v, tl = cfg.vision_layers, cfg.transformer_layers
+    vision, text = (len(pngs), cfg.num_patches + 1, cfg.vision_width), (
+        TRAINER_CLASSES, cfg.context_length, cfg.transformer_width)
+    want_shapes = {
+        ("fused_attn_half", vision, "bfloat16"): v,
+        ("attn_core", vision + (cfg.vision_heads,), "bfloat16"): v,
+        ("fused_mlp_half", vision, "bfloat16"): v,
+        ("fused_attn_half_masked", text, "bfloat16"): tl,
+        ("attn_core", text + (cfg.transformer_heads,), "bfloat16"): tl,
+        ("fused_mlp_half", text, "bfloat16"): tl,
+    }
+    want = {k: 0 for k in compat[0]}
+    want.update(fused_attn_half=v, fused_attn_half_masked=tl, attn_core=v + tl,
+                fused_mlp_half=v + tl, gemm_wgmma=4 * (v + tl))
+    if compat != (want, want_shapes):
+        raise AssertionError(f"clip_compat forward: launches {compat[0]} by shape {compat[1]}, "
+                             f"expected {want} by shape {want_shapes}")
+    del model
+    # fp32 on the card against the CPU, 2 images x 4 prompts
+    logits = {}
+    for device in ("cuda", "cpu"):
+        m, _ = clip_compat.load("ViT-B/16", dtype=torch.float32, device=device)
+        logits[device] = (m(images[:2], tokens[:4])[0].cpu(),
+                          m.encode_image(images[:2]).float().cpu())
+        del m
+    err = float((logits["cuda"][0] - logits["cpu"][0]).abs().max())
+    ferr = float((logits["cuda"][1] - logits["cpu"][1]).abs().max())
+    smi = nvidia_smi_line()
+    print(f"[zeroshot] ({smi}) ZeroshotCLIP2 through the entry point: {zs_s:.1f} s (classifier "
+          f"of {len(templates)} templates x {TRAINER_CLASSES} classes "
+          f"{rec.times['build_model'][0]:.2f} s, test {rec.times['test'][0]:.2f} s over {n_test} "
+          f"images); {' '.join(result[1:3])}", flush=True)
+    print(f"[clip_compat] ({smi}) load('ViT-B/16') {load_s:.1f} s; bf16 forward of 100 images x "
+          f"{TRAINER_CLASSES} prompts {fwd_ms:.1f} ms (first call), exact launches {want}; "
+          f"fp32 card vs CPU logits {err:.3g} (tol 1e-4), image features {ferr:.3g}", flush=True)
+    if not err <= 1e-4:
+        raise AssertionError(f"clip_compat fp32 logits card vs CPU differ by {err}")
+    infer_runs(work)
+    return zeroshot, compat
+
+
 def main() -> int:
     if not (ROOT / "ovmr_tpu_torch").is_dir():
         print("chip_smoke: the ovmr_tpu_torch package is not beside this script",
@@ -2154,14 +2682,28 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["trainer_augs"] = augs_trainer_phase(torch, np, work)
         all_checked("trainer_augs", paths["trainer_augs"][1])
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        paths["stage2"], paths["stage2_imagenet"] = stage2_phase(torch, np, work)
+        all_checked("stage2", paths["stage2"][1])
+        all_checked("stage2_imagenet", paths["stage2_imagenet"][1])
+        print(f"[stage2] phase 14 in {time.perf_counter() - t:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        paths["zeroshot"], paths["clip_compat"] = zeroshot_phase(torch, np, work)
+        all_checked("zeroshot", paths["zeroshot"][1])
+        all_checked("clip_compat", paths["clip_compat"][1])
+        print(f"[zeroshot] phase 15 in {time.perf_counter() - t:.1f} s", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     for entry in kernels:
         # launches: the wrapper's count over the three ViT-B/16 requests +
         # classify, the three timed training steps, the two ViT-L/14@336px
-        # requests + classify, the two on a model axis of 2 + classify, and
-        # phase 12's and phase 13's three trainer runs each (each read with
+        # requests + classify, the two on a model axis of 2 + classify,
+        # phase 12's and phase 13's three trainer runs each, phase 14's three
+        # stage-2 runs and its nine timed 1000-class steps, and phase 15's
+        # zero-shot run and its bf16 clip_compat forward (each read with
         # the counts zeroed just before); launches_at_shape:
         # those at this entry's shape and dtype
         key = entry.pop("shape_key")

@@ -138,7 +138,7 @@ class DataManager:
             if value:
                 raise NotImplementedError(
                     f"{key} True is not ported yet (ROADMAP Queue 1: "
-                    "data/multires.py in item 1b', the Dassl loaders in item 7)"
+                    "data/multires.py in item 1b' (iii), the Dassl loaders in item 7)"
                 )
         self.dataset = dataset if dataset is not None else build_dataset(cfg)
 

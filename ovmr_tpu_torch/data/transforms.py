@@ -4,7 +4,8 @@ The port's copy of ``ovmr_tpu/data/transforms.py``. PIL is imported inside
 the functions that use it, so importing this module loads no PIL; the
 resampling filters are PIL's integer codes (``Image.Resampling``). The
 policy choices (``*_policy``, ``randaugment*``, ``augmix``) need the JAX
-package's ``data/autoaugment.py``, which is not ported yet: they raise.
+package's ``data/autoaugment.py``, which is not ported yet (it comes with
+the Dassl families, whose configs alone use them): they raise.
 
 Same pipeline contract as the reference transform factory
 (``dassl/data/transforms/transforms.py:213-239, 244-371, 495-526``):
@@ -289,7 +290,7 @@ def _refuse_policy_stages(choices) -> None:
     if needed:
         raise NotImplementedError(
             f"transform choices {needed} need data/autoaugment.py, which is not ported yet "
-            "(ROADMAP Queue 1 item 1b')"
+            "(ROADMAP Queue 1 item 7: only the Dassl configs use them)"
         )
 
 

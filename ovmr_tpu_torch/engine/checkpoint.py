@@ -12,11 +12,13 @@ Counterpart of ``ovmr_tpu/engine/checkpoint.py``:
   ``save_torch_checkpoint`` :302 (``model.pth.tar-N``).
 
 The optimizer state lives in the ``torch.optim`` optimizer. For ``adam``
-(the flagship recipe) its ``opt//...`` keys are the JAX package's optax
-layout, with torch's ``exp_avg``, ``exp_avg_sq`` and ``step`` as optax's
-``mu``, ``nu`` and ``count``, so either package resumes the other's
-checkpoint. Every other optimizer writes torch's own state under
-``opt//.torch.<kind>//...`` and refuses a layout written by another. The
+(the flagship recipe), ``radam`` and ``custom_adam`` its ``opt//...`` keys
+are the JAX package's optax layout, with torch's ``exp_avg``, ``exp_avg_sq``
+and ``step`` as optax's ``mu``, ``nu`` and ``count``; for ``sgd`` (CoOp's
+recipe) torch's ``momentum_buffer`` is ``optax.trace``'s ``trace``. So
+either package resumes the other's checkpoint. ``amsgrad``, ``adamw``,
+``rmsprop`` and staged learning rates write torch's own state under
+``opt//.torch.<kind>//...`` and refuse a layout written by another. The
 orbax backend of the JAX package is not ported.
 """
 
@@ -24,11 +26,12 @@ from __future__ import annotations
 
 import os
 import os.path as osp
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ovmr_tpu_torch.engine.optimizers import SGD, CustomAdam, RAdam
 from ovmr_tpu_torch.models.import_torch import TORCH_BLOCK_KEYS
 
 
@@ -122,12 +125,33 @@ def _unflatten_like(template: dict, flat: Dict[str, np.ndarray], prefix: str = "
     return out
 
 
-def _is_optax_adam(optimizer: torch.optim.Optimizer) -> bool:
-    """``torch.optim.Adam`` as the ``adam`` of ``build_optimizer`` makes it:
-    L2 decay, no amsgrad, one param group."""
+def _optax_layout(optimizer: torch.optim.Optimizer) -> Optional[Tuple[str, Dict[str, str]]]:
+    """Where the JAX package's optax layout holds this optimizer's state:
+    ``(prefix of the chain entry, {optax field: torch state name})``, with
+    ``"count"`` the entry's own step count; None for an optimizer whose
+    state keeps torch's layout (amsgrad, adamw, rmsprop, staged groups).
+
+    ``build_optimizer`` chains ``add_decayed_weights`` (stateless) first
+    where the decay is > 0, so adam's and sgd's state is the chain's second
+    entry with a decay and its first without; radam and custom_adam take the
+    decay inside their one stateful entry."""
+    if len(optimizer.param_groups) != 1:
+        return None
     group = optimizer.param_groups[0]
-    return (type(optimizer) is torch.optim.Adam and len(optimizer.param_groups) == 1
-            and not group["amsgrad"] and not group.get("decoupled_weight_decay", False))
+    decayed = 1 if group["weight_decay"] > 0 else 0
+    moments = {"count": "step", "mu": "exp_avg", "nu": "exp_avg_sq"}
+    kind = type(optimizer)
+    if (kind is torch.optim.Adam and not group["amsgrad"]
+            and not group.get("decoupled_weight_decay", False)):
+        return f".inner_state{SEP}{decayed}", moments
+    if kind in (RAdam, CustomAdam):
+        return f".inner_state{SEP}0", moments
+    if kind is SGD:
+        # optax.trace's state is torch's momentum buffer; without momentum
+        # the chain holds no state but its count
+        return f".inner_state{SEP}{decayed}", ({"trace": "momentum_buffer"}
+                                               if group["momentum"] > 0 else {})
+    return None
 
 
 def _torch_kind(optimizer: torch.optim.Optimizer) -> str:
@@ -135,30 +159,26 @@ def _torch_kind(optimizer: torch.optim.Optimizer) -> str:
     return kind + "-amsgrad" if optimizer.param_groups[0].get("amsgrad") else kind
 
 
-def _adam_inner(optimizer: torch.optim.Optimizer) -> str:
-    # optax.chain(add_decayed_weights, scale_by_adam, scale): the adam
-    # state is the chain's second entry with a decay, its first without
-    return f".inner_state{SEP}{1 if optimizer.param_groups[0]['weight_decay'] > 0 else 0}"
-
-
 def optimizer_state_arrays(optimizer: torch.optim.Optimizer, params: dict) -> Dict[str, np.ndarray]:
     """The optimizer's state as the ``opt//`` entries of a checkpoint (numpy
     copies, so later steps do not change them)."""
     named = named_leaves(params)
-    if _is_optax_adam(optimizer):
-        inner = _adam_inner(optimizer)
-        steps = [float(optimizer.state[p]["step"]) for _, p in named if p in optimizer.state]
+    layout = _optax_layout(optimizer)
+    if layout is not None:
+        inner, fields = layout
+        steps = [float(optimizer.state[p]["step"]) for _, p in named
+                 if "step" in optimizer.state.get(p, {})]
         count = np.asarray(int(steps[0]) if steps else 0, np.int32)
-        out = {
-            ".count": count,
-            f".hyperparams{SEP}lr": np.asarray(optimizer.param_groups[0]["lr"], np.float32),
-            f"{inner}{SEP}.count": count,
-        }
-        for key, p in named:
-            state = optimizer.state.get(p, {})
-            for ours, theirs in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-                value = state.get(theirs, torch.zeros_like(p))
-                out[f"{inner}{SEP}.{ours}{SEP}{key}"] = _fp32_cpu(value).numpy().copy()
+        out = {".count": count,
+               f".hyperparams{SEP}lr": np.asarray(optimizer.param_groups[0]["lr"], np.float32)}
+        for ours, theirs in fields.items():
+            if ours == "count":
+                out[f"{inner}{SEP}.count"] = count
+                continue
+            for key, p in named:
+                value = optimizer.state.get(p, {}).get(theirs)
+                out[f"{inner}{SEP}.{ours}{SEP}{key}"] = _fp32_cpu(
+                    torch.zeros_like(p) if value is None else value).numpy().copy()
         return out
     kind = _torch_kind(optimizer)
     out = {}
@@ -174,24 +194,28 @@ def load_optimizer_state(optimizer: torch.optim.Optimizer, params: dict,
     """Restore the optimizer from a checkpoint's ``opt//`` entries (keys
     without the ``opt//`` prefix); a layout another optimizer wrote raises."""
     named = named_leaves(params)
-    index = {id(p): i for i, p in enumerate(optimizer.param_groups[0]["params"])}
+    # torch numbers the parameters of all groups in order
+    ordered = [p for group in optimizer.param_groups for p in group["params"]]
+    index = {id(p): i for i, p in enumerate(ordered)}
     state = {}
-    if _is_optax_adam(optimizer):
-        inner = _adam_inner(optimizer)
-        want = {".count", f".hyperparams{SEP}lr", f"{inner}{SEP}.count"} | {
-            f"{inner}{SEP}.{m}{SEP}{key}" for key, _ in named for m in ("mu", "nu")}
+    layout = _optax_layout(optimizer)
+    if layout is not None:
+        inner, fields = layout
+        want = {".count", f".hyperparams{SEP}lr"}
+        for ours in fields:
+            want |= ({f"{inner}{SEP}.count"} if ours == "count" else
+                     {f"{inner}{SEP}.{ours}{SEP}{key}" for key, _ in named})
         if set(flat) != want:
+            kind = type(optimizer).__name__
             raise ValueError(
-                "the checkpoint's optimizer state is not adam's optax layout for these "
-                f"parameters and this weight decay (expected {sorted(want)[:3]}..., found "
-                f"{sorted(flat)[:3]}...)")
-        step = torch.tensor(float(flat[f"{inner}{SEP}.count"]), dtype=torch.float32)
+                f"the checkpoint's optimizer state was not written by {kind} with these "
+                f"parameters and this weight decay: it is not that optax layout (expected "
+                f"{sorted(want)[:3]}..., found {sorted(flat)[:3]}...)")
+        step = torch.tensor(float(flat[".count"]), dtype=torch.float32)
         for key, p in named:
-            state[index[id(p)]] = {
-                "step": step.clone(),
-                "exp_avg": torch.as_tensor(flat[f"{inner}{SEP}.mu{SEP}{key}"]),
-                "exp_avg_sq": torch.as_tensor(flat[f"{inner}{SEP}.nu{SEP}{key}"]),
-            }
+            state[index[id(p)]] = {"step": step.clone()} | {
+                theirs: torch.as_tensor(flat[f"{inner}{SEP}.{ours}{SEP}{key}"])
+                for ours, theirs in fields.items() if ours != "count"}
     else:
         prefix = f".torch.{_torch_kind(optimizer)}{SEP}"
         foreign = [k for k in flat if not k.startswith(prefix)]
@@ -246,12 +270,14 @@ def load_checkpoint(
     params_template: dict,
     epoch: Optional[int] = None,
     prefer: str = "best",
+    torch_converter: Optional[Callable[[str], Tuple[dict, int]]] = None,
 ) -> Tuple[dict, Optional[Dict[str, np.ndarray]], int]:
     """Load by explicit epoch; else prefer ``model-best`` then the pointer
     file — the reference's ``load_model`` defaults to the best model
     (``mm_…:470-476``); its resume path follows the pointer only
     (``torchtools.py:118-157`` — pass ``prefer="pointer"``). Native npz and
     reference ``model.pth.tar`` files both load (the latter through
+    ``torch_converter``, a path -> ``(params, epoch)`` function; by default
     :func:`ovmr_tpu_torch.models.import_torch.load_prompt_learner`).
     Returns ``(params on the CPU in the template's dtypes, the opt//
     entries without their prefix or None, epoch)``."""
@@ -273,9 +299,11 @@ def load_checkpoint(
     if path is None:
         raise FileNotFoundError(f'Model not found under "{subdir}" (tried {candidates})')
     if not path.endswith(".npz"):
-        from ovmr_tpu_torch.models.import_torch import load_prompt_learner
+        if torch_converter is None:
+            from ovmr_tpu_torch.models.import_torch import load_prompt_learner
 
-        params, ep = load_prompt_learner(path)
+            torch_converter = load_prompt_learner
+        params, ep = torch_converter(path)
         return params, None, ep
 
     with np.load(path) as data:

@@ -3,7 +3,9 @@
 Counterpart of ``ovmr_tpu/engine/trainer.py`` (reference
 ``dassl/engine/trainer.py`` + ``trainers/mm_classifier_one_prompt.py``):
 
-- :data:`TRAINER_REGISTRY`, :func:`build_trainer` (``:48``),
+- :data:`TRAINER_REGISTRY`, :func:`build_trainer` (``:48``; it also
+  reaches ``CoOp``/``MM_CLS`` of :mod:`ovmr_tpu_torch.engine.coop` and the
+  zero-shot trainers of :mod:`ovmr_tpu_torch.engine.zsclip`),
   :func:`load_or_init_clip` (``:61``), :func:`collect_exemplar_features`
   (``:81``);
 - :class:`TrainerBase` (``:384``): epoch loop, checkpoint cadence,
@@ -219,6 +221,9 @@ def mm_generate_classifiers(
 # --------------------------------------------------------------------------
 
 def build_trainer(cfg):
+    # the trainers of other modules register themselves when imported
+    from ovmr_tpu_torch.engine import coop, zsclip  # noqa: F401
+
     return TRAINER_REGISTRY.get(cfg.TRAINER.NAME)(cfg)
 
 
@@ -366,10 +371,11 @@ class TrainerBase:
             if prof is not None:
                 if torch.cuda.is_available():
                     torch.cuda.synchronize()
+                epoch_s = time.perf_counter() - t  # the epoch's, without the export
                 prof.stop()
                 os.makedirs(profile_dir, exist_ok=True)
                 prof.export_chrome_trace(osp.join(profile_dir, f"epoch-{self.epoch + 1}.json"))
-                self.epoch_profile = (prof, time.perf_counter() - t)
+                self.epoch_profile = (prof, epoch_s)
         self.after_train()
 
     def before_train(self):

@@ -14,8 +14,8 @@ VisionTransformer and CLIP.encode_text):
 - activations are batch-major ``[B, L, D]``; weights right-multiply
   (``x @ W``, W stored ``[in, out]``).
 
-Only the ViT towers are in this package yet; ResNet towers and
-``clip_forward`` stay in the JAX package.
+Only the ViT towers are in this package yet; ResNet towers stay in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 from ovmr_tpu_torch.ops.block_fused import fused_residual_block
-from ovmr_tpu_torch.ops.layers import causal_mask, layer_norm, matmul_f32
+from ovmr_tpu_torch.ops.layers import causal_mask, l2_normalize, layer_norm, matmul_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,6 +328,21 @@ def encode_text_embeds(
 def embed_tokens(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """Token-embedding lookup [B, L] -> [B, L, D]."""
     return params["text"]["token_embedding"][tokens.long()]
+
+
+def clip_forward(params: dict, cfg: CLIPConfig, images: torch.Tensor, tokens: torch.Tensor,
+                 block_fn=fused_residual_block, out_dtype=None):
+    """Contrastive forward (reference ``clip/model.py:835-849``): returns
+    (logits_per_image [B, N], logits_per_text [N, B]) in the towers' dtype,
+    or in ``out_dtype`` where given (the normalised features are cast to it
+    before the product)."""
+    img = l2_normalize(encode_image(params, cfg, images, block_fn=block_fn))
+    txt = l2_normalize(encode_text(params, cfg, tokens, block_fn=block_fn))
+    if out_dtype is not None:
+        img, txt = img.to(out_dtype), txt.to(out_dtype)
+    scale = params["logit_scale"].exp().to(img.dtype)
+    logits_per_image = scale * img @ txt.T
+    return logits_per_image, logits_per_image.T
 
 
 def cast_params(params: dict, dtype) -> dict:

@@ -25,6 +25,11 @@ _FILES = {
 }
 
 
+def available_models():
+    """The published model names (reference ``clip.available_models``)."""
+    return list(_FILES)
+
+
 def resolve(name: str, root: Optional[str] = None) -> Optional[str]:
     """Local path of checkpoint ``name`` ($OVMR_CLIP_CKPT, then the cache
     file), or None when neither exists (the caller decides the fallback)."""

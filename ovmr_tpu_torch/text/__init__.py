@@ -1,5 +1,6 @@
 from .tokenizer import ClipTokenizer, get_tokenizer
 from .tokenize_fn import CONTEXT_LENGTH, eot_indices, tokenize
+from .templates import CUSTOM_TEMPLATES, IMAGENET_TEMPLATES, IMAGENET_TEMPLATES_SELECT
 
 __all__ = [
     "ClipTokenizer",
@@ -7,4 +8,7 @@ __all__ = [
     "tokenize",
     "eot_indices",
     "CONTEXT_LENGTH",
+    "CUSTOM_TEMPLATES",
+    "IMAGENET_TEMPLATES",
+    "IMAGENET_TEMPLATES_SELECT",
 ]

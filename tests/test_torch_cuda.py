@@ -1173,3 +1173,117 @@ def test_preprocess_batch_on_card_matches_cpu(cuda, shape, method):
     torch.cuda.synchronize()
     assert got.device.type == "cuda"
     torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_text_halves_at_the_imagenet_stage2_shape(cuda, dtype):
+    """K1-causal, K2, K3-causal and K4 at CoOp's one-prompt step over
+    ImageNet's 1000 classes (1000 prompts x 77 x 512, 8 heads)."""
+    b, l, d, h = 1000, 77, 512, 8
+    p = _layer(d, dtype, cuda, seed=1000)
+    gen = torch.Generator().manual_seed(1000)
+    x = torch.randn(b, l, d, generator=gen).to(cuda, dtype)
+    g = torch.randn(b, l, d, generator=gen).to(cuda, dtype)
+    mask = causal_mask(l, device=cuda)
+    cuda_lib.reset_launches()
+    a = (x, p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"], p["ln_s"], p["ln_b"])
+    _check(fused_attn_half(*a, mask=mask, n_head=h), fused_attn_half_plain(*a, mask=mask, n_head=h))
+    m = (x, p["c_fc_w"], p["c_fc_b"], p["c_proj_w"], p["c_proj_b"], p["ln_s"], p["ln_b"])
+    _check(fused_mlp_half(*m), fused_mlp_half_plain(*m))
+    a3 = (x, g, p["w_qkv"], p["b_qkv"], p["w_out"], p["ln_s"], p["ln_b"])
+    _check(attn_half_bwd_dx(*a3, mask=mask, n_head=h),
+           attn_half_bwd_dx_plain(*a3, mask=mask, n_head=h))
+    m4 = (x, g, p["c_fc_w"], p["c_fc_b"], p["c_proj_w"], p["ln_s"], p["ln_b"])
+    _check(mlp_half_bwd_dx(*m4), mlp_half_bwd_dx_plain(*m4))
+    for key in ("fused_attn_half_masked", "fused_mlp_half", "attn_half_bwd_dx_masked",
+                "mlp_half_bwd_dx"):
+        assert cuda_lib.LAUNCHES[key] == 1, key
+
+
+@pytest.mark.parametrize("n_cls,prompt_ind", [(4, 0), (401, 1)])
+def test_coop_step_on_card_matches_cpu(cuda, n_cls, prompt_ind):
+    """One fp32 CoOp step at TINY (seeded random towers, zero vokens) on the
+    card and on the CPU from the same ctx and batch: the loss within 1e-4,
+    the ctx gradient within 1e-4 of its scale, and the launches of three
+    prompts (one above 400 classes) exactly."""
+    from ovmr_tpu_torch.engine.coop import CoOp
+    from ovmr_tpu_torch.utils import get_cfg_default
+
+    def build(device):
+        cfg = get_cfg_default()
+        cfg.merge_from_list(["MODEL.BACKBONE.NAME", "TINY", "INPUT.SIZE", "(32, 32)",
+                             "TRAINER.COOP.N_CTX", "4", "OPTIM.NAME", "sgd", "OPTIM.LR", "0.002",
+                             "CUDA.DTYPE", "float32", "CUDA.DEVICE", device, "SEED", "1"])
+        t = CoOp.__new__(CoOp)
+        t.cfg = cfg
+        t.dm = type("DM", (), {"dataset": type("DS", (), {
+            "classnames": [f"class {i}" for i in range(n_cls)]})()})()
+        t.build_model()
+        return t
+
+    card, cpu = build("cuda"), build("cpu")
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randn(2, 3, 32, 32, generator=gen)
+    labels = torch.tensor([1, 3])
+    grads = []
+    for t, dev in ((card, cuda), (cpu, torch.device("cpu"))):
+        ctx = t.params["ctx"]
+        orig = t.optimizer.step
+        t.optimizer.step = lambda orig=orig, ctx=ctx: (grads.append(ctx.grad.detach().cpu()), orig())
+        cuda_lib.reset_launches()
+        loss, _ = t.train_step(images.to(dev), labels.to(dev), prompt_ind)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            prompts = 1 if n_cls > 400 else 3
+            v, tl = card.clip_cfg.vision_layers, card.clip_cfg.transformer_layers
+            want = {"fused_attn_half": v, "fused_attn_half_masked": prompts * tl,
+                    "fused_mlp_half": v + prompts * tl, "attn_half_bwd_dx_masked": prompts * tl,
+                    "mlp_half_bwd_dx": prompts * tl, "attn_half_bwd_dx": 0, "gemm_wgmma": 0}
+            for key, n in want.items():
+                assert cuda_lib.LAUNCHES[key] == n, (key, dict(cuda_lib.LAUNCHES))
+            card_loss = float(loss)
+        else:
+            assert abs(card_loss - float(loss)) <= 1e-4, (card_loss, float(loss))
+    scale = max(float(grads[1].abs().max()), 1e-12)
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-4 * scale
+    torch.testing.assert_close(card.params["ctx"].detach().cpu(), cpu.params["ctx"].detach(),
+                               atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_clip_compat_half_on_card_matches_cpu(cuda, dtype, tmp_path, monkeypatch):
+    """``clip_compat.load("TINY")`` (seeded random towers) in fp16 and bf16:
+    both towers run K1/K2 on the card (exact launches: vision and text
+    layers once each), and the features and fp32 logits agree with the same
+    dtype's plain versions on the CPU within 8 units in the last place at
+    their largest magnitude (two towers of two blocks, each rounding apart;
+    for the logits, the largest they can take, exp(logit_scale))."""
+    from ovmr_tpu_torch import clip_compat
+
+    monkeypatch.delenv("OVMR_CLIP_CKPT", raising=False)
+    card, _ = clip_compat.load("TINY", download_root=str(tmp_path), dtype=dtype, seed=5)
+    cpu, _ = clip_compat.load("TINY", download_root=str(tmp_path), dtype=dtype, seed=5,
+                              device="cpu")
+    images = np.random.default_rng(0).standard_normal((3, 3, 32, 32)).astype(np.float32)
+    tokens = clip_compat.tokenize(["a photo of a cat", "a dog", "a red panda on a tree"])
+    cuda_lib.reset_launches()
+    lpi, _ = card(images, tokens)
+    torch.cuda.synchronize()
+    v, t = card.cfg.vision_layers, card.cfg.transformer_layers
+    want = {"fused_attn_half": v, "fused_attn_half_masked": t, "fused_mlp_half": v + t,
+            "attn_core": v + t, "gemm_wgmma": 4 * (v + t)}
+    assert {k: cuda_lib.LAUNCHES[k] for k in want} == want, dict(cuda_lib.LAUNCHES)
+    bits = MANTISSA[dtype]
+
+    def close(got, ref, peak=None):
+        got, ref = got.float().cpu(), ref.float()
+        peak = max(float(ref.abs().max()), 2.0 ** -10) if peak is None else peak
+        tol = 8.0 * 2.0 ** (math.floor(math.log2(peak)) - bits)
+        err = float((got - ref).abs().max())
+        assert err <= tol, (err, tol)
+
+    close(card.encode_image(images), cpu.encode_image(images))
+    close(card.encode_text(tokens), cpu.encode_text(tokens))
+    ref, _ = cpu(images, tokens)
+    assert lpi.dtype == torch.float32 and bool(torch.isfinite(lpi).all())
+    close(lpi, ref, peak=float(cpu.logit_scale.exp()))
