@@ -42,8 +42,11 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    ``torch.matmul`` as its yardstick. K3's attention-backward
    core alone: the one-launch core at the training text tower's 192 x 77
    (causal) and the query-tiled pair at phase 11's ViT-L/14@336px 32 x 577,
-   with ``torch.autograd.grad`` through SDPA as its yardstick.
-   Beside every K1 and K7 case, the attention core those launch
+   with ``torch.autograd.grad`` through SDPA as its yardstick. The
+   multi-resolution collate's extreme draws (phase 18): K1 and K2 at
+   ViT-B/16's 50 and 3529 tokens (112 x 112 and 672 x 1344), 96 images in
+   bf16 and 4 in fp32; the plain and library versions of 3529 tokens run 7
+   images at a time. Beside every K1 and K7 case, the attention core those launch
    (``attn_core``) alone at the same B, L, width and heads, with SDPA on
    the same q/k/v as its library yardstick. Each case is checked as soon as it
    is built, and timed beside its plain version, one PyTorch library call
@@ -162,6 +165,46 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    three processes at once over 32 of phase 12's PNGs with phase 12's
    ``mm_classifiers.pt``: bf16 on the card, and fp32 on the card and on
    the CPU, whose top-5 labels must be equal (scores within 1e-4).
+16. The ModifiedResNet towers at full width (seeded random, bf16):
+   ``clip_compat.load("RN50")`` (a contrastive forward of 100 of phase 12's
+   PNGs x 192 prompts: K1-causal 12 and K2 12 at 192 x 77 x 512, no vision
+   K1; fp32 logits card vs CPU within 1e-4), ``ZeroshotCLIP2`` at RN50
+   through the entry point (8 templates, exact launches), CoOp at RN50
+   (``configs/trainers/CoOp/vit_b16_c16_ep10_batch1.yaml``, one epoch of
+   192 steps at batch 1 on phase 12's vokens, every step's K1-K4 exact, the
+   fusion eval), ``OVMRGenerator.from_checkpoints("RN101")`` (a warm-up and
+   two requests of 32 x 16 at 224, ``classify()`` of 256 queries: K1-causal
+   72, K2 72, K6 8, no vision K1; the image tower's device time on 512
+   exemplars beside its bound), and an fp32 RN101 request at 2 x 2 card vs
+   CPU (classifiers 1e-4, fusion weights 1e-3, scores 1e-4).
+17. int8 serving: the MM_CLS_OP fusion eval with ``CUDA.INT8 True`` over
+   phase 12's epoch 3 (192 classes) through the entry point, launching no
+   K1/K2 and K6 four times; its classifiers against phase 12's bf16 ones
+   (least row cosine, floor 0.99) and its walls beside phase 12's;
+   ``dense_int8`` at ViT-B/16's four block shapes card vs CPU (int8
+   activations and int32 products equal, output within 1e-6 of scale);
+   an fp32-activation int8 request at 4 x 4: its 192 ``dense_int8`` calls
+   replayed on the CPU from the card's inputs (within 1e-6 of scale), its
+   48 blocks replayed on the CPU from the card's inputs with the products
+   forced to the card's (outputs equal; every quantizer input within 1e-3
+   of a step of the card's, so an activation that rounds otherwise lies on
+   a .5 boundary; the count printed), and the classifiers card vs CPU
+   within 0.9 of int8's own distance from the float towers (max abs and
+   1 - least row cosine).
+18. The multi-resolution collate: phase 12's recipe with
+   ``DATALOADER.MULTI_RES_COLLATE True``, cut to 48 classes x 4 instances
+   (192 images a step), four steps from the seed, each at its drawn shape
+   with exact launches and a finite loss (the drawn (H, W), tokens, step
+   wall, K1 launches at that length and peak memory printed); one drawn
+   batch's fp32 image features (an image pass of 96) card vs CPU within
+   1e-4; the largest draw (672 x 1344, 3529 tokens) at 8 and 24 classes x
+   4, whose peak memory gives the largest batch that fits the card, and one
+   step at nine tenths of that batch. Every step counts to the path. Then
+   every block kernel is held and timed at each shape those steps and the
+   fp32 pass launched that phase 2 did not check (the draws, and the
+   prompt sets' batch of the step's classes, are known only now; at 3529
+   tokens one round of one call each), and the path's launches must all
+   be at checked shapes.
 
 In bf16 every K1, K2 and K8 launches the wgmma GEMM twice, every K5 twice
 a chunk, every K4 twice (its c_fc recompute and GELU' product are one
@@ -181,6 +224,7 @@ from __future__ import annotations
 
 import json
 import math
+import random
 import shutil
 import subprocess
 import sys
@@ -270,6 +314,16 @@ def tolerance(dtype, ref) -> float:
     return 1e-5 * peak
 
 
+def slice_step(b: int, h: int, l: int) -> int:
+    """Images a plain version takes at once so that its fp32 scores
+    ``[step, h, l, l]`` stay within 4 GiB: all ``b`` where they fit, else 64,
+    or fewer where 64 images' do not fit."""
+    per_image = h * l * l * 4
+    if b * per_image <= 2 ** 32:
+        return b
+    return max(1, min(64, 2 ** 32 // per_image))
+
+
 def bound_ms(bytes_moved: float, flops: float, peak: float):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -304,7 +358,9 @@ def kernel_checks(torch, F):
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, std=1.0):
-        return torch.randn(*shape, generator=gen, device="cuda") * std
+        # no second fp32 copy at std 1 (phase 18's largest draws take GiBs)
+        t = torch.randn(*shape, generator=gen, device="cuda")
+        return t if std == 1.0 else t * std
 
     def layer(d):
         return {
@@ -399,7 +455,7 @@ def kernel_checks(torch, F):
         q, k, v = qkv.view(b, l, 3, h, w // h).permute(2, 0, 3, 1, 4)
         lib_mask = None if mask is None else mask.to(dtype)
         pairs = l * (l + 1) // 2 if mask is not None else l * l
-        step = 64 if b * h * l * l * 4 > 2 ** 32 else b
+        step = slice_step(b, h, l)
         check(dict(
             name="attn_core", case=case, dtype=dtype, shape=[b, l, w, h], x=qkv,
             key_shape=(b, l, w, h), source="ovmr_tpu_torch/csrc/block_fused.cu",
@@ -422,38 +478,54 @@ def kernel_checks(torch, F):
     # sets as one batch (not on the path). Training: the image-tower batches
     # of 192 classes x 8 instances at the split points 4, 3 and 5, and the
     # 192 prompts of each set, forward and backward.
-    for case, b, l, d, h, masked, dtypes, bwd in (
-            ("vision-encode", 512, 197, 768, 12, False, both, False),
-            ("vision-classify", 256, 197, 768, 12, False, both, False),
-            ("text-prompts", 32, 77, 512, 8, True, both, False),
-            ("text-3sets", 96, 77, 512, 8, True, both, False),
-            ("vision-train-768", 768, 197, 768, 12, False, both[:1], False),
-            ("vision-train-576", 576, 197, 768, 12, False, both[:1], False),
-            ("vision-train-960", 960, 197, 768, 12, False, both[:1], False),
-            # phase 12's trainer draws its split from [2, 6): 192 x 2 queries
-            # beside 192 x 6 exemplars
-            ("vision-train-384", 384, 197, 768, 12, False, both[:1], False),
-            ("vision-train-1152", 1152, 197, 768, 12, False, both[:1], False),
-            ("text-train", 192, 77, 512, 8, True, both, True),
-            # OVMR† stage 2 (phase 14): the image tower at batch 1 and at the
-            # recipe's test batch of 100 (phase 15's zero-shot and clip_compat
-            # too), and one prompt over ImageNet's 1000 classes, forward and
-            # backward
-            ("vision-stage2-1", 1, 197, 768, 12, False, both[:1], False),
-            ("vision-test-100", 100, 197, 768, 12, False, both[:1], False),
-            ("text-imagenet-1000", 1000, 77, 512, 8, True, both[:1], True),
-            # ViT-L/14@336px serving: the exemplar encode, classify()'s
-            # queries, the fp32 phase's 4 images, one 32-class prompt set
-            ("vitl336-vision-encode", 512, 577, 1024, 16, False, bf16, False),
-            ("vitl336-vision-classify", 256, 577, 1024, 16, False, bf16, False),
-            ("vitl336-vision-fp32", 4, 577, 1024, 16, False, fp32, False),
-            ("vitl336-text-prompts", 32, 77, 768, 12, True, both, False),):
+    block_cases = (
+        ("vision-encode", 512, 197, 768, 12, False, both, False),
+        ("vision-classify", 256, 197, 768, 12, False, both, False),
+        ("text-prompts", 32, 77, 512, 8, True, both, False),
+        ("text-3sets", 96, 77, 512, 8, True, both, False),
+        ("vision-train-768", 768, 197, 768, 12, False, both[:1], False),
+        ("vision-train-576", 576, 197, 768, 12, False, both[:1], False),
+        ("vision-train-960", 960, 197, 768, 12, False, both[:1], False),
+        # phase 12's trainer draws its split from [2, 6): 192 x 2 queries
+        # beside 192 x 6 exemplars
+        ("vision-train-384", 384, 197, 768, 12, False, both[:1], False),
+        ("vision-train-1152", 1152, 197, 768, 12, False, both[:1], False),
+        ("text-train", 192, 77, 512, 8, True, both, True),
+        # OVMR† stage 2 (phase 14): the image tower at batch 1 and at the
+        # recipe's test batch of 100 (phase 15's zero-shot and clip_compat
+        # too), and one prompt over ImageNet's 1000 classes, forward and
+        # backward
+        ("vision-stage2-1", 1, 197, 768, 12, False, both[:1], False),
+        ("vision-test-100", 100, 197, 768, 12, False, both[:1], False),
+        ("text-imagenet-1000", 1000, 77, 512, 8, True, both[:1], True),
+        # ViT-L/14@336px serving: the exemplar encode, classify()'s
+        # queries, the fp32 phase's 4 images, one 32-class prompt set
+        ("vitl336-vision-encode", 512, 577, 1024, 16, False, bf16, False),
+        ("vitl336-vision-classify", 256, 577, 1024, 16, False, bf16, False),
+        ("vitl336-vision-fp32", 4, 577, 1024, 16, False, fp32, False),
+        ("vitl336-text-prompts", 32, 77, 768, 12, True, both, False),
+        # the multi-resolution collate's extreme draws at ViT-B/16: 112 x
+        # 112 (7 x 7 patches + 1 = 50 tokens) and 672 x 1344 (42 x 84 + 1 =
+        # 3529), at an image pass of 96 in bf16 and at 4 images in fp32
+        # (the shapes phase 18 draws are held after its steps, by
+        # ``block_case``)
+        ("multires-50", 96, 50, 768, 12, False, bf16, False),
+        ("multires-50-fp32", 4, 50, 768, 12, False, fp32, False),
+        ("multires-3529", 96, 3529, 768, 12, False, bf16, False),
+        ("multires-3529-fp32", 4, 3529, 768, 12, False, fp32, False),)
+
+    def block_case(case, b, l, d, h, masked, dtypes, bwd, timed=None):
+        """K1 (causal where ``masked``), its attention core and K2 (K5 where
+        the tier says so) at ``[b, l, d]`` with ``h`` heads, each in
+        ``dtypes``, and K3/K4 too where ``bwd``. ``timed`` overrides the
+        reps and rounds that the size picks."""
         p32 = params.setdefault(d, layer(d))
         x32 = randn(b, l, d)
         chunks = mlp_tier_chunks(l, d, 4 * d)  # > 0: this tower's MLP half is K5
         # the plain and library versions run 64 images at a time where the
-        # fp32 scores of the whole batch would take more than 4 GiB
-        step = 64 if b * h * l * l * 4 > 2 ** 32 else b
+        # fp32 scores of the whole batch would take more than 4 GiB, fewer
+        # where 64 images' would (7 at 3529 tokens)
+        step = slice_step(b, h, l)
         g32 = randn(b, l, d) if bwd else None
         mask = causal_mask(l, device="cuda") if masked else None
         name_k1 = "fused_attn_half_masked" if masked else "fused_attn_half"
@@ -463,8 +535,8 @@ def kernel_checks(torch, F):
             it = x.element_size()
             tok = b * l
             peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
-            timing = dict(reps=10 if dtype == torch.bfloat16 and step == b else 3,
-                          rounds=5 if step == b else 3)
+            timing = timed or dict(reps=10 if dtype == torch.bfloat16 and step == b else 3,
+                                   rounds=5 if step == b else 3)
             attn_pairs = l * (l + 1) // 2 if masked else l * l
             a_args = (x, p["w_qkv"], p["b_qkv"], p["w_out"], p["b_out"],
                       p["ln_1_scale"], p["ln_1_bias"])
@@ -546,6 +618,8 @@ def kernel_checks(torch, F):
                 flops=3 * 2 * tok * d * 4 * d,
                 peak=peak, **timing,
             ))
+    for args in block_cases:
+        block_case(*args)
     # the aggregator at embed width 512 (8 heads) and ViT-L's 768 (12 heads);
     # on the fp32 TP check's 2 classes padded to 8, 2 shots + 2 vokens; at
     # phase 12's eval, 192 classes of 8 shots + 2 vokens
@@ -574,7 +648,7 @@ def kernel_checks(torch, F):
     bwd_gemm_cases(torch, randn, check)
     bwd_core_cases(torch, F, randn, check)
     tp_cases(torch, F, randn, check, check_core, sliced, both)
-    return results
+    return results, block_case
 
 
 def vision_bwd_cases(torch, F, randn, check, params, layer, library_attn_half,
@@ -1926,8 +2000,9 @@ def trainer_runs(torch, np, work, tag, data_opts, n_test, wraps=()):
 
 def trainer_phase(torch, np, work):
     """Phase 12: :func:`trainer_runs` over Synthetic (192 classes x 16
-    images at 224 px, 8 shots, written under ``work/data``, which phase 13
-    reads again). Returns the launches and launches by shape."""
+    images at 224 px, 8 shots, written under ``work/data``, which phases
+    13-18 read again). Returns the launches and launches by shape, and the
+    eval's exemplar-encode and generation walls (s)."""
     import importlib.util
     import os
 
@@ -1937,13 +2012,14 @@ def trainer_phase(torch, np, work):
           f"{choices}", flush=True)
     os.environ["OVMR_SYNTHETIC"] = f"{TRAINER_CLASSES},16,224"
     try:
-        launches, shapes, *_ = trainer_runs(
+        launches, shapes, rec, *_ = trainer_runs(
             torch, np, work, "trainer",
             ["INPUT.TRANSFORMS", repr(choices), "DATASET.NAME", "Synthetic",
              "DATASET.NUM_SHOTS", str(TRAINER_SHOTS)], n_test=TRAINER_CLASSES * 4)
     finally:
         os.environ.pop("OVMR_SYNTHETIC", None)
-    return launches, shapes
+    return launches, shapes, (rec.times["collect_exemplar_features"][0],
+                              rec.times["mm_generate_classifiers"][0])
 
 
 # ---------------------------------------------------------------------------
@@ -2111,14 +2187,17 @@ def augs_trainer_phase(torch, np, work):
 # OVMR†'s recipe: ViT-B/16, sgd at lr 0.002, batch 1, n_ctx 16, bf16
 STAGE2_YAML = "configs/trainers/MM_CLS/vit_b16_c16_ep10_batch1.yaml"
 STAGE2_SHOTS = 1
+COOP_YAML = "configs/trainers/CoOp/vit_b16_c16_ep10_batch1.yaml"
 IMAGENET_CLASSES = 1000
 
 
 def coop_step_launches(cfg, prompts):
     """Exact launches of one bf16 CoOp step at batch 1: the image tower once
     (no gradient), and ``prompts`` text-tower passes forward (K1-causal, K2)
-    and backward (K4, K3-causal, each K3 with its one-launch short core)."""
-    v, t = cfg.vision_layers, cfg.transformer_layers * prompts
+    and backward (K4, K3-causal, each K3 with its one-launch short core). A
+    ModifiedResNet image tower is convolutions: it launches none."""
+    v = 0 if cfg.is_resnet else cfg.vision_layers
+    t = cfg.transformer_layers * prompts
     return {
         "fused_attn_half": v, "fused_attn_half_masked": t, "attn_core": v + t,
         "fused_mlp_half": v + t, "fused_mlp_half_chunked": 0,
@@ -2588,6 +2667,760 @@ def zeroshot_phase(torch, np, work):
     return zeroshot, compat
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the ModifiedResNet towers
+# ---------------------------------------------------------------------------
+
+def resnet_work(cfg, batch, itemsize):
+    """FLOPs and bytes of the ModifiedResNet image tower on ``batch`` images
+    at its native resolution: every convolution's 2 Cout Cin k^2 Hout Wout,
+    the attention pool's projections (one query token) and its attention;
+    the weights read once, the images read, the features written."""
+    r, w = cfg.image_resolution, cfg.vision_width
+    flops = weights = 0
+
+    def conv(cin, cout, k, side):
+        nonlocal flops, weights
+        flops += 2 * cout * cin * k * k * side * side
+        weights += cout * cin * k * k
+
+    side = r // 2  # the stem's stride-2 convolution
+    conv(3, w // 2, 3, side)
+    conv(w // 2, w // 2, 3, side)
+    conv(w // 2, w, 3, side)
+    side //= 2  # the stem's average pool
+    inplanes = w
+    for i, n_blocks in enumerate(cfg.vision_layers):
+        planes = w * 2 ** i
+        for b in range(n_blocks):
+            out_side = side // (2 if i > 0 and b == 0 else 1)
+            conv(inplanes, planes, 1, side)
+            conv(planes, planes, 3, side)
+            conv(planes, planes * 4, 1, out_side)  # after the pool
+            if b == 0:
+                conv(inplanes, planes * 4, 1, out_side)  # downsample: pool, then 1 x 1
+            inplanes, side = planes * 4, out_side
+    c, tokens = w * 32, side * side + 1
+    flops += 2 * c * c * (1 + 2 * tokens) + 2 * c * cfg.embed_dim + 4 * tokens * c
+    weights += 3 * c * c + c * cfg.embed_dim + tokens * c
+    moved = (weights + batch * 3 * r * r + batch * cfg.embed_dim) * itemsize
+    return batch * flops, moved
+
+
+def text_launches(cfg, runs, dtype, batch):
+    """Launches by kernel and by shape of ``runs`` bf16 passes of the causal
+    text tower over ``batch`` prompts (K1-causal and K2 a layer, an attention
+    core in each K1, two wgmma GEMMs in each K1 and K2)."""
+    n = runs * cfg.transformer_layers
+    text = (batch, cfg.context_length, cfg.transformer_width)
+    by_name = dict(fused_attn_half_masked=n, fused_mlp_half=n, attn_core=n,
+                   gemm_wgmma=4 * n if dtype == "bfloat16" else 0)
+    by_shape = {("fused_attn_half_masked", text, dtype): n,
+                ("attn_core", text + (cfg.transformer_heads,), dtype): n,
+                ("fused_mlp_half", text, dtype): n}
+    return by_name, by_shape
+
+
+def exact(what, launches, shapes, by_name, by_shape):
+    """Every counted launch of a path is the one expected: by name (the
+    kernels not named ran none) and by shape."""
+    want = {k: 0 for k in launches}
+    want.update(by_name)
+    if launches != want or shapes != by_shape:
+        raise AssertionError(f"{what}: launches {launches} by shape {shapes}, expected {want} "
+                             f"by shape {by_shape}")
+
+
+def resnet_clip_compat(torch, np, work):
+    """``clip_compat.load("RN50")`` in smoke mode: the bf16 contrastive forward
+    of 100 of phase 12's PNGs x 192 prompts (the image tower is convolutions
+    and no K1; the text tower K1-causal and K2 twelve times each), and the
+    fp32 logits of 2 images x 4 prompts on the card against the CPU within
+    1e-4. Returns the bf16 forward's launches and launches by shape."""
+    import os
+
+    from PIL import Image
+
+    from ovmr_tpu_torch import clip_compat
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    data = work / "data" / "synthetic" / f"c{TRAINER_CLASSES}_n16_s224"
+    pngs = [data / f"{c:03d}" / f"{i:04d}.png" for c in range(25) for i in range(4)]
+    names = [f"a photo of a {VOCAB[i % len(VOCAB)]} {i}." for i in range(TRAINER_CLASSES)]
+    os.environ.pop("OVMR_CLIP_CKPT", None)
+    t = time.perf_counter()
+    model, preprocess = clip_compat.load("RN50")
+    load_s = time.perf_counter() - t
+    cfg = model.cfg
+    if not cfg.is_resnet or cfg.vision_layers != (3, 4, 6, 3):
+        raise AssertionError(f"clip_compat.load('RN50') built {cfg}")
+    images = np.stack([preprocess(Image.open(p)) for p in pngs])
+    tokens = clip_compat.tokenize(names)
+    model(images[:4], tokens[:4])  # warm-up: cuDNN's first calls
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t = time.perf_counter()
+    lpi, lpt = model(images, tokens)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t) * 1e3
+    if (tuple(lpi.shape) != (100, TRAINER_CLASSES) or not torch.equal(lpi.T, lpt)
+            or not bool(torch.isfinite(lpi).all())):
+        raise AssertionError(f"RN50 clip_compat logits {tuple(lpi.shape)}")
+    launches, shapes = dict(cuda_lib.LAUNCHES), dict(cuda_lib.LAUNCH_SHAPES)
+    exact("RN50 clip_compat forward", launches, shapes,
+          *text_launches(cfg, 1, "bfloat16", TRAINER_CLASSES))
+    del model
+    logits = {}
+    for device in ("cuda", "cpu"):
+        m, _ = clip_compat.load("RN50", dtype=torch.float32, device=device)
+        logits[device] = m(images[:2], tokens[:4])[0].cpu()
+        del m
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    print(f"[rn50] ({nvidia_smi_line()}) clip_compat.load('RN50') {load_s:.1f} s; bf16 forward "
+          f"of 100 images x {TRAINER_CLASSES} prompts {fwd_ms:.1f} ms, exact launches (no vision "
+          f"K1); fp32 card vs CPU logits {err:.3g} (tol 1e-4)", flush=True)
+    if not err <= 1e-4:
+        raise AssertionError(f"RN50 clip_compat fp32 logits card vs CPU differ by {err}")
+    return launches, shapes
+
+
+def resnet_zeroshot(torch, work):
+    """``ZeroshotCLIP2`` at RN50 through the entry point over phase 12's 192
+    classes: 8 templates through the text tower (exact launches), the test
+    pass through the convolutions. Returns its launches and by shape."""
+    import os
+
+    from ovmr_tpu_torch import train as entry
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    n_test = TRAINER_CLASSES * 4
+    argv = ["--root", str(work / "data"), "--seed", "1", "--trainer", "ZeroshotCLIP2",
+            "--output-dir", str(work / "rn50_zeroshot"), "DATASET.NAME", "Synthetic",
+            "DATASET.NUM_SHOTS", str(STAGE2_SHOTS), "MODEL.BACKBONE.NAME", "RN50",
+            "INPUT.SIZE", "(224, 224)", "INPUT.INTERPOLATION", "bicubic",
+            "INPUT.TRANSFORMS", "['normalize']", "DATALOADER.TEST.BATCH_SIZE",
+            str(ZS_TEST_BATCH), "DATALOADER.NUM_WORKERS", "8", "CUDA.DTYPE", "bfloat16",
+            "CUDA.DEVICE", "cuda"]
+    os.environ["OVMR_SYNTHETIC"] = f"{TRAINER_CLASSES},16,224"
+    try:
+        cuda_lib.reset_launches()
+        t = time.perf_counter()
+        trainer = run_entry(entry.build_parser(), entry, argv)
+        zs_s = time.perf_counter() - t
+    finally:
+        os.environ.pop("OVMR_SYNTHETIC")
+    launches, shapes = dict(cuda_lib.LAUNCHES), dict(cuda_lib.LAUNCH_SHAPES)
+    exact("RN50 ZeroshotCLIP2", launches, shapes,
+          *text_launches(tclip.RN50, len(trainer.get_templates()), "bfloat16", TRAINER_CLASSES))
+    if trainer.text_classifier.shape != (TRAINER_CLASSES, 1024):
+        raise AssertionError(f"RN50 zero-shot classifier {trainer.text_classifier.shape}")
+    log = (work / "rn50_zeroshot" / "log.txt").read_text()
+    result = log[log.index("=> result"):].splitlines()[:6] if "=> result" in log else []
+    if f"* total: {n_test:,}" not in result:
+        raise AssertionError(f"the RN50 zero-shot run did not test {n_test} images: {result}")
+    print(f"[rn50] ({nvidia_smi_line()}) ZeroshotCLIP2 at RN50 through the entry point: "
+          f"{zs_s:.1f} s (8 templates x {TRAINER_CLASSES} classes, {n_test} test images); "
+          f"{' '.join(result[1:3])}", flush=True)
+    return launches, shapes
+
+
+def resnet_coop(torch, np, work):
+    """CoOp at RN50 through the entry point: ``configs/trainers/CoOp/
+    vit_b16_c16_ep10_batch1.yaml`` with ``MODEL.BACKBONE.NAME RN50``, one
+    epoch over phase 12's 192 classes at 1 shot (192 steps of batch 1) on
+    phase 12's vokens, then its fusion eval. Every step's launches are
+    exact (no vision K1: the image tower is convolutions). Returns the
+    launches and by shape over the run, and the warm step's median wall."""
+    import os
+
+    from ovmr_tpu_torch import train as entry
+    from ovmr_tpu_torch.engine import coop as coop_mod
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    vt_path = work / "trainer" / "eval_out" / "visual_tokens.pt"
+    argv = ["--root", str(work / "data"), "--seed", "1", "--trainer", "CoOp",
+            "--config-file", str(ROOT / COOP_YAML), "--visual_token_path", str(vt_path),
+            "--output-dir", str(work / "rn50_coop"), "DATASET.NAME", "Synthetic",
+            "DATASET.NUM_SHOTS", str(STAGE2_SHOTS), "MODEL.BACKBONE.NAME", "RN50",
+            "CUDA.DEVICE", "cuda", "OPTIM.MAX_EPOCH", "1"]
+    expected = coop_step_launches(tclip.RN50, 3)
+    steps = []
+    rec = Recorder(torch)
+
+    def before_step(trainer, batch):
+        rec.before = dict(cuda_lib.LAUNCHES)
+
+    def after_step(trainer, batch, out):
+        now = dict(cuda_lib.LAUNCHES)
+        got = {k: now[k] - rec.before[k] for k in now}
+        if got != expected:
+            raise AssertionError(f"RN50 CoOp step {len(steps)}: launches {got}, "
+                                 f"expected {expected}")
+        if not math.isfinite(out["loss"]):
+            raise AssertionError(f"RN50 CoOp step {len(steps)}: loss {out['loss']}")
+        steps.append(rec.times["forward_backward"][-1])
+
+    rec.wrap(coop_mod.CoOp, "forward_backward", before=before_step, after=after_step)
+    rec.wrap(coop_mod.CoOp, "test")
+    os.environ["OVMR_SYNTHETIC"] = f"{TRAINER_CLASSES},16,224"
+    try:
+        cuda_lib.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        trainer = run_entry(entry.build_parser(), entry, argv)
+        run_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        rec.restore()
+        os.environ.pop("OVMR_SYNTHETIC")
+    launches, shapes = dict(cuda_lib.LAUNCHES), dict(cuda_lib.LAUNCH_SHAPES)
+    if not trainer.clip_cfg.is_resnet or len(steps) != TRAINER_CLASSES * STAGE2_SHOTS:
+        raise AssertionError(f"RN50 CoOp: {trainer.clip_cfg}, {len(steps)} steps")
+    for key in ("mm_classifier", "vision_classifier", "text_classifier"):
+        v = trainer.classifiers[key]
+        if v.shape != (TRAINER_CLASSES, 1024) or not np.isfinite(v).all():
+            raise AssertionError(f"RN50 CoOp {key}: {v.shape}")
+    if launches["fused_attn_half"] != 0:
+        raise AssertionError("the RN50 CoOp run launched a vision K1")
+    warm = sorted(steps[3:])
+    median_ms = warm[len(warm) // 2] * 1e3
+    print(f"[rn50] ({nvidia_smi_line()}) CoOp at RN50 through the entry point: {len(steps)} "
+          f"steps + fusion eval in {run_s:.1f} s (test {rec.times['test'][0]:.2f} s); step wall "
+          f"warm median {median_ms:.1f} ms ({warm[0] * 1e3:.1f}-{warm[-1] * 1e3:.1f}), exact "
+          f"launches {expected}; peak device memory {peak:.2f} GiB", flush=True)
+    return launches, shapes, median_ms
+
+
+def resnet_serving(torch, np):
+    """``OVMRGenerator.from_checkpoints("RN101")`` (smoke mode, bf16): one
+    warm-up and two requests of 32 classes x 16 exemplars at 224, then
+    ``classify()`` of 256 queries. The launches are exact: per request the
+    text tower's three prompt sets (K1-causal 36, K2 36) and the aggregator
+    (K6 4), no vision K1. Prints the image tower's device time per request
+    beside its bound, the walls and peak memory. Returns the launches and
+    by shape over the two requests and classify."""
+    from ovmr_tpu_torch.api import OVMRGenerator
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    t = time.perf_counter()
+    gen = OVMRGenerator.from_checkpoints("RN101", n_ctx=2, dtype=torch.bfloat16, seed=0)
+    print(f"[rn101] generator ready in {time.perf_counter() - t:.1f} s", flush=True)
+    cfg = gen.clip_cfg
+    if not cfg.is_resnet or cfg.vision_layers != (3, 4, 23, 3) or cfg.embed_dim != 512:
+        raise AssertionError(f"from_checkpoints('RN101') built {cfg}")
+    requests, queries = make_requests(torch, 3, cfg.image_resolution)
+    gen.generate(*requests[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    walls, outs = [], []
+    for names, images in requests[1:]:
+        t = time.perf_counter()
+        outs.append(gen.generate(names, images))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    probs = gen.classify(queries, outs[-1], mode="fusion")
+    classify_ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches, shapes = dict(cuda_lib.LAUNCHES), dict(cuda_lib.LAUNCH_SHAPES)
+    by_name, by_shape = text_launches(cfg, 2 * 3, "bfloat16", N_CLS)
+    by_name["fused_attention"] = 2 * 4
+    by_shape[("fused_attention", (N_CLS, cfg.embed_dim // 64, SHOTS + 2, 64), "bfloat16")] = 8
+    exact("RN101 requests and classify", launches, shapes, by_name, by_shape)
+    for out in outs:
+        check_classifiers(np, out, N_CLS, cfg.embed_dim, 2, unit_tol=1e-2)
+    if probs.shape != (N_QUERIES, N_CLS) or not np.isfinite(probs).all():
+        raise AssertionError(f"RN101 classify {probs.shape}")
+    # the image tower's device time over one request's 512 exemplars
+    flat = requests[1][1].reshape(N_CLS * SHOTS, 3, cfg.image_resolution, cfg.image_resolution)
+    wall_ms, busy_ms, rows = device_times(torch, lambda: gen.encode_images(flat))
+    flops, moved = resnet_work(cfg, N_CLS * SHOTS, 2)
+    b_ms, b_by = bound_ms(moved, flops, PEAK_BF16)
+    smi = nvidia_smi_line()
+    print(f"[rn101] ({smi}) requests of {N_CLS} x {SHOTS} at {cfg.image_resolution} px: "
+          f"{', '.join(f'{w:.1f}' for w in walls)} ms wall; classify {N_QUERIES} queries "
+          f"{classify_ms:.1f} ms; peak device memory {peak:.2f} GiB; exact launches {by_name}",
+          flush=True)
+    print(f"[rn101] ({smi}) image tower on {N_CLS * SHOTS} exemplars: device {busy_ms:.2f} ms "
+          f"(wall {wall_ms:.1f} ms), bound {b_ms:.4f} ms ({b_by}; {flops / 1e12:.2f} TFLOP, "
+          f"{moved / 1e6:.1f} MB)", flush=True)
+    for ms, key, count in rows[:6]:
+        print(f"[rn101]   {ms:8.2f} ms x{count:<4d} {key[:90]}", flush=True)
+    del gen
+    return launches, shapes
+
+
+def resnet_phase(torch, np, work):
+    """Phase 16: the RN towers at full width (seeded random, bf16):
+    clip_compat at RN50, ZeroshotCLIP2 at RN50, CoOp at RN50, RN101
+    serving, and the fp32 RN101 request at 2 x 2 card vs CPU. Returns the
+    paths' launches."""
+    from ovmr_tpu_torch.api import OVMRGenerator
+
+    paths = {"rn50_clip_compat": resnet_clip_compat(torch, np, work)}
+    torch.cuda.empty_cache()
+    paths["rn50_zeroshot"] = resnet_zeroshot(torch, work)
+    torch.cuda.empty_cache()
+    *paths["rn50_coop"], _ = resnet_coop(torch, np, work)
+    torch.cuda.empty_cache()
+    paths["rn101_serving"] = resnet_serving(torch, np)
+    torch.cuda.empty_cache()
+    fp32_path(torch, np, "rn101-fp32", lambda device: OVMRGenerator.from_checkpoints(
+        "RN101", n_ctx=2, dtype=torch.float32, device=device, seed=0),
+        n_cls=2, shots=2, n_queries=4)
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 17: int8 serving
+# ---------------------------------------------------------------------------
+
+INT8_COSINE_FLOOR = 0.99
+# the int8 request: blocks replayed on the CPU from the card's inputs, where
+# each quantizer's fp32 input, in units of its row's step, must be within
+# this of the card's (an activation that rounds to the neighbouring step
+# lies on a .5 boundary); end to end, the card's classifiers must lie this
+# share of int8's own distance from the float towers closer to the CPU's
+INT8_REPLAY_STEP = 1e-3
+INT8_REQUEST_SHARE = 0.9
+
+
+def dense_int8_checks(torch):
+    """``dense_int8`` at ViT-B/16's four block shapes: on 4 images x 197
+    tokens of fp32 input the card's int8 activations and int32 products
+    equal the CPU's and the output is within 1e-6 of its scale; each timed
+    on the card at the eval's 256 x 197 tokens in bf16 beside the bf16
+    ``torch.matmul`` of the same shape (a yardstick, not a claim)."""
+    from ovmr_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(17)
+    for name, k, n in (("w_qkv", 768, 2304), ("w_out", 768, 768), ("c_fc_w", 768, 3072),
+                       ("c_proj_w", 3072, 768)):
+        x = torch.randn(4 * 197, k, generator=gen)
+        q, s = quant.quantize_weight((torch.randn(k, n, generator=gen) * k ** -0.5).numpy())
+        q, s = torch.from_numpy(q), torch.from_numpy(s)
+        b = torch.randn(n, generator=gen) * 0.02
+        xq, _ = quant.quantize_rows(x)
+        xq_c, _ = quant.quantize_rows(x.cuda())
+        same_q = torch.equal(xq_c.cpu(), xq)
+        same_acc = torch.equal(quant.int_mm(xq_c, q.cuda()).cpu(), quant.int_mm(xq, q))
+        ref = quant.dense_int8(x, q, s, b)
+        got = quant.dense_int8(x.cuda(), q.cuda(), s.cuda(), b.cuda()).cpu()
+        err = float((got - ref).abs().max())
+        tol = 1e-6 * max(float(ref.abs().max()), 1.0)
+        big = torch.randn(256 * 197, k, device="cuda").to(torch.bfloat16)
+        qc, sc, bc = q.cuda(), s.cuda(), b.cuda()
+        wb = torch.randn(k, n, device="cuda").to(torch.bfloat16)
+        int8_ms = cuda_ms(lambda: quant.dense_int8(big, qc, sc, bc), 5)[0]
+        mm_ms = cuda_ms(lambda: torch.matmul(big, wb), 5)[0]
+        print(f"[int8] dense_int8 {name} [{4 * 197}, {k}] x [{k}, {n}]: int8 activations equal "
+              f"{same_q}, int32 products equal {same_acc}, output {err:.3g} (tol {tol:.3g}); at "
+              f"[{256 * 197}, {k}] bf16 {int8_ms:.4f} ms, bf16 torch.matmul {mm_ms:.4f} ms",
+              flush=True)
+        if not (same_q and same_acc and err <= tol):
+            raise AssertionError(f"dense_int8 {name} card vs CPU: activations {same_q}, "
+                                 f"products {same_acc}, output {err}")
+        del big, wb
+
+
+def int8_block_replay(torch, blocks, calls):
+    """Replay each int8 block the card ran on the CPU from the card's block
+    input, each ``dense_int8`` inside it forced to the card's output (which
+    the per-call replay shows the CPU computes too). What is left to differ
+    is the float work between the products (LayerNorm, attention, GELU,
+    the residual sums): each quantizer's fp32 input must lie within
+    ``INT8_REPLAY_STEP`` of a step of the card's, and the block's output
+    must equal the card's. Returns the activations compared, those that
+    round to another step on the two devices, and the largest distance in
+    steps."""
+    from ovmr_tpu_torch.ops import layers, quant
+
+    dense_int8 = quant.dense_int8
+    seen, flipped, worst = 0, 0, 0.0
+    for x, p, n_head, mask, y, lo, hi in blocks:
+        if hi - lo != 4:
+            raise AssertionError(f"an int8 block made {hi - lo} dense_int8 calls, not 4")
+        forced = iter(calls[lo:hi])
+
+        def replay(xs, w_q, w_scale, b=None):
+            nonlocal seen, flipped, worst
+            x_card, w_card, _, _, y_card = next(forced)
+            if not torch.equal(w_q, w_card):
+                raise AssertionError("the replayed block reached another int8 weight")
+            rows = xs.reshape(-1, xs.shape[-1]).float()
+            u_cpu = rows / quant.quantize_rows(rows)[1]
+            u_card = x_card.reshape(rows.shape).float() / quant.quantize_rows(
+                x_card.reshape(rows.shape).float())[1]
+            seen += u_cpu.numel()
+            flipped += int((torch.round(u_cpu) != torch.round(u_card)).sum())
+            worst = max(worst, float((u_cpu - u_card).abs().max()))
+            return y_card
+
+        quant.dense_int8 = replay
+        try:
+            with torch.inference_mode():
+                got = layers.residual_attention_block(x, p, n_head, mask)
+        finally:
+            quant.dense_int8 = dense_int8
+        if not torch.equal(got, y):
+            raise AssertionError(f"an int8 block replayed on the CPU differs from the card's by "
+                                 f"{float((got - y).abs().max())}")
+    return seen, flipped, worst
+
+
+def int8_phase(torch, np, work, bf16_eval):
+    """Phase 17: the MM_CLS_OP fusion eval at ViT-B/16 with ``CUDA.INT8 True``
+    over phase 12's epoch-3 checkpoint and data (192 classes) through the
+    entry point: no K1/K2 launched (the int8 towers take torch math), K6
+    four times; its classifiers against phase 12's bf16 ones by a row
+    cosine floor; its generation wall beside phase 12's (``bf16_eval``, the
+    same call). Then ``dense_int8`` card vs CPU, and an fp32-activation int8
+    request at 4 x 4: each of its ``dense_int8`` calls replayed on the CPU
+    from the card's input (within 1e-6 of scale), each of its blocks too
+    (``int8_block_replay``), its classifiers card vs CPU closer than int8's
+    own distance from the float towers. Returns the eval's launches and by
+    shape."""
+    import os
+
+    from ovmr_tpu_torch import train as entry
+    from ovmr_tpu_torch.api import OVMRGenerator
+    from ovmr_tpu_torch.engine import trainer as trainer_mod
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.models.aggregator import init_aggregator
+    from ovmr_tpu_torch.ops import block_fused, cuda_lib, quant
+
+    out = work / "int8" / "eval_out"
+    argv = ["--root", str(work / "data"), "--seed", "1", "--trainer", "MM_CLS_OP",
+            "--n_ctx", "2", "--output-dir", str(out), "--model-dir",
+            str(work / "trainer" / "train_out"), "--load-epoch", "3", "--eval-only",
+            "--eval_mode", "fusion", "--eval_tau", "10"] + FLAGSHIP_OPTS + [
+            "INPUT.TRANSFORMS", repr(FLAGSHIP_TRANSFORMS), "DATASET.NAME", "Synthetic",
+            "DATASET.NUM_SHOTS", str(TRAINER_SHOTS), "OPTIM.MAX_EPOCH", "3", "CUDA.INT8", "True"]
+    rec = Recorder(torch)
+    rec.wrap(trainer_mod, "collect_exemplar_features")
+    rec.wrap(trainer_mod, "mm_generate_classifiers")
+    rec.wrap(trainer_mod.MM_CLS_OP, "test")
+    os.environ["OVMR_SYNTHETIC"] = f"{TRAINER_CLASSES},16,224"
+    try:
+        cuda_lib.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        evaluator = run_entry(entry.build_parser(), entry, argv)
+        run_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        rec.restore()
+        os.environ.pop("OVMR_SYNTHETIC")
+    launches, shapes = dict(cuda_lib.LAUNCHES), dict(cuda_lib.LAUNCH_SHAPES)
+    serving = evaluator.serving_params
+    if (serving["visual"]["blocks"]["w_qkv"].dtype != torch.int8
+            or serving["visual"]["blocks"]["w_qkv_scale"].dtype != torch.float32
+            or evaluator.clip_params["visual"]["blocks"]["w_qkv"].dtype != torch.bfloat16):
+        raise AssertionError("the int8 eval did not serve int8 towers beside float ones")
+    want = {k: 0 for k in launches}
+    want["fused_attention"] = 4
+    if launches != want:
+        raise AssertionError(f"the int8 eval launched {launches}, expected {want}")
+    ours = torch.load(out / "mm_classifiers.pt", weights_only=False)
+    ref = torch.load(work / "trainer" / "eval_out" / "mm_classifiers.pt", weights_only=False)
+    cosines = {}
+    for key in ("mm_classifier", "vision_classifier", "text_classifier"):
+        a, b = ours[key].float(), ref[key].float()
+        if a.shape != (TRAINER_CLASSES, 512) or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"int8 {key}: {tuple(a.shape)}")
+        cosines[key] = float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min())
+    log = (out / "log.txt").read_text()
+    result = log[log.index("=> result"):].splitlines()[:6] if "=> result" in log else []
+    if f"* total: {TRAINER_CLASSES * 4:,}" not in result:
+        raise AssertionError(f"the int8 eval did not score {TRAINER_CLASSES * 4} images: {result}")
+    smi = nvidia_smi_line()
+    enc_s, gen_s = rec.times["collect_exemplar_features"][0], rec.times["mm_generate_classifiers"][0]
+    print(f"[int8] ({smi}) MM_CLS_OP eval with CUDA.INT8 over phase 12's epoch 3: {run_s:.1f} s; "
+          f"exemplar encode {enc_s:.2f} s (bf16, phase 12: {bf16_eval[0]:.2f} s), generation "
+          f"{gen_s:.2f} s (bf16: {bf16_eval[1]:.2f} s), test {rec.times['test'][0]:.2f} s; peak "
+          f"{peak:.2f} GiB; launches {dict((k, v) for k, v in launches.items() if v)}; "
+          f"{' '.join(result[1:3])}", flush=True)
+    print(f"[int8] ({smi}) classifiers against phase 12's bf16 ones, least row cosine: "
+          f"{', '.join(f'{k} {v:.5f}' for k, v in cosines.items())} (floor {INT8_COSINE_FLOOR})",
+          flush=True)
+    if min(cosines.values()) < INT8_COSINE_FLOOR:
+        raise AssertionError(f"int8 classifiers fall below the cosine floor: {cosines}")
+    del evaluator, serving
+
+    dense_int8_checks(torch)
+
+    # an int8 request with fp32 activations at 4 classes x 4 exemplars. Every
+    # dense_int8 call on the card is replayed on the CPU with the same fp32
+    # input: equal int8 activations and int32 products give outputs within
+    # 1e-6 of scale. Every block is replayed on the CPU from the card's
+    # input (int8_block_replay). End to end the card and the CPU agree to
+    # the quantizer's rounding, which the replay shows: closer than int8 to
+    # the float towers (INT8_REQUEST_SHARE)
+    cfg = tclip.VIT_B16
+    qparams = quant.quantize_params(tclip.init_params(cfg, seed=0))
+    agg = init_aggregator(width=cfg.embed_dim, n_ctx=2, seed=0)
+    names = VOCAB[:4]
+    images = exemplar_images(torch, 4, 4, 300, "cpu")
+    outs, calls, blocks = {}, [], []
+    dense_int8 = quant.dense_int8
+    int8_block = block_fused.residual_attention_block
+
+    def cpu(t):
+        return None if t is None else t.detach().cpu()
+
+    def recording(x, w_q, w_scale, b=None):
+        y = dense_int8(x, w_q, w_scale, b)
+        calls.append(tuple(cpu(t) for t in (x, w_q, w_scale, b, y)))
+        return y
+
+    def recording_block(x, p, n_head, mask=None):
+        lo = len(calls)
+        y = int8_block(x, p, n_head, mask)
+        blocks.append((cpu(x), {k: cpu(v) for k, v in p.items()}, n_head, cpu(mask), cpu(y),
+                       lo, len(calls)))
+        return y
+
+    for device in ("cuda", "cpu"):
+        gen = OVMRGenerator(qparams, cfg, agg, dtype=torch.float32, device=device)
+        cuda_lib.reset_launches()
+        if device == "cuda":
+            quant.dense_int8 = recording
+            block_fused.residual_attention_block = recording_block
+        try:
+            outs[device] = gen.generate(names, images)
+        finally:
+            quant.dense_int8 = dense_int8
+            block_fused.residual_attention_block = int8_block
+        if device == "cuda":
+            torch.cuda.synchronize()
+            used = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+            if used != {"fused_attention": 4}:
+                raise AssertionError(f"the int8 request launched {used}")
+        del gen
+    # the same request through the float towers on the CPU: int8's own
+    # distance from float, beside the card's from the CPU
+    gen = OVMRGenerator(tclip.init_params(cfg, seed=0), cfg, agg, dtype=torch.float32,
+                        device="cpu")
+    outs["float"] = gen.generate(names, images)
+    del gen
+    # the vision tower once, the text tower over the text, mm and v prompt
+    # sets: 4 towers x 12 blocks x 4 products
+    if len(calls) != 4 * 12 * 4 or len(blocks) != 4 * 12:
+        raise AssertionError(f"the int8 request made {len(calls)} dense_int8 calls in "
+                             f"{len(blocks)} blocks, not 192 in 48")
+    replay = max(float((dense_int8(x, w, sc, b) - y).abs().max()) / max(float(y.abs().max()), 1.0)
+                 for x, w, sc, b, y in calls)
+    seen, flipped, worst = int8_block_replay(torch, blocks, calls)
+
+    def apart(a, b):
+        cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+        return float(np.abs(a - b).max()), 1.0 - float(cos.min())
+
+    keys = ("mm_classifier", "vision_classifier", "text_classifier")
+    errs = {k: apart(outs["cuda"][k], outs["cpu"][k]) for k in keys}
+    own = {k: apart(outs["cpu"][k], outs["float"][k]) for k in keys}
+    print(f"[int8] fp32-activation int8 request at 4 x 4: its {len(calls)} dense_int8 calls "
+          f"replayed on the CPU from the card's inputs within {replay:.3g} of scale (tol 1e-6); "
+          f"its {len(blocks)} blocks replayed on the CPU from the card's inputs: outputs equal, "
+          f"the quantizers' inputs within {worst:.3g} of a step of the card's (tol "
+          f"{INT8_REPLAY_STEP}), {flipped} of {seen} activations on a .5 boundary rounded to "
+          f"the neighbouring step", flush=True)
+    print(f"[int8] classifiers card vs CPU (max abs, 1 - least row cosine): "
+          f"{', '.join(f'{k} {e:.3g} {c:.3g}' for k, (e, c) in errs.items())}; int8 vs float on "
+          f"the CPU: {', '.join(f'{k} {e:.3g} {c:.3g}' for k, (e, c) in own.items())} (card vs "
+          f"CPU must stay below {INT8_REQUEST_SHARE} of it)", flush=True)
+    if replay > 1e-6:
+        raise AssertionError(f"dense_int8 on the card differs from its CPU replay by {replay}")
+    if not worst <= INT8_REPLAY_STEP:
+        raise AssertionError(f"an int8 block's quantizer input on the card is {worst} of a step "
+                             "from the CPU's")
+    for k in keys:
+        if not (errs[k][0] < INT8_REQUEST_SHARE * own[k][0]
+                and errs[k][1] < INT8_REQUEST_SHARE * own[k][1]):
+            raise AssertionError(f"int8 request {k} card vs CPU {errs[k]} is not within "
+                                 f"{INT8_REQUEST_SHARE} of int8's distance from float {own[k]}")
+    return launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the multi-resolution collate
+# ---------------------------------------------------------------------------
+
+MULTIRES_CLASSES, MULTIRES_INS = 48, 4
+
+
+def multires_trainer(torch, work):
+    """MM_CLS_OP with phase 12's recipe and ``DATALOADER.MULTI_RES_COLLATE
+    True``, built through the entry point (``--no-train``) over phase 12's
+    data; the batch cut to 48 classes x 4 instances."""
+    from ovmr_tpu_torch import train as entry
+
+    opts = list(FLAGSHIP_OPTS)
+    for key, value in (("DATALOADER.TRAIN_X.BATCH_SIZE", str(MULTIRES_CLASSES * MULTIRES_INS)),
+                       ("DATALOADER.TRAIN_X.N_INS", str(MULTIRES_INS))):
+        opts[opts.index(key) + 1] = value
+    argv = ["--root", str(work / "data"), "--seed", "1", "--trainer", "MM_CLS_OP", "--n_ctx",
+            "2", "--no-train", "--output-dir", str(work / "multires")] + opts + [
+            "INPUT.TRANSFORMS", "['normalize']", "DATASET.NAME", "Synthetic",
+            "DATASET.NUM_SHOTS", str(TRAINER_SHOTS), "DATALOADER.MULTI_RES_COLLATE", "True"]
+    return run_entry(entry.build_parser(), entry, argv)
+
+
+def multires_step(torch, trainer, batch, expected):
+    """One trainer step on ``batch``, its launches exact; returns the step's
+    wall (s), the K1 launches at the batch's token count and peak memory."""
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t = time.perf_counter()
+    out = trainer.forward_backward(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = dict(cuda_lib.LAUNCHES)
+    if got != expected or not math.isfinite(out["loss"]):
+        raise AssertionError(f"multires step: launches {got} (expected {expected}), "
+                             f"loss {out['loss']}")
+    tokens = (batch["img"].shape[2] // 16) * (batch["img"].shape[3] // 16) + 1
+    k1 = sum(n for key, n in cuda_lib.LAUNCH_SHAPES.items()
+             if key[0] == "fused_attn_half" and key[1][1] == tokens)
+    return out["loss"], wall, k1, torch.cuda.max_memory_allocated() / 2 ** 30, tokens
+
+
+def multires_phase(torch, np, work):
+    """Phase 18: four steps from the seed of the collate's draws (each
+    batch one drawn shape), every launch count exact and every loss finite;
+    one drawn batch's fp32 image features card vs CPU within 1e-4; then the
+    largest draw (672 x 1344, 3529 tokens) at two batch sizes, whose peak
+    memory gives the largest batch that fits the card, and one step at
+    nine tenths of it. Returns the four steps' launches and by shape."""
+    import os
+
+    from PIL import Image
+
+    from ovmr_tpu_torch.data.multires import MultiResCollate
+    from ovmr_tpu_torch.engine.trainer import encode_features
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    cfg = tclip.VIT_B16
+    expected = train_step_launches(cfg)
+    os.environ["OVMR_SYNTHETIC"] = f"{TRAINER_CLASSES},16,224"
+    try:
+        trainer = multires_trainer(torch, work)
+        trainer.epoch = 0
+        trainer.before_epoch()
+        loader = iter(trainer.train_loader)
+        batches = [next(loader) for _ in range(4)]
+        loader.close()
+    finally:
+        os.environ.pop("OVMR_SYNTHETIC")
+    smi = nvidia_smi_line()
+    launches = {k: 0 for k in cuda_lib.LAUNCHES}
+    shapes = {}
+
+    def step(batch):
+        """One step, its launches added to the phase's."""
+        out = multires_step(torch, trainer, batch, expected)
+        for k, v in cuda_lib.LAUNCHES.items():
+            launches[k] += v
+        for k, v in cuda_lib.LAUNCH_SHAPES.items():
+            shapes[k] = shapes.get(k, 0) + v
+        return out
+
+    for i, batch in enumerate(batches):
+        loss, wall, k1, peak, tokens = step(batch)
+        h, w = batch["img"].shape[2:]
+        print(f"[multires] ({smi}) step {i}: drawn {h} x {w} ({tokens} tokens), loss "
+              f"{loss:.4f}, step wall {wall * 1e3:.1f} ms, K1 at {tokens} tokens x{k1}, peak "
+              f"{peak:.2f} GiB", flush=True)
+    # fp32 features of one drawn batch (the fewest tokens of the four), an
+    # image pass of 96 as the steps take it, card vs CPU
+    small = min(batches, key=lambda b: b["img"].shape[2] * b["img"].shape[3])["img"][:96]
+    params = tclip.init_params(cfg, seed=0)
+    feats = {}
+    for device in ("cuda", "cpu"):
+        p = tclip.tree_to(params, device=device)
+        cuda_lib.reset_launches()
+        with torch.inference_mode():
+            feats[device] = encode_features(p, cfg, torch.from_numpy(small).to(device),
+                                            torch.float32).cpu()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            fp32_shapes = dict(cuda_lib.LAUNCH_SHAPES)
+    err = float((feats["cuda"] - feats["cpu"]).abs().max())
+    print(f"[multires] fp32 image features of {small.shape[0]} images of a drawn "
+          f"{small.shape[2]} x {small.shape[3]} batch, card vs CPU: {err:.3g} (tol 1e-4)",
+          flush=True)
+    if not err <= 1e-4:
+        raise AssertionError(f"multires fp32 features card vs CPU differ by {err}")
+
+    # the largest draw at two batch sizes: bytes a class of 4 images adds
+    largest = MultiResCollate(patch_size=16, short_sizes=(672,), ratio_range=(2.0, 2.0),
+                              ratio_bins=1, flip_p=0.0)
+    data = work / "data" / "synthetic" / f"c{TRAINER_CLASSES}_n16_s224"
+    sizes = (8, 24)
+    pils = [Image.open(data / f"{c:03d}" / f"{i:04d}.png").convert("RGB")
+            for c in range(max(sizes)) for i in range(MULTIRES_INS)]
+    images = largest(pils, random.Random(0))
+    peaks = {}
+
+    def largest_step(n):
+        """A step of ``n`` images at the largest draw (the drawn batch's
+        images repeated; classes repeat past the dataset's 192)."""
+        n_cls = n // MULTIRES_INS
+        batch = {"img": np.concatenate([images] * -(-n // len(images)))[:n],
+                 "label": np.repeat(np.arange(n_cls) % TRAINER_CLASSES, MULTIRES_INS)}
+        loss, wall, _, peaks[n], tokens = step(batch)
+        print(f"[multires] ({smi}) largest draw 672 x 1344 ({tokens} tokens), {n_cls} classes "
+              f"x {MULTIRES_INS}: loss {loss:.4f}, step wall {wall * 1e3:.1f} ms, peak "
+              f"{peaks[n]:.2f} GiB", flush=True)
+
+    for n_cls in sizes:
+        largest_step(n_cls * MULTIRES_INS)
+    (n0, p0), (n1, p1) = sorted(peaks.items())
+    per_image = (p1 - p0) / (n1 - n0)
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    fits = int((total - (p0 - per_image * n0)) / per_image) // MULTIRES_INS * MULTIRES_INS
+    print(f"[multires] ({smi}) at 3529 tokens a step adds {per_image * 1024:.1f} MiB an image: "
+          f"the largest batch that fits {total:.1f} GiB is ~{fits} images "
+          f"({fits // MULTIRES_INS} classes x {MULTIRES_INS}; linear in the two steps)",
+          flush=True)
+    # and a step at nine tenths of it, measured
+    largest_step(int(0.9 * fits) // MULTIRES_INS * MULTIRES_INS)
+    del trainer
+    return (launches, shapes), fp32_shapes
+
+
+def drawn_block_checks(torch, block_case, checked, *shape_sets):
+    """Hold every block kernel at each ``(B, L, D, dtype)`` that phase 18
+    launched and phase 2 did not check: K1 (causal for the prompt sets,
+    whose batch is the step's classes), its core and K2, with K3 and K4
+    where the step ran them. Where a plain version runs in slices (3529
+    tokens), one round of one call each."""
+    groups = {}
+    for shapes in shape_sets:
+        for name, shape, dtype in shapes:
+            if (name, shape, dtype) in checked or name.removesuffix("_masked") not in (
+                    "fused_attn_half", "attn_core", "fused_mlp_half", "attn_half_bwd_dx",
+                    "mlp_half_bwd_dx"):
+                continue
+            b, l, d = shape[:3]
+            g = groups.setdefault((b, l, d, dtype), dict(masked=False, bwd=False, heads=d // 64))
+            g["masked"] |= name.endswith("_masked")
+            g["bwd"] |= "bwd" in name
+            if name == "attn_core":
+                g["heads"] = shape[3]
+    for (b, l, d, dtype), g in sorted(groups.items()):
+        timed = dict(reps=1, rounds=1) if slice_step(b, g["heads"], l) < b else None
+        block_case(f"multires-drawn-{l}-b{b}", b, l, d, g["heads"], g["masked"],
+                   (getattr(torch, dtype),), g["bwd"], timed)
+
+
 def main() -> int:
     if not (ROOT / "ovmr_tpu_torch").is_dir():
         print("chip_smoke: the ovmr_tpu_torch package is not beside this script",
@@ -2617,11 +3450,12 @@ def main() -> int:
     from ovmr_tpu_torch.models import clip as tclip
     from ovmr_tpu_torch.models.aggregator import init_aggregator
 
-    kernels = kernel_checks(torch, F)
-    checked = {entry["shape_key"] for entry in kernels}
+    kernels, block_case = kernel_checks(torch, F)
 
     def all_checked(what, shapes):
-        """Every launch of a path ran at a shape phase 2 held and timed."""
+        """Every launch of a path ran at a shape phase 2 (or, for phase 18's
+        draws, ``block_case`` after it) held and timed."""
+        checked = {entry["shape_key"] for entry in kernels}
         unchecked = {key: n for key, n in shapes.items() if key not in checked}
         if unchecked:
             raise AssertionError(f"{what} launches at shapes phase 2 did not check: {unchecked}")
@@ -2677,7 +3511,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     work = Path(tempfile.mkdtemp(prefix="ovmr_trainer_smoke_"))
     try:
-        paths["trainer"] = trainer_phase(torch, np, work)
+        *paths["trainer"], bf16_eval = trainer_phase(torch, np, work)
         all_checked("trainer", paths["trainer"][1])
         torch.cuda.empty_cache()
         paths["trainer_augs"] = augs_trainer_phase(torch, np, work)
@@ -2694,6 +3528,27 @@ def main() -> int:
         all_checked("zeroshot", paths["zeroshot"][1])
         all_checked("clip_compat", paths["clip_compat"][1])
         print(f"[zeroshot] phase 15 in {time.perf_counter() - t:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        for path, recorded in resnet_phase(torch, np, work).items():
+            paths[path] = recorded
+            all_checked(path, recorded[1])
+        print(f"[rn] phase 16 in {time.perf_counter() - t:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        paths["int8"] = int8_phase(torch, np, work, bf16_eval)
+        all_checked("int8", paths["int8"][1])
+        print(f"[int8] phase 17 in {time.perf_counter() - t:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        paths["multires"], fp32_shapes = multires_phase(torch, np, work)
+        torch.cuda.empty_cache()
+        # the collate's draws are known only now: hold the kernels at each
+        drawn_block_checks(torch, block_case, {entry["shape_key"] for entry in kernels},
+                           paths["multires"][1], fp32_shapes)
+        all_checked("multires", paths["multires"][1])
+        all_checked("multires-fp32", fp32_shapes)
+        print(f"[multires] phase 18 in {time.perf_counter() - t:.1f} s", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2702,9 +3557,12 @@ def main() -> int:
         # classify, the three timed training steps, the two ViT-L/14@336px
         # requests + classify, the two on a model axis of 2 + classify,
         # phase 12's and phase 13's three trainer runs each, phase 14's three
-        # stage-2 runs and its nine timed 1000-class steps, and phase 15's
-        # zero-shot run and its bf16 clip_compat forward (each read with
-        # the counts zeroed just before); launches_at_shape:
+        # stage-2 runs and its nine timed 1000-class steps, phase 15's
+        # zero-shot run and its bf16 clip_compat forward, phase 16's RN50
+        # clip_compat forward, zero-shot run and CoOp run and RN101's two
+        # requests + classify, phase 17's int8 eval and phase 18's four
+        # drawn steps (each read with the counts zeroed just before);
+        # launches_at_shape:
         # those at this entry's shape and dtype
         key = entry.pop("shape_key")
         for path, (launches, shapes) in paths.items():

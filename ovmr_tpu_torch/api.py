@@ -15,11 +15,14 @@ projects' open-vocabulary heads; this module runs the same flow:
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no explicit ``"cpu"`` they raise. On the
-card both CLIP towers run the hand-written kernels K1/K2
-(:func:`ovmr_tpu_torch.ops.block_fused.fused_residual_block`) and the
-aggregator runs K6 (:func:`ovmr_tpu_torch.ops.attention.fused_attention`),
+card the CLIP towers' transformer blocks run the hand-written kernels K1/K2
+(:func:`ovmr_tpu_torch.ops.block_fused.fused_residual_block`; a ResNet
+image tower is cuDNN convolutions, as XLA computes it in the JAX package)
+and the aggregator runs K6 (:func:`ovmr_tpu_torch.ops.attention.fused_attention`),
 the models' defaults; on the CPU the same wrappers take their plain
-PyTorch versions.
+PyTorch versions. A backbone whose image features are wider than its text
+tower (RN50: 1024 against 512) builds, and ``generate()`` refuses it where
+the JAX package's does: the vokens cannot be spliced into the prompts.
 """
 
 from __future__ import annotations
@@ -79,7 +82,7 @@ class OVMRGenerator:
         seed: int = 0,
     ) -> "OVMRGenerator":
         """``clip_ckpt`` is a torch checkpoint path or a backbone name
-        ("ViT-B/16", "TINY", ...) looked up locally
+        ("ViT-B/16", "RN101", "TINY", ...) looked up locally
         (:func:`ovmr_tpu_torch.models.zoo.resolve`). With no local
         checkpoint the towers are random, seeded from ``seed`` (smoke mode),
         as the JAX package does; so is the aggregator without
@@ -92,8 +95,6 @@ class OVMRGenerator:
         if not osp.exists(path):
             path = resolve(clip_ckpt)
         if path is None:
-            if clip_ckpt.startswith("RN"):
-                raise NotImplementedError("ResNet towers are not ported yet")
             warnings.warn(
                 f"no local CLIP checkpoint for {clip_ckpt!r}; using RANDOM "
                 "weights (smoke-run mode)"

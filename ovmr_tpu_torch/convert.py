@@ -9,6 +9,8 @@ tensor, so both packages compute the same function on the same weights.
 :func:`aggregator_params_to_numpy` is the way back, for comparing trained
 parameters. No JAX is imported here; the caller does the ``np.asarray``.
 
+A ModifiedResNet image tower converts too: its stem, its stages (lists
+of bottleneck dicts) and its attention pool keep the JAX package's keys.
 A tower's blocks may be packed (``w_qkv``/``b_qkv``) or in the split-qkv
 layout of tensor parallelism (``w_q``/``w_k``/``w_v`` and their biases,
 head-padded or not): the numpy of the JAX package's
@@ -32,6 +34,14 @@ _VISUAL_KEYS = frozenset(
     ("patch_embed_w", "class_embedding", "positional_embedding", "ln_pre_scale",
      "ln_pre_bias", "blocks", "ln_post_scale", "ln_post_bias", "proj")
 )
+_RESNET_KEYS = frozenset(("stem", "stages", "attnpool"))
+_BN_KEYS = frozenset(("scale", "bias", "mean", "var"))
+# the stem's keys, and a bottleneck's (the first of a stage adds the
+# downsample's down_conv_w and down_bn)
+_STEM_KEYS = frozenset(("conv1_w", "bn1", "conv2_w", "bn2", "conv3_w", "bn3"))
+_ATTNPOOL_KEYS = frozenset(
+    ["positional_embedding"] + [f"{n}_{s}" for n in "qkvc" for s in ("w", "b")]
+)
 _TEXT_KEYS = frozenset(
     ("token_embedding", "positional_embedding", "blocks", "ln_final_scale",
      "ln_final_bias", "text_projection")
@@ -53,14 +63,42 @@ def _blocks(tree: Mapping, where: str, device, dtype, split_ok: bool = False) ->
     return {k: _tensor(v, device, dtype) for k, v in tree.items()}
 
 
+def _resnet_visual(tree: Mapping, device, dtype) -> dict:
+    """A ModifiedResNet visual tree (``ovmr_tpu/models/resnet.py``): the
+    stem, the stages as lists of bottleneck dicts, the attention pool."""
+    where = "params['visual']"
+    _require_keys(tree, _RESNET_KEYS, where)
+    _require_keys(tree["attnpool"], _ATTNPOOL_KEYS, f"{where}['attnpool']")
+
+    def conv_bn(node, keys, at):
+        _require_keys(node, keys, at)
+        out = {}
+        for k, v in node.items():
+            if k.startswith(("bn", "down_bn")):
+                _require_keys(v, _BN_KEYS, f"{at}[{k!r}]")
+                out[k] = {n: _tensor(a, device, dtype) for n, a in v.items()}
+            else:
+                out[k] = _tensor(v, device, dtype)
+        return out
+
+    stages = [
+        [conv_bn(block, _STEM_KEYS | ({"down_conv_w", "down_bn"} & set(block)),
+                 f"{where}['stages'][{i}][{j}]")
+         for j, block in enumerate(stage)]
+        for i, stage in enumerate(tree["stages"])
+    ]
+    return {
+        "stem": conv_bn(tree["stem"], _STEM_KEYS, f"{where}['stem']"),
+        "stages": stages,
+        "attnpool": {k: _tensor(v, device, dtype) for k, v in tree["attnpool"].items()},
+    }
+
+
 def clip_params_from_numpy(params: Mapping, device="cpu", dtype=torch.float32) -> dict:
-    """JAX ViT CLIP params (numpy leaves) -> the port's CLIP params, packed
-    or split-qkv blocks alike. ``logit_scale`` stays fp32 whatever ``dtype``
-    is."""
+    """JAX CLIP params (numpy leaves) -> the port's CLIP params: ViT towers
+    with packed or split-qkv blocks, or a ModifiedResNet image tower.
+    ``logit_scale`` stays fp32 whatever ``dtype`` is."""
     _require_keys(params, frozenset(("visual", "text", "logit_scale")), "params")
-    if "patch_embed_w" not in params["visual"]:
-        raise NotImplementedError("ResNet towers are not ported yet")
-    _require_keys(params["visual"], _VISUAL_KEYS, "params['visual']")
     _require_keys(params["text"], _TEXT_KEYS, "params['text']")
 
     def tower(tree, where):
@@ -70,8 +108,13 @@ def clip_params_from_numpy(params: Mapping, device="cpu", dtype=torch.float32) -
             for k, v in tree.items()
         }
 
+    if "stem" in params["visual"]:
+        visual = _resnet_visual(params["visual"], device, dtype)
+    else:
+        _require_keys(params["visual"], _VISUAL_KEYS, "params['visual']")
+        visual = tower(params["visual"], "params['visual']")
     return {
-        "visual": tower(params["visual"], "params['visual']"),
+        "visual": visual,
         "text": tower(params["text"], "params['text']"),
         "logit_scale": _tensor(params["logit_scale"], device, torch.float32),
     }

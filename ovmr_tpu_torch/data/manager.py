@@ -15,10 +15,12 @@ Loader lineup matches the reference (``data_manager.py:116-246``):
   n_ins = DATASET.NUM_SHOTS and the TEST transform — the source of
   classifier-generation exemplars (``data_manager.py:156-170``).
 
-Not ported yet, and refused by :class:`DataManager`: the multi-resolution
-collate (``DATALOADER.MULTI_RES_COLLATE``), ``RETURN_IMG0`` and
-``TEXT_ONLY`` batches, which the Dassl families use, and the unlabeled
-loader ``train_loader_u``. The JAX package's per-host sliced decode
+``DATALOADER.MULTI_RES_COLLATE`` gives the train loader the batch-level
+multi-resolution collate of :mod:`ovmr_tpu_torch.data.multires` (raw
+decode, one drawn shape a batch). Not ported yet, and refused by
+:class:`DataManager`: ``RETURN_IMG0`` and ``TEXT_ONLY`` batches, which the
+Dassl families use, and the unlabeled loader ``train_loader_u`` (ROADMAP
+Queue 1 item 7). The JAX package's per-host sliced decode
 (``:283-330``) is a no-op in one process.
 """
 
@@ -51,6 +53,7 @@ class HostDataLoader:
         num_workers: int = 8,
         drop_last: bool = False,
         k_transforms: int = 1,
+        multi_res=None,
     ):
         self.data_source = data_source
         self.sampler = sampler
@@ -62,6 +65,12 @@ class HostDataLoader:
         # the variants adjacently: img [B*K, ...], label repeated K times
         # (reference K_TRANSFORMS, ``data_manager.py:334-344``)
         self.k_transforms = max(1, k_transforms)
+        # batch-level multi-resolution collate (data/multires.py): decodes
+        # raw images and crops/resizes the whole batch to one drawn shape,
+        # in place of the per-image transform
+        self.multi_res = multi_res
+        if multi_res is not None and self.k_transforms > 1:
+            raise ValueError(_MULTI_RES_EXCLUSIVE)
         self._epoch = 0
         self._seed = seed
 
@@ -107,6 +116,20 @@ class HostDataLoader:
                 batch_idx = indices[start : start + self.batch_size]
                 if self.drop_last and len(batch_idx) < self.batch_size:
                     break
+                if self.multi_res is not None:
+                    # one rng a batch, keyed on the batch's start in the
+                    # epoch's index stream (JAX ``manager.py:202-216``)
+                    items = [self.data_source[i] for i in batch_idx]
+                    pils = list(pool.map(lambda it: read_image(it.impath), items))
+                    brng = random.Random(hash((self._seed, epoch, int(start), 11)) & 0xFFFFFFFF)
+                    yield {
+                        "img": self.multi_res(pils, brng),
+                        "label": np.asarray([it.label for it in items], np.int32),
+                        "impath": [it.impath for it in items],
+                        "index": np.asarray(batch_idx, np.int64),
+                        "domain": np.asarray([it.domain for it in items], np.int32),
+                    }
+                    continue
                 results = list(
                     pool.map(
                         lambda args: self._load_one(args[1], epoch, start + args[0]),
@@ -127,18 +150,44 @@ class HostDataLoader:
                 }
 
 
+_MULTI_RES_EXCLUSIVE = (
+    "MULTI_RES_COLLATE replaces the per-image transform pipeline; it cannot combine with "
+    "K_TRANSFORMS>1, strong transforms, RETURN_IMG0 or TEXT_ONLY"
+)
+
+
+def build_multi_res(cfg):
+    """The train loaders' :class:`MultiResCollate` when
+    ``DATALOADER.MULTI_RES_COLLATE`` is set, else None. Its dims floor to
+    the backbone's patch size where the backbone is a known ViT (no pixel
+    column is cropped by the stride-p patchify), else to the reference's
+    14 (JAX ``manager.py:337-349``)."""
+    if not cfg.DATALOADER.get("MULTI_RES_COLLATE", False):
+        return None
+    if cfg.DATALOADER.RETURN_IMG0 or cfg.TEXT_ONLY:
+        raise ValueError(_MULTI_RES_EXCLUSIVE)
+    from ovmr_tpu_torch.models.clip import CONFIGS
+
+    from .multires import MultiResCollate
+
+    patch = 14
+    backbone = CONFIGS.get(cfg.MODEL.BACKBONE.NAME)
+    if backbone is not None and not backbone.is_resnet:
+        patch = backbone.vision_patch_size
+    return MultiResCollate(patch_size=patch)
+
+
 class DataManager:
     def __init__(self, cfg, dataset: Optional[DatasetBase] = None):
         self.cfg = cfg
+        multi_res = build_multi_res(cfg)
         for key, value in (
-            ("DATALOADER.MULTI_RES_COLLATE", cfg.DATALOADER.get("MULTI_RES_COLLATE", False)),
             ("DATALOADER.RETURN_IMG0", cfg.DATALOADER.RETURN_IMG0),
             ("TEXT_ONLY", cfg.TEXT_ONLY),
         ):
             if value:
                 raise NotImplementedError(
-                    f"{key} True is not ported yet (ROADMAP Queue 1: "
-                    "data/multires.py in item 1b' (iii), the Dassl loaders in item 7)"
+                    f"{key} True is not ported yet (ROADMAP Queue 1 item 7: the Dassl loaders)"
                 )
         self.dataset = dataset if dataset is not None else build_dataset(cfg)
 
@@ -167,6 +216,7 @@ class DataManager:
             seed=seed,
             num_workers=nw,
             k_transforms=cfg.DATALOADER.K_TRANSFORMS,
+            multi_res=multi_res,
             # reference: drop_last = is_train and len >= batch_size
             # (data_manager.py:107) — the ragged tail batch is dropped,
             # keeping step shapes static and the epoch counts and

@@ -32,8 +32,12 @@ Under a model axis the JAX package runs its seams inside ``shard_map`` over
 (``:195``, ``:269``) because ``pallas_call`` has no SPMD partitioning rule.
 Nothing here is partitioned by a compiler: the TP block calls the per-shard
 kernels itself, so the aggregator keeps its kernel (K6) under TP too. The
-trainer itself trains on one device: training on a model axis and ResNet
-towers are not ported yet and raise. ``CUDA.DEVICE_AUGS`` trains from the
+trainer itself trains on one device: training on a model axis is not
+ported yet and raises (Queue 1 item 4), as does ``CUDA.INT8`` on one.
+With ``CUDA.INT8`` the eval's encode, classifier generation and test pass
+run the int8 towers of :attr:`MM_CLS_OP.serving_params` (their blocks take
+the torch-math route of ``ops/block_fused.fused_residual_block``);
+training never quantizes. ``CUDA.DEVICE_AUGS`` trains from the
 decode-once uint8 cache (:mod:`ovmr_tpu_torch.data.cache`) with the
 augmentation in the step, on the trainer's device.
 """
@@ -236,9 +240,6 @@ def load_or_init_clip(cfg):
     from ovmr_tpu_torch.models.zoo import resolve
 
     name = cfg.MODEL.BACKBONE.NAME or "ViT-B/16"
-    if name.startswith("RN"):
-        raise NotImplementedError(
-            f"backbone {name!r}: ResNet towers are not ported yet (ROADMAP Queue 1 item 5)")
     path = resolve(name)
     if path is not None:
         print(f"Loading CLIP (backbone: {name}) from {path}")
@@ -503,9 +504,12 @@ class MM_CLS_OP(TrainerBase):
 
         cfg = self.cfg
         if cfg.CUDA.MESH.MODEL > 1:
+            # JAX's int8 model axis is its GSPMD XLA block
+            # (``ovmr_tpu/ops/block_fused_tp.py:395-431``), which comes with
+            # the data and model axes
             raise NotImplementedError(
                 "MM_CLS_OP: CUDA.MESH.MODEL > 1 is not ported yet (ROADMAP Queue 1 item 4); "
-                "the serving seams take a model axis, training does not")
+                "the serving seams take a model axis, training and CUDA.INT8 do not")
         self.device = resolve_device(cfg.CUDA.DEVICE)
         self.dtype = _DTYPES[cfg.CUDA.DTYPE]
 
@@ -516,6 +520,11 @@ class MM_CLS_OP(TrainerBase):
                 f"{self.clip_cfg.embed_dim} vs {self.clip_cfg.transformer_width})")
         self.clip_params = tclip.cast_params(
             tclip.tree_to(clip_params, device=self.device), self.dtype)
+        # int8 is for serving only (round and clip have no useful gradient):
+        # training keeps the float towers, and serving_params quantizes the
+        # float CPU params once, when an eval first asks for them
+        self._fp_clip_params = clip_params if cfg.CUDA.INT8 else None
+        self._serving_params_cache = None
 
         classnames = self.dm.dataset.classnames
         self.n_cls = len(classnames)
@@ -633,17 +642,34 @@ class MM_CLS_OP(TrainerBase):
         print(f'Loaded prompt_learner weights from "{directory}" (epoch = {ep})')
 
     # ---- evaluation -----------------------------------------------------
+    @property
+    def serving_params(self):
+        """The CLIP params of the eval paths: with ``CUDA.INT8`` the towers'
+        block matmuls quantized to int8 (built once, on first use, from the
+        float CPU params, then cast and moved; JAX ``:925-940``), else the
+        float training params."""
+        if self._fp_clip_params is None:
+            return self.clip_params
+        if self._serving_params_cache is None:
+            from ovmr_tpu_torch.ops.quant import quantize_params
+
+            print("Quantizing frozen tower block matmuls to int8 (serving)")
+            self._serving_params_cache = tclip.cast_params(
+                tclip.tree_to(quantize_params(self._fp_clip_params), device=self.device),
+                self.dtype)
+        return self._serving_params_cache
+
     def generate_classifiers(self):
         """Exemplar features from eval_set_loader, then the classifier heads
         over the padded class set in chunks, the fusion and the export."""
         cfg = self.cfg
         shots = max(cfg.DATASET.NUM_SHOTS, 1)
         feats = collect_exemplar_features(
-            self.dm.eval_set_loader, self._features, self.clip_params, self.n_cls, shots,
+            self.dm.eval_set_loader, self._features, self.serving_params, self.n_cls, shots,
             self.clip_cfg.embed_dim,
         )
         self.classifiers = mm_generate_classifiers(
-            self.clip_params, self.clip_cfg, self.agg_params, feats, *self._prompt_np,
+            self.serving_params, self.clip_cfg, self.agg_params, feats, *self._prompt_np,
             float(cfg.EVAL_TAU), class_chunk=cfg.CUDA.CLASS_CHUNK,
             class_pad_multiple=cfg.CUDA.CLASS_PAD_MULTIPLE,
             text_cls_max_classes=cfg.CUDA.TEXT_CLS_MAX_CLASSES, output_dir=self.output_dir,
@@ -671,5 +697,5 @@ class MM_CLS_OP(TrainerBase):
     def model_inference(self, batch, scale_no=0):
         # scale_no accepted-and-ignored, like the reference model (mm_…:294)
         logit_scale = float(self.clip_params["logit_scale"].float().exp())
-        feats = self._features(self.clip_params, batch["img"])
+        feats = self._features(self.serving_params, batch["img"])
         return ovmr.eval_logits_np(feats, self.classifiers, logit_scale, self.cfg.EVAL_MODE)

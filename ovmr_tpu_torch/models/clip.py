@@ -14,8 +14,8 @@ VisionTransformer and CLIP.encode_text):
 - activations are batch-major ``[B, L, D]``; weights right-multiply
   (``x @ W``, W stored ``[in, out]``).
 
-Only the ViT towers are in this package yet; ResNet towers stay in the
-JAX package.
+ModifiedResNet image towers (``RN*`` configs) dispatch to
+:mod:`ovmr_tpu_torch.models.resnet`; their text towers are these.
 """
 
 from __future__ import annotations
@@ -28,13 +28,15 @@ import torch
 
 from ovmr_tpu_torch.ops.block_fused import fused_residual_block
 from ovmr_tpu_torch.ops.layers import causal_mask, l2_normalize, layer_norm, matmul_f32
+from ovmr_tpu_torch.ops.quant import QUANT_KEYS
 
 
 @dataclasses.dataclass(frozen=True)
 class CLIPConfig:
     embed_dim: int = 512
+    # vision: int layer count = ViT; 4-tuple of stage depths = ModifiedResNet
     image_resolution: int = 224
-    vision_layers: int = 12
+    vision_layers: object = 12
     vision_width: int = 768
     vision_patch_size: int = 16
     context_length: int = 77
@@ -49,6 +51,9 @@ class CLIPConfig:
 
     @property
     def vision_heads(self) -> int:
+        if self.is_resnet:
+            # reference: vision_heads = vision_width * 32 // 64
+            return self.vision_width * 32 // 64
         return self.vision_width // 64
 
     @property
@@ -103,13 +108,54 @@ TINY = CLIPConfig(
     transformer_layers=2,
 )
 
+# test-scale ModifiedResNet: the vision tower of the golden fixture
+# ``tests/fixtures/clip_rn_tiny_golden.npz`` (layers (1,1,1,1), width 8,
+# 64 px), a TINY text tower with the real vocabulary
+TINY_RN = CLIPConfig(
+    embed_dim=64,
+    image_resolution=64,
+    vision_layers=(1, 1, 1, 1),
+    vision_width=8,
+    vision_patch_size=0,
+    transformer_width=64,
+    transformer_heads=2,
+    transformer_layers=2,
+)
+
+# the ModifiedResNet family (the public OpenAI CLIP hyperparameters, as
+# the checkpoints' shapes give them; reference ``clip/model.py:870-886``)
+RN50 = CLIPConfig(
+    embed_dim=1024, vision_layers=(3, 4, 6, 3), vision_width=64, vision_patch_size=0,
+)
+RN101 = CLIPConfig(
+    embed_dim=512, vision_layers=(3, 4, 23, 3), vision_width=64, vision_patch_size=0,
+)
+RN50x4 = CLIPConfig(
+    embed_dim=640, image_resolution=288, vision_layers=(4, 6, 10, 6), vision_width=80,
+    vision_patch_size=0, transformer_width=640, transformer_heads=10,
+)
+RN50x16 = CLIPConfig(
+    embed_dim=768, image_resolution=384, vision_layers=(6, 8, 18, 8), vision_width=96,
+    vision_patch_size=0, transformer_width=768, transformer_heads=12,
+)
+RN50x64 = CLIPConfig(
+    embed_dim=1024, image_resolution=448, vision_layers=(3, 15, 36, 10), vision_width=128,
+    vision_patch_size=0, transformer_width=1024, transformer_heads=16,
+)
+
 CONFIGS = {
     "ViT-B/16": VIT_B16,
     "ViT-B/32": VIT_B32,
     "ViT-L/14": VIT_L14,
     "ViT-L/14@336px": VIT_L14_336,
+    "RN50": RN50,
+    "RN101": RN101,
+    "RN50x4": RN50x4,
+    "RN50x16": RN50x16,
+    "RN50x64": RN50x64,
     "TINY": TINY,
     "TINY_TP": TINY_TP,
+    "TINY_RN": TINY_RN,
 }
 
 
@@ -154,23 +200,25 @@ def init_params(
     drawn on the CPU from ``generator`` (or a CPU generator seeded with
     ``seed``), so one seed gives the same weights on every device; they do
     not equal the JAX package's ``init_params`` values (another RNG)."""
-    if cfg.is_resnet:
-        raise NotImplementedError("ResNet towers are not ported yet")
     gen = generator if generator is not None else torch.Generator().manual_seed(seed)
     vw, tw = cfg.vision_width, cfg.transformer_width
     vscale = vw ** -0.5
-    patch_in = 3 * cfg.vision_patch_size * cfg.vision_patch_size
-    visual = {
-        "patch_embed_w": _normal(gen, (patch_in, vw), vscale, dtype),
-        "class_embedding": _normal(gen, (vw,), vscale, dtype),
-        "positional_embedding": _normal(gen, (cfg.num_patches + 1, vw), vscale, dtype),
-        "ln_pre_scale": torch.ones(vw, dtype=dtype),
-        "ln_pre_bias": torch.zeros(vw, dtype=dtype),
-        "blocks": _init_blocks(gen, cfg.vision_layers, vw, dtype),
-        "ln_post_scale": torch.ones(vw, dtype=dtype),
-        "ln_post_bias": torch.zeros(vw, dtype=dtype),
-        "proj": _normal(gen, (vw, cfg.embed_dim), vscale, dtype),
-    }
+    if cfg.is_resnet:
+        from ovmr_tpu_torch.models.resnet import init_resnet_visual
+
+        visual = init_resnet_visual(gen, cfg, dtype)
+    else:
+        visual = {
+            "patch_embed_w": _normal(gen, (3 * cfg.vision_patch_size ** 2, vw), vscale, dtype),
+            "class_embedding": _normal(gen, (vw,), vscale, dtype),
+            "positional_embedding": _normal(gen, (cfg.num_patches + 1, vw), vscale, dtype),
+            "ln_pre_scale": torch.ones(vw, dtype=dtype),
+            "ln_pre_bias": torch.zeros(vw, dtype=dtype),
+            "blocks": _init_blocks(gen, cfg.vision_layers, vw, dtype),
+            "ln_post_scale": torch.ones(vw, dtype=dtype),
+            "ln_post_bias": torch.zeros(vw, dtype=dtype),
+            "proj": _normal(gen, (vw, cfg.embed_dim), vscale, dtype),
+        }
     text = {
         "token_embedding": _normal(gen, (cfg.vocab_size, tw), 0.02, dtype),
         "positional_embedding": _normal(gen, (cfg.context_length, tw), 0.01, dtype),
@@ -188,9 +236,12 @@ def init_params(
 
 
 def tree_to(tree, device=None, dtype=None):
-    """Move (and optionally cast) every tensor leaf of a nested dict."""
+    """Move (and optionally cast) every tensor leaf of a nested dict (the
+    ResNet towers' stages are lists)."""
     if isinstance(tree, dict):
         return {k: tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device, dtype) for v in tree]
     return tree.to(device=device, dtype=dtype)
 
 
@@ -279,7 +330,11 @@ def encode_image(
     ln_post[0] @ proj (reference ``clip/model.py:411-428``). [B, embed_dim].
     ``images`` is NCHW, or NHWC with ``layout="NHWC"``."""
     if cfg.is_resnet:
-        raise NotImplementedError("ResNet towers are not ported yet")
+        from ovmr_tpu_torch.models.resnet import encode_image_resnet
+
+        if layout == "NHWC":
+            images = images.permute(0, 3, 1, 2)
+        return encode_image_resnet(params, images, cfg.vision_heads)
     v = params["visual"]
     dtype = v["patch_embed_w"].dtype
     xg = patch_embed_grid(images.to(dtype), v["patch_embed_w"], cfg.vision_patch_size,
@@ -345,14 +400,23 @@ def clip_forward(params: dict, cfg: CLIPConfig, images: torch.Tensor, tokens: to
     return logits_per_image, logits_per_image.T
 
 
-def cast_params(params: dict, dtype) -> dict:
-    """Cast floating leaves to ``dtype``, keeping ``logit_scale`` fp32
-    (LayerNorm upcasts its params itself)."""
+# the int8 dequantization scales, not LayerNorm's ``*_scale``
+QUANT_SCALE_KEYS = frozenset(key + "_scale" for key in QUANT_KEYS)
 
-    def cast(tree):
+
+def cast_params(params: dict, dtype) -> dict:
+    """Cast floating leaves to ``dtype``, keeping ``logit_scale`` and the
+    int8 dequantization scales fp32 (``ovmr_tpu/models/clip.py:482-500``;
+    LayerNorm upcasts its params itself)."""
+
+    def cast(tree, key=None):
         if isinstance(tree, dict):
-            return {k: cast(v) for k, v in tree.items()}
-        return tree.to(dtype) if tree.is_floating_point() else tree
+            return {k: cast(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v) for v in tree]
+        if not tree.is_floating_point() or key in QUANT_SCALE_KEYS:
+            return tree
+        return tree.to(dtype)
 
     out = {k: cast(v) for k, v in params.items() if k != "logit_scale"}
     out["logit_scale"] = params["logit_scale"]

@@ -1,9 +1,9 @@
 """Torch checkpoint ingestion straight into the port's parameter dicts.
 
-Counterpart of ``ovmr_tpu/models/import_torch.py`` for ViT towers and OVMR
-prompt-learner checkpoints: OpenAI-CLIP state_dicts or TorchScript
-archives (reference ``clip/clip.py:117-126`` / ``clip/model.py:899-936``)
-and ``model.pth.tar-{epoch}`` pickles (reference
+Counterpart of ``ovmr_tpu/models/import_torch.py`` for ViT and
+ModifiedResNet towers and OVMR prompt-learner checkpoints: OpenAI-CLIP
+state_dicts or TorchScript archives (reference ``clip/clip.py:117-126`` /
+``clip/model.py:899-936``) and ``model.pth.tar-{epoch}`` pickles (reference
 ``dassl/utils/torchtools.py:77-115``). Linear weights are transposed to
 the ``[in, out]`` layout; every tensor comes out fp32 on the CPU.
 """
@@ -47,20 +47,29 @@ def load_torch_file(path: str) -> Dict:
 
 
 def clip_config_from_state_dict(sd: Dict) -> CLIPConfig:
-    """Shape-sniff a ViT CLIP (reference ``clip/model.py:899-918``). Head
-    counts are width // 64: they cannot be read from the shapes."""
-    if "visual.proj" not in sd:
-        raise NotImplementedError("ResNet CLIP checkpoints are not ported yet")
-    vision_width = sd["visual.conv1.weight"].shape[0]
-    vision_layers = len(
-        [k for k in sd if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")]
-    )
-    vision_patch_size = sd["visual.conv1.weight"].shape[-1]
-    grid_size = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+    """Shape-sniff a ViT or ModifiedResNet CLIP (reference
+    ``clip/model.py:899-918``). Head counts are width // 64: they cannot be
+    read from the shapes."""
+    if "visual.proj" in sd:
+        vision_width = sd["visual.conv1.weight"].shape[0]
+        vision_layers = len(
+            [k for k in sd if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")]
+        )
+        vision_patch_size = sd["visual.conv1.weight"].shape[-1]
+        grid_size = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+        image_resolution = vision_patch_size * grid_size
+    else:
+        from .resnet import stage_depths
+
+        vision_layers = stage_depths(sd)
+        vision_width = sd["visual.layer1.0.conv1.weight"].shape[0]
+        output_width = round((sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+        vision_patch_size = 0
+        image_resolution = output_width * 32
     transformer_width = sd["ln_final.weight"].shape[0]
     return CLIPConfig(
         embed_dim=sd["text_projection"].shape[1],
-        image_resolution=vision_patch_size * grid_size,
+        image_resolution=image_resolution,
         vision_layers=vision_layers,
         vision_width=vision_width,
         vision_patch_size=vision_patch_size,
@@ -85,20 +94,26 @@ def _blocks_from_sd(sd: Dict, prefix: str, n_layers: int) -> Dict[str, torch.Ten
 
 
 def clip_params_from_state_dict(sd: Dict) -> Tuple[dict, CLIPConfig]:
-    """torch ViT CLIP state_dict -> (param dict fp32, config)."""
+    """torch CLIP state_dict (ViT or ModifiedResNet) -> (param dict fp32,
+    config)."""
     cfg = clip_config_from_state_dict(sd)
-    conv1 = _t(sd["visual.conv1.weight"])  # [W, 3, p, p]
-    visual = {
-        "patch_embed_w": conv1.reshape(conv1.shape[0], -1).t().contiguous(),
-        "class_embedding": _t(sd["visual.class_embedding"]),
-        "positional_embedding": _t(sd["visual.positional_embedding"]),
-        "ln_pre_scale": _t(sd["visual.ln_pre.weight"]),
-        "ln_pre_bias": _t(sd["visual.ln_pre.bias"]),
-        "blocks": _blocks_from_sd(sd, "visual.transformer.resblocks", cfg.vision_layers),
-        "ln_post_scale": _t(sd["visual.ln_post.weight"]),
-        "ln_post_bias": _t(sd["visual.ln_post.bias"]),
-        "proj": _t(sd["visual.proj"]),
-    }
+    if cfg.is_resnet:
+        from .resnet import resnet_visual_from_state_dict
+
+        visual, _ = resnet_visual_from_state_dict(sd, _t)
+    else:
+        conv1 = _t(sd["visual.conv1.weight"])  # [W, 3, p, p]
+        visual = {
+            "patch_embed_w": conv1.reshape(conv1.shape[0], -1).t().contiguous(),
+            "class_embedding": _t(sd["visual.class_embedding"]),
+            "positional_embedding": _t(sd["visual.positional_embedding"]),
+            "ln_pre_scale": _t(sd["visual.ln_pre.weight"]),
+            "ln_pre_bias": _t(sd["visual.ln_pre.bias"]),
+            "blocks": _blocks_from_sd(sd, "visual.transformer.resblocks", cfg.vision_layers),
+            "ln_post_scale": _t(sd["visual.ln_post.weight"]),
+            "ln_post_bias": _t(sd["visual.ln_post.bias"]),
+            "proj": _t(sd["visual.proj"]),
+        }
     text = {
         "token_embedding": _t(sd["token_embedding.weight"]),
         "positional_embedding": _t(sd["positional_embedding"]),

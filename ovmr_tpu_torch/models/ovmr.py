@@ -118,9 +118,18 @@ def text_classifier(
 
 
 def prompt_embeddings(clip_params, feats, prompt_tokens, vis_tokens):
+    """Prompt and visual-template token embeddings in the features' dtype.
+    The vokens are spliced into these rows, so the image features must be
+    as wide as the text tower: a backbone whose embed_dim differs (RN50:
+    1024 against 512) raises here, as the JAX package's broadcast of the
+    template row to ``[N, 77, D]`` does (``ovmr_tpu/models/ovmr.py:187``)."""
     pe = tclip.embed_tokens(clip_params, prompt_tokens).to(feats.dtype)
     ve = tclip.embed_tokens(clip_params, vis_tokens[None]).to(feats.dtype)
-    return pe, ve.expand(feats.shape[0], -1, -1)
+    want = (feats.shape[0], vis_tokens.shape[0], feats.shape[-1])
+    if ve.shape[-1] != want[-1]:
+        raise ValueError(f"Incompatible shapes for broadcasting: {tuple(ve.shape)} and "
+                         f"requested shape {want}")
+    return pe, ve.expand(want)
 
 
 def generate_classifiers_from_feats(

@@ -48,10 +48,11 @@ before each add.
 
 Of the TPU module's VMEM residency routing only the MLP tier is kept
 (:func:`mlp_tier_chunks`), so that each configuration runs the counterpart
-of the kernel it runs there; batch tiles (``_g_limits``) and the XLA
-fallbacks (``_block_flavor``) have no counterpart: on CUDA every dtype
-(fp32, bf16, fp16) and every width that is a multiple of 8 runs the
-kernels. The source note in ``csrc/block_fused.cu`` says what bounds them
+of the kernel it runs there; batch tiles (``_g_limits``) have no
+counterpart, and of the XLA fallbacks (``_block_flavor``) only int8
+weights keep theirs (:func:`fused_residual_block` sends such a block to
+torch math): on CUDA every float dtype (fp32, bf16, fp16) and every width
+that is a multiple of 8 runs the kernels. The source note in ``csrc/block_fused.cu`` says what bounds them
 and how they are built.
 """
 
@@ -406,6 +407,7 @@ def fused_attn_half(
     mask: Optional[torch.Tensor] = None, n_head: int = 12,
 ):
     """K1: x + proj(attention(LN1(x))) for x [B, L, D]."""
+    _refuse_int8("fused_attn_half", w_qkv, w_out)
     if x.device.type == "cpu":
         return fused_attn_half_plain(
             x, w_qkv, b_qkv, w_out, b_out, ln_s, ln_b, mask=mask, n_head=n_head
@@ -463,6 +465,7 @@ def _check_mlp_args(what, x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
 
 def fused_mlp_half(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b):
     """K2: x + c_proj(QuickGELU(c_fc(LN2(x)))) for x [B, L, D]."""
+    _refuse_int8("fused_mlp_half", c_fc_w, c_proj_w)
     if x.device.type == "cpu":
         return fused_mlp_half_plain(x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b)
     if x.device.type != "cuda":
@@ -490,6 +493,7 @@ def fused_mlp_half_chunked(
     (raised until it divides the hidden width), the partial c_proj products
     cast and added in the activation dtype. The hidden buffer is
     ``[B, L, hidden / chunks]``; the weight slices are read in place."""
+    _refuse_int8("fused_mlp_half_chunked", c_fc_w, c_proj_w)
     if x.device.type == "cpu":
         return fused_mlp_half_chunked_plain(
             x, c_fc_w, c_fc_b, c_proj_w, c_proj_b, ln_s, ln_b, chunks=chunks
@@ -599,5 +603,22 @@ def fused_residual_block(x, p, n_head, mask=None):
     """Drop-in for :func:`ovmr_tpu_torch.ops.layers.residual_attention_block`
     running K1 then K2 (K5 where :func:`mlp_tier_chunks` says so),
     differentiable through the dx kernels K4 and K3.
-    Under ``torch.no_grad()`` nothing is saved."""
+    Under ``torch.no_grad()`` nothing is saved.
+
+    A block whose ``w_qkv`` is int8 (``CUDA.INT8`` serving) takes the
+    torch-math block, whose products dispatch on the weight's dtype, as the
+    JAX package's ``_block_flavor`` routes it to XLA
+    (``ovmr_tpu/ops/block_fused.py:385-401``). fp16 stays on the kernels:
+    the TPU's reason to route it away (Pallas refuses fp16 there) does not
+    hold for K1/K2."""
+    if p["w_qkv"].dtype == torch.int8:
+        return residual_attention_block(x, p, n_head, mask)
     return _FusedBlock.apply(x, mask, n_head, *(p[k] for k in BLOCK_KEYS))
+
+
+def _refuse_int8(what, *weights):
+    """The kernels take float weights only; an int8 one is refused, never
+    cast (it would be read as unscaled integers)."""
+    if any(w.dtype == torch.int8 for w in weights):
+        raise TypeError(f"{what}: int8 weights take the torch-math block "
+                        "(ops.layers.residual_attention_block), not this kernel")

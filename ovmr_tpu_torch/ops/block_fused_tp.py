@@ -65,6 +65,7 @@ from ovmr_tpu_torch.ops.block_fused import (
     _block_gemm,
     _check_block_args,
     _layer_norm,
+    _refuse_int8,
     _shapes_ok,
     attn_core_plain,
 )
@@ -183,6 +184,7 @@ def tp_attn_half_partial(
     mask: Optional[torch.Tensor] = None, n_head: int = 6,
 ):
     """K7: the fp32 attention partial of one head shard, x [B, L, D]."""
+    _refuse_int8("tp_attn_half_partial", w_q, w_k, w_v, w_out)
     if x.device.type == "cpu":
         return tp_attn_half_partial_plain(
             x, w_q, b_q, w_k, b_k, w_v, b_v, w_out, ln_s, ln_b, mask=mask, n_head=n_head
@@ -225,6 +227,7 @@ def tp_attn_half_partial(
 
 def tp_mlp_half_partial(x, c_fc_w, c_fc_b, c_proj_w, ln_s, ln_b):
     """K8: the fp32 MLP partial of one hidden shard, x [B, L, D]."""
+    _refuse_int8("tp_mlp_half_partial", c_fc_w, c_proj_w)
     if x.device.type == "cpu":
         return tp_mlp_half_partial_plain(x, c_fc_w, c_fc_b, c_proj_w, ln_s, ln_b)
     if x.device.type != "cuda":
@@ -401,6 +404,12 @@ def make_tp_block(axis):
             raise ValueError(f"width {d} not divisible by n_head={n_head}")
         head_dim = d // n_head
         w_q = layer_params["w_q"]
+        if w_q.dtype == torch.int8:
+            # JAX sends int8 on a model axis to its GSPMD XLA block
+            # (``ovmr_tpu/ops/block_fused_tp.py:395-431``)
+            raise NotImplementedError(
+                "the TP block takes float weights; int8 on a model axis is not ported yet "
+                "(ROADMAP Queue 1 item 4)")
         dl = w_q.shape[-1]
         if dl % head_dim:
             raise ValueError(

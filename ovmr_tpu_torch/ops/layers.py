@@ -14,7 +14,9 @@ PyTorch counterpart of ``ovmr_tpu/ops/layers.py``, with the same contract
   (PyTorch's default); TF32 would keep only about three decimal digits.
 
 Weights are stored ``[in, out]`` (right-multiplied, ``x @ W``), as in the
-JAX package. The plain version of every hand-written kernel in
+JAX package. A block whose weights are int8 (``CUDA.INT8`` serving,
+:mod:`ovmr_tpu_torch.ops.quant`) runs its four products through
+``dense_int8``. The plain version of every hand-written kernel in
 :mod:`ovmr_tpu_torch.ops.block_fused` and :mod:`ovmr_tpu_torch.ops.attention`
 is built from these functions.
 """
@@ -49,17 +51,37 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def dense(
     x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """x @ w (+ b) with fp32 accumulation; w stored [in, out]."""
+    """x @ w (+ b) with fp32 accumulation; w stored [in, out]. An int8
+    weight raises: cast, it would be read as unscaled integers (int8 block
+    weights go through :func:`_block_dense`)."""
+    if w.dtype == torch.int8:
+        raise TypeError("dense: an int8 weight needs its scale; use ops.quant.dense_int8")
     y = matmul_f32(x, w.to(x.dtype))
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype)
 
 
+_BLOCK_BIAS = {"w_qkv": "b_qkv", "w_out": "b_out", "c_fc_w": "c_fc_b", "c_proj_w": "c_proj_b"}
+
+
+def _block_dense(x: torch.Tensor, p: dict, key: str) -> torch.Tensor:
+    """A block's matmul, by its weight's dtype (``ovmr_tpu/ops/layers.py:47-58``):
+    an int8 weight (serving quantization) takes
+    :func:`ovmr_tpu_torch.ops.quant.dense_int8` with its ``{key}_scale``, a
+    float one :func:`dense`."""
+    w = p[key]
+    if w.dtype == torch.int8:
+        from ovmr_tpu_torch.ops.quant import dense_int8
+
+        return dense_int8(x, w, p[key + "_scale"], p[_BLOCK_BIAS[key]])
+    return dense(x, w, p[_BLOCK_BIAS[key]])
+
+
 def mlp_block(x: torch.Tensor, p: dict) -> torch.Tensor:
     """c_fc -> QuickGELU -> c_proj (reference ResidualAttentionBlock.mlp)."""
-    h = quick_gelu(dense(x, p["c_fc_w"], p["c_fc_b"]))
-    return dense(h, p["c_proj_w"], p["c_proj_b"])
+    h = quick_gelu(_block_dense(x, p, "c_fc_w"))
+    return _block_dense(h, p, "c_proj_w")
 
 
 def split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -100,10 +122,10 @@ def multi_head_attention(
 ) -> torch.Tensor:
     """``nn.MultiheadAttention`` over batch-major [B, L, D]. Params:
     ``w_qkv`` [D, 3D], ``b_qkv`` [3D], ``w_out`` [D, D], ``b_out`` [D]."""
-    qkv = dense(x, p["w_qkv"], p["b_qkv"])
+    qkv = _block_dense(x, p, "w_qkv")
     q, k, v = (split_heads(t, n_head) for t in qkv.chunk(3, dim=-1))
     out = merge_heads(attn_fn(q, k, v, mask))
-    return dense(out, p["w_out"], p["b_out"])
+    return _block_dense(out, p, "w_out")
 
 
 def causal_mask(length: int, device=None) -> torch.Tensor:

@@ -78,8 +78,8 @@ def get_cfg_default() -> CfgNode:
     # batch-level multi-resolution collate (reference data_manager.py:15-67
     # collate_fn_custom — defined there, never wired; opt-in here). Random
     # per-batch aspect ratio + short side, dims floored to patch multiples;
-    # the ratio comes from a bounded grid (the JAX package's data/multires.py,
-    # not ported yet). Replaces the per-image train transform pipeline.
+    # the ratio comes from a bounded grid (data/multires.py). Replaces the
+    # per-image train transform pipeline.
     c.DATALOADER.MULTI_RES_COLLATE = False
     c.DATALOADER.COLLATE_FN = "none"
     c.DATALOADER.TRAIN_X = CfgNode()
@@ -268,6 +268,10 @@ def get_cfg_default() -> CfgNode:
     c.CUDA.DEVICE_AUGS = False
     # cache side for that decode-once store
     c.CUDA.CACHE_SIDE = 256
+    # int8 serving (ops/quant.py): the eval's towers quantize their block
+    # matmuls (per-channel int8 weights, per-row dynamic activations, int32
+    # accumulation); training never quantizes
+    c.CUDA.INT8 = False
 
     return c
 
@@ -282,6 +286,7 @@ TPU_KEYS_ONTO_CUDA = (
     "TEXT_CLS_MAX_CLASSES",
     "DEVICE_AUGS",
     "CACHE_SIDE",
+    "INT8",
 )
 # TPU.<key> with no CUDA twin, and the JAX package's default, the only
 # value the port accepts for it
@@ -290,7 +295,6 @@ TPU_KEYS_AT_DEFAULT = {
     "MULTIHOST_SLICED_LOADER": True,
     "USE_PALLAS_ATTENTION": False,
     "USE_FUSED_BLOCK": True,
-    "INT8": False,
     "TP_SPLIT_QKV": True,
     "CHECKPOINT_BACKEND": "npz",
 }

@@ -155,5 +155,11 @@ def test_from_checkpoints_random_smoke_mode(tmp_path, monkeypatch):
     assert gen.agg_params["cls_token"].shape == (2, 64)
     out = gen.generate(["a", "b"], _images(7, 2, 2, 3, 32, 32))
     assert out["fusion_weight"].shape == (2, 3)
-    with pytest.raises(NotImplementedError):
-        OVMRGenerator.from_checkpoints("RN50", device="cpu")
+    # a ResNet name builds its towers too; RN50's 1024-wide features do not
+    # fit its 512-wide text tower, so generate() refuses where the JAX
+    # package's does (tests/test_torch_resnet_paths.py holds the two)
+    with pytest.warns(UserWarning, match="RANDOM"):
+        rn = OVMRGenerator.from_checkpoints("RN50", device="cpu", dtype=torch.float32)
+    assert rn.clip_cfg == tclip.RN50 and rn.agg_params["cls_token"].shape == (2, 1024)
+    with pytest.raises(ValueError, match="Incompatible shapes for broadcasting"):
+        rn.generate(["a"], _images(8, 1, 1, 3, 224, 224))

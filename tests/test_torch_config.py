@@ -89,9 +89,9 @@ def test_tpu_dtype_maps_onto_cuda_dtype(tmp_path):
     cfg.merge_from_list(["TPU.DTYPE", "float32"])
     assert cfg.CUDA.DTYPE == "float32"
     path = tmp_path / "t.yaml"
-    path.write_text("TPU:\n  DTYPE: float16\n  MESH:\n    MODEL: 2\n")
+    path.write_text("TPU:\n  DTYPE: float16\n  INT8: True\n  MESH:\n    MODEL: 2\n")
     cfg.merge_from_file(str(path))
-    assert cfg.CUDA.DTYPE == "float16" and cfg.CUDA.MESH.MODEL == 2
+    assert cfg.CUDA.DTYPE == "float16" and cfg.CUDA.MESH.MODEL == 2 and cfg.CUDA.INT8 is True
     # at their JAX defaults, the keys with no CUDA twin are accepted
     cfg.merge_from_list(["TPU.INT8", "False", "TPU.CHECKPOINT_BACKEND", "npz",
                          "TPU.USE_FUSED_BLOCK", "True", "TPU.MESH.DATA", "-1"])
@@ -99,7 +99,7 @@ def test_tpu_dtype_maps_onto_cuda_dtype(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("INT8", "True"), ("USE_PALLAS_ATTENTION", "True"), ("USE_FUSED_BLOCK", "False"),
+    ("USE_PALLAS_ATTENTION", "True"), ("USE_FUSED_BLOCK", "False"),
     ("TP_SPLIT_QKV", "False"), ("CHECKPOINT_BACKEND", "orbax"),
     ("MULTIHOST_SLICED_LOADER", "False"), ("MESH.DATA", "4"),
 ])

@@ -1287,3 +1287,95 @@ def test_clip_compat_half_on_card_matches_cpu(cuda, dtype, tmp_path, monkeypatch
     ref, _ = cpu(images, tokens)
     assert lpi.dtype == torch.float32 and bool(torch.isfinite(lpi).all())
     close(lpi, ref, peak=float(cpu.logit_scale.exp()))
+
+
+# ---------------------------------------------------------------------------
+# the ModifiedResNet tower and int8 serving on the card
+# ---------------------------------------------------------------------------
+
+def test_resnet_encode_fp32_on_card_matches_cpu(cuda, monkeypatch):
+    """A fp32 ``TINY_RN`` tower on the card against the CPU within 1e-5 of
+    the output's scale: cuDNN's TF32 is off inside the tower (each
+    convolution sees it off) and back to its value after it."""
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.models import resnet as tresnet
+
+    seen = []
+    orig = tresnet.conv2d
+
+    def spy(*args, **kwargs):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(tresnet, "conv2d", spy)
+    before = torch.backends.cudnn.allow_tf32
+    params = tclip.init_params(tclip.TINY_RN, seed=3)
+    images = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 3, 96, 64))
+                              .astype(np.float32))
+    ref = tclip.encode_image(params, tclip.TINY_RN, images)
+    seen.clear()
+    got = tclip.encode_image(tclip.tree_to(params, device=cuda), tclip.TINY_RN, images.to(cuda))
+    assert seen and not any(seen) and torch.backends.cudnn.allow_tf32 == before
+    _check(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("rows,k,n", [(788, 768, 2304), (788, 3072, 768), (5, 768, 768)])
+def test_dense_int8_on_card_is_exact(cuda, rows, k, n):
+    """ViT-B/16's block shapes (4 images x 197 tokens) and a 5-row input:
+    on the same fp32 input the card's int8 activations and scales equal the
+    CPU's (a product with the float32 reciprocal of 127 and a division by a
+    tensor, each correctly rounded on both), its int32 products are the
+    CPU's exactly, and the output is within 1e-6 of its scale."""
+    from ovmr_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(rows + k)
+    x = torch.from_numpy(rng.standard_normal((rows, k)).astype(np.float32))
+    q, s = quant.quantize_weight(rng.standard_normal((k, n)).astype(np.float32) * k ** -0.5)
+    q, s = torch.from_numpy(q), torch.from_numpy(s)
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    xq, xs = quant.quantize_rows(x)
+    xq_c, xs_c = quant.quantize_rows(x.to(cuda))
+    assert torch.equal(xq_c.cpu(), xq) and torch.equal(xs_c.cpu(), xs)
+    assert torch.equal(quant.int_mm(xq_c, q.to(cuda)).cpu(), quant.int_mm(xq, q))
+    ref = quant.dense_int8(x, q, s, b)
+    got = quant.dense_int8(x.to(cuda), q.to(cuda), s.to(cuda), b.to(cuda)).cpu()
+    peak = max(float(ref.abs().max()), 1.0)
+    assert float((got - ref).abs().max()) <= 1e-6 * peak
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 48), (16, 768, 768), (17, 60, 20), (40, 100, 7),
+                                   (17, 64, 768), (20, 64, 192), (308, 96, 2304)])
+def test_int_mm_pads_rows_on_card(cuda, m, k, n):
+    """The card's integer GEMM takes a depth and width that are multiples
+    of 8, and below a depth of 128 rows that are a multiple of 32 (cuBLASLt
+    refuses 17 x 64 x 768 and 20 x 64 x 192 as they are); ``int_mm`` pads
+    with zeros and the int32 result is the exact product."""
+    from ovmr_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(m + k + n)
+    a = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    b = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    got = quant.int_mm(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    np.testing.assert_array_equal(got.cpu().numpy(), a.astype(np.int64) @ b.astype(np.int64))
+
+
+def test_int8_block_on_card_takes_torch_math(cuda):
+    """An int8 TINY layer through ``fused_residual_block`` on the card: no
+    kernel launches (the route sends it to torch math), and fp32 output
+    within 1e-3 of its scale of the CPU's: an activation on a rounding
+    boundary of the per-row quantizer may round to the neighbouring int8
+    step on one device (the product itself is exact)."""
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.ops import quant
+
+    params = quant.quantize_params(tclip.init_params(tclip.TINY, seed=1))
+    p = {k: v[0] for k, v in params["visual"]["blocks"].items()}
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((4, 5, 64)).astype(np.float32))
+    ref = fused_residual_block(x, p, 1)
+    cuda_lib.reset_launches()
+    got = fused_residual_block(x.to(cuda), {k: v.to(cuda) for k, v in p.items()}, 1)
+    torch.cuda.synchronize()
+    assert sum(cuda_lib.LAUNCHES.values()) == 0
+    peak = max(float(ref.abs().max()), 1.0)
+    assert float((got.cpu() - ref).abs().max()) <= 1e-3 * peak

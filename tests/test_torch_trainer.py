@@ -366,14 +366,17 @@ def test_cli_trains_then_evaluates(tmp_path):
     np.testing.assert_allclose(art["fusion_weight"].sum(-1).numpy(), 1.0, atol=1e-5)
 
 
-@pytest.mark.parametrize("key,value,match", [
-    ("CUDA.MESH.MODEL", 2, "item 4"),
-    ("MODEL.BACKBONE.NAME", "RN50", "item 5"),
-])
-def test_trainer_refuses_what_waits(tmp_path, monkeypatch, key, value, match):
+@pytest.mark.parametrize("over,exc,match", [
+    ({"CUDA.MESH.MODEL": 2}, NotImplementedError, "item 4"),
+    ({"CUDA.MESH.MODEL": 2, "CUDA.INT8": True}, NotImplementedError, "item 4.*CUDA.INT8"),
+    # ResNet towers are ported; RN50's image features (1024) do not fit its
+    # text tower (512), which MM_CLS_OP refuses as the JAX trainer does
+    ({"MODEL.BACKBONE.NAME": "RN50"}, ValueError, "embed_dim == transformer_width"),
+], ids=["model-axis", "int8-model-axis", "rn50-widths"])
+def test_trainer_refuses_what_waits(tmp_path, monkeypatch, over, exc, match):
     monkeypatch.setenv("OVMR_SYNTHETIC", "4,8,32")
-    with pytest.raises(NotImplementedError, match=match):
-        build_trainer(_tiny_cfg(tmp_path, **{key: value}))
+    with pytest.raises(exc, match=match):
+        build_trainer(_tiny_cfg(tmp_path, **over))
 
 
 def test_region_eval_runs_each_scale_twice(tmp_path, monkeypatch, capsys):

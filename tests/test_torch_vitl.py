@@ -1,7 +1,8 @@
 """What ViT-L/14@336px asks of the port beyond ViT-B/16, on the CPU.
 
 The MLP route (K2 or the chunked K5) against the JAX package's trace-time
-selector for every entry of ``CONFIGS``, with the JAX kernels stubbed as
+selector for every transformer tower of every entry of ``CONFIGS`` (a
+ResNet image tower has no blocks), with the JAX kernels stubbed as
 ``tests/test_block_fused.py::test_vitl_routing`` stubs them; the backward
 after a K5 forward (K4 then K3, the unchunked block's dx); K1's wrapper at 577 tokens; the config read from a
 state dict with ViT-L shapes; the positional table of a 24 x 24 grid.
@@ -28,12 +29,14 @@ TOWERS = {
 }
 
 
-@pytest.mark.parametrize("tower", list(TOWERS))
-@pytest.mark.parametrize("name", list(tclip.CONFIGS))
+@pytest.mark.parametrize("name,tower", [
+    (name, tower) for name, cfg in tclip.CONFIGS.items() for tower in TOWERS
+    if not (tower == "vision" and cfg.is_resnet)  # a ResNet image tower has no blocks
+])
 def test_mlp_route_matches_the_jax_selector(monkeypatch, name, tower):
-    """bf16 sizes, both towers of every config: the port takes K5 exactly
-    where ``_fused_block_fwd_impl`` does, with its chunk count: only for
-    ViT-L/14@336px's vision tower, in 2 chunks."""
+    """bf16 sizes, every transformer tower of every config: the port takes
+    K5 exactly where ``_fused_block_fwd_impl`` does, with its chunk count:
+    only for ViT-L/14@336px's vision tower, in 2 chunks."""
     calls = []
     monkeypatch.setattr(jbf, "fused_attn_half", lambda x, *a, **k: x)
     monkeypatch.setattr(
