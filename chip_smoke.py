@@ -205,6 +205,23 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    prompt sets' batch of the step's classes, are known only now; at 3529
    tokens one round of one call each), and the path's launches must all
    be at checked shapes.
+19. The data axis: (d) two ranks share the card over gloo (NCCL refuses
+   two ranks on one card) and train MM_CLS_OP through
+   ``ovmr_tpu_torch.train.main`` over phase 12's data for two steps, each
+   rank decoding its 96 classes of every batch: losses, aggregator and
+   adam state equal on both, the npz written by rank 0 alone; then (a)
+   the flagship step (ViT-B/16 bf16, 192 x 8, the device augmentation with
+   injected draws, dropout 0, sgd) on one program and on 4 local data
+   shards: exactly 4x one program's launches, the loss and each leaf's
+   update against one program's (and the same in fp32 on 48 classes, to
+   fp32 rounding), walls and peak memory; (b) data 2 x model 2 (K7/K8 in
+   every block, exact launches) against one program; (c) the process-group
+   branch over NCCL at world size 1 against the local shard, bit for bit,
+   with the NCCL kernels' share of a profiled step; (e) classifier
+   generation and the fusion at 1000 classes x 16 shots on 4 local shards
+   against one program (exact launches x4, classifiers within 2 bf16 ulp,
+   the sharded fusion scan bit for bit). Every kernel is then held at each
+   shape (a), (b) and (e) launched that no check held before.
 
 In bf16 every K1, K2 and K8 launches the wgmma GEMM twice, every K5 twice
 a chunk, every K4 twice (its c_fc recompute and GELU' product are one
@@ -623,10 +640,8 @@ def kernel_checks(torch, F):
     # the aggregator at embed width 512 (8 heads) and ViT-L's 768 (12 heads);
     # on the fp32 TP check's 2 classes padded to 8, 2 shots + 2 vokens; at
     # phase 12's eval, 192 classes of 8 shots + 2 vokens
-    for case, n, h, l, dh, dtypes in (("aggregator", 32, 8, 18, 64, both),
-                                      ("trainer-aggregator", 192, 8, 10, 64, bf16),
-                                      ("vitl336-aggregator", 32, 12, 18, 64, both),
-                                      ("vitl336-tp-fp32-aggregator", 8, 12, 4, 64, fp32)):
+    def attention_case(case, n, h, l, dh, dtypes):
+        """K6 at ``[n, h, l, dh]`` in each of ``dtypes``."""
         for dtype in dtypes:
             q, k, v = (randn(n, h, l, dh).to(dtype) for _ in range(3))
             check(dict(
@@ -642,13 +657,20 @@ def kernel_checks(torch, F):
                 reps=200, host_bound=True,
             ))
 
+    for args in (("aggregator", 32, 8, 18, 64, both),
+                 ("trainer-aggregator", 192, 8, 10, 64, bf16),
+                 ("vitl336-aggregator", 32, 12, 18, 64, both),
+                 ("vitl336-tp-fp32-aggregator", 8, 12, 4, 64, fp32)):
+        attention_case(*args)
+
     vision_bwd_cases(torch, F, randn, check, params, layer, library_attn_half, library_mlp_half,
                      library_dx)
     gemm_cases(torch, randn, check)
     bwd_gemm_cases(torch, randn, check)
     bwd_core_cases(torch, F, randn, check)
-    tp_cases(torch, F, randn, check, check_core, sliced, both)
-    return results, block_case
+    tp_case = tp_cases(torch, F, randn, check, check_core, sliced, both)
+    # the cases that later phases call for the shapes their steps draw
+    return results, dict(block=block_case, attention=attention_case, tp=tp_case)
 
 
 def vision_bwd_cases(torch, F, randn, check, params, layer, library_attn_half,
@@ -916,13 +938,11 @@ def tp_cases(torch, F, randn, check, check_core, sliced, both):
 
     bf16, fp32 = both[:1], both[1:]
     shards = {}
-    for case, b, l, d, dl, nh, hl, masked, dtypes in (
-            ("vitl336-tp2-vision-encode", 512, 577, 1024, 512, 8, 2048, False, bf16),
-            ("vitl336-tp2-vision-classify", 256, 577, 1024, 512, 8, 2048, False, bf16),
-            ("vitl336-tp2-text-prompts", 32, 77, 768, 384, 6, 1536, True, bf16),
-            ("vitl336-tp2-vision-fp32", 4, 577, 1024, 512, 8, 2048, False, fp32),
-            ("vitl336-tp2-text-fp32", 8, 77, 768, 384, 6, 1536, True, fp32)):
-        s32 = shards.setdefault(d, shard(d, dl, hl))
+
+    def tp_case(case, b, l, d, dl, nh, hl, masked, dtypes):
+        """K7 (causal where ``masked``), its core and K8 at one shard's
+        shape in each of ``dtypes``."""
+        s32 = shards.setdefault((d, dl, hl), shard(d, dl, hl))
         x32 = randn(b, l, d)
         mask = causal_mask(l, device="cuda") if masked else None
         step = 64 if b * nh * l * l * 4 > 2 ** 32 else b
@@ -967,6 +987,13 @@ def tp_cases(torch, F, randn, check, check_core, sliced, both):
                 bytes=tok * d * (it + 4) + (2 * d * hl + hl + 2 * d) * it,
                 flops=4 * tok * d * hl,
             ))
+    for args in (
+            ("vitl336-tp2-vision-encode", 512, 577, 1024, 512, 8, 2048, False, bf16),
+            ("vitl336-tp2-vision-classify", 256, 577, 1024, 512, 8, 2048, False, bf16),
+            ("vitl336-tp2-text-prompts", 32, 77, 768, 384, 6, 1536, True, bf16),
+            ("vitl336-tp2-vision-fp32", 4, 577, 1024, 512, 8, 2048, False, fp32),
+            ("vitl336-tp2-text-fp32", 8, 77, 768, 384, 6, 1536, True, fp32)):
+        tp_case(*args)
     # a shard of zero-padded heads (split_clip_qkv pads heads that do not
     # divide the model axis) contributes an exact zero, masked or not
     for l, d, dl, nh, masked in ((77, 768, 384, 6, True), (577, 1024, 512, 8, False)):
@@ -982,6 +1009,7 @@ def tp_cases(torch, F, randn, check, check_core, sliced, both):
                                      f"max |out| {float(got.abs().max())}, expected exact zeros")
     print("[kernels] K7 on zero-padded head shards (77 x 768 causal, 577 x 1024; fp32, bf16): "
           "exact zeros", flush=True)
+    return tp_case
 
 
 # ---------------------------------------------------------------------------
@@ -3396,11 +3424,402 @@ def multires_phase(torch, np, work):
     return (launches, shapes), fp32_shapes
 
 
-def drawn_block_checks(torch, block_case, checked, *shape_sets):
+# ---------------------------------------------------------------------------
+# phase 19: the data axis
+# ---------------------------------------------------------------------------
+
+DATA_SHARDS = 4
+DATA_SPLIT = 4
+GEN_CLASSES, GEN_SHOTS = 1000, 16  # 16000 exemplar rows: the fusion streams
+
+
+class SgdOptim(FlagshipOptim):
+    """sgd at lr 1, no momentum or decay: an update linear in the gradient,
+    large enough to compare two steps' updates leaf by leaf."""
+    NAME = "sgd"
+    LR = 1.0
+    MOMENTUM = 0.0
+    WEIGHT_DECAY = 0.0
+
+
+def held_shape_checks(torch, cases, kernels, shapes, label):
+    """Hold each kernel at every shape in ``shapes`` that no entry of
+    ``kernels`` (phase 2 and the holds since) has held: K7/K8 (and the core
+    inside K7), K6, then K1-K4 and the core."""
+    def checked():
+        return {entry["shape_key"] for entry in kernels}
+
+    tp = {}
+    for (name, shape, dtype) in shapes:
+        if name.startswith("tp_") and (name, shape, dtype) not in checked():
+            b, l, d, width = shape
+            g = tp.setdefault((b, l, d, dtype), dict(masked=False, dl=None, hl=None))
+            if name == "tp_mlp_half_partial":
+                g["hl"] = width
+            else:
+                g["dl"], g["masked"] = width, name.endswith("_masked")
+    for (b, l, d, dtype), g in sorted(tp.items()):
+        if g["dl"] is None or g["hl"] is None:
+            raise AssertionError(f"{label}: K7 and K8 did not both run at [{b}, {l}, {d}]")
+        cases["tp"](f"{label}-tp-{l}-b{b}", b, l, d, g["dl"], g["dl"] // 64, g["hl"],
+                    g["masked"], (getattr(torch, dtype),))
+    for (name, shape, dtype) in sorted(shapes):
+        if name == "fused_attention" and (name, shape, dtype) not in checked():
+            n, h, l, dh = shape
+            cases["attention"](f"{label}-aggregator-{n}-{l}", n, h, l, dh,
+                               (getattr(torch, dtype),))
+    tp_cores = {("attn_core", (b, l, g["dl"], g["dl"] // 64), dt)
+                for (b, l, _, dt), g in tp.items()}
+    drawn_block_checks(torch, cases["block"], checked() | tp_cores, shapes, label=label)
+
+
+def data_axis_phase(torch, np, clip_params, agg_params, cases, kernels):
+    """(a) The flagship step (ViT-B/16 bf16, 192 classes x 8, the
+    device-augmentation path, dropout 0) at 4 local data shards against the
+    single-program step with the same injected draws; (b) data 2 x model 2
+    (K7/K8); (c) the process-group branch over NCCL at world size 1 against
+    the local shard, bit for bit; (e) classifier generation and the fusion
+    at 1000 classes x 16 shots on 4 local shards against one program.
+    Returns the main path's launches of (a), (b) and (e)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from ovmr_tpu_torch.engine.optimizers import build_optimizer, param_leaves
+    from ovmr_tpu_torch.engine.train_step import (
+        make_sharded_train_step,
+        make_train_step,
+        slice_draws,
+    )
+    from ovmr_tpu_torch.engine.trainer import mm_generate_classifiers
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.ops import cuda_lib
+    from ovmr_tpu_torch.ops.augment import sample_augment_draws
+    from ovmr_tpu_torch.ops.block_fused_tp import make_tp_block, split_clip_qkv
+    from ovmr_tpu_torch.ops.fusion import (
+        streaming_fusion_weights,
+        streaming_fusion_weights_sharded,
+    )
+    from ovmr_tpu_torch.parallel import DataAxis, Mesh, ModelAxis, place_tower_params
+    from ovmr_tpu_torch.utils import get_cfg_default
+
+    t_phase = time.perf_counter()
+    cfg = tclip.VIT_B16
+    n_cls, n_ins, smi = TRAINER_CLASSES, TRAINER_SHOTS, nvidia_smi_line()
+    towers = tclip.cast_params(tclip.tree_to(clip_params, device="cuda"), torch.bfloat16)
+    inp = get_cfg_default().INPUT
+    augment = dict(out_size=224, scale=tuple(inp.RRCROP_SCALE),
+                   jitter=(inp.COLORJITTER_B, inp.COLORJITTER_C, inp.COLORJITTER_S,
+                           inp.COLORJITTER_H),
+                   gn_std=inp.GN_STD, mean=tuple(inp.PIXEL_MEAN), std=tuple(inp.PIXEL_STD),
+                   out_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    u8 = torch.randint(0, 256, (n_cls, n_ins, CACHE_SIDE, CACHE_SIDE, 3), dtype=torch.uint8,
+                       device="cuda", generator=gen)
+    draws = sample_augment_draws(gen, n_cls * n_ins, CACHE_SIDE,
+                                 **{k: augment[k] for k in ("out_size", "scale", "jitter",
+                                                            "gn_std")})
+    ptok, eot, vtok = prompt_inputs(torch, np, n_cls, "cuda")
+    flagship = (u8, ptok, eot, draws)
+    names = leaf_names(agg_params)
+
+    def run(step, params, shards, reps=1, inputs=None):
+        """``reps`` steps, each from a fresh copy of the aggregator: the
+        first's loss, update by leaf, launches and shapes; the walls and
+        the peak memory. ``inputs``: ``(u8, ptok, eot, draws)``, by default
+        the flagship batch's."""
+        u8, ptok, eot, draws = inputs or flagship
+        cut = draws if shards is None else slice_draws(draws, shards)
+        walls, out = [], None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(reps):
+            agg = trainable_aggregator(torch, agg_params, "cuda")
+            before = [leaf.detach().clone() for leaf in param_leaves(agg)]
+            optimizer = build_optimizer(SgdOptim, agg)
+            cuda_lib.reset_launches()
+            t = time.perf_counter()
+            loss = step(agg, optimizer, params, u8, ptok, eot, vtok, None, DATA_SPLIT,
+                        augment_draws=cut)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            if i == 0:
+                out = dict(loss=float(loss), launches=dict(cuda_lib.LAUNCHES),
+                           shapes=dict(cuda_lib.LAUNCH_SHAPES),
+                           update=[leaf.detach() - b for leaf, b in zip(param_leaves(agg),
+                                                                         before)])
+        out["walls"] = walls
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out
+
+    def hold(tag, got, ref, exact=False, loss_tol=1e-2, abs_tol=1e-2, rel_tol=5e-2):
+        """The bf16 ladder: the loss and each updated leaf within 1e-2; and,
+        since an update at lr 1 is ~1e-2 itself, each leaf's update within 5%
+        of the reference update in L2 (the aggregator's products run in bf16,
+        so its gradient's sums round differently over 48 classes than over
+        192; a double-counted cross-shard gradient is off by ~100%); or,
+        ``exact``, both bit for bit."""
+        if exact:
+            same = got["loss"] == ref["loss"] and all(
+                torch.equal(a, b) for a, b in zip(got["update"], ref["update"]))
+            if not same:
+                raise AssertionError(f"[data] {tag}: not bit for bit equal")
+            print(f"[data] {tag}: loss {got['loss']!r}, every update bit for bit equal",
+                  flush=True)
+            return
+        loss_err = abs(got["loss"] - ref["loss"])
+        if not loss_err <= loss_tol:
+            raise AssertionError(f"[data] {tag}: loss {got['loss']} vs {ref['loss']}")
+        worst_abs, worst_rel = 0.0, 0.0
+        for name, a, b in zip(names, got["update"], ref["update"]):
+            err = float((a - b).abs().max())
+            rel = float((a - b).norm() / b.norm()) if float(b.norm()) > 0 else math.inf
+            print(f"[data]   {tag} {name}: update |d| {err:.3g}, L2 {rel:.3g} of "
+                  f"{float(b.norm()):.3g}", flush=True)
+            if not (err <= abs_tol and rel <= rel_tol):
+                raise AssertionError(f"[data] {tag}: {name} update off by {err:.3g} "
+                                     f"(L2 {rel:.3g} of the reference's)")
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        print(f"[data] {tag}: loss {got['loss']:.6f} vs {ref['loss']:.6f} (|d| {loss_err:.3g}); "
+              f"updates |d| <= {worst_abs:.3g}, L2 <= {worst_rel:.3g} of the reference's",
+              flush=True)
+
+    def exact_launches(tag, got, want):
+        if got != want:
+            raise AssertionError(f"[data] {tag}: launches {got}, expected {want}")
+
+    # (a) one program, then 4 local data shards: each shard one program's
+    # kernels at a quarter of the classes
+    single = run(make_train_step(cfg, dropout=0.0, augment=augment), towers, None, reps=3)
+    one = single["launches"]
+    if one["fused_attn_half"] != 2 * cfg.vision_layers or one["fused_attention"] != 4:
+        raise AssertionError(f"[data] single-program step launches {one}")
+    mesh4 = Mesh(DataAxis.local(DATA_SHARDS), ModelAxis.local(1))
+    sharded = run(make_sharded_train_step(cfg, mesh4, dropout=0.0, augment=augment), towers,
+                  DATA_SHARDS, reps=3)
+    exact_launches("4 local shards", sharded["launches"],
+                   {k: DATA_SHARDS * n for k, n in one.items()})
+    hold("4 local shards vs one program", sharded, single)
+    for tag, r in (("one program", single), (f"{DATA_SHARDS} local shards", sharded)):
+        print(f"[data] ({smi}) flagship step, {tag}: "
+              f"{', '.join(f'{w:.1f}' for w in r['walls'])} ms; peak {r['peak_gib']:.2f} GiB",
+              flush=True)
+    for key, count in sorted(sharded["shapes"].items()):
+        print(f"[data]   {key[0]} {list(key[1])} {key[2]}: {count}", flush=True)
+    # the same comparison in fp32 on 48 of the classes: what is left of the
+    # bf16 gap is fp32 rounding, so the sharded step's gradient is one
+    # program's (a double count would be off by ~100% here too)
+    aug32 = dict(augment, out_dtype=torch.float32)
+    n32 = n_cls // DATA_SHARDS
+    inputs32 = (u8[:n32], ptok[:n32], eot[:n32],
+                {k: None if v is None else v[:n32 * n_ins] for k, v in draws.items()})
+    towers32 = tclip.tree_to(clip_params, device="cuda")
+    hold("fp32, 48 classes: 4 local shards vs one program",
+         run(make_sharded_train_step(cfg, mesh4, dropout=0.0, augment=aug32), towers32,
+             DATA_SHARDS, inputs=inputs32),
+         run(make_train_step(cfg, dropout=0.0, augment=aug32), towers32, None, inputs=inputs32),
+         loss_tol=1e-5, abs_tol=1e-5, rel_tol=1e-3)
+    del towers32
+
+    # (b) data 2 x model 2: K7/K8 in every block of both data shards
+    model = ModelAxis.local(2)
+    placed = place_tower_params(model, split_clip_qkv(towers, 2, cfg))
+    mesh22 = Mesh(DataAxis.local(2), model)
+    dm = run(make_sharded_train_step(cfg, mesh22, dropout=0.0, augment=augment,
+                                     block_fn=make_tp_block(model)), placed, 2, reps=2)
+    # a data shard: two image passes and two prompt sets, each layer's block
+    # on both model shards
+    k7_v, k7_t = 2 * 2 * cfg.vision_layers, 2 * 2 * cfg.transformer_layers
+    want = {k: 0 for k in one}
+    want.update(tp_attn_half_partial=2 * k7_v, tp_attn_half_partial_masked=2 * k7_t,
+                tp_mlp_half_partial=2 * (k7_v + k7_t), attn_core=2 * (k7_v + k7_t),
+                fused_attention=2 * 4, gemm_wgmma=2 * (4 + 2) * (k7_v + k7_t))
+    exact_launches("data 2 x model 2", dm["launches"], want)
+    hold("data 2 x model 2 vs one program", dm, single)
+    print(f"[data] ({smi}) flagship step, data 2 x model 2: "
+          f"{', '.join(f'{w:.1f}' for w in dm['walls'])} ms; peak {dm['peak_gib']:.2f} GiB",
+          flush=True)
+    del placed
+
+    # (c) the process-group branch over NCCL at world size 1
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        grouped = Mesh(DataAxis(1, (0,), group=dist.group.WORLD), ModelAxis.local(1))
+        step_g = make_sharded_train_step(cfg, grouped, dropout=0.0, augment=augment)
+        local1 = Mesh(DataAxis.local(1), ModelAxis.local(1))
+        hold("NCCL world size 1 vs local(1)", run(step_g, towers, 1),
+             run(make_sharded_train_step(cfg, local1, dropout=0.0, augment=augment), towers, 1),
+             exact=True)
+
+        def one_step():
+            agg = trainable_aggregator(torch, agg_params, "cuda")
+            step_g(agg, build_optimizer(SgdOptim, agg), towers, u8, ptok, eot, vtok, None,
+                   DATA_SPLIT, augment_draws=slice_draws(draws, 1))
+
+        wall_ms, busy_ms, rows = device_times(torch, one_step)
+        coll_ms = sum(ms for ms, key, _ in rows if "nccl" in key.lower())
+        print(f"[data] ({smi}) NCCL world 1 step: wall {wall_ms:.1f} ms, device busy "
+              f"{busy_ms:.1f} ms, NCCL kernels {coll_ms:.4f} ms "
+              f"({100 * coll_ms / busy_ms:.3f}% of busy)", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+    # (e) generation and fusion at 1000 classes x 16 shots on 4 local shards
+    g = torch.Generator().manual_seed(5)
+    feats = torch.randn(GEN_CLASSES, GEN_SHOTS, cfg.embed_dim, generator=g)
+    feats = (feats / feats.norm(dim=-1, keepdim=True)).numpy()
+    ptok_g, eot_g, vtok_g = (a.numpy() for a in prompt_inputs(torch, np, GEN_CLASSES, "cpu"))
+    agg_eval = {"blocks": {k: v.to("cuda") for k, v in agg_params["blocks"].items()},
+                "cls_token": agg_params["cls_token"].to("cuda")}
+    outs = {}
+    for tag, mesh in (("one", None), ("sharded", mesh4)):
+        cuda_lib.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = mm_generate_classifiers(towers, cfg, agg_eval, feats, ptok_g, eot_g, vtok_g, 10.0,
+                                      mesh=mesh)
+        torch.cuda.synchronize()
+        outs[tag] = dict(out=out, wall=(time.perf_counter() - t) * 1e3,
+                         launches=dict(cuda_lib.LAUNCHES), shapes=dict(cuda_lib.LAUNCH_SHAPES))
+    ref, got = outs["one"]["out"], outs["sharded"]["out"]
+    exact_launches("sharded generation", outs["sharded"]["launches"],
+                   {k: DATA_SHARDS * n for k, n in outs["one"]["launches"].items()})
+    for key in ("mm_classifier", "vision_classifier", "text_classifier", "visual_tokens"):
+        err = float(np.abs(got[key] - ref[key]).max())
+        tol = tolerance(torch.bfloat16, torch.as_tensor(ref[key]))
+        if not err <= tol:
+            raise AssertionError(f"[data] sharded generation {key}: {err:.3g} > {tol:.3g}")
+    # the fusion alone on one set of classifiers: the sharded scan's counts
+    # are one scan's, bit for bit
+    flat = torch.as_tensor(feats, device="cuda").to(torch.bfloat16).reshape(-1, cfg.embed_dim)
+    labels = torch.arange(GEN_CLASSES, device="cuda").repeat_interleave(GEN_SHOTS)
+    cls3 = [torch.as_tensor(ref[k], device="cuda") for k in
+            ("mm_classifier", "vision_classifier", "text_classifier")]
+    scale = float(clip_params["logit_scale"].float().exp())
+    f_one = streaming_fusion_weights(flat, labels, cls3, scale, 10.0)
+    f_sharded = streaming_fusion_weights_sharded(DataAxis.local(DATA_SHARDS), flat, labels, cls3,
+                                                 scale, 10.0)
+    if not torch.equal(f_one, f_sharded):
+        raise AssertionError("[data] the sharded fusion differs from one program's")
+    if not np.allclose(got["fusion_weight"].sum(-1), 1.0, atol=1e-5):
+        raise AssertionError("[data] sharded generation: fusion weights do not sum to 1")
+    fw_err = float(np.abs(got["fusion_weight"] - ref["fusion_weight"]).max())
+    print(f"[data] ({smi}) generation at {GEN_CLASSES} x {GEN_SHOTS}: one program "
+          f"{outs['one']['wall']:.1f} ms, {DATA_SHARDS} local shards "
+          f"{outs['sharded']['wall']:.1f} ms; classifiers within 2 bf16 ulp, the fusion scan "
+          f"bit for bit, end-to-end fusion weights |d| {fw_err:.3g}", flush=True)
+
+    # every launch of the phase at a shape a check held
+    shapes = {}
+    for r in (sharded["shapes"], dm["shapes"], outs["sharded"]["shapes"], single["shapes"],
+              outs["one"]["shapes"]):
+        for key, n in r.items():
+            shapes[key] = shapes.get(key, 0) + n
+    held_shape_checks(torch, cases, kernels, shapes, "data-axis")
+    print(f"[data] phase 19 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"data_axis": (sharded["launches"], sharded["shapes"]),
+            "data_model": (dm["launches"], dm["shapes"]),
+            "sharded_generation": (outs["sharded"]["launches"], outs["sharded"]["shapes"])}
+
+
+def _gloo_rank(rank, world, work, transforms):
+    """One rank of phase 19 (d): joins a gloo group of ``world`` ranks on
+    the one card, then trains MM_CLS_OP for two epochs of one step through
+    ``ovmr_tpu_torch.train.main`` over phase 12's data, its rows sliced by
+    its data shard; saves its losses, rows and state for the parent."""
+    import os
+
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from ovmr_tpu_torch import train as entry
+    from ovmr_tpu_torch.engine import checkpoint as ckpt
+    from ovmr_tpu_torch.engine import trainer as trainer_mod
+
+    os.environ["OVMR_SYNTHETIC"] = f"{TRAINER_CLASSES},16,224"
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{work}/dist/rendezvous", rank=rank,
+                            world_size=world)
+    try:
+        seen = []
+        orig = trainer_mod.MM_CLS_OP.forward_backward
+
+        def recording(self, batch):
+            out = orig(self, batch)
+            seen.append((out["loss"], bool(batch.get("_local", False)), len(batch["img"])))
+            return out
+
+        trainer_mod.MM_CLS_OP.forward_backward = recording
+        argv = ["--root", f"{work}/data", "--seed", "1", "--trainer", "MM_CLS_OP", "--n_ctx", "2",
+                "--output-dir", f"{work}/dist/rank{rank}"] + FLAGSHIP_OPTS + [
+            "INPUT.TRANSFORMS", repr(transforms), "DATASET.NAME", "Synthetic",
+            "DATASET.NUM_SHOTS", str(TRAINER_SHOTS), "OPTIM.MAX_EPOCH", "2", "TEST.NO_TEST",
+            "True", "TRAIN.PRINT_FREQ", "1", "CUDA.MESH.DATA", str(world)]
+        stdout = sys.stdout
+        try:
+            trainer = entry.main(entry.build_parser().parse_args(argv))
+        finally:
+            tee, sys.stdout = sys.stdout, stdout
+            if tee is not stdout:
+                tee.close()
+        torch.save({"seen": seen,
+                    "params": {k: v.detach().cpu() for k, v in
+                               ckpt.named_leaves(trainer.agg_params)},
+                    "opt": ckpt.optimizer_state_arrays(trainer.optimizer, trainer.agg_params),
+                    "mesh": trainer.mesh.shape},
+                   f"{work}/dist/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_ranks_phase(torch, work):
+    """Phase 19 (d): two ranks share the card over gloo (NCCL refuses two
+    ranks on one card) and train MM_CLS_OP for two steps with the sliced
+    loader: each decodes its 96 classes of every 192-class batch, and both
+    print the same losses and hold the same aggregator and adam state."""
+    import importlib.util
+
+    import torch.multiprocessing as mp
+
+    t = time.perf_counter()
+    transforms = (FLAGSHIP_TRANSFORMS if importlib.util.find_spec("PIL") is not None
+                  else ["random_flip", "normalize"])
+    (work / "dist").mkdir(exist_ok=True)
+    mp.spawn(_gloo_rank, args=(2, str(work), transforms), nprocs=2, join=True)
+    ranks = [torch.load(work / "dist" / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    half = TRAINER_CLASSES * TRAINER_SHOTS // 2
+    for r, got in enumerate(ranks):
+        if got["mesh"] != {"data": 2, "model": 1}:
+            raise AssertionError(f"[gloo] rank {r}: mesh {got['mesh']}")
+        if [(local, rows) for _, local, rows in got["seen"]] != [(True, half)] * 2:
+            raise AssertionError(f"[gloo] rank {r}: batches {got['seen']}")
+    losses = [[loss for loss, _, _ in got["seen"]] for got in ranks]
+    if losses[0] != losses[1] or not all(math.isfinite(v) for v in losses[0]):
+        raise AssertionError(f"[gloo] losses differ across the ranks: {losses}")
+    for key, value in ranks[0]["params"].items():
+        if not torch.equal(value, ranks[1]["params"][key]):
+            raise AssertionError(f"[gloo] {key} differs across the ranks")
+    for key, value in ranks[0]["opt"].items():
+        if not (value == ranks[1]["opt"][key]).all():
+            raise AssertionError(f"[gloo] optimizer {key} differs across the ranks")
+    if not (work / "dist" / "rank0" / "prompt_learner" / "model-2.npz").is_file() or (
+            work / "dist" / "rank1" / "prompt_learner" / "model-2.npz").exists():
+        raise AssertionError("[gloo] the npz checkpoint was not written by rank 0 alone")
+    print(f"[gloo] two ranks on one card over gloo: 2 MM_CLS_OP steps, {half} rows a rank a "
+          f"step, losses {losses[0]} on both, aggregator and adam state bit for bit equal, "
+          f"npz by rank 0 alone; {time.perf_counter() - t:.1f} s", flush=True)
+
+
+def drawn_block_checks(torch, block_case, checked, *shape_sets, label="multires-drawn"):
     """Hold every block kernel at each ``(B, L, D, dtype)`` that phase 18
-    launched and phase 2 did not check: K1 (causal for the prompt sets,
-    whose batch is the step's classes), its core and K2, with K3 and K4
-    where the step ran them. Where a plain version runs in slices (3529
+    (or 19) launched and phase 2 did not check: K1 (causal for the prompt
+    sets, whose batch is the step's classes), its core and K2, with K3 and
+    K4 where the step ran them. Where a plain version runs in slices (3529
     tokens), one round of one call each."""
     groups = {}
     for shapes in shape_sets:
@@ -3417,7 +3836,7 @@ def drawn_block_checks(torch, block_case, checked, *shape_sets):
                 g["heads"] = shape[3]
     for (b, l, d, dtype), g in sorted(groups.items()):
         timed = dict(reps=1, rounds=1) if slice_step(b, g["heads"], l) < b else None
-        block_case(f"multires-drawn-{l}-b{b}", b, l, d, g["heads"], g["masked"],
+        block_case(f"{label}-{l}-b{b}", b, l, d, g["heads"], g["masked"],
                    (getattr(torch, dtype),), g["bwd"], timed)
 
 
@@ -3450,7 +3869,8 @@ def main() -> int:
     from ovmr_tpu_torch.models import clip as tclip
     from ovmr_tpu_torch.models.aggregator import init_aggregator
 
-    kernels, block_case = kernel_checks(torch, F)
+    kernels, cases = kernel_checks(torch, F)
+    block_case = cases["block"]
 
     def all_checked(what, shapes):
         """Every launch of a path ran at a shape phase 2 (or, for phase 18's
@@ -3549,8 +3969,15 @@ def main() -> int:
         all_checked("multires", paths["multires"][1])
         all_checked("multires-fp32", fp32_shapes)
         print(f"[multires] phase 18 in {time.perf_counter() - t:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+        gloo_ranks_phase(torch, work)  # phase 19 (d), over phase 12's data
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    for path, recorded in data_axis_phase(torch, np, clip_params, agg_params, cases,
+                                          kernels).items():
+        paths[path] = recorded
+        all_checked(path, recorded[1])
 
     for entry in kernels:
         # launches: the wrapper's count over the three ViT-B/16 requests +

@@ -20,8 +20,16 @@ multi-resolution collate of :mod:`ovmr_tpu_torch.data.multires` (raw
 decode, one drawn shape a batch). Not ported yet, and refused by
 :class:`DataManager`: ``RETURN_IMG0`` and ``TEXT_ONLY`` batches, which the
 Dassl families use, and the unlabeled loader ``train_loader_u`` (ROADMAP
-Queue 1 item 7). The JAX package's per-host sliced decode
-(``:283-330``) is a no-op in one process.
+Queue 1 item 7b).
+
+The sliced decode (JAX ``:50-58``, ``:159-172``, ``:275-330``): under a
+process group whose mesh has a data axis > 1, a trainer that opts in
+(``allow_local_batches``) has each rank decode only its data shard's
+contiguous block of every training batch (``_local`` True in the batch).
+The block is taken by the rank's data coordinate, not its rank, so the
+model shards of one data row decode the same rows; the augmentation's
+position offset and the multi-res batch rng keyed on the global start
+keep the sliced rows pixel-identical to a full decode.
 """
 
 from __future__ import annotations
@@ -54,7 +62,15 @@ class HostDataLoader:
         drop_last: bool = False,
         k_transforms: int = 1,
         multi_res=None,
+        local_block=None,
+        local_multiple: int = 1,
     ):
+        # (data shard, data axis size) of the sliced decode, None: every
+        # process decodes the whole batch. local_multiple: the row multiple
+        # a whole batch needs for a slice to be taken (the data axis, times
+        # the class group size under RandomClassSampler)
+        self.local_block = local_block
+        self.local_multiple = max(local_multiple, 1)
         self.data_source = data_source
         self.sampler = sampler
         self.transform = transform
@@ -105,6 +121,18 @@ class HostDataLoader:
             arrs = [self.transform(img) for _ in range(self.k_transforms)]
         return arrs, item.label, item.impath, item.domain
 
+    def _local_view(self, batch_idx):
+        """This shard's contiguous block of a batch's indices:
+        ``(sub_idx, position_offset, is_local)``; a batch that does not
+        split (a ragged tail) is decoded whole (JAX ``_local_view`` :159)."""
+        if self.local_block is None:
+            return batch_idx, 0, False
+        shard, shards = self.local_block
+        if len(batch_idx) % max(self.local_multiple, shards):
+            return batch_idx, 0, False
+        loc = len(batch_idx) // shards
+        return batch_idx[shard * loc:(shard + 1) * loc], shard * loc, True
+
     def __iter__(self) -> Iterator[Dict]:
         rng = np.random.default_rng(self._seed + self._epoch)
         indices = self.sampler.epoch_indices(rng)
@@ -116,24 +144,26 @@ class HostDataLoader:
                 batch_idx = indices[start : start + self.batch_size]
                 if self.drop_last and len(batch_idx) < self.batch_size:
                     break
+                sub_idx, pos_off, is_local = self._local_view(batch_idx)
                 if self.multi_res is not None:
-                    # one rng a batch, keyed on the batch's start in the
-                    # epoch's index stream (JAX ``manager.py:202-216``)
-                    items = [self.data_source[i] for i in batch_idx]
+                    # one rng a batch, keyed on the whole batch's start in
+                    # the epoch's index stream (JAX ``manager.py:202-216``)
+                    items = [self.data_source[i] for i in sub_idx]
                     pils = list(pool.map(lambda it: read_image(it.impath), items))
                     brng = random.Random(hash((self._seed, epoch, int(start), 11)) & 0xFFFFFFFF)
                     yield {
                         "img": self.multi_res(pils, brng),
                         "label": np.asarray([it.label for it in items], np.int32),
                         "impath": [it.impath for it in items],
-                        "index": np.asarray(batch_idx, np.int64),
+                        "index": np.asarray(sub_idx, np.int64),
+                        "_local": is_local,
                         "domain": np.asarray([it.domain for it in items], np.int32),
                     }
                     continue
                 results = list(
                     pool.map(
-                        lambda args: self._load_one(args[1], epoch, start + args[0]),
-                        enumerate(batch_idx),
+                        lambda args: self._load_one(args[1], epoch, start + pos_off + args[0]),
+                        enumerate(sub_idx),
                     )
                 )
                 k = len(results[0][0])
@@ -144,7 +174,8 @@ class HostDataLoader:
                     "img": imgs,
                     "label": np.repeat(np.asarray([r[1] for r in results], np.int32), k),
                     "impath": [r[2] for r in results for _ in range(k)],
-                    "index": np.repeat(np.asarray(batch_idx, np.int64), k),
+                    "index": np.repeat(np.asarray(sub_idx, np.int64), k),
+                    "_local": is_local,
                     # source-domain index (0 for the OVMR datasets)
                     "domain": np.repeat(np.asarray([r[3] for r in results], np.int32), k),
                 }
@@ -177,9 +208,38 @@ def build_multi_res(cfg):
     return MultiResCollate(patch_size=patch)
 
 
+def local_block_of(cfg, allow_local_batches=False, local_model_axis: int = 1):
+    """``(local_block, local_multiple)`` of the sliced decode for this
+    rank (JAX ``DataManager`` :283-330): with ``allow_local_batches``,
+    ``CUDA.MULTIHOST_SLICED_LOADER`` and a process group whose data axis
+    (``CUDA.MESH.DATA``, -1 resolved as the trainers' mesh resolves it:
+    the ranks over ``local_model_axis``) is > 1, the block of the rank's
+    data coordinate ``rank // model``. JAX slices by process with the model
+    axis inside a process; here a card is a rank, so the ranks of one data
+    row decode the same block. Else ``(None, 1)``."""
+    from ovmr_tpu_torch.parallel.multihost import rank, world
+
+    n = world()
+    if not allow_local_batches or n == 1 or not cfg.CUDA.MULTIHOST_SLICED_LOADER:
+        return None, 1
+    model = max(int(local_model_axis), 1)
+    data = int(cfg.CUDA.MESH.DATA)
+    if data == -1:
+        data = n // model
+    if data <= 1 or data * model != n:
+        return None, 1
+    mult = data
+    if cfg.DATALOADER.TRAIN_X.SAMPLER == "RandomClassSampler":
+        mult *= max(cfg.DATALOADER.TRAIN_X.N_INS, 1)
+    return (rank() // model, data), mult
+
+
 class DataManager:
-    def __init__(self, cfg, dataset: Optional[DatasetBase] = None):
+    def __init__(self, cfg, dataset: Optional[DatasetBase] = None,
+                 allow_local_batches=False, local_model_axis: int = 1):
         self.cfg = cfg
+        self._local_block, self._local_multiple = local_block_of(
+            cfg, allow_local_batches, local_model_axis)
         multi_res = build_multi_res(cfg)
         for key, value in (
             ("DATALOADER.RETURN_IMG0", cfg.DATALOADER.RETURN_IMG0),
@@ -187,7 +247,7 @@ class DataManager:
         ):
             if value:
                 raise NotImplementedError(
-                    f"{key} True is not ported yet (ROADMAP Queue 1 item 7: the Dassl loaders)"
+                    f"{key} True is not ported yet (ROADMAP Queue 1 item 7b: the Dassl loaders)"
                 )
         self.dataset = dataset if dataset is not None else build_dataset(cfg)
 
@@ -217,6 +277,8 @@ class DataManager:
             num_workers=nw,
             k_transforms=cfg.DATALOADER.K_TRANSFORMS,
             multi_res=multi_res,
+            local_block=self._local_block,
+            local_multiple=self._local_multiple,
             # reference: drop_last = is_train and len >= batch_size
             # (data_manager.py:107) — the ragged tail batch is dropped,
             # keeping step shapes static and the epoch counts and

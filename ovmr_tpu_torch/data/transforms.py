@@ -290,7 +290,7 @@ def _refuse_policy_stages(choices) -> None:
     if needed:
         raise NotImplementedError(
             f"transform choices {needed} need data/autoaugment.py, which is not ported yet "
-            "(ROADMAP Queue 1 item 7: only the Dassl configs use them)"
+            "(ROADMAP Queue 1 item 7a: only the Dassl configs use them)"
         )
 
 

@@ -18,8 +18,14 @@ and ``step`` as optax's ``mu``, ``nu`` and ``count``; for ``sgd`` (CoOp's
 recipe) torch's ``momentum_buffer`` is ``optax.trace``'s ``trace``. So
 either package resumes the other's checkpoint. ``amsgrad``, ``adamw``,
 ``rmsprop`` and staged learning rates write torch's own state under
-``opt//.torch.<kind>//...`` and refuse a layout written by another. The
-orbax backend of the JAX package is not ported.
+``opt//.torch.<kind>//...`` and refuse a layout written by another.
+
+``backend="orbax"`` (``CUDA.CHECKPOINT_BACKEND``) routes the epoch-keyed
+save/resume cycle through :mod:`ovmr_tpu_torch.engine.orbax_io` (orbax's
+layout, ``torch.distributed.checkpoint``'s files), on every rank; named
+saves (best-val) stay npz. Under a process group the npz path writes on
+rank 0 only (the state is replicated; JAX :74-89) and every rank waits for
+the write.
 """
 
 from __future__ import annotations
@@ -240,16 +246,30 @@ def save_checkpoint(
     optimizer: Optional[torch.optim.Optimizer] = None,
     is_best: bool = False,
     model_name: str = "",
+    backend: str = "npz",
 ) -> str:
     """Write ``{directory}/{name}/model-{epoch}.npz`` + pointer file. With
     ``model_name`` the file is ``{model_name}.npz`` instead (the
     reference's best-val save passes ``model-best``,
     ``dassl/engine/trainer.py:448-455``); the pointer always tracks the
-    latest write, matching ``torchtools.py:65-69``."""
+    latest write, matching ``torchtools.py:65-69``. ``backend="orbax"``
+    sends an epoch save to :func:`ovmr_tpu_torch.engine.orbax_io.save_orbax`
+    instead."""
+    if backend not in ("npz", "orbax"):
+        raise ValueError(f"CHECKPOINT_BACKEND {backend!r}: expected 'npz' or 'orbax'")
+    if backend == "orbax" and not model_name and not is_best:
+        from ovmr_tpu_torch.engine.orbax_io import save_orbax
+
+        return save_orbax(directory, name, epoch, params, optimizer)
+    from ovmr_tpu_torch.parallel.multihost import barrier, is_primary
+
     subdir = osp.join(directory, name)
-    os.makedirs(subdir, exist_ok=True)
     fname = f"{model_name}.npz" if model_name else f"model-{epoch}.npz"
     path = osp.join(subdir, fname)
+    if not is_primary():
+        barrier()  # written by rank 0
+        return path
+    os.makedirs(subdir, exist_ok=True)
     payload = {f"params{SEP}{k}": v.detach().cpu().numpy() for k, v in named_leaves(params)}
     payload["__epoch__"] = np.asarray(epoch)
     if optimizer is not None:
@@ -261,6 +281,7 @@ def save_checkpoint(
     if is_best:
         np.savez(osp.join(subdir, "model-best.npz"), **payload)
     print(f"Checkpoint saved to {path}")
+    barrier()
     return path
 
 
@@ -271,6 +292,7 @@ def load_checkpoint(
     epoch: Optional[int] = None,
     prefer: str = "best",
     torch_converter: Optional[Callable[[str], Tuple[dict, int]]] = None,
+    backend: str = "npz",
 ) -> Tuple[dict, Optional[Dict[str, np.ndarray]], int]:
     """Load by explicit epoch; else prefer ``model-best`` then the pointer
     file — the reference's ``load_model`` defaults to the best model
@@ -280,7 +302,16 @@ def load_checkpoint(
     ``torch_converter``, a path -> ``(params, epoch)`` function; by default
     :func:`ovmr_tpu_torch.models.import_torch.load_prompt_learner`).
     Returns ``(params on the CPU in the template's dtypes, the opt//
-    entries without their prefix or None, epoch)``."""
+    entries without their prefix or None, epoch)``. With ``backend="orbax"``
+    an orbax-layout checkpoint is read first, the npz and torch files after
+    it when the directory holds none (JAX :135-143)."""
+    if backend == "orbax":
+        from ovmr_tpu_torch.engine.orbax_io import load_orbax
+
+        try:
+            return load_orbax(directory, name, params_template, epoch=epoch)
+        except FileNotFoundError:
+            pass
     subdir = osp.join(directory, name)
     if epoch is not None:
         candidates = [f"model-{epoch}.npz", f"model.pth.tar-{epoch}"]
@@ -328,17 +359,31 @@ def copy_into(params: dict, loaded: dict) -> None:
 
 
 def resume_from_checkpoint(directory: str, name: str, params: dict,
-                           optimizer: Optional[torch.optim.Optimizer] = None) -> int:
+                           optimizer: Optional[torch.optim.Optimizer] = None,
+                           backend: str = "npz") -> int:
     """Resume the latest (pointer-tracked) checkpoint if there is one: its
     parameters into ``params`` in place and its optimizer state into
     ``optimizer``; return its epoch, else 0 with nothing changed (reference
-    ``resume_from_checkpoint``, ``torchtools.py:118-157``)."""
-    try:
-        loaded, opt, epoch = load_checkpoint(directory, name, params, prefer="pointer")
-    except FileNotFoundError:
-        return 0
+    ``resume_from_checkpoint``, ``torchtools.py:118-157``). With
+    ``backend="orbax"`` the orbax pointer is followed first."""
+    loaded = None
+    if backend == "orbax":
+        from ovmr_tpu_torch.engine.orbax_io import load_orbax
+
+        try:
+            loaded, opt, epoch = load_orbax(directory, name, params,
+                                            with_opt_state=optimizer is not None)
+            note = " (orbax)"
+        except FileNotFoundError:
+            pass  # interop: the directory may hold npz or torch checkpoints
+    if loaded is None:
+        try:
+            loaded, opt, epoch = load_checkpoint(directory, name, params, prefer="pointer")
+        except FileNotFoundError:
+            return 0
+        note = ""
     copy_into(params, loaded)
     if optimizer is not None and opt is not None:
         load_optimizer_state(optimizer, params, opt)
-    print(f"Resumed from epoch {epoch}")
+    print(f"Resumed from epoch {epoch}{note}")
     return epoch

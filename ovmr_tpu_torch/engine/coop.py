@@ -30,7 +30,13 @@ The text tower is differentiated into ``ctx`` through
 ``train_step._text_tower_block_fn(fused_residual_block)``: on the card the
 kernels K1/K2 forward and K4/K3 backward. The image tower runs K1/K2 without
 gradients. The step takes ``prompt_ind`` as an argument, so tests inject
-it. Training on a model axis is Queue 1 item 4.
+it. On a mesh (``CUDA.MESH``, :func:`ovmr_tpu_torch.engine.trainer.setup_trainer_mesh`;
+JAX ``:241-352``) the image batch shards over 'data': each shard encodes
+its rows and runs the text features itself, its CE over its own rows; the
+loss, the accuracy and the ``ctx`` gradients are averaged over 'data'.
+A model axis runs the towers as the mesh's block (the TP block of K7/K8, or
+the GSPMD route). A batch the data axis does not divide runs the
+single-program step, with one warning.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ovmr_tpu_torch.data.manager import DataManager
 from ovmr_tpu_torch.engine import checkpoint as ckpt
 from ovmr_tpu_torch.engine.optimizers import build_optimizer, set_lr
 from ovmr_tpu_torch.engine.schedule import lr_schedule_from_cfg
@@ -52,12 +59,14 @@ from ovmr_tpu_torch.engine.trainer import (
     collect_exemplar_features,
     load_or_init_clip,
     make_feature_extractor,
+    setup_trainer_mesh,
 )
 from ovmr_tpu_torch.models import clip as tclip
 from ovmr_tpu_torch.models import ovmr
 from ovmr_tpu_torch.ops.block_fused import fused_residual_block
 from ovmr_tpu_torch.ops.fusion import fusion_weights_from_f1, multiclass_f1
 from ovmr_tpu_torch.ops.layers import l2_normalize
+from ovmr_tpu_torch.parallel.mesh import place_local_batch, shard_batch
 from ovmr_tpu_torch.text import tokenize
 
 # above this many classes a step trains one random prompt (``coop_…:317``)
@@ -66,19 +75,26 @@ ONE_PROMPT_ABOVE = 400
 
 @TRAINER_REGISTRY.register()
 class CoOp(TrainerBase):
+    # the towers' block and the mesh, until build_model sets them
+    block_fn = staticmethod(fused_residual_block)
+    mesh = None
+
+    def build_data_manager(self):
+        # stage-2 batches are plain image rows: each rank may decode its own
+        return DataManager(self.cfg, allow_local_batches=True,
+                           local_model_axis=self.cfg.CUDA.MESH.MODEL)
+
     def build_model(self):
         from ovmr_tpu_torch.api import resolve_device
 
         cfg = self.cfg
-        if cfg.CUDA.MESH.MODEL > 1:
-            raise NotImplementedError(
-                "CoOp: CUDA.MESH.MODEL > 1 is not ported yet (ROADMAP Queue 1 item 4); "
-                "the serving seams take a model axis, training does not")
         self.device = resolve_device(cfg.CUDA.DEVICE)
         self.dtype = _DTYPES[cfg.CUDA.DTYPE]
         clip_params, self.clip_cfg = load_or_init_clip(cfg)
         self.clip_params = tclip.cast_params(
             tclip.tree_to(clip_params, device=self.device), self.dtype)
+        self.mesh, self._tp, self.clip_params, self.block_fn = setup_trainer_mesh(
+            cfg, self.clip_params, clip_cfg=self.clip_cfg, label="CoOp")
         dim = self.clip_cfg.transformer_width
 
         classnames = [c.replace("_", " ") for c in self.dm.dataset.classnames]
@@ -124,10 +140,13 @@ class CoOp(TrainerBase):
         self.py_rng = np.random.default_rng(max(cfg.SEED, 0))
         self.classifiers = None
         self._fusion_weight_cache = None
+        # the data-only mesh keeps the single-program encode (stage-2 eval
+        # sets are small, JAX :274-286); a model axis encodes on the mesh
         self._features = make_feature_extractor(
             self.clip_cfg, self.dtype, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD,
             cfg.DATALOADER.TEST.BATCH_SIZE, device=self.device,
-            u8_normalize="normalize" in cfg.INPUT.TRANSFORMS)
+            u8_normalize="normalize" in cfg.INPUT.TRANSFORMS, tp_block_fn=self.block_fn,
+            mesh=self.mesh if self._tp else None)
 
     def _embed(self, texts) -> torch.Tensor:
         """Token embeddings [N, 77, D] of texts (or token rows) in the
@@ -137,7 +156,8 @@ class CoOp(TrainerBase):
 
     def resume_model_if_exist(self, directory) -> int:
         return ckpt.resume_from_checkpoint(directory, "prompt_learner", self.params,
-                                           self.optimizer)
+                                           self.optimizer,
+                                           backend=self.cfg.CUDA.CHECKPOINT_BACKEND)
 
     # ------------------------------------------------------------------
     def _prompt(self, ind: int):
@@ -162,52 +182,94 @@ class CoOp(TrainerBase):
     def text_features(self, which: Sequence[int] = (0, 1, 2)):
         """Unit text features [n_cls, D] of the prompts ``which`` (0 mm, 1 v,
         2 t), in the towers' dtype; differentiable in ``ctx``."""
-        block_fn = _text_tower_block_fn(fused_residual_block)
+        block_fn = _text_tower_block_fn(self.block_fn)
         return [
             l2_normalize(tclip.encode_text_embeds(self.clip_params, self.clip_cfg, x, eot,
                                                   block_fn=block_fn))
             for x, eot in (self._prompt(i) for i in which)
         ]
 
-    def train_step(self, images: torch.Tensor, labels: torch.Tensor, prompt_ind: int = 0):
-        """One optimizer step of ``ctx`` on a batch on the device; returns
-        (loss, accuracy in percent) as tensors. Above 400 classes only prompt
-        ``prompt_ind`` is trained, else all three."""
+    def _shard_loss(self, images, labels, which):
+        """CE of one shard's rows over the prompts ``which`` (summed) and
+        its mm logits (the accuracy's basis)."""
         with torch.no_grad():
-            feats = l2_normalize(tclip.encode_image(self.clip_params, self.clip_cfg, images)).float()
+            feats = l2_normalize(tclip.encode_image(self.clip_params, self.clip_cfg, images,
+                                                    block_fn=self.block_fn)).float()
             scale = self.clip_params["logit_scale"].float().exp()
-        which = (prompt_ind,) if self.n_cls > ONE_PROMPT_ABOVE else (0, 1, 2)
-        self.optimizer.zero_grad(set_to_none=True)
         loss, acc_logits = 0.0, None
         for f in self.text_features(which):
             logits = scale * feats @ f.float().T
             if acc_logits is None:
                 acc_logits = logits  # mm: the reference's accuracy basis
             loss = loss + F.cross_entropy(logits, labels)
+        return loss, (acc_logits.argmax(1) == labels).float().mean() * 100.0
+
+    def train_step(self, images: torch.Tensor, labels: torch.Tensor, prompt_ind: int = 0,
+                   mesh=None):
+        """One optimizer step of ``ctx`` on a batch on the device; returns
+        (loss, accuracy in percent) as tensors. Above 400 classes only prompt
+        ``prompt_ind`` is trained, else all three. With a ``mesh`` the rows
+        are this process's, split over its local data shards: each shard's
+        loss is differentiated, the gradients summed over 'data' and divided
+        by its size, and the loss and accuracy averaged likewise."""
+        which = (prompt_ind,) if self.n_cls > ONE_PROMPT_ABOVE else (0, 1, 2)
+        self.optimizer.zero_grad(set_to_none=True)
+        if mesh is None:
+            loss, acc = self._shard_loss(images, labels, which)
+            loss.backward()
+            self.optimizer.step()
+            return loss.detach(), acc
+        data = mesh.data
+        parts = [self._shard_loss(x, y, which)
+                 for x, y in zip(data.split(images), data.split(labels))]
+        loss = sum(p[0] for p in parts)
         loss.backward()
+        with torch.no_grad():
+            grad = self.params["ctx"].grad
+            if grad is not None:
+                data.sum_(grad).div_(data.size)
         self.optimizer.step()
-        acc = (acc_logits.argmax(1) == labels).float().mean() * 100.0
-        return loss.detach(), acc
+        both = torch.stack([loss.detach(), sum(p[1] for p in parts)])
+        loss, acc = data.sum_(both) / data.size
+        return loss, acc
 
     def before_epoch(self):
         set_lr(self.optimizer, self.lr_table[self.epoch])
 
     def forward_backward(self, batch):
         prompt_ind = int(self.py_rng.integers(0, 3)) if self.n_cls > ONE_PROMPT_ABOVE else 0
-        images = torch.as_tensor(batch["img"]).to(self.device, self.dtype)
-        labels = torch.as_tensor(batch["label"]).to(self.device, torch.long)
-        loss, acc = self.train_step(images, labels, prompt_ind)
+        images = torch.as_tensor(batch["img"])
+        labels = torch.as_tensor(batch["label"])
+        mesh = self.mesh
+        local = bool(batch.get("_local", False)) and mesh is not None
+        sharded = local or (mesh is not None and images.shape[0] % mesh.data.size == 0)
+        if mesh is not None and not sharded and not getattr(self, "_warned_unsharded", False):
+            self._warned_unsharded = True
+            print(
+                f"WARNING: CoOp batch {images.shape[0]} not divisible by the data axis "
+                f"({mesh.data.size}) runs replicated over 'data'; choose BATCH_SIZE divisible "
+                "by the mesh"
+            )
+        if local:
+            images, labels = place_local_batch(mesh, images, labels)
+        elif sharded:
+            images, labels = shard_batch(mesh, images), shard_batch(mesh, labels)
+        args = (images.to(self.device, self.dtype), labels.to(self.device, torch.long),
+                prompt_ind)
+        loss, acc = self.train_step(*args, mesh=mesh) if sharded else self.train_step(*args)
         return {"loss": float(loss), "acc": float(acc), "lr": self.lr_table[self.epoch]}
 
     def save_model(self, epoch, model_name=""):
         ckpt.save_checkpoint(self.output_dir, "prompt_learner", epoch, self.params,
-                             self.optimizer, model_name=model_name)
+                             self.optimizer, model_name=model_name,
+                             backend=self.cfg.CUDA.CHECKPOINT_BACKEND)
 
     def load_model(self, directory, epoch=None):
         if not directory:
             return
         params, _, ep = ckpt.load_checkpoint(directory, "prompt_learner", self.params,
-                                             epoch=epoch, torch_converter=_ctx_from_torch)
+                                             epoch=epoch, torch_converter=_ctx_from_torch,
+                                             backend=self.cfg.CUDA.CHECKPOINT_BACKEND)
         ckpt.copy_into(self.params, params)
         print(f'Loaded ctx vectors from "{directory}" (epoch = {ep})')
 

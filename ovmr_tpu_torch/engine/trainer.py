@@ -27,13 +27,19 @@ Counterpart of ``ovmr_tpu/engine/trainer.py`` (reference
 bodies of :class:`ovmr_tpu_torch.api.OVMRGenerator`'s encode and
 generation, with the single-device block.
 
-Under a model axis the JAX package runs its seams inside ``shard_map`` over
-'model' and swaps the aggregator's Pallas attention for ``attention_xla``
-(``:195``, ``:269``) because ``pallas_call`` has no SPMD partitioning rule.
-Nothing here is partitioned by a compiler: the TP block calls the per-shard
-kernels itself, so the aggregator keeps its kernel (K6) under TP too. The
-trainer itself trains on one device: training on a model axis is not
-ported yet and raises (Queue 1 item 4), as does ``CUDA.INT8`` on one.
+The mesh (:func:`setup_trainer_mesh`, JAX ``:107-218``): ``CUDA.MESH.DATA``
+and ``CUDA.MESH.MODEL`` make a ``data x model``
+:class:`ovmr_tpu_torch.parallel.mesh.Mesh`, of local shards on one process
+or one rank a shard under ``torch.distributed``. The data axis shards the
+training batch by classes (:func:`ovmr_tpu_torch.engine.train_step.make_sharded_train_step`),
+the eval encode by rows and classifier generation and the fusion by
+classes. Under a model axis the JAX package runs its seams inside
+``shard_map`` over 'model' and swaps the aggregator's Pallas attention for
+``attention_xla`` (``:195``, ``:269``) because ``pallas_call`` has no SPMD
+partitioning rule. Nothing here is partitioned by a compiler: the TP block
+calls the per-shard kernels itself, so the aggregator keeps its kernel (K6)
+under TP too; the GSPMD route (int8 towers, ``CUDA.TP_SPLIT_QKV False``)
+is torch math with the MLP split over 'model'.
 With ``CUDA.INT8`` the eval's encode, classifier generation and test pass
 run the int8 towers of :attr:`MM_CLS_OP.serving_params` (their blocks take
 the torch-math route of ``ops/block_fused.fused_residual_block``);
@@ -59,7 +65,11 @@ from ovmr_tpu_torch.data.prefetch import prefetch_batches
 from ovmr_tpu_torch.engine import checkpoint as ckpt
 from ovmr_tpu_torch.engine.optimizers import build_optimizer, set_lr
 from ovmr_tpu_torch.engine.schedule import lr_schedule_from_cfg
-from ovmr_tpu_torch.engine.train_step import make_train_step, sample_split_point
+from ovmr_tpu_torch.engine.train_step import (
+    make_sharded_train_step,
+    make_train_step,
+    sample_split_point,
+)
 from ovmr_tpu_torch.evaluation import build_evaluator
 from ovmr_tpu_torch.models import clip as tclip
 from ovmr_tpu_torch.models import ovmr
@@ -67,7 +77,17 @@ from ovmr_tpu_torch.models.aggregator import init_aggregator
 from ovmr_tpu_torch.ops.block_fused import fused_residual_block
 from ovmr_tpu_torch.ops.layers import l2_normalize
 from ovmr_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD, normalize_u8
-from ovmr_tpu_torch.parallel.mesh import pad_to_multiple
+from ovmr_tpu_torch.ops.block_fused_tp import make_gspmd_block
+from ovmr_tpu_torch.parallel.mesh import (
+    Mesh,
+    build_mesh,
+    map_data_shards,
+    pad_to_multiple,
+    place_local_batch,
+    place_packed_mlp,
+    shard_batch,
+)
+from ovmr_tpu_torch.parallel.multihost import is_primary, world
 from ovmr_tpu_torch.utils import AverageMeter, MetricMeter, Registry
 
 TRAINER_REGISTRY = Registry("TRAINER")
@@ -75,11 +95,15 @@ TRAINER_REGISTRY = Registry("TRAINER")
 
 def tp_seam_tools(axis, clip_params: dict, clip_cfg: tclip.CLIPConfig):
     """``(tp_block_fn, seam_params)`` for the seams below. With a model axis
-    of size > 1: the TP block over this process's shards
-    (:func:`ovmr_tpu_torch.ops.block_fused_tp.make_tp_block`) and the towers
-    split, head-padded where the heads do not divide the axis, and placed as
-    this process's shards; the placed towers take the place of the JAX
-    package's PartitionSpec tree. Without one: ``(None, clip_params)``."""
+    of size > 1 (a :class:`ovmr_tpu_torch.parallel.ModelAxis`, or a
+    :class:`ovmr_tpu_torch.parallel.Mesh`'s): the TP block over this
+    process's shards (:func:`ovmr_tpu_torch.ops.block_fused_tp.make_tp_block`)
+    and the towers split, head-padded where the heads do not divide the
+    axis, and placed as this process's shards; the placed towers take the
+    place of the JAX package's PartitionSpec tree. Without one:
+    ``(None, clip_params)``."""
+    if isinstance(axis, Mesh):
+        axis = axis.model
     if axis is None or axis.size <= 1:
         return None, clip_params
     from ovmr_tpu_torch.ops.block_fused_tp import make_tp_block, split_clip_qkv
@@ -87,6 +111,72 @@ def tp_seam_tools(axis, clip_params: dict, clip_cfg: tclip.CLIPConfig):
 
     placed = place_tower_params(axis, split_clip_qkv(clip_params, axis.size, clip_cfg))
     return make_tp_block(axis), placed
+
+
+def setup_trainer_mesh(cfg, clip_params: dict, clip_cfg=None, label: str = ""):
+    """The mesh and the tensor-parallel route shared by MM_CLS_OP, CoOp and
+    the zero-shot trainers (JAX ``setup_trainer_mesh`` :107-218). Returns
+    ``(mesh, tp, clip_params, block_fn)``, ``tp`` one of ``False`` (no
+    model axis), ``"pallas"`` and ``"gspmd"``:
+
+    - one process, ``CUDA.MESH.DATA`` -1 or 1 and no model axis: no mesh
+      (JAX runs one device without one); ``DATA 1`` with no model axis opts
+      out on many ranks too (each runs the whole program);
+    - otherwise the ``data x model`` mesh (:func:`ovmr_tpu_torch.parallel.mesh.build_mesh`):
+      local shards on one process (an explicit ``DATA n > 1`` runs n data
+      shards there, where JAX's one device warns and runs unsharded), one
+      shard a rank under a process group;
+    - ``"pallas"`` (model axis > 1, float towers, ``CUDA.TP_SPLIT_QKV``,
+      MLP hidden widths the axis divides): split-qkv towers, head-padded
+      where needed, placed as this process's shards, and the TP block of
+      K7/K8 (:func:`tp_seam_tools`);
+    - ``"gspmd"`` (int8, ``TP_SPLIT_QKV False``, a hidden width the axis
+      does not divide, or no ``clip_cfg``): packed towers with their MLP
+      split (:func:`ovmr_tpu_torch.parallel.mesh.place_packed_mlp`) and
+      the torch-math block of :func:`ovmr_tpu_torch.ops.block_fused_tp.make_gspmd_block`.
+
+    ``clip_params`` are the towers on the trainer's device in its dtype."""
+    prefix = f"{label} " if label else ""
+    data, model = int(cfg.CUDA.MESH.DATA), int(cfg.CUDA.MESH.MODEL)
+    if model <= 1 and (data == 1 or (data == -1 and world() == 1)):
+        return None, False, clip_params, fused_residual_block
+    mesh = build_mesh(data, model)
+    if mesh.model.size <= 1:
+        print(f"{prefix}data-parallel mesh: {mesh.shape}")
+        return mesh, False, clip_params, fused_residual_block
+
+    msize = mesh.model.size
+    pallas_tp = (
+        clip_cfg is not None
+        and not cfg.CUDA.INT8
+        and cfg.CUDA.TP_SPLIT_QKV
+        and (4 * clip_cfg.transformer_width) % msize == 0
+        and (clip_cfg.is_resnet or (4 * clip_cfg.vision_width) % msize == 0)
+    )
+    if pallas_tp:
+        block_fn, placed = tp_seam_tools(mesh, clip_params, clip_cfg)
+        pads = [
+            f"{name} {heads}->{heads + (-heads) % msize}"
+            for name, heads in (
+                ("visual", None if clip_cfg.is_resnet else clip_cfg.vision_heads),
+                ("text", clip_cfg.transformer_heads),
+            )
+            if heads is not None and heads % msize
+        ]
+        pad_note = f" (head-padded: {', '.join(pads)})" if pads else ""
+        print(
+            f"{prefix}tensor-parallel mesh {mesh.shape}: split-QKV towers{pad_note}; every "
+            "seam runs the per-shard kernels K7/K8 (head-split attention + hidden-split MLP, "
+            "fp32 sum over 'model')"
+        )
+        return mesh, "pallas", placed, block_fn
+
+    print(
+        f"{prefix}model-parallel mesh (model={msize}): routing the towers to the torch-math "
+        "block (packed towers, the MLP split over 'model'; no kernel on this route)"
+    )
+    print(f"{prefix}tensor-parallel mesh: {mesh.shape} (GSPMD route)")
+    return mesh, "gspmd", place_packed_mlp(mesh.model, clip_params), make_gspmd_block(mesh.model)
 
 
 def encode_features(
@@ -117,6 +207,7 @@ def make_feature_extractor(
     device="cuda",
     u8_normalize: bool = True,
     tp_block_fn=None,
+    mesh=None,
 ):
     """Returns ``encode(clip_params, images) -> L2-normalised fp32 features
     [n, D]`` (numpy), by :func:`encode_features`.
@@ -126,14 +217,22 @@ def make_feature_extractor(
     only scaled to [0, 1], as a config whose transforms omit "normalize"
     does on the float path. A batch of fewer than ``batch_size`` images is
     padded with zeros to ``batch_size``, so the kernels run at one shape.
-    With ``tp_block_fn`` (:func:`tp_seam_tools`) the vision tower runs the
-    TP block on towers placed for its model axis."""
+    With ``tp_block_fn`` (:func:`tp_seam_tools`, or the GSPMD route's block)
+    the vision tower runs it on towers placed for its model axis. With a
+    ``mesh`` the batch pads to a multiple of its data axis (JAX
+    ``:289-353``), each data shard encodes its block of rows and the
+    features are gathered to every rank."""
     from ovmr_tpu_torch.api import resolve_device
 
     device = resolve_device(device)
     if not u8_normalize:
         mean, std = (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
     block_fn = fused_residual_block if tp_block_fn is None else tp_block_fn
+    if mesh is not None and batch_size % mesh.data.size:
+        padded = pad_to_multiple(batch_size, mesh.data.size)
+        print(f"WARNING: eval batch {batch_size} not divisible by the data axis "
+              f"({mesh.data.size}); padding the batch to {padded}")
+        batch_size = padded
 
     @torch.inference_mode()
     def encode(clip_params: dict, images) -> np.ndarray:
@@ -142,8 +241,12 @@ def make_feature_extractor(
         if n < batch_size:
             pad = images.new_zeros((batch_size - n, *images.shape[1:]))
             images = torch.cat([images, pad])
-        feats = encode_features(clip_params, clip_cfg, images.to(device), dtype, mean, std,
-                                block_fn=block_fn)
+
+        def enc(x):
+            return encode_features(clip_params, clip_cfg, x.to(device), dtype, mean, std,
+                                   block_fn=block_fn)
+
+        feats = enc(images) if mesh is None else map_data_shards(mesh, enc, images)
         return feats.float().cpu().numpy()[:n]
 
     return encode
@@ -164,6 +267,7 @@ def mm_generate_classifiers(
     text_cls_max_classes: int = ovmr.TEXT_CLS_MAX_CLASSES,
     block_fn=fused_residual_block,
     output_dir: Optional[str] = None,
+    mesh=None,
 ) -> dict:
     """Exemplar features [N, K, D] -> the classifier artifact, as
     ``MM_CLS_OP.generate_classifiers`` makes it from its features.
@@ -178,10 +282,15 @@ def mm_generate_classifiers(
     device once, in the towers' dtype (the reference stores its
     cross-validation features in half precision too). ``block_fn`` is the
     TP block under a model axis (:func:`tp_seam_tools`); ``output_dir``
-    writes ``mm_classifiers.pt`` and ``visual_tokens.pt``. Returns numpy
-    fp32 arrays."""
+    writes ``mm_classifiers.pt`` and ``visual_tokens.pt``. With a ``mesh``
+    each chunk pads to a multiple of its data axis and its classes shard
+    over 'data' (JAX ``_shard_over_classes``/``_place_classes``
+    :963-966, :1033-1075), and the fusion's exemplar rows shard too above
+    its streaming threshold. Returns numpy fp32 arrays."""
     n_cls = exemplar_feats.shape[0]
     chunk = min(int(class_chunk), pad_to_multiple(n_cls, int(class_pad_multiple)))
+    if mesh is not None:
+        chunk = pad_to_multiple(chunk, mesh.data.size)
     include_text = n_cls < int(text_cls_max_classes)
     if not include_text:
         warnings.warn(
@@ -205,12 +314,12 @@ def mm_generate_classifiers(
 
     out = ovmr.generate_classifiers_chunked(
         feats, prompt_tokens, eot_idx, vis_tokens, chunk, heads_fn,
-        text_fn=text_fn if include_text else None,
+        text_fn=text_fn if include_text else None, mesh=mesh,
     )
     if include_text:
         out["fusion_weight"] = ovmr.fusion_from_classifiers(
             feats, out["mm_classifier"], out["vision_classifier"], out["text_classifier"],
-            clip_params["logit_scale"].float().exp(), float(eval_tau),
+            clip_params["logit_scale"].float().exp(), float(eval_tau), mesh=mesh,
         ).float()
     out = {k: v.cpu().numpy() for k, v in out.items()}
     if output_dir is not None:
@@ -498,18 +607,17 @@ class MM_CLS_OP(TrainerBase):
     """OVMR visual-token-generator trainer + classifier-generation eval
     (reference ``trainers/mm_classifier_one_prompt.py:367-493``)."""
 
+    def build_data_manager(self):
+        # under a process group each rank decodes its data shard's class
+        # groups of every training batch (JAX :606-618)
+        return DataManager(self.cfg, allow_local_batches="class",
+                           local_model_axis=self.cfg.CUDA.MESH.MODEL)
+
     def build_model(self):
         from ovmr_tpu_torch.api import resolve_device
         from ovmr_tpu_torch.models.import_torch import load_prompt_learner
 
         cfg = self.cfg
-        if cfg.CUDA.MESH.MODEL > 1:
-            # JAX's int8 model axis is its GSPMD XLA block
-            # (``ovmr_tpu/ops/block_fused_tp.py:395-431``), which comes with
-            # the data and model axes
-            raise NotImplementedError(
-                "MM_CLS_OP: CUDA.MESH.MODEL > 1 is not ported yet (ROADMAP Queue 1 item 4); "
-                "the serving seams take a model axis, training and CUDA.INT8 do not")
         self.device = resolve_device(cfg.CUDA.DEVICE)
         self.dtype = _DTYPES[cfg.CUDA.DTYPE]
 
@@ -525,6 +633,10 @@ class MM_CLS_OP(TrainerBase):
         # float CPU params once, when an eval first asks for them
         self._fp_clip_params = clip_params if cfg.CUDA.INT8 else None
         self._serving_params_cache = None
+        # the mesh and its towers: split-qkv shards with the TP block, or the
+        # packed towers' MLP split with the GSPMD route's block (JAX :697-709)
+        self.mesh, self._tp, self.clip_params, self.block_fn = setup_trainer_mesh(
+            cfg, self.clip_params, clip_cfg=self.clip_cfg)
 
         classnames = self.dm.dataset.classnames
         self.n_cls = len(classnames)
@@ -557,19 +669,32 @@ class MM_CLS_OP(TrainerBase):
                 std=tuple(cfg.INPUT.PIXEL_STD),
                 out_dtype=self.dtype,
             )
-        self.train_step = make_train_step(self.clip_cfg, dropout=0.1, augment=augment)
+        # the sharded step on a mesh; the single-program step without one,
+        # and for a batch whose class count the data axis does not divide
+        # (JAX :710-742)
+        self.train_step_sharded = None
+        if self.mesh is not None:
+            self.train_step_sharded = make_sharded_train_step(
+                self.clip_cfg, self.mesh, dropout=0.1, block_fn=self.block_fn, augment=augment)
+        self.train_step = make_train_step(self.clip_cfg, dropout=0.1, augment=augment,
+                                          block_fn=self.block_fn)
         self._features = make_feature_extractor(
             self.clip_cfg, self.dtype, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD,
             cfg.DATALOADER.TEST.BATCH_SIZE, device=self.device,
-            u8_normalize="normalize" in cfg.INPUT.TRANSFORMS)
-        # dropout masks from the device's generator, split points from the host's
+            u8_normalize="normalize" in cfg.INPUT.TRANSFORMS, tp_block_fn=self.block_fn,
+            mesh=self.mesh)
+        # dropout masks from the device's generator, split points from the
+        # host's; the sharded step's per-shard seeds from a host stream that
+        # every rank draws alike
         self.generator = torch.Generator(device=self.device).manual_seed(max(cfg.SEED, 0) + 1)
         self.py_rng = np.random.default_rng(max(cfg.SEED, 0))
+        self.seed_rng = np.random.default_rng([max(cfg.SEED, 0), 1])
         self.classifiers = None
 
     def resume_model_if_exist(self, directory) -> int:
         return ckpt.resume_from_checkpoint(directory, "prompt_learner", self.agg_params,
-                                           self.optimizer)
+                                           self.optimizer,
+                                           backend=self.cfg.CUDA.CHECKPOINT_BACKEND)
 
     # ---- training -----------------------------------------------------
     @property
@@ -608,18 +733,43 @@ class MM_CLS_OP(TrainerBase):
         if num_cls == 0:
             return None
         usable = num_cls * n_ins
-        images = images[:usable].reshape(num_cls, n_ins, *images.shape[1:])
+        images = torch.as_tensor(images[:usable].reshape(num_cls, n_ins, *images.shape[1:]))
         exemplar_label = torch.as_tensor(labels[:usable].reshape(num_cls, n_ins)[:, 0],
-                                         dtype=torch.long, device=self.device)
+                                         dtype=torch.long)
         split_point = sample_split_point(self.py_rng, n_ins)
-        images_dev = torch.as_tensor(images).to(self.device)
+        mesh = self.mesh
+        # a sliced batch holds this rank's class groups only (the loader
+        # keeps the whole batch's class count a multiple of the data axis)
+        local = bool(batch.get("_local", False)) and mesh is not None
+        sharded = local or (mesh is not None and num_cls % mesh.data.size == 0)
+        if mesh is not None and not sharded and not getattr(self, "_warned_unsharded", False):
+            # ragged batches run the single-program step, loudly: padding
+            # the class axis would corrupt the arange labels (JAX :860-873)
+            self._warned_unsharded = True
+            print(
+                f"WARNING: batch with {num_cls} classes not divisible by the data axis "
+                f"({mesh.data.size}) runs replicated; choose BATCH_SIZE so classes-per-batch "
+                "divides the mesh"
+            )
+        if local:
+            images, exemplar_label = place_local_batch(mesh, images, exemplar_label)
+        elif sharded:
+            images, exemplar_label = shard_batch(mesh, images), shard_batch(mesh, exemplar_label)
+        images_dev = images.to(self.device)
         if images_dev.dtype != torch.uint8:
             images_dev = images_dev.to(self.dtype)
-        loss = self.train_step(
-            self.agg_params, self.optimizer, self.clip_params, images_dev,
-            self.prompt_tokens[exemplar_label], self.eot_idx[exemplar_label],
-            self.vis_tokens, self.generator, split_point,
-        )
+        exemplar_label = exemplar_label.to(self.device)
+        ptok, eot = self.prompt_tokens[exemplar_label], self.eot_idx[exemplar_label]
+        if sharded:
+            loss = self.train_step_sharded(
+                self.agg_params, self.optimizer, self.clip_params, images_dev, ptok, eot,
+                self.vis_tokens, int(self.seed_rng.integers(1 << 62)), split_point,
+            )
+        else:
+            loss = self.train_step(
+                self.agg_params, self.optimizer, self.clip_params, images_dev, ptok, eot,
+                self.vis_tokens, self.generator, split_point,
+            )
         # generator weights changed: any cached classifiers are stale
         # (matters for best-val testing between epochs)
         self.classifiers = None
@@ -627,16 +777,19 @@ class MM_CLS_OP(TrainerBase):
 
     def save_model(self, epoch, model_name=""):
         ckpt.save_checkpoint(self.output_dir, "prompt_learner", epoch, self.agg_params,
-                             self.optimizer, model_name=model_name)
-        ckpt.save_torch_checkpoint(self.output_dir, "prompt_learner", epoch, self.agg_params,
-                                   model_name=model_name)
+                             self.optimizer, model_name=model_name,
+                             backend=self.cfg.CUDA.CHECKPOINT_BACKEND)
+        if is_primary():
+            ckpt.save_torch_checkpoint(self.output_dir, "prompt_learner", epoch,
+                                       self.agg_params, model_name=model_name)
 
     def load_model(self, directory, epoch=None):
         if not directory:
             print("Note that load_model() is skipped as no pretrained model is given")
             return
         params, _, ep = ckpt.load_checkpoint(directory, "prompt_learner", self.agg_params,
-                                             epoch=epoch)
+                                             epoch=epoch,
+                                             backend=self.cfg.CUDA.CHECKPOINT_BACKEND)
         ckpt.copy_into(self.agg_params, params)
         self.classifiers = None  # invalidate any cache from previous weights
         print(f'Loaded prompt_learner weights from "{directory}" (epoch = {ep})')
@@ -654,9 +807,12 @@ class MM_CLS_OP(TrainerBase):
             from ovmr_tpu_torch.ops.quant import quantize_params
 
             print("Quantizing frozen tower block matmuls to int8 (serving)")
-            self._serving_params_cache = tclip.cast_params(
+            params = tclip.cast_params(
                 tclip.tree_to(quantize_params(self._fp_clip_params), device=self.device),
                 self.dtype)
+            if self._tp:  # int8 on a model axis is the GSPMD route: the MLP split
+                params = place_packed_mlp(self.mesh.model, params)
+            self._serving_params_cache = params
         return self._serving_params_cache
 
     def generate_classifiers(self):
@@ -672,7 +828,8 @@ class MM_CLS_OP(TrainerBase):
             self.serving_params, self.clip_cfg, self.agg_params, feats, *self._prompt_np,
             float(cfg.EVAL_TAU), class_chunk=cfg.CUDA.CLASS_CHUNK,
             class_pad_multiple=cfg.CUDA.CLASS_PAD_MULTIPLE,
-            text_cls_max_classes=cfg.CUDA.TEXT_CLS_MAX_CLASSES, output_dir=self.output_dir,
+            text_cls_max_classes=cfg.CUDA.TEXT_CLS_MAX_CLASSES, block_fn=self.block_fn,
+            output_dir=self.output_dir if is_primary() else None, mesh=self.mesh,
         )
         return self.classifiers
 

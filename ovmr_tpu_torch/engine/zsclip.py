@@ -12,7 +12,9 @@ the paper's baseline):
 
 The text classifier is built once in ``build_model``; ``train()`` runs
 ``test()``. Both towers run the kernels K1/K2 on the card (their plain
-twins on the CPU). A model axis is Queue 1 item 4.
+twins on the CPU). On a mesh (``CUDA.MESH``, JAX ``:55-67``) the towers run
+the mesh's block (K7/K8 on a model axis, or the GSPMD route) and the eval
+encode shards its rows over 'data'.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ovmr_tpu_torch.engine.trainer import (
     TrainerBase,
     load_or_init_clip,
     make_feature_extractor,
+    setup_trainer_mesh,
 )
 from ovmr_tpu_torch.models import clip as tclip
 from ovmr_tpu_torch.ops.layers import l2_normalize
@@ -41,14 +44,13 @@ class ZeroshotCLIP(TrainerBase):
         from ovmr_tpu_torch.api import resolve_device
 
         cfg = self.cfg
-        if cfg.CUDA.MESH.MODEL > 1:
-            raise NotImplementedError(
-                "ZeroshotCLIP: CUDA.MESH.MODEL > 1 is not ported yet (ROADMAP Queue 1 item 4)")
         self.device = resolve_device(cfg.CUDA.DEVICE)
         self.dtype = _DTYPES[cfg.CUDA.DTYPE]
         clip_params, self.clip_cfg = load_or_init_clip(cfg)
         self.clip_params = tclip.cast_params(
             tclip.tree_to(clip_params, device=self.device), self.dtype)
+        self.mesh, self._tp, self.clip_params, self.block_fn = setup_trainer_mesh(
+            cfg, self.clip_params, clip_cfg=self.clip_cfg, label="ZeroshotCLIP")
 
         classnames = [c.replace("_", " ") for c in self.dm.dataset.classnames]
         templates = self.get_templates()
@@ -57,7 +59,8 @@ class ZeroshotCLIP(TrainerBase):
             for template in templates:
                 tokens = torch.as_tensor(tokenize([template.format(c) for c in classnames]),
                                          device=self.device)
-                f = l2_normalize(tclip.encode_text(self.clip_params, self.clip_cfg, tokens).float())
+                f = l2_normalize(tclip.encode_text(self.clip_params, self.clip_cfg, tokens,
+                                                   block_fn=self.block_fn).float())
                 feats_sum = f if feats_sum is None else feats_sum + f
             self.text_classifier = l2_normalize(feats_sum / len(templates)).cpu().numpy()
         self._features = None
@@ -73,7 +76,8 @@ class ZeroshotCLIP(TrainerBase):
             self._features = make_feature_extractor(
                 self.clip_cfg, self.dtype, cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD,
                 cfg.DATALOADER.TEST.BATCH_SIZE, device=self.device,
-                u8_normalize="normalize" in cfg.INPUT.TRANSFORMS)
+                u8_normalize="normalize" in cfg.INPUT.TRANSFORMS, tp_block_fn=self.block_fn,
+                mesh=self.mesh)
         print("(eval mode: zero-shot)")
 
     def model_inference(self, batch, scale_no=0):

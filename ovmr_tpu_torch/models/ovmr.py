@@ -183,14 +183,25 @@ def fusion_from_classifiers(
     eval_tau: float,
     class_mask: Optional[torch.Tensor] = None,
     row_chunk: int = 8192,
+    mesh=None,
 ) -> torch.Tensor:
     """Preference-fusion weights from precomputed classifiers [N, 3]. Above
     ``row_chunk`` exemplar rows the logits stream over row chunks; per-row
-    argmax does not depend on chunking, so both paths give the same F1."""
+    argmax does not depend on chunking, so both paths give the same F1.
+    With a ``mesh`` whose data axis is > 1 the streamed rows shard over it
+    (:func:`ovmr_tpu_torch.ops.fusion.streaming_fusion_weights_sharded`,
+    JAX :242-281): the same bits."""
     n, k, d = exemplar_feats.shape
     m = n * k
     labels = torch.arange(n, device=exemplar_feats.device).repeat_interleave(k)
     scale = torch.as_tensor(logit_scale, dtype=torch.float32, device=exemplar_feats.device)
+    if mesh is not None and mesh.data.size > 1 and m > row_chunk:
+        from ovmr_tpu_torch.ops.fusion import streaming_fusion_weights_sharded
+
+        return streaming_fusion_weights_sharded(
+            mesh.data, exemplar_feats.reshape(m, d), labels, (mm_cls, v_cls, t_cls), scale,
+            eval_tau, class_mask=class_mask, row_chunk=row_chunk,
+        )
     if m > row_chunk:
         return streaming_fusion_weights(
             exemplar_feats.reshape(m, d), labels, (mm_cls, v_cls, t_cls), scale,
@@ -220,6 +231,7 @@ def generate_classifiers_chunked(
     chunk: int,
     heads_fn: Callable,
     text_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> dict:
     """The chunked classifier-generation recipe: pads the class axis to a
     multiple of ``chunk`` with the visual-template row, runs the per-chunk
@@ -229,7 +241,10 @@ def generate_classifiers_chunked(
 
     ``exemplar_feats`` [N, K, D] is a device tensor in the compute dtype;
     ``heads_fn(feats [c,K,D], ptok [c,77], eot [c]) -> (mm, v, vokens)``;
-    ``text_fn(ptok [c,77]) -> [c, D]`` or None to skip the text head."""
+    ``text_fn(ptok [c,77]) -> [c, D]`` or None to skip the text head.
+    With a ``mesh`` (:class:`ovmr_tpu_torch.parallel.mesh.Mesh`; ``chunk`` a
+    multiple of its data axis) each chunk's classes shard over 'data' and
+    the callables' outputs gather to every rank (JAX :323-340)."""
     from ovmr_tpu_torch.text import eot_indices
 
     device = exemplar_feats.device
@@ -246,14 +261,21 @@ def generate_classifiers_chunked(
             feats_p, (0, 0) * (feats_p.dim() - 1) + (0, pad_n - n_cls)
         )
 
+    def run(fn, *arrays):
+        if mesh is None:
+            return fn(*arrays)
+        from ovmr_tpu_torch.parallel.mesh import map_data_shards
+
+        return map_data_shards(mesh, fn, *arrays)
+
     mm_parts, v_parts, vt_parts, t_parts = [], [], [], []
     for start in range(0, pad_n, chunk):
         sl = slice(start, start + chunk)
         ptok_c = torch.as_tensor(ptok_p[sl], device=device)
         if text_fn is not None:
-            t_parts.append(text_fn(ptok_c))
-        mm_c, v_c, vt_c = heads_fn(
-            feats_p[sl], ptok_c, torch.as_tensor(eot_p[sl], device=device)
+            t_parts.append(run(text_fn, ptok_c))
+        mm_c, v_c, vt_c = run(
+            heads_fn, feats_p[sl], ptok_c, torch.as_tensor(eot_p[sl], device=device)
         )
         mm_parts.append(mm_c)
         v_parts.append(v_c)

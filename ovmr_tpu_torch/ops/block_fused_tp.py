@@ -407,9 +407,9 @@ def make_tp_block(axis):
         if w_q.dtype == torch.int8:
             # JAX sends int8 on a model axis to its GSPMD XLA block
             # (``ovmr_tpu/ops/block_fused_tp.py:395-431``)
-            raise NotImplementedError(
-                "the TP block takes float weights; int8 on a model axis is not ported yet "
-                "(ROADMAP Queue 1 item 4)")
+            raise ValueError(
+                "the TP block takes float weights; int8 towers on a model axis take the "
+                "GSPMD route (parallel.mesh.place_packed_mlp + make_gspmd_block)")
         dl = w_q.shape[-1]
         if dl % head_dim:
             raise ValueError(
@@ -423,4 +423,55 @@ def make_tp_block(axis):
             )
         return _TPBlock.apply(h, mask, dl // head_dim, axis, *(layer_params[k] for k in TP_KEYS))
 
+    return block_fn
+
+
+# --------------------------------------------------------------------------
+# the GSPMD route: packed towers, MLP split over the model axis
+# --------------------------------------------------------------------------
+
+
+def make_gspmd_block(axis):
+    """The block of JAX's ``tp == "gspmd"`` route (int8 towers,
+    ``TP_SPLIT_QKV False``, or an MLP hidden width the axis does not
+    divide; ``ovmr_tpu/engine/trainer.py:157-218``), where XLA partitions
+    the packed towers' matmuls itself. Here it is torch math over the
+    shards ``axis`` (:class:`ovmr_tpu_torch.parallel.mesh.ModelAxis`) says
+    this process holds: the attention half whole on every shard
+    (``ops.layers.multi_head_attention``), the MLP Megatron-split, each
+    shard's c_fc columns (their bias, and their scales when int8) and
+    c_proj rows giving an fp32 partial, summed over the axis before
+    ``c_proj_b`` and the residual. The int8 c_proj quantizes each row with
+    its scale over the whole row (:func:`ops.quant.dense_int8_row_parallel`),
+    so the sharded int8 tower equals the unsharded one bit for bit.
+    ``layer_params`` is one layer of towers placed with
+    :func:`ovmr_tpu_torch.parallel.mesh.place_packed_mlp` (MLP leaves
+    ``[m_local, ...]``). Differentiable in the float towers; no kernel
+    runs on this route."""
+    from ovmr_tpu_torch.ops.layers import multi_head_attention
+
+    def block_fn(h, p, n_head, mask=None):
+        w_fc = p["c_fc_w"]
+        if w_fc.dim() != 3 or w_fc.shape[0] != len(axis.shards):
+            raise ValueError(
+                f"c_fc_w of shape {tuple(w_fc.shape)} does not hold this process's "
+                f"{len(axis.shards)} shards; place the towers with place_packed_mlp")
+        x = h + multi_head_attention(layer_norm(h, p["ln_1_scale"], p["ln_1_bias"]), p, n_head,
+                                     mask)
+        y = axis.enter(layer_norm(x, p["ln_2_scale"], p["ln_2_bias"]))
+        m_local = w_fc.shape[0]
+        if w_fc.dtype == torch.int8:
+            from ovmr_tpu_torch.ops.quant import dense_int8, dense_int8_row_parallel
+
+            hs = [quick_gelu(dense_int8(y, w_fc[j], p["c_fc_w_scale"][j], p["c_fc_b"][j]))
+                  for j in range(m_local)]
+            return x + dense_int8_row_parallel(
+                hs, [p["c_proj_w"][j] for j in range(m_local)], p["c_proj_w_scale"],
+                p["c_proj_b"], axis)
+        partial = axis.reduce_partials(
+            matmul_f32(quick_gelu(dense(y, w_fc[j], p["c_fc_b"][j])), p["c_proj_w"][j].to(y.dtype))
+            for j in range(m_local))
+        return x + (partial + p["c_proj_b"].float()).to(x.dtype)
+
+    block_fn.torch_math = True  # the differentiated text tower rematerialises it
     return block_fn

@@ -10,7 +10,8 @@ nor predictions.
 
 Everything is computed from [C] count vectors, never an [M, C] one-hot;
 the exemplar-row logits are the one [rows, C] tensor, and
-:func:`streaming_fusion_weights` bounds it to ``row_chunk`` rows at a time.
+:func:`streaming_fusion_weights` bounds it to ``row_chunk`` rows at a time;
+:func:`streaming_fusion_weights_sharded` splits the rows over a data axis.
 """
 
 from __future__ import annotations
@@ -141,6 +142,53 @@ def streaming_fusion_weights(
         scale,
         class_mask,
     )
+    return fusion_weights_from_f1(
+        f1_from_counts(*mm_c), f1_from_counts(*v_c), f1_from_counts(*t_c), tau
+    )
+
+
+def streaming_fusion_weights_sharded(
+    axis,
+    flat_feats: torch.Tensor,
+    labels: torch.Tensor,
+    classifiers: Sequence[torch.Tensor],
+    logit_scale,
+    tau: float,
+    class_mask: Optional[torch.Tensor] = None,
+    row_chunk: int = 8192,
+) -> torch.Tensor:
+    """:func:`streaming_fusion_weights` with the exemplar rows sharded over
+    a data axis (:class:`ovmr_tpu_torch.parallel.mesh.DataAxis`; JAX
+    ``streaming_fusion_weights_sharded`` :180-265). The rows pad to
+    ``steps * row_chunk * shards`` (padding rows weigh 0); each shard scans
+    its contiguous block of ``steps`` chunks against the whole classifiers,
+    and the fp32 counts of the shards this process holds are added, then
+    all-reduced over the group; the F1 -> softmax epilogue runs on every
+    rank. The counts are integers, exact in fp32, so the result is
+    :func:`streaming_fusion_weights`'s bit for bit."""
+    shards = axis.size
+    m, d = flat_feats.shape
+    n = classifiers[0].shape[0]
+    scale = torch.as_tensor(logit_scale, dtype=torch.float32, device=flat_feats.device)
+    cls3 = [c.float() for c in classifiers]
+    steps = max(1, -(-m // (row_chunk * shards)))
+    feats_p, labels_p, valid_p = _pad_rows(flat_feats, labels, n, steps * row_chunk * shards)
+    rows = steps * row_chunk
+    total = None
+    for s in axis.shards:
+        block = slice(s * rows, (s + 1) * rows)
+        counts = _f1_count_scan(
+            feats_p[block].reshape(steps, row_chunk, d),
+            labels_p[block].reshape(steps, row_chunk),
+            valid_p[block].reshape(steps, row_chunk),
+            cls3,
+            scale,
+            class_mask,
+        )
+        flat = torch.stack([c for triple in counts for c in triple])  # [9, C]
+        total = flat if total is None else total + flat
+    total = axis.sum_(total)
+    mm_c, v_c, t_c = total[0:3], total[3:6], total[6:9]
     return fusion_weights_from_f1(
         f1_from_counts(*mm_c), f1_from_counts(*v_c), f1_from_counts(*t_c), tau
     )

@@ -89,18 +89,31 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), b.contiguous())[:m, :n]
 
 
-def quantize_rows(x: torch.Tensor) -> tuple:
+def quantize_rows(x: torch.Tensor, amax=None) -> tuple:
     """Dynamic per-row symmetric quantization of ``x [M, K]`` (fp32): the
     int8 rows and their fp32 scales ``[M, 1]``, as the compiled JAX
     function computes them: XLA turns ``max|x| / 127`` into a product with
     the float32 reciprocal of 127 and keeps ``x / x_scale`` a division. The
     division is by a tensor, a true division on every device (on a CUDA
     tensor a division by a Python scalar multiplies by its reciprocal), so
-    ``round`` at .5 sees the same quotient everywhere."""
-    x_scale = x.abs().amax(dim=1, keepdim=True) * torch.full((1,), 1 / 127, device=x.device)
+    ``round`` at .5 sees the same quotient everywhere. ``amax`` ``[M, 1]``
+    is the rows' ``max|x|`` when ``x`` is one shard of longer rows."""
+    if amax is None:
+        amax = x.abs().amax(dim=1, keepdim=True)
+    x_scale = amax * torch.full((1,), 1 / 127, device=x.device)
     x_scale = torch.where(x_scale == 0, torch.ones_like(x_scale), x_scale)
     xq = torch.clamp(torch.round(x / x_scale), -127, 127).to(torch.int8)
     return xq, x_scale
+
+
+def _dequantize(acc: torch.Tensor, x_scale, w_scale, b, lead, dtype) -> torch.Tensor:
+    y = acc.float() * x_scale
+    if b is None:
+        y = y * w_scale.float()[None, :]
+    else:
+        # one fused multiply-add, as XLA contracts the compiled JAX function
+        y = torch.addcmul(b.float(), y, w_scale.float()[None, :])
+    return y.reshape(*lead, -1).to(dtype)
 
 
 def dense_int8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
@@ -110,12 +123,31 @@ def dense_int8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     ``x_scale * w_scale`` (+ b); returns x's dtype."""
     if w_q.dtype != torch.int8:
         raise TypeError(f"dense_int8: the weight must be int8, got {w_q.dtype}")
-    lead = x.shape[:-1]
     xq, x_scale = quantize_rows(x.reshape(-1, x.shape[-1]).float())
-    y = int_mm(xq, w_q).float() * x_scale
-    if b is None:
-        y = y * w_scale.float()[None, :]
-    else:
-        # one fused multiply-add, as XLA contracts the compiled JAX function
-        y = torch.addcmul(b.float(), y, w_scale.float()[None, :])
-    return y.reshape(*lead, -1).to(x.dtype)
+    return _dequantize(int_mm(xq, w_q), x_scale, w_scale, b, x.shape[:-1], x.dtype)
+
+
+def dense_int8_row_parallel(xs, w_qs, w_scale: torch.Tensor, b, axis) -> torch.Tensor:
+    """:func:`dense_int8` of rows split over a model axis: ``xs`` are this
+    process's column shards of ``x`` and ``w_qs`` the matching row shards
+    of the int8 weight. Each row's scale is taken over the whole row (its
+    ``max|x|`` reduced over the axis with MAX, as the global view of the
+    JAX package's GSPMD product takes it), each shard's int32 product is
+    summed over the axis, then dequantized once: exact int32 sums, so the
+    result is :func:`dense_int8` of the unsplit row bit for bit."""
+    lead = xs[0].shape[:-1]
+    flat = [x.reshape(-1, x.shape[-1]).float() for x in xs]
+    amax = None
+    for x in flat:
+        m = x.abs().amax(dim=1, keepdim=True)
+        amax = m if amax is None else torch.maximum(amax, m)
+    if axis.group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=axis.group)
+    x_scale = None
+    parts = []
+    for x, w in zip(flat, w_qs):
+        xq, x_scale = quantize_rows(x, amax)
+        parts.append(int_mm(xq, w))
+    return _dequantize(axis.reduce(parts), x_scale, w_scale, b, lead, xs[0].dtype)

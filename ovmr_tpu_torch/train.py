@@ -9,7 +9,13 @@ dataset yaml -> trainer yaml -> CLI resets -> free-form ``KEY VALUE`` opts
 (last on the command line) -> freeze. The trainer runs on ``CUDA.DEVICE``
 (default ``cuda``; ``CUDA.DEVICE cpu`` runs the kernels' plain twins on the
 CPU). :func:`main` returns the trainer, so a caller in the same process
-can read its state.
+can read its state. Data-parallel over N cards, one process a card:
+
+    OVMR_MULTIHOST=1 torchrun --nproc_per_node N -m ovmr_tpu_torch.train ...
+
+or ``OVMR_COORDINATOR=host:port OVMR_NUM_PROCESSES=N OVMR_PROCESS_ID=i`` in
+each process; ``CUDA.MESH.DATA`` and ``CUDA.MESH.MODEL`` lay the ranks out
+(:mod:`ovmr_tpu_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import argparse
 
 from ovmr_tpu_torch.engine.trainer import build_trainer
+from ovmr_tpu_torch.parallel.multihost import maybe_initialize_distributed
 from ovmr_tpu_torch.utils import (
     collect_env_info,
     extend_cfg,
@@ -86,6 +93,10 @@ def setup_cfg(args):
 
 def main(args):
     cfg = setup_cfg(args)
+    # one process a card: join the process group (OVMR_COORDINATOR or
+    # torchrun's variables) before anything touches the card, as the
+    # repo's train.py does (:25-27); a no-op without them
+    maybe_initialize_distributed(cfg.CUDA.DEVICE)
     if cfg.SEED >= 0:
         print(f"Setting fixed seed: {cfg.SEED}")
         set_random_seed(cfg.SEED)

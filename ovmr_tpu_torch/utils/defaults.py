@@ -247,8 +247,24 @@ def get_cfg_default() -> CfgNode:
     # compute dtype of the frozen towers: bfloat16, float16 or float32
     c.CUDA.DTYPE = "bfloat16"
     c.CUDA.MESH = CfgNode()
-    # model-axis size of the serving seams; training takes 1 only
+    # data-axis size: -1 takes every rank of the process group over the
+    # model axis (no mesh on one process); n > 1 on one process runs n
+    # local data shards on its card (parallel/mesh.py)
+    c.CUDA.MESH.DATA = -1
+    # model-axis size (tensor parallelism of the towers): one rank a shard
+    # under torch.distributed, else local shards on one card
     c.CUDA.MESH.MODEL = 1
+    # the model axis splits the towers into q/k/v head shards and runs the
+    # per-shard kernels K7/K8; False (and int8 towers) take the packed
+    # towers' MLP-only split in torch math (ops/block_fused_tp.py)
+    c.CUDA.TP_SPLIT_QKV = True
+    # under a process group each rank decodes only its data shard's rows of
+    # the training batches (data/manager.py)
+    c.CUDA.MULTIHOST_SLICED_LOADER = True
+    # "npz" (both packages read it) or "orbax": the epoch save/resume cycle
+    # through torch.distributed.checkpoint in orbax's directory layout
+    # (engine/orbax_io.py)
+    c.CUDA.CHECKPOINT_BACKEND = "npz"
     # pad per-dataset class counts up to multiples of this for classifier
     # generation's chunks
     c.CUDA.CLASS_PAD_MULTIPLE = 8
@@ -279,7 +295,11 @@ def get_cfg_default() -> CfgNode:
 # TPU.<key> of the JAX package's configs read onto CUDA.<key>
 TPU_KEYS_ONTO_CUDA = (
     "DTYPE",
+    "MESH.DATA",
     "MESH.MODEL",
+    "TP_SPLIT_QKV",
+    "MULTIHOST_SLICED_LOADER",
+    "CHECKPOINT_BACKEND",
     "CLASS_PAD_MULTIPLE",
     "CLASS_CHUNK",
     "EVAL_UINT8_TRANSFER",
@@ -291,12 +311,8 @@ TPU_KEYS_ONTO_CUDA = (
 # TPU.<key> with no CUDA twin, and the JAX package's default, the only
 # value the port accepts for it
 TPU_KEYS_AT_DEFAULT = {
-    "MESH.DATA": -1,
-    "MULTIHOST_SLICED_LOADER": True,
     "USE_PALLAS_ATTENTION": False,
     "USE_FUSED_BLOCK": True,
-    "TP_SPLIT_QKV": True,
-    "CHECKPOINT_BACKEND": "npz",
 }
 
 

@@ -98,18 +98,38 @@ def test_tpu_dtype_maps_onto_cuda_dtype(tmp_path):
     assert "TPU" not in cfg
 
 
+# the data axis, the sliced loader, the checkpoint backend and the GSPMD
+# route have CUDA twins now: those keys map across off their defaults too
+_MAPPED = {"TP_SPLIT_QKV": False, "CHECKPOINT_BACKEND": "orbax",
+           "MULTIHOST_SLICED_LOADER": False, "MESH.DATA": 4}
+
+
 @pytest.mark.parametrize("key,value", [
     ("USE_PALLAS_ATTENTION", "True"), ("USE_FUSED_BLOCK", "False"),
     ("TP_SPLIT_QKV", "False"), ("CHECKPOINT_BACKEND", "orbax"),
     ("MULTIHOST_SLICED_LOADER", "False"), ("MESH.DATA", "4"),
 ])
 def test_unmapped_tpu_key_off_its_default_raises(tmp_path, key, value):
-    with pytest.raises(ValueError, match=f"TPU.{key}"):
-        get_cfg_default().merge_from_list([f"TPU.{key}", value])
+    """A TPU key with no CUDA twin raises off its default; one with a twin
+    (``_MAPPED``) is read onto ``CUDA.<key>``, from the list and from a
+    yaml file alike."""
     path = tmp_path / "t.yaml"
     node, leaf = ([*key.split(".")][:-1], key.split(".")[-1])
     text = "TPU:\n" + "".join(f"{'  ' * (i + 1)}{n}:\n" for i, n in enumerate(node))
     path.write_text(text + f"{'  ' * (len(node) + 1)}{leaf}: {value}\n")
+    if key in _MAPPED:
+        from_list = get_cfg_default()
+        from_list.merge_from_list([f"TPU.{key}", value])
+        from_file = get_cfg_default()
+        from_file.merge_from_file(str(path))
+        for cfg in (from_list, from_file):
+            twin = cfg.CUDA
+            for part in key.split("."):
+                twin = twin[part]
+            assert twin == _MAPPED[key] and "TPU" not in cfg, key
+        return
+    with pytest.raises(ValueError, match=f"TPU.{key}"):
+        get_cfg_default().merge_from_list([f"TPU.{key}", value])
     with pytest.raises(ValueError, match=f"TPU.{key}"):
         get_cfg_default().merge_from_file(str(path))
 

@@ -1379,3 +1379,122 @@ def test_int8_block_on_card_takes_torch_math(cuda):
     assert sum(cuda_lib.LAUNCHES.values()) == 0
     peak = max(float(ref.abs().max()), 1.0)
     assert float((got.cpu() - ref).abs().max()) <= 1e-3 * peak
+
+
+# ---------------------------------------------------------------------------
+# the data axis on the card
+# ---------------------------------------------------------------------------
+
+def _tiny_step_inputs(device, n_cls=8, n_ins=4):
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.models.aggregator import init_aggregator
+    from ovmr_tpu_torch.models.ovmr import build_prompt_tokens
+
+    towers = tclip.tree_to(tclip.init_params(tclip.TINY, seed=0), device=device)
+    agg = init_aggregator(width=tclip.TINY.embed_dim, layers=2, n_ctx=2, seed=0)
+    g = torch.Generator().manual_seed(1)
+    images = torch.randn(n_cls, n_ins, 3, 32, 32, generator=g).to(device)
+    tokens = build_prompt_tokens([f"class {i}" for i in range(n_cls)])
+    return towers, agg, images, [torch.as_tensor(np.asarray(a), device=device) for a in tokens]
+
+
+def _run_step(step, towers, agg, images, tokens):
+    from ovmr_tpu_torch.engine.optimizers import build_optimizer, param_leaves
+    from ovmr_tpu_torch.utils import get_cfg_default
+
+    leaves = {k: v.detach().clone().to(images.device).requires_grad_(True)
+              for k, v in agg["blocks"].items()}
+    params = {"blocks": leaves,
+              "cls_token": agg["cls_token"].detach().clone().to(images.device).requires_grad_(True)}
+    ocfg = get_cfg_default().OPTIM
+    ocfg.NAME, ocfg.LR, ocfg.MOMENTUM = "sgd", 0.05, 0.0
+    loss = step(params, build_optimizer(ocfg, params), towers, images, *tokens, None, 2)
+    torch.cuda.synchronize()
+    return float(loss), [leaf.detach().clone() for leaf in param_leaves(params)]
+
+
+def test_sharded_step_on_card_matches_the_single_program_step(cuda):
+    """Two and four local data shards on the card (K1-K4 per shard, the
+    classifiers gathered by ``torch.cat``), fp32 at TINY, against the
+    single-program step on the card: the loss within 1e-5 and the updated
+    aggregator within 1e-4; each shard launches the single step's kernels."""
+    from ovmr_tpu_torch.engine.train_step import make_sharded_train_step, make_train_step
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.parallel import DataAxis, Mesh, ModelAxis
+
+    towers, agg, images, tokens = _tiny_step_inputs(cuda)
+    cuda_lib.reset_launches()
+    want_loss, want = _run_step(make_train_step(tclip.TINY, dropout=0.0), towers, agg, images,
+                                tokens)
+    single = dict(cuda_lib.LAUNCHES)
+    assert single["fused_attn_half"] > 0 and single["mlp_half_bwd_dx"] > 0
+    for shards in (2, 4):
+        mesh = Mesh(DataAxis.local(shards), ModelAxis.local(1))
+        cuda_lib.reset_launches()
+        loss, got = _run_step(make_sharded_train_step(tclip.TINY, mesh, dropout=0.0), towers,
+                              agg, images, tokens)
+        assert dict(cuda_lib.LAUNCHES) == {k: shards * n for k, n in single.items()}
+        assert abs(loss - want_loss) <= 1e-5
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+class _NcclWorld1:
+    """An NCCL process group of one rank on this card, for the duration."""
+
+    def __enter__(self):
+        import socket
+
+        import torch.distributed as dist
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                                rank=0)
+        return dist.group.WORLD
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def test_nccl_world_size_1_equals_the_local_shard(cuda):
+    """The process-group branch of the data axis over NCCL at world size 1
+    (all-gather, its reduce-scatter backward and the gradient all-reduce
+    each a copy) gives the local shard's step bit for bit."""
+    from ovmr_tpu_torch.engine.train_step import make_sharded_train_step
+    from ovmr_tpu_torch.models import clip as tclip
+    from ovmr_tpu_torch.parallel import DataAxis, Mesh, ModelAxis
+
+    towers, agg, images, tokens = _tiny_step_inputs(cuda)
+    local = Mesh(DataAxis.local(1), ModelAxis.local(1))
+    want_loss, want = _run_step(make_sharded_train_step(tclip.TINY, local, dropout=0.0), towers,
+                                agg, images, tokens)
+    with _NcclWorld1() as world:
+        grouped = Mesh(DataAxis(1, (0,), group=world), ModelAxis.local(1))
+        loss, got = _run_step(make_sharded_train_step(tclip.TINY, grouped, dropout=0.0), towers,
+                              agg, images, tokens)
+    assert loss == want_loss
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_gather_nccl_backward_matches_the_local_cat(cuda):
+    """``DataAxis.gather`` over NCCL: forward the all-gather, backward the
+    reduce-scatter, against the local shards' ``torch.cat`` (world size 1:
+    both are the identity on the rows)."""
+    from ovmr_tpu_torch.parallel import DataAxis
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(5, 7, device="cuda", generator=g)
+    w = torch.randn(5, 7, device="cuda", generator=g)
+    with _NcclWorld1() as world:
+        a = x.clone().requires_grad_(True)
+        y = DataAxis(1, (0,), group=world).gather([a])
+        (y * w).sum().backward()
+    b = x.clone().requires_grad_(True)
+    z = DataAxis.local(1).gather([b])
+    (z * w).sum().backward()
+    assert torch.equal(y.detach(), z.detach()) and torch.equal(a.grad, b.grad)

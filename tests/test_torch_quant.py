@@ -262,22 +262,36 @@ def test_every_block_function_takes_or_refuses_an_int8_block(tiny):
 
 
 def test_the_tp_block_refuses_int8(tiny):
-    """A model axis takes float towers only (JAX sends int8 there to its
-    GSPMD XLA block, Queue 1 item 4): the TP block and K7/K8 refuse int8."""
+    """The split-qkv TP block and K7/K8 take float towers only: int8 on a
+    model axis takes the GSPMD route (JAX's GSPMD XLA block), the packed
+    towers' MLP split over the axis. That block on two local shards equals
+    the unsharded int8 block bit for bit (each row quantized with its scale
+    over the whole row, exact int32 sums) and JAX's within 1e-5."""
+    from ovmr_tpu.ops.layers import residual_attention_block as j_block
     from ovmr_tpu_torch.ops.block_fused_tp import (
+        make_gspmd_block,
         make_tp_block,
         split_clip_qkv,
         tp_attn_half_partial,
         tp_mlp_half_partial,
     )
-    from ovmr_tpu_torch.parallel.mesh import ModelAxis
+    from ovmr_tpu_torch.parallel.mesh import ModelAxis, place_packed_mlp
 
-    _, _, tparams = tiny
+    _, jparams, tparams = tiny
     shard = _layer(split_clip_qkv(tparams, 2, tclip.TINY)["text"]["blocks"])
     assert shard["w_q"].dtype == torch.int8
     x = torch.zeros((1, 4, 64))
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="GSPMD route"):
         make_tp_block(ModelAxis(2, (0, 1)))(x, shard, 2)
+    axis = ModelAxis.local(2)
+    placed = _layer(place_packed_mlp(axis, tparams)["visual"]["blocks"])
+    assert placed["c_fc_w"].shape[0] == 2 and placed["c_fc_w_scale"].shape[0] == 2
+    xs = torch.from_numpy(np.random.default_rng(6).standard_normal((2, 5, 64)).astype(np.float32))
+    got = make_gspmd_block(axis)(xs, placed, 1)
+    assert torch.equal(got, residual_attention_block(xs, _layer(tparams["visual"]["blocks"]), 1))
+    jp = {k: jnp.asarray(v[0]) for k, v in jparams["visual"]["blocks"].items()}
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_block(jnp.asarray(xs.numpy()), jp, 1)),
+                               atol=1e-5, rtol=0)
     with pytest.raises(TypeError, match="int8"):
         tp_attn_half_partial(x, shard["w_q"], shard["b_q"], shard["w_k"], shard["b_k"],
                              shard["w_v"], shard["b_v"], shard["w_out"], shard["ln_1_scale"],
@@ -421,11 +435,44 @@ def test_int8_trainer_eval_matches_jax(clip_pt, tmp_path, monkeypatch):
 
 
 def test_int8_on_a_model_axis_raises(tmp_path, monkeypatch, clip_pt):
-    from ovmr_tpu_torch.engine.trainer import build_trainer
-
+    """``CUDA.INT8`` on a model axis of 2 serves on the GSPMD route (it
+    raised before the route was ported): the eval's classifiers equal the
+    unsharded int8 trainer's bit for bit, and JAX's int8 trainer on its
+    data 1 x model 2 mesh to the quantizer's rounding."""
     monkeypatch.setenv("OVMR_CLIP_CKPT", clip_pt)
     monkeypatch.setenv("OVMR_SYNTHETIC", "4,8,64")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # TINY tensors gain nothing from intra-op threads
+    try:
+        _int8_model_axis_against_jax(tmp_path)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _int8_model_axis_against_jax(tmp_path):
+    from ovmr_tpu.engine import register_all_trainers
+    from ovmr_tpu.engine.trainer import build_trainer as j_build_trainer
+    from ovmr_tpu.utils.defaults import get_cfg_default as j_cfg
+    from ovmr_tpu_torch.convert import aggregator_params_from_numpy
+    from ovmr_tpu_torch.engine import checkpoint as ckpt
+    from ovmr_tpu_torch.engine.trainer import build_trainer
+
     cfg = _int8_cfg(tmp_path, get_cfg_default, "tp")
     cfg.CUDA.MESH.MODEL = 2
-    with pytest.raises(NotImplementedError, match="item 4.*CUDA.INT8"):
-        build_trainer(cfg)
+    port = build_trainer(cfg)
+    assert port._tp == "gspmd" and port.mesh.shape == {"data": 1, "model": 2}
+    single = build_trainer(_int8_cfg(tmp_path, get_cfg_default, "single"))
+    register_all_trainers()
+    jcfg = _int8_cfg(tmp_path, j_cfg, "jax_tp")
+    jcfg.TPU.MESH.DATA, jcfg.TPU.MESH.MODEL = 1, 2
+    jtr = j_build_trainer(jcfg)
+    assert jtr._tp == "gspmd"
+    agg = aggregator_params_from_numpy(jax.tree_util.tree_map(np.asarray, jtr.agg_params))
+    for trainer in (port, single):
+        ckpt.copy_into(trainer.agg_params, agg)
+    ours, unsharded = port.generate_classifiers(), single.generate_classifiers()
+    for key, value in ours.items():
+        np.testing.assert_array_equal(value, unsharded[key], err_msg=key)
+    theirs = {k: np.asarray(v) for k, v in jtr.generate_classifiers().items()}
+    for key in ("mm_classifier", "vision_classifier"):
+        _assert_rows_close(ours[key], theirs[key], 1e-2, 0.999, key)

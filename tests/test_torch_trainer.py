@@ -366,15 +366,73 @@ def test_cli_trains_then_evaluates(tmp_path):
     np.testing.assert_allclose(art["fusion_weight"].sum(-1).numpy(), 1.0, atol=1e-5)
 
 
+def _model_axis_matches_jax(tmp_path, monkeypatch, over):
+    """A model axis of 2 on one process (local shards) trains, and its
+    eval's classifiers match the JAX trainer's on its data 1 x model 2 mesh
+    over the same towers and aggregator: float towers (the TP block) within
+    1e-4, int8 (the GSPMD route) to the quantizer's rounding (row cosines
+    0.999, as ``tests/test_torch_quant.py`` holds int8 against JAX)."""
+    from ovmr_tpu.engine import register_all_trainers
+    from ovmr_tpu.engine.trainer import build_trainer as j_build_trainer
+    from ovmr_tpu.utils.defaults import get_cfg_default as j_cfg
+
+    import jax
+
+    from ovmr_tpu_torch.convert import aggregator_params_from_numpy
+
+    data = np.load(osp.join(ROOT, "tests", "fixtures", "trajectory_coop_golden.npz"))
+    clip_pt = tmp_path / "tiny_clip.pt"
+    torch.save({k[len("clip."):]: torch.from_numpy(np.asarray(data[k]))
+                for k in data.files if k.startswith("clip.")}, clip_pt)
+    monkeypatch.setenv("OVMR_CLIP_CKPT", str(clip_pt))
+    monkeypatch.setenv("OVMR_SYNTHETIC", "4,8,64")
+    common = {"MODEL.BACKBONE.NAME": "TINY_64", "INPUT.SIZE": (64, 64),
+              "DATALOADER.TRAIN_X.BATCH_SIZE": 16, "DATALOADER.TEST.BATCH_SIZE": 16}
+    port = build_trainer(_tiny_cfg(tmp_path, **common, **over))
+    int8 = bool(over.get("CUDA.INT8"))
+    assert port.mesh.shape == {"data": 1, "model": 2}
+    assert port._tp == ("gspmd" if int8 else "pallas")
+    register_all_trainers()
+    jcfg = _tiny_cfg(tmp_path / "jax", j_cfg, **common)
+    jcfg.TPU.MESH.DATA, jcfg.TPU.MESH.MODEL, jcfg.TPU.INT8 = 1, 2, int8
+    jtr = j_build_trainer(jcfg)
+    ckpt.copy_into(port.agg_params, aggregator_params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jtr.agg_params)))
+    ours = port.generate_classifiers()
+    theirs = {k: np.asarray(v) for k, v in jtr.generate_classifiers().items()}
+    for key in ("mm_classifier", "vision_classifier", "text_classifier"):
+        if int8:
+            np.testing.assert_allclose(ours[key], theirs[key], atol=1e-2, rtol=0, err_msg=key)
+            assert ((ours[key] * theirs[key]).sum(-1) >= 0.999).all(), key
+        else:
+            np.testing.assert_allclose(ours[key], theirs[key], atol=1e-4, rtol=0, err_msg=key)
+    # and it trains: the sharded towers' step moves the aggregator
+    before = port.agg_params["cls_token"].detach().clone()
+    summary = port.forward_backward(next(iter(port.train_loader)))
+    assert np.isfinite(summary["loss"])
+    assert (port.agg_params["cls_token"].detach() - before).abs().max() > 0
+
+
 @pytest.mark.parametrize("over,exc,match", [
-    ({"CUDA.MESH.MODEL": 2}, NotImplementedError, "item 4"),
-    ({"CUDA.MESH.MODEL": 2, "CUDA.INT8": True}, NotImplementedError, "item 4.*CUDA.INT8"),
+    # lifted: a model axis trains, and CUDA.INT8 serves on one
+    ({"CUDA.MESH.MODEL": 2}, None, None),
+    ({"CUDA.MESH.MODEL": 2, "CUDA.INT8": True}, None, None),
     # ResNet towers are ported; RN50's image features (1024) do not fit its
     # text tower (512), which MM_CLS_OP refuses as the JAX trainer does
     ({"MODEL.BACKBONE.NAME": "RN50"}, ValueError, "embed_dim == transformer_width"),
 ], ids=["model-axis", "int8-model-axis", "rn50-widths"])
 def test_trainer_refuses_what_waits(tmp_path, monkeypatch, over, exc, match):
     monkeypatch.setenv("OVMR_SYNTHETIC", "4,8,32")
+    if exc is None:
+        # one intra-op thread: the TINY tensors gain nothing from more, and
+        # the suite's parallel workers would make the pools spin
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            _model_axis_matches_jax(tmp_path, monkeypatch, over)
+        finally:
+            torch.set_num_threads(threads)
+        return
     with pytest.raises(exc, match=match):
         build_trainer(_tiny_cfg(tmp_path, **over))
 
