@@ -222,6 +222,17 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    against one program (exact launches x4, classifiers within 2 bf16 ulp,
    the sharded fusion scan bit for bit). Every kernel is then held at each
    shape (a), (b) and (e) launched that no check held before.
+20. The Dassl DG trainers, with torch's own TF32 flags: a PACS-layout tree
+   (4 domains x 7 classes x 20 JPEGs at 227 px), then for Vanilla, DDAIG,
+   DAELDG, CrossGrad and DomainMix two steps of the recipe at a tenth of
+   its learning rate on the card and on the CPU from one seeded state and
+   two batches (losses 1e-5, leaves 1e-4 of their scale; DDAIG and DAELDG
+   at their JAX trajectory tests' tolerances), Vanilla's two local data
+   shards against its one program, and the controls that must fail those
+   gates (TF32 on, every gradient 20% off, per-shard BatchNorm); then the
+   six runs through ``ovmr_tpu_torch.train.main`` at the published recipes
+   (epochs cut), each with its warm step, epoch, data time, busy share,
+   peak memory and no K1-K8 launch.
 
 In bf16 every K1, K2 and K8 launches the wgmma GEMM twice, every K5 twice
 a chunk, every K4 twice (its c_fc recompute and GELU' product are one
@@ -239,6 +250,7 @@ when no CUDA device is available or the package is not beside the script.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import random
@@ -1223,6 +1235,24 @@ def device_busy_ms(torch, prof):
                if e.device_type() == cuda and not e.is_user_annotation()) / 1e6
 
 
+def warm_busy_share(torch, prof, label):
+    """The device's busy share of a profiled loop's warm steps: its busy
+    time (as :func:`device_busy_ms` reads it) from the start of the second
+    ``label`` annotation to the end of the last, over that span's wall,
+    the host's data waits between the steps included; None under three
+    steps."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    steps = sorted((e.start_ns(), e.end_ns()) for e in events
+                   if e.device_type() != cuda and e.name() == label)
+    if len(steps) < 3:
+        return None
+    lo, hi = steps[1][0], steps[-1][1]
+    busy = sum(e.duration_ns() for e in events if e.device_type() == cuda
+               and not e.is_user_annotation() and lo <= e.start_ns() < hi)
+    return busy / (hi - lo)
+
+
 def profile_call(torch, what, fn):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of the call's wall time."""
@@ -1828,7 +1858,9 @@ class Recorder:
         self.saved = []
         self.times = {}
 
-    def wrap(self, owner, name, before=None, after=None):
+    def wrap(self, owner, name, before=None, after=None, label=None):
+        """``label``: each call also a ``torch.profiler`` annotation of
+        that name, ending after the device synchronise."""
         orig = getattr(owner, name)
         torch = self.torch
 
@@ -1836,8 +1868,9 @@ class Recorder:
             if before is not None:
                 before(*args)
             t = time.perf_counter()
-            out = orig(*args, **kwargs)
-            torch.cuda.synchronize()
+            with (torch.profiler.record_function(label) if label else contextlib.nullcontext()):
+                out = orig(*args, **kwargs)
+                torch.cuda.synchronize()
             self.times.setdefault(name, []).append(time.perf_counter() - t)
             if after is not None:
                 after(*args, out=out)
@@ -3840,6 +3873,430 @@ def drawn_block_checks(torch, block_case, checked, *shape_sets, label="multires-
                    (getattr(torch, dtype),), g["bwd"], timed)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the Dassl DG trainers at PACS's published recipes
+# ---------------------------------------------------------------------------
+
+PACS_DOMAINS = ("art_painting", "cartoon", "photo", "sketch")
+PACS_CLASSES = ("dog", "elephant", "giraffe", "guitar", "horse", "house", "person")
+PACS_TRAIN, PACS_VAL = 16, 4  # images a class a domain in each kfold split
+PACS_SEED = 1
+DG_SOURCES, DG_TARGET = ("art_painting", "cartoon", "photo"), "sketch"
+
+
+def write_pacs(np, root: Path) -> int:
+    """A PACS-layout tree (``pacs/images/<domain>/<class>/*.jpg`` at 227 x
+    227, ``pacs/splits/<domain>_{train,crossval}_kfold.txt`` of ``relpath
+    label`` lines, 1-based labels), drawn from :data:`PACS_SEED`: each class
+    a colour and a stripe frequency, each domain a contrast, plus noise."""
+    import concurrent.futures as cf
+
+    from PIL import Image
+
+    def save(pixels, path):
+        Image.fromarray(pixels).save(path, quality=90)
+
+    rng = np.random.default_rng(PACS_SEED)
+    yy, xx = np.mgrid[0:227, 0:227] / 227.0
+    jobs = []
+    with cf.ThreadPoolExecutor(max_workers=8) as pool:  # the draws stay in order
+        for d, domain in enumerate(PACS_DOMAINS):
+            splits = {"train": [], "crossval": []}
+            for c, cname in enumerate(PACS_CLASSES):
+                cdir = root / "pacs" / "images" / domain / cname
+                cdir.mkdir(parents=True, exist_ok=True)
+                hue = np.array([(c * 37) % 255, (c * 91) % 255, (c * 53) % 255]) / 255.0
+                stripes = np.sin((xx * (c + 2) + yy * (d + 1)) * 2 * np.pi)[..., None]
+                for i in range(PACS_TRAIN + PACS_VAL):
+                    img = 0.5 + (0.15 + 0.1 * d) * stripes * hue + rng.normal(0, 0.08,
+                                                                          (227, 227, 3))
+                    rel = f"{domain}/{cname}/{i:03d}.jpg"
+                    jobs.append(pool.submit(save, (np.clip(img, 0, 1) * 255).astype(np.uint8),
+                                            root / "pacs" / "images" / rel))
+                    splits["train" if i < PACS_TRAIN else "crossval"].append(f"{rel} {c + 1}")
+            sdir = root / "pacs" / "splits"
+            sdir.mkdir(parents=True, exist_ok=True)
+            for split, lines in splits.items():
+                (sdir / f"{domain}_{split}_kfold.txt").write_text("\n".join(lines) + "\n")
+        for job in jobs:
+            job.result()
+    return len(jobs)
+
+
+def dg_argv(root: Path, out: Path, trainer: str, yaml=None, opts=()):
+    """``python -m ovmr_tpu_torch.train`` arguments of a PACS run: the dataset
+    yaml, the trainer's yaml (or Vanilla's, for the trainers without one),
+    the sources and the target, and the run's cuts as options."""
+    cfg_dir = ROOT / "configs"
+    yaml = yaml or "vanilla"
+    return ["--root", str(root), "--seed", str(PACS_SEED), "--trainer", trainer,
+            "--dataset-config-file", str(cfg_dir / "datasets" / "dg" / "pacs.yaml"),
+            "--config-file", str(cfg_dir / "trainers" / "dg" / yaml / "pacs.yaml"),
+            "--output-dir", str(out),
+            "DATASET.SOURCE_DOMAINS", repr(list(DG_SOURCES)),
+            "DATASET.TARGET_DOMAINS", repr([DG_TARGET]),
+            "DATALOADER.NUM_WORKERS", "8", *opts]
+
+
+# run -> (trainer, its yaml, the cuts as options)
+DG_RUNS = {
+    "vanilla": ("Vanilla", "vanilla", ["OPTIM.MAX_EPOCH", "1"]),
+    "ddaig": ("DDAIG", "ddaig", ["OPTIM.MAX_EPOCH", "2", "TRAINER.DDAIG.WARMUP", "1"]),
+    "daeldg": ("DAELDG", "daeldg", ["OPTIM.MAX_EPOCH", "1"]),
+    "crossgrad": ("CrossGrad", None, ["OPTIM.MAX_EPOCH", "1"]),
+    "domainmix": ("DomainMix", None, ["OPTIM.MAX_EPOCH", "1"]),
+    "vanilla_data2": ("Vanilla", "vanilla", ["OPTIM.MAX_EPOCH", "1", "CUDA.MESH.DATA", "2"]),
+}
+
+
+def dg_run(torch, np, root: Path, tag: str):
+    """One PACS run through ``ovmr_tpu_torch.train.main`` on the card, its
+    first epoch profiled (``OVMR_PROFILE_DIR``): the warm median step, the
+    first epoch's wall, the last epoch's host data time, the card's busy
+    share of the first epoch (:func:`device_busy_ms`) and of its warm steps
+    (:func:`warm_busy_share`), peak memory and the
+    K1-K8 launches (the counts zeroed just before). The test pass prints
+    its ``=> result``."""
+    import os
+    import statistics
+
+    from ovmr_tpu_torch import train as entry
+    from ovmr_tpu_torch.engine import dassl_base, dg
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    name, yaml, opts = DG_RUNS[tag]
+    rec = Recorder(torch)
+    for cls in (dassl_base.DasslTrainer, dg.CrossGrad, dg.DDAIG, dg.DAELDG, dg.DomainMix):
+        rec.wrap(cls, "forward_backward", label="dg_step")
+    os.environ["OVMR_PROFILE_DIR"] = str(root / tag / "profile")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t = time.perf_counter()
+    try:
+        trainer = run_entry(entry.build_parser(), entry,
+                            dg_argv(root, root / tag, name, yaml, opts))
+    finally:
+        os.environ.pop("OVMR_PROFILE_DIR")
+        rec.restore()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches, shapes = dict(cuda_lib.LAUNCHES), dict(cuda_lib.LAUNCH_SHAPES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = rec.times.get("forward_backward", [])
+    if not steps:
+        raise AssertionError(f"[dg] {tag}: no training step ran")
+    if any(launches.values()):
+        raise AssertionError(f"[dg] {tag} launched K1-K8: {launches}")
+    prof, epoch_s = trainer.epoch_profile
+    busy = device_busy_ms(torch, prof)
+    warm_busy = warm_busy_share(torch, prof, "dg_step")
+    per_epoch = trainer.num_batches
+    # the first epoch's steps after its first (the profiler runs in all)
+    warm = steps[1:per_epoch] if per_epoch > 1 else steps
+    print(f"[dg] {tag}: {len(steps)} steps ({per_epoch} an epoch), warm median step "
+          f"{1e3 * statistics.median(warm):.1f} ms, first epoch {epoch_s:.2f} s (profiled), "
+          f"last epoch's host data time {trainer.data_time.sum:.2f} s, card busy {busy:.0f} ms "
+          f"= {100 * busy / (1e3 * epoch_s):.1f}% of the first epoch ("
+          + ("under three steps" if warm_busy is None else f"{100 * warm_busy:.1f}%")
+          + f" of its warm steps with their data waits), peak {peak:.2f} GiB, run "
+          f"wall {wall:.1f} s, K1-K8 launches {sum(launches.values())}", flush=True)
+    return trainer, (launches, shapes)
+
+
+def _dg_cfg(root, tag, device, extra=()):
+    from ovmr_tpu_torch import train as entry
+
+    name, yaml, opts = DG_RUNS[tag]
+    argv = dg_argv(root, root / f"{tag}-{device}", name, yaml,
+                   [*opts, "CUDA.DEVICE", device, *extra])
+    return entry.setup_cfg(entry.build_parser().parse_args(argv))
+
+
+def _dg_trainer(torch, root, tag, device, extra=()):
+    from ovmr_tpu_torch.engine.trainer import build_trainer
+    from ovmr_tpu_torch.utils.tools import set_random_seed
+
+    cfg = _dg_cfg(root, tag, device, extra)
+    set_random_seed(cfg.SEED)  # as the entry point seeds before it builds
+    return build_trainer(cfg)
+
+
+# The card-vs-CPU gates. Two steps of each recipe from one seeded state on
+# the same two batches: every loss each step returns within DG_LOSS_RTOL
+# relative, every parameter and BN statistic within DG_LEAF_SHARE of its
+# scale (:func:`_dg_scale`). DDAIG's adversarial G and DAELDG's experts are
+# held at their JAX trajectory tests' tolerances
+# (tests/test_trajectory_parity.py: losses rtol 2e-4 / 5e-4 with atol 2e-5,
+# leaves atol 1e-4 + rtol 1e-3 element by element). Two local data shards
+# (run (e)) are held against the card's one program at the plain gates.
+# Controls, which must each fail a gate: the card's steps with cuDNN's TF32
+# on and with every gradient DG_GRAD_FACTOR times its value (every trainer),
+# and per-shard BatchNorm on the two shards (Vanilla).
+# Each line also prints the card's drift from itself under a 1e-6 change of
+# the inputs, the JAX goldens' self-sensitivity reading. The steps run at
+# DG_GATE_LR times the recipe's learning rate, the JAX goldens' way of
+# keeping that drift well inside the gates: at the recipes' rates it reaches
+# 2.7x a gate (DAELDG's losses, DDAIG's leaves), at a tenth 0.12x
+# (tools/probe_torch_dg_gates.py; PERF.md).
+DG_GATE_LR = 0.1  # times the recipe's learning rate
+DG_LOSS_RTOL, DG_LEAF_SHARE = 1e-5, 1e-4
+DG_CHAOTIC = {  # loss key -> (rtol, atol); leaves (atol, rtol) element by element
+    "ddaig": ({"": (2e-4, 2e-5)}, (1e-4, 1e-3)),
+    "daeldg": ({"": (2e-4, 2e-5), "loss_cr": (5e-4, 2e-5)}, (1e-4, 1e-3)),
+}
+DG_PERTURB = 1e-6
+# the gradient control: a 20% error in each update (the plain gates catch
+# 1%, DDAIG's JAX tolerances 5%; DAELDG's miss 5%: PERF.md)
+DG_GRAD_FACTOR = 1.2
+
+
+def _dg_replay(np, trainer, init, batches, tag, scale=None):
+    """Two steps of ``trainer`` from ``init`` on ``batches`` (their images
+    times ``1 + scale`` when given): each step's losses, walls, the states
+    after."""
+    from ovmr_tpu_torch.convert import dassl_state_from_numpy
+
+    if scale is not None:
+        batches = [{**b, **{k: (np.asarray(b[k], np.float32) * np.float32(1 + scale))
+                            for k in ("img", "img2") if k in b}} for b in batches]
+    for name, state in init.items():
+        dassl_state_from_numpy(trainer._nets[name], state)
+    # DDAIG's second epoch, past its warmup: both branches of its F step
+    trainer.epoch = 1 if tag == "ddaig" else 0
+    trainer.before_epoch()
+    losses, walls = [], []
+    for b in batches:
+        t = time.perf_counter()
+        out = trainer.forward_backward(b)  # the loss read synchronises
+        walls.append(time.perf_counter() - t)
+        losses.append({k: v for k, v in out.items() if k.startswith("loss_") or k == "loss"})
+    return losses, walls, {n: trainer.model_state(n) for n in trainer.get_model_names()}
+
+
+def _dg_flat(state: dict, prefix=""):
+    for k, v in state.items():
+        if isinstance(v, dict):
+            yield from _dg_flat(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+_DG_WEIGHT_OF = {"bias": ("scale", "kernel"), "mean": ("var",)}
+
+
+def _dg_scale(np, leaf, want, start):
+    """A leaf's scale: its max |value|. A leaf that starts at zero (a bias, a
+    BN running mean) takes the larger of that and its module's weight's at
+    the start (the BN scale or the kernel beside a bias, the running
+    variance beside a mean), since its error adds to an output that weight
+    scales; its two updates alone are no scale (the card drifts from itself
+    by 5% of a BN bias's under a 1e-6 input change)."""
+    scale = float(np.abs(want).max())
+    if np.any(start[leaf]):
+        return scale
+    head, _, last = leaf.rpartition("/")
+    for weight in _DG_WEIGHT_OF.get(last, ()):
+        if f"{head}/{weight}" in start:
+            return max(scale, float(np.abs(start[f"{head}/{weight}"]).max()))
+    return scale
+
+
+def _dg_compare(np, run, ref, init, tag, chaotic=True):
+    """``run``'s losses and leaves against ``ref``'s at ``tag``'s gates:
+    (worst loss over its gate, worst leaf over its gate, that leaf's name,
+    its error, its scale, the largest error over a leaf's update size).
+    A ratio above 1 fails."""
+    loss_gates, leaf_gate = DG_CHAOTIC.get(tag, ({"": (DG_LOSS_RTOL, 0.0)}, None))
+    if not chaotic:
+        loss_gates, leaf_gate = {"": (DG_LOSS_RTOL, 0.0)}, None
+    loss_ratio = 0.0
+    for got, want in zip(run[0], ref[0]):
+        for key, value in want.items():
+            rtol, atol = loss_gates.get(key, loss_gates.get("", (DG_LOSS_RTOL, 0.0)))
+            loss_ratio = max(loss_ratio, abs(got[key] - value) / (atol + rtol * abs(value)))
+    leaf_ratio, top, upd = 0.0, ("", 0.0, 0.0), 0.0
+    for name in ref[2]:
+        start = dict(_dg_flat(init[name]))
+        got = dict(_dg_flat(run[2][name]))
+        for leaf, want in _dg_flat(ref[2][name]):
+            diff = np.abs(got[leaf] - want)
+            err, scale = float(diff.max()), _dg_scale(np, leaf, want, start)
+            if leaf_gate is None:
+                ratio = err / (DG_LEAF_SHARE * scale) if scale > 0 else (0.0 if err == 0 else math.inf)
+            else:
+                atol, rtol = leaf_gate
+                ratio = float((diff / (atol + rtol * np.abs(want))).max())
+            if ratio >= leaf_ratio:
+                leaf_ratio, top = ratio, (f"{name}/{leaf}", err, scale)
+            step = float(np.abs(want - start[leaf]).max())
+            if step > 0:
+                upd = max(upd, err / step)
+    return loss_ratio, leaf_ratio, top, upd
+
+
+@contextlib.contextmanager
+def _tf32_steps(torch):
+    """Control: the Dassl steps with cuDNN's TF32 on (their fp32 scope,
+    ``exact_fp32_convolutions``, replaced for the block)."""
+    from ovmr_tpu_torch.engine import dassl_base, dg
+
+    cudnn = torch.backends.cudnn
+
+    @contextlib.contextmanager
+    def tf32(dtype=None):
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=True):
+            yield
+
+    saved = dassl_base.exact_fp32_convolutions, dg.exact_fp32_convolutions
+    dassl_base.exact_fp32_convolutions = dg.exact_fp32_convolutions = tf32
+    try:
+        yield
+    finally:
+        dassl_base.exact_fp32_convolutions, dg.exact_fp32_convolutions = saved
+
+
+@contextlib.contextmanager
+def _per_shard_batch_norm(torch):
+    """Control: each local data shard's BatchNorm on its own rows' statistics
+    (the first shard's running statistics kept), in place of the global
+    batch's."""
+    import torch.nn.functional as F
+
+    from ovmr_tpu_torch.modeling.layers import TorchBatchNorm
+
+    def per_shard(self, x, axis):
+        return torch.cat([F.batch_norm(b, self.running_mean if i == 0 else None,
+                                       self.running_var if i == 0 else None, self.weight,
+                                       self.bias, True, self.momentum, self.eps)
+                          for i, b in enumerate(axis.split(x))])
+
+    saved = TorchBatchNorm._global_batch_norm
+    TorchBatchNorm._global_batch_norm = per_shard
+    try:
+        yield
+    finally:
+        TorchBatchNorm._global_batch_norm = saved
+
+
+@contextlib.contextmanager
+def _scaled_gradients(torch, factor):
+    """Control: every gradient ``factor`` times its value when the recipes'
+    optimizer (sgd) steps."""
+    from ovmr_tpu_torch.engine import optimizers
+
+    orig = optimizers.SGD.step
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    p.grad.mul_(factor)
+        return orig(self, closure)
+
+    optimizers.SGD.step = step
+    try:
+        yield
+    finally:
+        optimizers.SGD.step = orig
+
+
+def _dg_line(key, res):
+    loss_ratio, leaf_ratio, (leaf, err, scale), upd = res
+    return (f"{key}: loss {loss_ratio:.3g} of its gate, worst leaf {leaf} off by {err:.3g} "
+            f"(scale {scale:.3g}) = {leaf_ratio:.3g} of its gate, worst leaf error "
+            f"{upd:.3g} of its update")
+
+
+def dg_card_vs_cpu(torch, np, root: Path, tag: str):
+    """The run's recipe, at the gates' learning rate, on the card and on
+    the CPU from one seeded initial state (the card's, carried to the CPU
+    trainer) and the same first two batches (pulled once), held by the gates
+    above; the TF32 and 20%-gradient controls fail them; for Vanilla, the
+    same two steps on
+    two local data shards against the card's one program, and the
+    per-shard BatchNorm control, which fails them."""
+    lr = ["OPTIM.LR", repr(_dg_cfg(root, tag, "cuda").OPTIM.LR * DG_GATE_LR)]
+    card = _dg_trainer(torch, root, tag, "cuda", lr)
+    init = {name: card.model_state(name) for name in card.get_model_names()}
+    stream = iter(card.train_loader)
+    batches = [next(stream), next(stream)]
+    stream.close()
+    on_card = _dg_replay(np, card, init, batches, tag)
+    t = time.perf_counter()
+    on_cpu = _dg_replay(np, _dg_trainer(torch, root, tag, "cpu", lr), init, batches, tag)
+    cpu_s = time.perf_counter() - t
+    noise = _dg_compare(np, _dg_replay(np, _dg_trainer(torch, root, tag, "cuda", lr), init,
+                                       batches, tag, scale=DG_PERTURB), on_card, init, tag)
+    with _tf32_steps(torch):
+        tf32 = _dg_compare(np, _dg_replay(np, _dg_trainer(torch, root, tag, "cuda", lr), init,
+                                          batches, tag), on_cpu, init, tag)
+    with _scaled_gradients(torch, DG_GRAD_FACTOR):
+        scaled = _dg_compare(np, _dg_replay(np, _dg_trainer(torch, root, tag, "cuda", lr), init,
+                                            batches, tag), on_cpu, init, tag)
+    held = {"card vs cpu": _dg_compare(np, on_card, on_cpu, init, tag)}
+    controls = {"tf32 on vs cpu": tf32, f"gradients x {DG_GRAD_FACTOR} vs cpu": scaled}
+    if tag == "vanilla":
+        shards = ["CUDA.MESH.DATA", "2", *lr]
+        held["2 local data shards vs one program"] = _dg_compare(
+            np, _dg_replay(np, _dg_trainer(torch, root, tag, "cuda", shards), init, batches, tag),
+            on_card, init, tag, chaotic=False)
+        with _per_shard_batch_norm(torch):
+            controls["per-shard BN vs one program"] = _dg_compare(
+                np, _dg_replay(np, _dg_trainer(torch, root, tag, "cuda", shards), init, batches,
+                               tag), on_card, init, tag, chaotic=False)
+    print(f"[dg] {tag} gates (fp32, TF32 off in the steps, 2 steps at lr {lr[1]}; card losses "
+          f"{[round(v['loss'], 6) for v in on_card[0]]}; the card's warm step "
+          f"{1e3 * on_card[1][1]:.1f} ms, unprofiled; the CPU's two {cpu_s:.1f} s): "
+          + "; ".join(_dg_line(k, r) for k, r in held.items())
+          + "; controls: " + "; ".join(_dg_line(k, r) for k, r in controls.items())
+          + "; " + _dg_line("noise (the card under a 1e-6 input change)", noise), flush=True)
+    for key, (loss_ratio, leaf_ratio, (leaf, err, scale), _) in held.items():
+        if loss_ratio > 1 or leaf_ratio > 1:
+            raise AssertionError(f"[dg] {tag} {key}: losses at {loss_ratio:.3g} of their gate, "
+                                 f"{leaf} off by {err:.3g} (scale {scale:.3g}) at "
+                                 f"{leaf_ratio:.3g} of its gate")
+    for key, (loss_ratio, leaf_ratio, _, _) in controls.items():
+        if loss_ratio <= 1 and leaf_ratio <= 1:
+            raise AssertionError(f"[dg] {tag} control {key} met every gate: the gates cannot "
+                                 f"tell it from the path")
+
+
+def dg_phase(torch, np):
+    """Phase 20: a PACS-layout tree, then the published recipes on the card
+    through the entry point (Vanilla, DDAIG, DAELDG, CrossGrad, DomainMix,
+    Vanilla on 2 local data shards) and each one's card-vs-CPU gate."""
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="ovmr_dg_smoke_"))
+    # torch's own TF32 defaults, as a user's process has them, for the whole
+    # phase: the entry point and the Dassl steps must turn TF32 off themselves
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        n = write_pacs(np, root)
+        print(f"[dg] PACS tree: {n} images ({len(PACS_DOMAINS)} domains x {len(PACS_CLASSES)} "
+              f"classes x {PACS_TRAIN + PACS_VAL}) in {time.perf_counter() - t0:.1f} s; sources "
+              f"{list(DG_SOURCES)}, target {DG_TARGET}", flush=True)
+        # the gates first: their card steps also warm cuDNN's plans and
+        # lazily loaded kernels for the timed runs after them
+        t = time.perf_counter()
+        for tag in ("vanilla", "ddaig", "daeldg", "crossgrad", "domainmix"):
+            dg_card_vs_cpu(torch, np, root, tag)
+            torch.cuda.empty_cache()
+        print(f"[dg] the gates in {time.perf_counter() - t:.1f} s", flush=True)
+        paths = {}
+        for tag in DG_RUNS:
+            _, paths[f"dg_{tag}"] = dg_run(torch, np, root, tag)
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[dg] phase 20 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
 def main() -> int:
     if not (ROOT / "ovmr_tpu_torch").is_dir():
         print("chip_smoke: the ovmr_tpu_torch package is not beside this script",
@@ -3864,6 +4321,13 @@ def main() -> int:
     print(f"[device] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     build_s = cuda_lib.build_all()
     print(f"[device] kernels built in {build_s:.1f} s into {cuda_lib.BUILD_DIR}", flush=True)
+    t_lap = [time.perf_counter()]
+
+    def lap(what):
+        """The wall since the last lap, one line a group of phases."""
+        now = time.perf_counter()
+        print(f"[wall] {what}: {now - t_lap[0]:.1f} s", flush=True)
+        t_lap[0] = now
 
     from ovmr_tpu_torch.api import OVMRGenerator
     from ovmr_tpu_torch.models import clip as tclip
@@ -3871,6 +4335,7 @@ def main() -> int:
 
     kernels, cases = kernel_checks(torch, F)
     block_case = cases["block"]
+    lap("phase 2 (kernels against their plain versions)")
 
     def all_checked(what, shapes):
         """Every launch of a path ran at a shape phase 2 (or, for phase 18's
@@ -3897,6 +4362,7 @@ def main() -> int:
     paths["training"] = training_slice(torch, np, clip_params, agg_params)
     all_checked("training", paths["training"][1])
     fp32_train_step(torch, np, clip_params, agg_params)
+    lap("phases 3-6 (ViT-B/16 serving and training)")
 
     # ViT-L/14@336px serving, through the entry point a user calls; no local
     # checkpoint exists, so the towers are random from the seed (it warns)
@@ -3929,14 +4395,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     vision_backward(torch)
     torch.cuda.empty_cache()
+    lap("phases 7-11 (ViT-L/14@336px, the model axis, the vision backward)")
     work = Path(tempfile.mkdtemp(prefix="ovmr_trainer_smoke_"))
     try:
         *paths["trainer"], bf16_eval = trainer_phase(torch, np, work)
         all_checked("trainer", paths["trainer"][1])
         torch.cuda.empty_cache()
+        lap("phase 12 (the trainer)")
         paths["trainer_augs"] = augs_trainer_phase(torch, np, work)
         all_checked("trainer_augs", paths["trainer_augs"][1])
         torch.cuda.empty_cache()
+        lap("phase 13 (the device-augmented trainer)")
         t = time.perf_counter()
         paths["stage2"], paths["stage2_imagenet"] = stage2_phase(torch, np, work)
         all_checked("stage2", paths["stage2"][1])
@@ -3978,6 +4447,10 @@ def main() -> int:
                                           kernels).items():
         paths[path] = recorded
         all_checked(path, recorded[1])
+    torch.cuda.empty_cache()
+    lap("phases 14-19")
+    paths.update(dg_phase(torch, np))  # phase 20: no K1-K8 launch on the DG paths
+    lap("phase 20")
 
     for entry in kernels:
         # launches: the wrapper's count over the three ViT-B/16 requests +

@@ -16,14 +16,26 @@ layout of tensor parallelism (``w_q``/``w_k``/``w_v`` and their biases,
 head-padded or not): the numpy of the JAX package's
 ``split_clip_qkv(params, m, cfg)`` converts as it is, and equals the port's
 own ``split_clip_qkv`` of the converted packed towers.
+
+The Dassl models (:mod:`ovmr_tpu_torch.modeling`, the trainers' heads) are
+``nn.Module``s whose submodules carry the flax modules' names, so their
+state maps leaf by leaf: :func:`dassl_state_from_numpy` copies a flax
+``{"params", "batch_stats"}`` state (numpy leaves) into a module and
+:func:`dassl_state_to_numpy` is the way back. Convolution kernels go from
+HWIO to OIHW, linear kernels are transposed, BatchNorm's
+``scale/bias/mean/var`` become ``weight/bias/running_mean/running_var``;
+any other parameter or buffer keeps its name and layout (a ``TransNorm``'s,
+``StackedLinears``' stacked ``kernel``). :func:`dassl_leaves` lists that
+map, which the Dassl checkpoints also apply to the optimizer's moments.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Callable, List, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from ovmr_tpu_torch.ops.block_fused import BLOCK_KEYS
 from ovmr_tpu_torch.ops.block_fused_tp import TP_KEYS
@@ -142,3 +154,112 @@ def aggregator_params_to_numpy(params: Mapping) -> dict:
         "blocks": {k: array(v) for k, v in params["blocks"].items()},
         "cls_token": array(params["cls_token"]),
     }
+
+
+# --------------------------------------------------------------------------
+# the Dassl models
+# --------------------------------------------------------------------------
+
+class DasslLeaf(NamedTuple):
+    """One leaf of a flax Dassl state and the module tensor that holds it:
+    its collection (``params`` or ``batch_stats``), its flax path, the
+    tensor, and the layout maps ``to_flax``/``from_flax`` (numpy or torch
+    arrays of the tensor's rank)."""
+
+    collection: str
+    path: Tuple[str, ...]
+    tensor: torch.Tensor
+    to_flax: Callable
+    from_flax: Callable
+
+
+def _same(a):
+    return a
+
+
+def _conv_to_flax(w):
+    return w.permute(2, 3, 1, 0) if isinstance(w, torch.Tensor) else np.transpose(w, (2, 3, 1, 0))
+
+
+def _conv_from_flax(k):
+    return k.permute(3, 2, 0, 1) if isinstance(k, torch.Tensor) else np.transpose(k, (3, 2, 0, 1))
+
+
+def _t(w):
+    return w.t() if isinstance(w, torch.Tensor) else np.transpose(w)
+
+
+def dassl_leaves(module: nn.Module) -> List[DasslLeaf]:
+    """Every parameter and running statistic of a Dassl module with its
+    flax collection, path and layout maps, in the module's order."""
+    from ovmr_tpu_torch.modeling.layers import TorchBatchNorm
+
+    leaves = []
+    for name, m in module.named_modules():
+        prefix = tuple(name.split(".")) if name else ()
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            to, back = ((_conv_to_flax, _conv_from_flax) if isinstance(m, nn.Conv2d)
+                        else (_t, _t))
+            leaves.append(DasslLeaf("params", prefix + ("kernel",), m.weight, to, back))
+            if m.bias is not None:
+                leaves.append(DasslLeaf("params", prefix + ("bias",), m.bias, _same, _same))
+        elif isinstance(m, TorchBatchNorm):
+            for coll, flax_name, t in (("params", "scale", m.weight), ("params", "bias", m.bias),
+                                       ("batch_stats", "mean", m.running_mean),
+                                       ("batch_stats", "var", m.running_var)):
+                leaves.append(DasslLeaf(coll, prefix + (flax_name,), t, _same, _same))
+        else:
+            for pname, p in m.named_parameters(recurse=False):
+                leaves.append(DasslLeaf("params", prefix + (pname,), p, _same, _same))
+            for bname, b in m.named_buffers(recurse=False):
+                leaves.append(DasslLeaf("batch_stats", prefix + (bname,), b, _same, _same))
+    return leaves
+
+
+def _lookup(tree: Mapping, path: Tuple[str, ...], where: str):
+    node = tree
+    for p in path:
+        if not isinstance(node, Mapping) or p not in node:
+            raise KeyError(f"{where}: missing leaf {'/'.join(path)!r}")
+        node = node[p]
+    return node
+
+
+def _count(tree) -> int:
+    if isinstance(tree, Mapping):
+        return sum(_count(v) for v in tree.values())
+    return 1
+
+
+@torch.no_grad()
+def dassl_state_from_numpy(module: nn.Module, state: Mapping) -> nn.Module:
+    """Copy a flax Dassl state ``{"params": ..., "batch_stats": ...}`` of
+    numpy leaves into ``module`` in place (its device and dtypes kept);
+    a missing, extra or misshapen leaf raises."""
+    leaves = dassl_leaves(module)
+    for coll in ("params", "batch_stats"):
+        want = sum(1 for leaf in leaves if leaf.collection == coll)
+        have = _count(state.get(coll, {}))
+        if want != have:
+            raise KeyError(f"state[{coll!r}] holds {have} leaves; the module has {want}")
+    for leaf in leaves:
+        value = leaf.from_flax(np.asarray(_lookup(state[leaf.collection], leaf.path,
+                                                  f"state[{leaf.collection!r}]")))
+        if tuple(value.shape) != tuple(leaf.tensor.shape):
+            raise ValueError(f"{leaf.collection}/{'/'.join(leaf.path)}: shape {value.shape} "
+                             f"does not fit {tuple(leaf.tensor.shape)}")
+        leaf.tensor.copy_(torch.from_numpy(np.array(value, copy=True)))
+    return module
+
+
+def dassl_state_to_numpy(module: nn.Module) -> dict:
+    """A Dassl module's state as the JAX package's flax state: nested dicts
+    of fp32 numpy arrays under ``params`` and ``batch_stats``."""
+    out = {"params": {}, "batch_stats": {}}
+    for leaf in dassl_leaves(module):
+        node = out[leaf.collection]
+        for p in leaf.path[:-1]:
+            node = node.setdefault(p, {})
+        node[leaf.path[-1]] = leaf.to_flax(
+            leaf.tensor.detach().to("cpu", torch.float32)).contiguous().numpy().copy()
+    return out

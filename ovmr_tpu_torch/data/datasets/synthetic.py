@@ -6,9 +6,10 @@ written on first use, so the whole pipeline (loader -> transform -> encode
 -> classifier generation -> eval) runs anywhere with zero downloads. The
 files, paths and splits are the JAX package's, pixel for pixel: the random
 draws are taken in the same order from one ``default_rng(0)``, and only
-the arithmetic after them and the PNG writes run on a thread pool. The
-semi-supervised and domain-adaptation variants (``SyntheticSSL``,
-``SyntheticDA``) come with the Dassl families.
+the arithmetic after them and the PNG writes run on a thread pool.
+``SyntheticDA`` (JAX ``:141``) is the domain-adaptation variant the DG
+trainers run on; the semi-supervised ``SyntheticSSL`` comes with the SSL
+trainers.
 """
 
 from __future__ import annotations
@@ -149,3 +150,25 @@ class Synthetic(DatasetBase):
             train, val, test, subsample=cfg.DATASET.SUBSAMPLE_CLASSES
         )
         super().__init__(train_x=train, val=val, test=test, eval_set=train)
+
+
+@DATASET_REGISTRY.register()
+class SyntheticDA(Synthetic):
+    """Domain-adaptation variant: train_x becomes the source domains
+    (domain ids cycle over ``len(DATASET.SOURCE_DOMAINS)`` or 2) and the
+    val split doubles as the unlabeled target pool ``train_u`` (domain =
+    n_sources), the shape of the reference DA datasets' source/target split
+    (``dassl/data/datasets/da/``)."""
+
+    def __init__(self, cfg, **kwargs):
+        super().__init__(cfg, **kwargs)
+        n_dom = max(len(cfg.DATASET.SOURCE_DOMAINS), 2)
+        self.train_x = [
+            Datum(impath=d.impath, label=d.label, domain=i % n_dom, classname=d.classname)
+            for i, d in enumerate(self.train_x)
+        ]
+        self.train_u = [
+            Datum(impath=d.impath, label=d.label, domain=n_dom, classname=d.classname)
+            for d in self.val
+        ]
+        self.eval_set = self.train_x

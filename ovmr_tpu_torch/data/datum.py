@@ -261,12 +261,16 @@ class DatasetBase:
     """Holds train/val/test/eval_set splits plus label bookkeeping
     (reference ``dassl/data/datasets/base_dataset.py:51-245``).
     ``eval_set`` is the exemplar source for classifier generation — the
-    (few-shot) train split by default. The unlabeled split and the domain
-    helpers of the JAX package's ``DatasetBase`` come with the Dassl
-    families."""
+    (few-shot) train split by default. ``train_u`` holds a dataset's
+    unlabeled split (no loader reads it yet: ``train_loader_u`` comes with
+    the DA and SSL trainers)."""
 
-    def __init__(self, train_x=None, val=None, test=None, eval_set=None):
+    # valid domain names for multi-domain (DA/DG) datasets; () = single-domain
+    domains: Tuple[str, ...] = ()
+
+    def __init__(self, train_x=None, val=None, test=None, eval_set=None, train_u=None):
         self.train_x = train_x or []
+        self.train_u = train_u or []
         self.val = val or []
         self.test = test or []
         self.eval_set = eval_set if eval_set is not None else self.train_x
@@ -294,3 +298,28 @@ class DatasetBase:
         lab2cname = {l: mapping[l] for l in labels}
         classnames = [mapping[l] for l in labels]
         return lab2cname, classnames
+
+    def check_input_domains(self, source_domains, target_domains):
+        """Validate SOURCE/TARGET domain names against ``self.domains``
+        (reference ``base_dataset.py:130-142``)."""
+        if not source_domains:
+            raise ValueError("DATASET.SOURCE_DOMAINS is empty")
+        if not target_domains:
+            raise ValueError("DATASET.TARGET_DOMAINS is empty")
+        for domain in tuple(source_domains) + tuple(target_domains):
+            if domain not in self.domains:
+                raise ValueError(
+                    f"Input domain must belong to {list(self.domains)}, "
+                    f"but got [{domain}]"
+                )
+
+    @staticmethod
+    def split_dataset_by_domain(data_source):
+        """Group a list of Datum by ``domain`` (reference
+        ``base_dataset.py:233-245``)."""
+        from collections import defaultdict
+
+        output = defaultdict(list)
+        for item in data_source:
+            output[item.domain].append(item)
+        return output

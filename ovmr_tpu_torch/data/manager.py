@@ -17,7 +17,9 @@ Loader lineup matches the reference (``data_manager.py:116-246``):
 
 ``DATALOADER.MULTI_RES_COLLATE`` gives the train loader the batch-level
 multi-resolution collate of :mod:`ovmr_tpu_torch.data.multires` (raw
-decode, one drawn shape a batch). Not ported yet, and refused by
+decode, one drawn shape a batch). A trainer that passes
+``tfm_train_strong`` (DAELDG) gets the strong view of every training image
+as ``img2``, drawn as the JAX loader draws it. Not ported yet, and refused by
 :class:`DataManager`: ``RETURN_IMG0`` and ``TEXT_ONLY`` batches, which the
 Dassl families use, and the unlabeled loader ``train_loader_u`` (ROADMAP
 Queue 1 item 7b).
@@ -64,6 +66,7 @@ class HostDataLoader:
         multi_res=None,
         local_block=None,
         local_multiple: int = 1,
+        transform2=None,
     ):
         # (data shard, data axis size) of the sliced decode, None: every
         # process decodes the whole batch. local_multiple: the row multiple
@@ -85,7 +88,10 @@ class HostDataLoader:
         # raw images and crops/resizes the whole batch to one drawn shape,
         # in place of the per-image transform
         self.multi_res = multi_res
-        if multi_res is not None and self.k_transforms > 1:
+        # second (strong) transform -> "img2" in every batch (DAEL's weak +
+        # strong pairs); it follows K_TRANSFORMS as the primary one does
+        self.transform2 = transform2
+        if multi_res is not None and (self.k_transforms > 1 or transform2 is not None):
             raise ValueError(_MULTI_RES_EXCLUSIVE)
         self._epoch = 0
         self._seed = seed
@@ -119,7 +125,22 @@ class HostDataLoader:
             ]
         else:
             arrs = [self.transform(img) for _ in range(self.k_transforms)]
-        return arrs, item.label, item.impath, item.domain
+        img2 = None
+        if self.transform2 is not None:
+            if getattr(self.transform2, "stochastic", False):
+                # an int tag (1) keeps the strong stream apart from the
+                # primary one, as the JAX loader keys it
+                img2 = [
+                    self.transform2(
+                        img,
+                        rng=random.Random(
+                            hash((self._seed, epoch, int(position), 1, k)) & 0xFFFFFFFF),
+                    )
+                    for k in range(self.k_transforms)
+                ]
+            else:
+                img2 = [self.transform2(img) for _ in range(self.k_transforms)]
+        return arrs, item.label, item.impath, item.domain, img2
 
     def _local_view(self, batch_idx):
         """This shard's contiguous block of a batch's indices:
@@ -170,7 +191,7 @@ class HostDataLoader:
                 imgs = np.stack([arr for r in results for arr in r[0]])
                 if imgs.dtype != np.uint8:  # uint8 ships as-is (normalised on the device)
                     imgs = imgs.astype(np.float32, copy=False)
-                yield {
+                out = {
                     "img": imgs,
                     "label": np.repeat(np.asarray([r[1] for r in results], np.int32), k),
                     "impath": [r[2] for r in results for _ in range(k)],
@@ -179,6 +200,10 @@ class HostDataLoader:
                     # source-domain index (0 for the OVMR datasets)
                     "domain": np.repeat(np.asarray([r[3] for r in results], np.int32), k),
                 }
+                if self.transform2 is not None:
+                    out["img2"] = np.stack([a for r in results for a in r[4]]).astype(
+                        np.float32, copy=False)
+                yield out
 
 
 _MULTI_RES_EXCLUSIVE = (
@@ -236,7 +261,7 @@ def local_block_of(cfg, allow_local_batches=False, local_model_axis: int = 1):
 
 class DataManager:
     def __init__(self, cfg, dataset: Optional[DatasetBase] = None,
-                 allow_local_batches=False, local_model_axis: int = 1):
+                 allow_local_batches=False, local_model_axis: int = 1, tfm_train_strong=None):
         self.cfg = cfg
         self._local_block, self._local_multiple = local_block_of(
             cfg, allow_local_batches, local_model_axis)
@@ -279,6 +304,7 @@ class DataManager:
             multi_res=multi_res,
             local_block=self._local_block,
             local_multiple=self._local_multiple,
+            transform2=tfm_train_strong,
             # reference: drop_last = is_train and len >= batch_size
             # (data_manager.py:107) — the ragged tail batch is dropped,
             # keeping step shapes static and the epoch counts and
@@ -323,6 +349,13 @@ class DataManager:
 
         self.num_classes = ds.num_classes
         self.lab2cname = ds.lab2cname
+        # reference dm.num_source_domains (dassl data_manager.py); without
+        # SOURCE_DOMAINS (synthetic and OVMR datasets) the count of train_x's
+        # domain ids, so domain classifiers and experts fit their labels
+        n_src = len(cfg.DATASET.SOURCE_DOMAINS)
+        if n_src == 0:
+            n_src = max((d.domain for d in ds.train_x), default=0) + 1
+        self.num_source_domains = max(n_src, 1)
 
     def show_dataset_summary(self):
         cfg = self.cfg

@@ -3,9 +3,9 @@
 The port's copy of ``ovmr_tpu/data/transforms.py``. PIL is imported inside
 the functions that use it, so importing this module loads no PIL; the
 resampling filters are PIL's integer codes (``Image.Resampling``). The
-policy choices (``*_policy``, ``randaugment*``, ``augmix``) need the JAX
-package's ``data/autoaugment.py``, which is not ported yet (it comes with
-the Dassl families, whose configs alone use them): they raise.
+policy choices (``*_policy``, ``randaugment*``, ``augmix``) are the stages
+of :mod:`ovmr_tpu_torch.data.autoaugment`, placed where the JAX package
+places them.
 
 Same pipeline contract as the reference transform factory
 (``dassl/data/transforms/transforms.py:213-239, 244-371, 495-526``):
@@ -223,7 +223,8 @@ def build_transform(
     )
     gn_mean, gn_std = cfg.INPUT.GN_MEAN, cfg.INPUT.GN_STD
 
-    _refuse_policy_stages(choices)
+    # optional policy/augment stages (reference AVAI_CHOICES extras)
+    policies = _build_policy_stages(cfg, choices)
     crop_padding = cfg.INPUT.CROP_PADDING
     cutout_n, cutout_len = cfg.INPUT.CUTOUT_N, cfg.INPUT.CUTOUT_LEN
     # INPUT.GB_K (kernel size) is intentionally unused: the PIL gaussian
@@ -233,6 +234,8 @@ def build_transform(
     def train_fn(img, rng) -> np.ndarray:
         from PIL import Image
 
+        if "augmix" in choices:
+            img = policies["augmix"](img, rng)
         # reference stage order (transforms.py:262-290): the initial
         # resize+crop applies whenever no crop-producing choice is active;
         # translation / crops are then independent sequential stages
@@ -249,6 +252,12 @@ def build_transform(
             )
         if "random_flip" in choices and rng.random() < 0.5:
             img = img.transpose(Image.FLIP_LEFT_RIGHT)
+        for key in (
+            "imagenet_policy", "cifar10_policy", "svhn_policy",
+            "randaugment", "randaugment_fixmatch", "randaugment2",
+        ):
+            if key in choices:
+                img = policies[key](img, rng)
         if "colorjitter" in choices:
             img = color_jitter(img, *cj, rng=rng)
         if "randomgrayscale" in choices and rng.random() < rgs_p:
@@ -282,16 +291,31 @@ POLICY_CHOICES = frozenset({
 })
 
 
-def _refuse_policy_stages(choices) -> None:
-    """The policy stages (reference AVAI_CHOICES extras) need
-    ``data/autoaugment.py``, which the port does not have yet: any of them
-    raises."""
-    needed = sorted(POLICY_CHOICES & set(choices))
-    if needed:
-        raise NotImplementedError(
-            f"transform choices {needed} need data/autoaugment.py, which is not ported yet "
-            "(ROADMAP Queue 1 item 7a: only the Dassl configs use them)"
-        )
+def _build_policy_stages(cfg, choices) -> dict:
+    """The policy stage of each policy choice in ``choices``."""
+    needed = POLICY_CHOICES & set(choices)
+    if not needed:
+        return {}
+    from ovmr_tpu_torch.data.autoaugment import (
+        AugMix,
+        CIFAR10Policy,
+        ImageNetPolicy,
+        RandAugment,
+        RandAugment2,
+        RandAugmentFixMatch,
+        SVHNPolicy,
+    )
+
+    builders = {
+        "imagenet_policy": ImageNetPolicy,
+        "cifar10_policy": CIFAR10Policy,
+        "svhn_policy": SVHNPolicy,
+        "randaugment": lambda: RandAugment(cfg.INPUT.RANDAUGMENT_N, cfg.INPUT.RANDAUGMENT_M),
+        "randaugment_fixmatch": lambda: RandAugmentFixMatch(cfg.INPUT.RANDAUGMENT_N),
+        "randaugment2": lambda: RandAugment2(cfg.INPUT.RANDAUGMENT_N),
+        "augmix": AugMix,
+    }
+    return {key: builders[key]() for key in needed}
 
 
 def random_crop(img, size, padding: int = 4, rng: random.Random = random):

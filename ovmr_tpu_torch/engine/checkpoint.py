@@ -11,14 +11,16 @@ Counterpart of ``ovmr_tpu/engine/checkpoint.py``:
   ``mm_…:276-291``), ``aggregator_to_torch_state_dict`` :268 and
   ``save_torch_checkpoint`` :302 (``model.pth.tar-N``).
 
-The optimizer state lives in the ``torch.optim`` optimizer. For ``adam``
-(the flagship recipe), ``radam`` and ``custom_adam`` its ``opt//...`` keys
-are the JAX package's optax layout, with torch's ``exp_avg``, ``exp_avg_sq``
-and ``step`` as optax's ``mu``, ``nu`` and ``count``; for ``sgd`` (CoOp's
-recipe) torch's ``momentum_buffer`` is ``optax.trace``'s ``trace``. So
-either package resumes the other's checkpoint. ``amsgrad``, ``adamw``,
-``rmsprop`` and staged learning rates write torch's own state under
-``opt//.torch.<kind>//...`` and refuse a layout written by another.
+The optimizer state lives in the ``torch.optim`` optimizer. Its
+``opt//...`` keys are the JAX package's optax layout for every optimizer
+``build_optimizer`` makes: torch's ``exp_avg``, ``exp_avg_sq`` and ``step``
+are optax's ``mu``, ``nu`` and ``count`` (adam, adamw, radam,
+custom_adam), amsgrad adds ``max_exp_avg_sq`` as ``nu_max``, rmsprop's
+``square_avg`` is ``nu`` and a ``momentum_buffer`` is ``optax.trace``'s
+``trace`` (sgd, rmsprop); staged learning rates keep each group's state
+under ``multi_transform``'s ``inner_states//<stage>``. So either package
+resumes the other's checkpoint, and a layout another optimizer wrote is
+refused. An optimizer with no optax twin cannot be saved.
 
 ``backend="orbax"`` (``CUDA.CHECKPOINT_BACKEND``) routes the epoch-keyed
 save/resume cycle through :mod:`ovmr_tpu_torch.engine.orbax_io` (orbax's
@@ -131,110 +133,138 @@ def _unflatten_like(template: dict, flat: Dict[str, np.ndarray], prefix: str = "
     return out
 
 
-def _optax_layout(optimizer: torch.optim.Optimizer) -> Optional[Tuple[str, Dict[str, str]]]:
-    """Where the JAX package's optax layout holds this optimizer's state:
-    ``(prefix of the chain entry, {optax field: torch state name})``, with
-    ``"count"`` the entry's own step count; None for an optimizer whose
-    state keeps torch's layout (amsgrad, adamw, rmsprop, staged groups).
+def _optax_entries(optimizer: torch.optim.Optimizer, group: dict) -> List[Tuple[str, str]]:
+    """The optax chain entries that hold one param group's state:
+    ``(key under the chain's inner_state, torch state name)`` pairs, the
+    torch name ``"step"`` for an entry's own count. An optimizer without an
+    optax twin raises.
 
     ``build_optimizer`` chains ``add_decayed_weights`` (stateless) first
-    where the decay is > 0, so adam's and sgd's state is the chain's second
-    entry with a decay and its first without; radam and custom_adam take the
-    decay inside their one stateful entry."""
-    if len(optimizer.param_groups) != 1:
-        return None
-    group = optimizer.param_groups[0]
-    decayed = 1 if group["weight_decay"] > 0 else 0
-    moments = {"count": "step", "mu": "exp_avg", "nu": "exp_avg_sq"}
+    where the decay is > 0, so adam's, amsgrad's, sgd's and rmsprop's state
+    starts at the chain's second entry with a decay and at its first
+    without; adamw decays after its moments, radam and custom_adam inside
+    their one stateful entry. rmsprop's momentum is a second entry
+    (``optax.trace``) after ``scale_by_rms``."""
+    d = 1 if group["weight_decay"] > 0 else 0
+    moments = [(f"{{i}}{SEP}.count", "step"), (f"{{i}}{SEP}.mu", "exp_avg"),
+               (f"{{i}}{SEP}.nu", "exp_avg_sq")]
     kind = type(optimizer)
-    if (kind is torch.optim.Adam and not group["amsgrad"]
-            and not group.get("decoupled_weight_decay", False)):
-        return f".inner_state{SEP}{decayed}", moments
+    if kind is torch.optim.AdamW or group.get("decoupled_weight_decay", False):
+        return [(k.format(i=0), n) for k, n in moments]
+    if kind is torch.optim.Adam:
+        extra = [(f"{{i}}{SEP}.nu_max", "max_exp_avg_sq")] if group["amsgrad"] else []
+        return [(k.format(i=d), n) for k, n in moments + extra]
     if kind in (RAdam, CustomAdam):
-        return f".inner_state{SEP}0", moments
+        return [(k.format(i=0), n) for k, n in moments]
     if kind is SGD:
         # optax.trace's state is torch's momentum buffer; without momentum
         # the chain holds no state but its count
-        return f".inner_state{SEP}{decayed}", ({"trace": "momentum_buffer"}
-                                               if group["momentum"] > 0 else {})
-    return None
+        return [(f"{d}{SEP}.trace", "momentum_buffer")] if group["momentum"] > 0 else []
+    if kind is torch.optim.RMSprop and not group.get("centered", False):
+        entries = [(f"{d}{SEP}.nu", "square_avg")]
+        if group["momentum"] > 0:
+            entries.append((f"{d + 1}{SEP}.trace", "momentum_buffer"))
+        return entries
+    raise ValueError(f"{kind.__name__} has no optax layout; build the optimizer with "
+                     f"build_optimizer")
 
 
-def _torch_kind(optimizer: torch.optim.Optimizer) -> str:
-    kind = type(optimizer).__name__
-    return kind + "-amsgrad" if optimizer.param_groups[0].get("amsgrad") else kind
-
-
-def optimizer_state_arrays(optimizer: torch.optim.Optimizer, params: dict) -> Dict[str, np.ndarray]:
-    """The optimizer's state as the ``opt//`` entries of a checkpoint (numpy
-    copies, so later steps do not change them)."""
-    named = named_leaves(params)
-    layout = _optax_layout(optimizer)
-    if layout is not None:
-        inner, fields = layout
-        steps = [float(optimizer.state[p]["step"]) for _, p in named
-                 if "step" in optimizer.state.get(p, {})]
-        count = np.asarray(int(steps[0]) if steps else 0, np.int32)
-        out = {".count": count,
-               f".hyperparams{SEP}lr": np.asarray(optimizer.param_groups[0]["lr"], np.float32)}
-        for ours, theirs in fields.items():
-            if ours == "count":
-                out[f"{inner}{SEP}.count"] = count
-                continue
-            for key, p in named:
-                value = optimizer.state.get(p, {}).get(theirs)
-                out[f"{inner}{SEP}.{ours}{SEP}{key}"] = _fp32_cpu(
-                    torch.zeros_like(p) if value is None else value).numpy().copy()
-        return out
-    kind = _torch_kind(optimizer)
-    out = {}
-    for key, p in named:
-        for sname, value in optimizer.state.get(p, {}).items():
-            if isinstance(value, torch.Tensor):
-                out[f".torch.{kind}{SEP}{key}{SEP}{sname}"] = value.detach().cpu().numpy().copy()
+def _optax_layout(optimizer: torch.optim.Optimizer) -> List[Tuple[dict, str, List[Tuple[str, str]]]]:
+    """Where the JAX package's optax layout holds this optimizer's state:
+    one ``(group, prefix of its chain's inner state, entries)`` a param
+    group (:func:`_optax_entries`). Staged groups live under
+    ``multi_transform``'s state, keyed by their stage name."""
+    groups = optimizer.param_groups
+    staged = len(groups) > 1 or "stage" in groups[0]
+    out = []
+    for group in groups:
+        if staged and "stage" not in group:
+            raise ValueError("several param groups need a stage name each "
+                             "(build_optimizer's OPTIM.STAGED_LR names them)")
+        prefix = (f".inner_state{SEP}.inner_states{SEP}{group['stage']}{SEP}.inner_state"
+                  if staged else ".inner_state")
+        out.append((group, prefix, _optax_entries(optimizer, group)))
     return out
 
 
-def load_optimizer_state(optimizer: torch.optim.Optimizer, params: dict,
+def _identity(a):
+    return a
+
+
+def _named(params) -> List[Tuple[str, torch.Tensor, Callable, Callable]]:
+    """``(key, leaf, to_saved, from_saved)`` of each parameter: a nested dict
+    gives its :func:`named_leaves` in their own layout; a list of such
+    4-tuples (a Dassl module's leaves with their flax layout maps) passes
+    through."""
+    if isinstance(params, dict):
+        return [(k, p, _identity, _identity) for k, p in named_leaves(params)]
+    return list(params)
+
+
+def optimizer_state_arrays(optimizer: torch.optim.Optimizer, params) -> Dict[str, np.ndarray]:
+    """The optimizer's state as the ``opt//`` entries of a checkpoint (numpy
+    copies, so later steps do not change them). ``params`` is the nested
+    dict the optimizer was built on, or :func:`_named`'s 4-tuples."""
+    named = _named(params)
+    layout = _optax_layout(optimizer)
+    steps = [float(optimizer.state[p]["step"]) for _, p, _, _ in named
+             if "step" in optimizer.state.get(p, {})]
+    count = np.asarray(int(steps[0]) if steps else 0, np.int32)
+    group0 = optimizer.param_groups[0]
+    lr = group0["lr"] / group0.get("lr_mult", 1.0)
+    out = {".count": count, f".hyperparams{SEP}lr": np.asarray(lr, np.float32)}
+    for group, prefix, entries in layout:
+        members = {id(p) for p in group["params"]}
+        for key, theirs in entries:
+            if theirs == "step":
+                out[f"{prefix}{SEP}{key}"] = count
+                continue
+            for name, p, to_saved, _ in named:
+                if id(p) not in members:
+                    continue
+                value = optimizer.state.get(p, {}).get(theirs)
+                value = torch.zeros_like(p) if value is None else value
+                out[f"{prefix}{SEP}{key}{SEP}{name}"] = to_saved(
+                    _fp32_cpu(value)).contiguous().numpy().copy()
+    return out
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, params,
                          flat: Dict[str, np.ndarray]) -> None:
     """Restore the optimizer from a checkpoint's ``opt//`` entries (keys
-    without the ``opt//`` prefix); a layout another optimizer wrote raises."""
-    named = named_leaves(params)
+    without the ``opt//`` prefix); a layout another optimizer wrote raises.
+    ``params`` as :func:`optimizer_state_arrays` takes it."""
+    named = _named(params)
     # torch numbers the parameters of all groups in order
     ordered = [p for group in optimizer.param_groups for p in group["params"]]
     index = {id(p): i for i, p in enumerate(ordered)}
-    state = {}
     layout = _optax_layout(optimizer)
-    if layout is not None:
-        inner, fields = layout
-        want = {".count", f".hyperparams{SEP}lr"}
-        for ours in fields:
-            want |= ({f"{inner}{SEP}.count"} if ours == "count" else
-                     {f"{inner}{SEP}.{ours}{SEP}{key}" for key, _ in named})
-        if set(flat) != want:
-            kind = type(optimizer).__name__
-            raise ValueError(
-                f"the checkpoint's optimizer state was not written by {kind} with these "
-                f"parameters and this weight decay: it is not that optax layout (expected "
-                f"{sorted(want)[:3]}..., found {sorted(flat)[:3]}...)")
-        step = torch.tensor(float(flat[".count"]), dtype=torch.float32)
-        for key, p in named:
-            state[index[id(p)]] = {"step": step.clone()} | {
-                theirs: torch.as_tensor(flat[f"{inner}{SEP}.{ours}{SEP}{key}"])
-                for ours, theirs in fields.items() if ours != "count"}
-    else:
-        prefix = f".torch.{_torch_kind(optimizer)}{SEP}"
-        foreign = [k for k in flat if not k.startswith(prefix)]
-        if foreign:
-            raise ValueError(
-                f"the checkpoint's optimizer state was not written by {_torch_kind(optimizer)} "
-                f"(found {foreign[:3]}...)")
-        for key, p in named:
-            names = {k[len(prefix) + len(key) + len(SEP):] for k in flat
-                     if k.startswith(f"{prefix}{key}{SEP}")}
-            if names:
-                state[index[id(p)]] = {
-                    n: torch.as_tensor(flat[f"{prefix}{key}{SEP}{n}"]) for n in names}
+    want = {".count", f".hyperparams{SEP}lr"}
+    for group, prefix, entries in layout:
+        members = {id(p) for p in group["params"]}
+        for key, theirs in entries:
+            want |= ({f"{prefix}{SEP}{key}"} if theirs == "step" else
+                     {f"{prefix}{SEP}{key}{SEP}{name}" for name, p, _, _ in named
+                      if id(p) in members})
+    if set(flat) != want:
+        kind = type(optimizer).__name__
+        raise ValueError(
+            f"the checkpoint's optimizer state was not written by {kind} with these "
+            f"parameters and this weight decay: it is not that optax layout (expected "
+            f"{sorted(want)[:3]}..., found {sorted(flat)[:3]}...)")
+    step = torch.tensor(float(flat[".count"]), dtype=torch.float32)
+    state = {}
+    for group, prefix, entries in layout:
+        members = {id(p) for p in group["params"]}
+        for name, p, _, from_saved in named:
+            if id(p) not in members:
+                continue
+            entry = {"step": step.clone()}
+            for key, theirs in entries:
+                if theirs != "step":
+                    value = from_saved(np.asarray(flat[f"{prefix}{SEP}{key}{SEP}{name}"]))
+                    entry[theirs] = torch.from_numpy(np.ascontiguousarray(value))
+            state[index[id(p)]] = entry
     optimizer.load_state_dict({"state": state, "param_groups": optimizer.state_dict()["param_groups"]})
 
 

@@ -26,7 +26,8 @@ tolerances of both (``tests/test_optim_extra.py``).
 
 ``OPTIM.STAGED_LR`` makes two param groups (:190-200): leaves under a
 top-level key named in ``OPTIM.NEW_LAYERS`` train at ``LR`` ("new"), the
-rest at ``LR * BASE_LR_MULT`` ("base"). The learning rate is set once per
+rest at ``LR * BASE_LR_MULT`` ("base"); each group names its stage
+(``"stage"``), as optax's ``multi_transform`` keys its states. The learning rate is set once per
 epoch with :func:`set_lr`, which keeps each group's ratio, as the reference
 steps its scheduler per epoch.
 """
@@ -198,7 +199,8 @@ def _param_groups(optim_cfg, params, lr: float):
         leaves = [leaf for leaf, tag in zip(param_leaves(params), _label_leaves(labels))
                   if tag == name]
         if leaves:
-            groups.append({"params": leaves, "lr": lr * ratio, "lr_mult": ratio})
+            groups.append({"params": leaves, "lr": lr * ratio, "lr_mult": ratio,
+                           "stage": name})
     return groups
 
 

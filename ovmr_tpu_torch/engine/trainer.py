@@ -4,8 +4,9 @@ Counterpart of ``ovmr_tpu/engine/trainer.py`` (reference
 ``dassl/engine/trainer.py`` + ``trainers/mm_classifier_one_prompt.py``):
 
 - :data:`TRAINER_REGISTRY`, :func:`build_trainer` (``:48``; it also
-  reaches ``CoOp``/``MM_CLS`` of :mod:`ovmr_tpu_torch.engine.coop` and the
-  zero-shot trainers of :mod:`ovmr_tpu_torch.engine.zsclip`),
+  reaches ``CoOp``/``MM_CLS`` of :mod:`ovmr_tpu_torch.engine.coop`, the
+  zero-shot trainers of :mod:`ovmr_tpu_torch.engine.zsclip` and the Dassl
+  DG trainers of :mod:`ovmr_tpu_torch.engine.dg`),
   :func:`load_or_init_clip` (``:61``), :func:`collect_exemplar_features`
   (``:81``);
 - :class:`TrainerBase` (``:384``): epoch loop, checkpoint cadence,
@@ -334,8 +335,9 @@ def mm_generate_classifiers(
 # --------------------------------------------------------------------------
 
 def build_trainer(cfg):
-    # the trainers of other modules register themselves when imported
-    from ovmr_tpu_torch.engine import coop, zsclip  # noqa: F401
+    # the trainers of other modules register themselves when imported (the
+    # counterpart of the JAX package's ``register_all_trainers``)
+    from ovmr_tpu_torch.engine import coop, dg, zsclip  # noqa: F401
 
     return TRAINER_REGISTRY.get(cfg.TRAINER.NAME)(cfg)
 

@@ -103,9 +103,9 @@ def attention_pool(x: torch.Tensor, p: dict, n_head: int) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _exact_fp32_convolutions(dtype: torch.dtype):
-    """cuDNN's TF32 off for a float32 tower, for this block only; every
-    other flag keeps its current value."""
+def exact_fp32_convolutions(dtype: torch.dtype = torch.float32):
+    """cuDNN's TF32 off for float32 work (a tower, a Dassl step), for this
+    block only; every other flag keeps its current value."""
     if dtype != torch.float32:
         yield
         return
@@ -120,7 +120,7 @@ def encode_image_resnet(params: dict, images: torch.Tensor, n_head: int) -> torc
     v = params["visual"]
     stem = v["stem"]
     x = images.to(stem["conv1_w"].dtype)
-    with _exact_fp32_convolutions(x.dtype):
+    with exact_fp32_convolutions(x.dtype):
         x = torch.relu(batch_norm(conv2d(x, stem["conv1_w"], stride=2, padding=1), stem["bn1"]))
         x = torch.relu(batch_norm(conv2d(x, stem["conv2_w"], padding=1), stem["bn2"]))
         x = torch.relu(batch_norm(conv2d(x, stem["conv3_w"], padding=1), stem["bn3"]))

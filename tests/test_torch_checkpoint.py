@@ -247,6 +247,8 @@ def test_pointer_and_best_precedence(tmp_path):
 
 @pytest.mark.parametrize("name", ["sgd", "adamw", "rmsprop", "amsgrad"])
 def test_other_optimizers_keep_their_own_layout(tmp_path, name):
+    """Each optimizer keeps its own optax layout: it round-trips its state,
+    adam refuses its checkpoint and it refuses adam's."""
     params = _port_params()
     optimizer = set_lr(build_optimizer(_optim(name=name), params), LR)
     targets = _targets(params)
@@ -264,8 +266,19 @@ def test_other_optimizers_keep_their_own_layout(tmp_path, name):
     with pytest.raises(ValueError, match="optax layout"):
         ckpt.resume_from_checkpoint(str(tmp_path), "prompt_learner", fresh, adam_opt)
     ckpt.save_checkpoint(str(tmp_path / "adam"), "prompt_learner", 1, fresh, adam_opt)
-    with pytest.raises(ValueError, match="not written by"):
+    with pytest.raises(ValueError, match="not written by .* optax layout"):
         ckpt.resume_from_checkpoint(str(tmp_path / "adam"), "prompt_learner", fresh, fresh_opt)
+
+
+def test_an_optimizer_without_an_optax_twin_is_refused(tmp_path):
+    params = _port_params()
+    leaves = [p for _, p in ckpt.named_leaves(params)]
+    centred = torch.optim.RMSprop(leaves, lr=LR, centered=True)
+    with pytest.raises(ValueError, match="no optax layout"):
+        ckpt.save_checkpoint(str(tmp_path), "prompt_learner", 1, params, centred)
+    two_groups = torch.optim.SGD([{"params": leaves[:1]}, {"params": leaves[1:]}], lr=LR)
+    with pytest.raises(ValueError, match="stage name"):
+        ckpt.optimizer_state_arrays(two_groups, params)
 
 
 def test_adam_refuses_a_checkpoint_of_another_weight_decay(tmp_path):

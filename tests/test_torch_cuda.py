@@ -1498,3 +1498,103 @@ def test_gather_nccl_backward_matches_the_local_cat(cuda):
     z = DataAxis.local(1).gather([b])
     (z * w).sum().backward()
     assert torch.equal(y.detach(), z.detach()) and torch.equal(a.grad, b.grad)
+
+
+# --------------------------------------------------------------------------
+# the Dassl DG trainers (no hand-written kernel: cuDNN, TF32 off)
+# --------------------------------------------------------------------------
+
+def _dg_vanilla(device, data=-1):
+    """Vanilla on ResNet-18 (64 px, batch 16, a BN head so the BN statistics
+    move), built without a data manager. The lr is the recipe's tenth, as in
+    ``chip_smoke.py`` phase 20's gates: the JAX goldens' way of keeping two
+    steps insensitive to fp32 rounding (``tests/test_trajectory_parity.py``;
+    at the recipe's lr the first convolution's update moves by 8x the leaf
+    gate between card and CPU)."""
+    from ovmr_tpu_torch.engine import dg
+    from ovmr_tpu_torch.utils import get_cfg_default
+
+    cfg = get_cfg_default()
+    cfg.MODEL.BACKBONE.NAME = "resnet18"
+    cfg.MODEL.BACKBONE.PRETRAINED = False
+    cfg.MODEL.HEAD.NAME = "mlp"
+    cfg.MODEL.HEAD.HIDDEN_LAYERS = [32]
+    cfg.INPUT.SIZE = (64, 64)
+    cfg.OPTIM.NAME, cfg.OPTIM.LR, cfg.OPTIM.LR_SCHEDULER = "sgd", 1e-4, "cosine"
+    cfg.CUDA.DEVICE = device
+    cfg.CUDA.MESH.DATA = data
+
+    class _DM:
+        num_classes, num_source_domains = 7, 3
+
+    trainer = dg.Vanilla.__new__(dg.Vanilla)
+    trainer._init_state(cfg)
+    trainer.dm = _DM()
+    torch.manual_seed(0)
+    trainer.build_model()
+    trainer.epoch = 0
+    trainer.before_epoch()
+    return trainer
+
+
+def _dg_steps(trainer):
+    """Two steps on seeded batches: the losses, the state before and after."""
+    init = trainer.model_state()
+    rng = np.random.default_rng(0)
+    losses = []
+    for _ in range(2):
+        batch = {"img": rng.standard_normal((16, 3, 64, 64)).astype(np.float32),
+                 "label": rng.integers(0, 7, 16), "domain": rng.integers(0, 3, 16)}
+        losses.append(trainer.forward_backward(batch)["loss"])
+    return losses, init, trainer.model_state()
+
+
+def _dg_leaves(state, prefix=""):
+    for k, v in state.items():
+        if isinstance(v, dict):
+            yield from _dg_leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def _dg_scale(name, ref, init):
+    """``chip_smoke._dg_scale``: max |leaf|; a leaf that starts at zero (a
+    bias, a running mean) takes the larger of that and its module's weight's
+    at the start (the BN scale or kernel beside it, the running variance)."""
+    scale = float(np.abs(ref).max())
+    if np.any(init[name]):
+        return scale
+    head, _, last = name.rpartition("/")
+    for weight in {"bias": ("scale", "kernel"), "mean": ("var",)}.get(last, ()):
+        if f"{head}/{weight}" in init:
+            return max(scale, float(np.abs(init[f"{head}/{weight}"]).max()))
+    return scale
+
+
+def _dg_assert_close(got, ref, init):
+    """Every parameter and BN statistic within 1e-4 of its leaf's scale."""
+    ref, init = dict(_dg_leaves(ref)), dict(_dg_leaves(init))
+    for name, value in _dg_leaves(got):
+        err, scale = float(np.abs(value - ref[name]).max()), _dg_scale(name, ref[name], init)
+        assert err <= 1e-4 * scale, (name, err, scale)
+
+
+def test_dg_vanilla_step_on_card_matches_the_cpu(cuda):
+    """Two Vanilla steps of ResNet-18 on the card (cuDNN, TF32 off by the
+    trainer, whatever torch's flags) against the CPU from the same init and
+    batches: each loss within 1e-5 relative, every parameter and BN
+    statistic within 1e-4 of its leaf's scale (:func:`_dg_scale`)."""
+    card_losses, init, card = _dg_steps(_dg_vanilla("cuda"))
+    cpu_losses, _, cpu = _dg_steps(_dg_vanilla("cpu"))
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=1e-5)
+    _dg_assert_close(card, cpu, init)
+
+
+def test_dg_vanilla_on_two_local_data_shards_matches_one_program(cuda):
+    """``CUDA.MESH.DATA 2`` on the card: the global BN statistics over the
+    two shards give the one program's losses within 1e-5 relative and its
+    parameters and statistics within 1e-4 of each leaf's scale."""
+    one_losses, init, one = _dg_steps(_dg_vanilla("cuda"))
+    two_losses, _, two = _dg_steps(_dg_vanilla("cuda", data=2))
+    np.testing.assert_allclose(two_losses, one_losses, rtol=1e-5)
+    _dg_assert_close(two, one, init)

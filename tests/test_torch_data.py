@@ -155,9 +155,12 @@ def test_transform_refusals_and_resampling_codes():
 
     assert (transforms.NEAREST, transforms.BILINEAR, transforms.BICUBIC) == (
         Image.NEAREST, Image.BILINEAR, Image.BICUBIC)
+    # the seven policy choices build and run (data/autoaugment.py)
+    img = Image.fromarray(np.full((40, 48, 3), 90, np.uint8))
     for choice in sorted(transforms.POLICY_CHOICES):
-        with pytest.raises(NotImplementedError, match="autoaugment"):
-            transforms.build_transform(_cfg(get_cfg_default, ["normalize", choice]))
+        tfm = transforms.build_transform(_cfg(get_cfg_default, ["normalize", choice]))
+        out = tfm(img, rng=random.Random(0))
+        assert out.dtype == np.float32 and out.shape[0] == 3
     with pytest.raises(ValueError, match="unknown transform"):
         transforms.build_transform(_cfg(get_cfg_default, ["nope"]))
     cfg = _cfg(get_cfg_default, ["normalize"])

@@ -1,0 +1,372 @@
+"""The port's DG trainers end to end on the CPU, their checkpoints across
+the two packages, and the data axis.
+
+- Vanilla, CrossGrad, DDAIG, DAELDG and DomainMix ("random" and
+  "crossdomain") through ``build_trainer`` -> ``train()`` -> ``test()`` on
+  ``SyntheticDA`` at 32x32 (template: ``tests/test_dassl_trainers.py``).
+- A Dassl run saved by the port resumes in the JAX package, and the other
+  way round, parameters, BN statistics and optimizer state included; a JAX
+  checkpoint loads as ``MODEL.INIT_WEIGHTS``.
+- The optax layout of amsgrad, adamw, rmsprop (with and without momentum)
+  and staged param groups: a JAX state resumes in the port and the port's
+  in JAX, and the next step agrees.
+- Vanilla on 2 local data shards (``CUDA.MESH.DATA 2``) equals the single
+  program, BN statistics included (template: ``tests/test_dassl_mesh.py``),
+  and two gloo ranks, one shard each, equal it too.
+- The trainers run on ``CUDA.DEVICE`` and raise without a card.
+"""
+
+import os
+import os.path as osp
+import pathlib
+import shutil
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from ovmr_tpu_torch.engine import checkpoint as ckpt
+from ovmr_tpu_torch.engine import trainer as trainer_mod
+from ovmr_tpu_torch.engine.optimizers import build_optimizer, set_lr
+from ovmr_tpu_torch.engine.trainer import build_trainer
+from ovmr_tpu_torch.utils import get_cfg_default
+
+
+class _NoWriter:
+    def add_scalar(self, *a):
+        pass
+
+    def flush(self):
+        pass
+
+
+@pytest.fixture(autouse=True)
+def _small(monkeypatch):
+    """4 classes x 8 images at 32px (train 16, val 8, test 8), one intra-op
+    thread, and no tensorboard writer (its first import costs seconds)."""
+    monkeypatch.setenv("OVMR_SYNTHETIC", "4,8,32")
+    monkeypatch.setattr(trainer_mod.TrainerBase, "init_writer",
+                        lambda self: setattr(self, "_writer", _NoWriter()) or self._writer)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def make_cfg(tmp_path, trainer, make=get_cfg_default, **overrides):
+    cfg = make()
+    cfg.TRAINER.NAME = trainer
+    cfg.DATASET.NAME = "SyntheticDA"
+    cfg.DATASET.ROOT = str(tmp_path / "data")
+    cfg.DATASET.SOURCE_DOMAINS = ("a", "b")
+    cfg.OUTPUT_DIR = str(tmp_path / "out")
+    cfg.SEED = 1
+    cfg.INPUT.SIZE = (32, 32)
+    cfg.MODEL.BACKBONE.NAME = "cnn_digitsdg"
+    cfg.MODEL.BACKBONE.PRETRAINED = False
+    cfg.MODEL.HEAD.NAME = "mlp"
+    cfg.MODEL.HEAD.HIDDEN_LAYERS = [16]
+    cfg.DATALOADER.TRAIN_X.BATCH_SIZE = 8
+    cfg.DATALOADER.TEST.BATCH_SIZE = 8
+    cfg.DATALOADER.NUM_WORKERS = 2
+    cfg.OPTIM.NAME = "sgd"
+    cfg.OPTIM.LR = 0.01
+    cfg.OPTIM.MAX_EPOCH = 1
+    cfg.TRAIN.PRINT_FREQ = 1
+    if make is get_cfg_default:
+        cfg.CUDA.DEVICE = "cpu"
+    for key, value in overrides.items():
+        node = cfg
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node[p]
+        node[parts[-1]] = value
+    return cfg
+
+
+TRAINERS = {
+    "Vanilla": ({}, ["model"]),
+    "CrossGrad": ({}, ["F", "D"]),
+    "DDAIG": ({"TRAINER.DDAIG.G_ARCH": "fcn_3x32_gctx_stn", "TRAINER.DDAIG.WARMUP": 0},
+              ["F", "D", "G"]),
+    "DAELDG": ({"DATALOADER.TRAIN_X.SAMPLER": "RandomDomainSampler",
+                "DATALOADER.TRAIN_X.N_DOMAIN": 2,
+                "TRAINER.DAELDG.STRONG_TRANSFORMS": ("random_flip", "cutout", "randaugment2",
+                                                     "normalize")}, ["F", "E"]),
+    "DomainMix-random": ({"TRAINER.DOMAINMIX.TYPE": "random"}, ["model"]),
+    "DomainMix-crossdomain": ({"TRAINER.DOMAINMIX.TYPE": "crossdomain"}, ["model"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRAINERS))
+def test_trainer_trains_and_tests(tmp_path, case):
+    overrides, models = TRAINERS[case]
+    trainer = build_trainer(make_cfg(tmp_path, case.split("-")[0], **overrides))
+    assert trainer.get_model_names() == models
+    losses = []
+    orig = trainer.forward_backward
+    trainer.forward_backward = lambda batch: losses.append(orig(batch)) or losses[-1]
+    trainer.train()  # one epoch, then test()
+    assert len(losses) == 2 and all(np.isfinite(out["loss"]) for out in losses)
+    assert 0.0 <= trainer.test() <= 100.0
+
+
+def _jax_trainer(cfg):
+    from ovmr_tpu.engine import register_all_trainers
+    from ovmr_tpu.engine.trainer import build_trainer as j_build_trainer
+
+    register_all_trainers()
+    cfg.freeze()
+    return j_build_trainer(cfg)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, key) if isinstance(v, dict) else {key: np.asarray(v)})
+    return out
+
+
+def _assert_states_equal(port_state, jax_state, atol=0.0):
+    a, b = _flat(port_state), _flat({"params": jax_state["params"],
+                                     "batch_stats": jax_state["batch_stats"]})
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_allclose(a[k], b[k], atol=atol, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("name,optim", [("Vanilla", "sgd"), ("CrossGrad", "amsgrad")])
+def test_checkpoints_resume_across_the_packages(tmp_path, name, optim):
+    """The port's epoch-1 checkpoint resumes in JAX and JAX's in the port:
+    states equal bit for bit, and the second epoch agrees."""
+    from ovmr_tpu.utils.defaults import get_cfg_default as j_cfg
+
+    kw = {"OPTIM.NAME": optim, "TRAIN.CHECKPOINT_FREQ": 1, "TEST.NO_TEST": True,
+          "DATALOADER.TRAIN_X.SAMPLER": "SequentialSampler"}
+    port = build_trainer(make_cfg(tmp_path / "p", name, **kw))
+    port.train()
+    # the epoch-1 run continues in both packages, each in a copy of it
+    shutil.copytree(tmp_path / "p", tmp_path / "q")
+    jax_t = _jax_trainer(make_cfg(tmp_path / "p", name, make=j_cfg, **kw,
+                                  **{"OPTIM.MAX_EPOCH": 2}))
+    assert jax_t.resume_model_if_exist(str(tmp_path / "p" / "out")) == 1
+    for model in port.get_model_names():
+        _assert_states_equal(port.model_state(model), jax_t._models[model])
+    jax_t.train()
+    resumed = build_trainer(make_cfg(tmp_path / "q", name, **kw, **{"OPTIM.MAX_EPOCH": 2}))
+    resumed.train()
+    assert resumed.start_epoch == 1
+    # an adam-family step normalises near-zero gradients, so an ulp can move
+    # an entry by up to the lr: amsgrad at the JAX CrossGrad trajectory's
+    # tolerance, 8 x lr (tests/test_trajectory_parity.py)
+    atol = 2e-4 if optim == "sgd" else 8 * 0.01
+    for model in port.get_model_names():
+        _assert_states_equal(resumed.model_state(model), jax_t._models[model], atol=atol)
+
+    # JAX's checkpoint resumes in the port
+    jax_run = _jax_trainer(make_cfg(tmp_path / "j", name, make=j_cfg, **kw))
+    jax_run.train()
+    port2 = build_trainer(make_cfg(tmp_path / "j", name, **kw))
+    assert port2.resume_model_if_exist(str(tmp_path / "j" / "out")) == 1
+    for model in port2.get_model_names():
+        _assert_states_equal(port2.model_state(model), jax_run._models[model])
+    if name == "Vanilla":  # and as MODEL.INIT_WEIGHTS (the default build reads it)
+        path = osp.join(str(tmp_path / "j" / "out"), "model", "model-1.npz")
+        port3 = build_trainer(make_cfg(tmp_path / "k", name, **kw,
+                                       **{"MODEL.INIT_WEIGHTS": path}))
+        _assert_states_equal(port3.model_state(), jax_run._models["model"])
+
+
+# --------------------------------------------------------------------------
+# the optax layout of amsgrad, adamw, rmsprop and staged groups
+# --------------------------------------------------------------------------
+
+LAYOUTS = {
+    "amsgrad": dict(NAME="amsgrad"),
+    "amsgrad_no_decay": dict(NAME="amsgrad", WEIGHT_DECAY=0.0),
+    "adamw": dict(NAME="adamw", WEIGHT_DECAY=0.05),
+    "rmsprop": dict(NAME="rmsprop", MOMENTUM=0.0),
+    "rmsprop_momentum": dict(NAME="rmsprop", MOMENTUM=0.9),
+    "staged_sgd": dict(NAME="sgd", STAGED_LR=True, NEW_LAYERS=("head",), BASE_LR_MULT=0.1),
+    "staged_adam": dict(NAME="adam", STAGED_LR=True, NEW_LAYERS=("head",), BASE_LR_MULT=0.1),
+}
+
+
+def _optim(case):
+    cfg = get_cfg_default().OPTIM
+    cfg.LR, cfg.WEIGHT_DECAY = 1e-2, 5e-4
+    for k, v in LAYOUTS[case].items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def _start():
+    rng = np.random.default_rng(0)
+    return {"body": {"w": rng.standard_normal((3, 4)).astype(np.float32)},
+            "head": {"b": rng.standard_normal(5).astype(np.float32)}}
+
+
+def _grad(params):
+    """The gradient of sum(t * p) + 0.5 * sum(t^2 * p^2) (t fixed)."""
+    t = {"body/w": np.linspace(-1, 1, 12, dtype=np.float32).reshape(3, 4),
+         "head/b": np.linspace(0.5, -0.5, 5, dtype=np.float32)}
+    return {k: t[k] + t[k] ** 2 * v for k, v in params.items()}
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUTS))
+def test_optax_layout_round_trips(tmp_path, case):
+    import jax
+    import optax
+    from ovmr_tpu.engine import checkpoint as jckpt
+    from ovmr_tpu.engine.optimizers import build_optimizer as j_build_optimizer
+    from ovmr_tpu.engine.optimizers import set_lr as j_set_lr
+    from ovmr_tpu.engine.optimizers import staged_lr_labels
+
+    optim = _optim(case)
+    start = _start()
+    labels = staged_lr_labels(start, optim.NEW_LAYERS) if optim.STAGED_LR else None
+    jopt = j_build_optimizer(optim, labels)
+
+    def jax_step(p, s):
+        flat = {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+                for path, v in jax.tree_util.tree_leaves_with_path(p)}
+        g = _grad(flat)
+        grads = {"body": {"w": g["body/w"]}, "head": {"b": g["head/b"]}}
+        upd, s = jopt.update(grads, s, p)
+        return optax.apply_updates(p, upd), s
+
+    def port_step(params, opt):
+        opt.zero_grad()
+        g = _grad({"body/w": params["body"]["w"].detach().numpy(),
+                   "head/b": params["head"]["b"].detach().numpy()})
+        params["body"]["w"].grad = torch.as_tensor(g["body/w"])
+        params["head"]["b"].grad = torch.as_tensor(g["head/b"])
+        opt.step()
+
+    def port_params(tree):
+        return {k: {n: torch.tensor(np.asarray(v), requires_grad=True) for n, v in d.items()}
+                for k, d in tree.items()}
+
+    # JAX -> port
+    jp, js = start, j_set_lr(jopt.init(start), 1e-2)
+    for _ in range(3):
+        jp, js = jax_step(jp, js)
+    jckpt.save_checkpoint(str(tmp_path / "j"), "model", 3, jp, js)
+    params = port_params(start)
+    opt = set_lr(build_optimizer(optim, params), 1e-2)
+    assert ckpt.resume_from_checkpoint(str(tmp_path / "j"), "model", params, opt) == 3
+    jp, js = jax_step(jp, js)
+    port_step(params, opt)
+    for k in ("body", "head"):
+        name = "w" if k == "body" else "b"
+        np.testing.assert_allclose(params[k][name].detach().numpy(), np.asarray(jp[k][name]),
+                                   atol=1e-6, rtol=1e-6)
+
+    # port -> JAX
+    params = port_params(start)
+    opt = set_lr(build_optimizer(optim, params), 1e-2)
+    for _ in range(3):
+        port_step(params, opt)
+    ckpt.save_checkpoint(str(tmp_path / "p"), "model", 3, params, opt)
+    template = start
+    jp, js, ep = jckpt.load_checkpoint(str(tmp_path / "p"), "model", template,
+                                       jopt.init(template), epoch=3)
+    assert ep == 3 and int(js.count) == 3
+    jp, js = jax_step(jp, j_set_lr(js, 1e-2))
+    port_step(params, opt)
+    np.testing.assert_allclose(params["body"]["w"].detach().numpy(), np.asarray(jp["body"]["w"]),
+                               atol=1e-6, rtol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# the data axis
+# --------------------------------------------------------------------------
+
+def _two_steps(trainer):
+    trainer.epoch = 0
+    trainer.before_epoch()
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        batch = {"img": rng.standard_normal((8, 3, 32, 32)).astype(np.float32),
+                 "label": rng.integers(0, 4, 8), "domain": rng.integers(0, 2, 8)}
+        out = trainer.forward_backward(batch)
+    return out, trainer.model_state()
+
+
+@pytest.mark.parametrize("name", ["Vanilla", "DomainMix"])
+def test_local_data_shards_equal_one_program(tmp_path, name):
+    from tests.test_torch_dg_trajectory import replay_trainer
+    from ovmr_tpu_torch.engine import dg
+
+    results = []
+    for data in (1, 2):
+        cfg = make_cfg(tmp_path, name, **{"CUDA.MESH.DATA": data})
+        torch.manual_seed(0)  # one init for both runs
+        trainer = replay_trainer(getattr(dg, name), cfg)
+        assert (trainer.mesh is None) == (data == 1)
+        results.append(_two_steps(trainer))
+    (out1, s1), (out2, s2) = results
+    assert out1["loss"] == pytest.approx(out2["loss"], rel=1e-5)
+    a, b = _flat(s1), _flat(s2)
+    assert any(k.startswith("batch_stats/") for k in a)
+    for k in a:
+        np.testing.assert_allclose(b[k], a[k], atol=1e-4, rtol=0, err_msg=k)
+
+
+def _gloo_rank(rank, world, tmp):
+    os.environ.update(OVMR_COORDINATOR=f"file://{tmp}/rendezvous", OVMR_NUM_PROCESSES=str(world),
+                      OVMR_PROCESS_ID=str(rank))
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    from ovmr_tpu_torch.engine import dg
+    from ovmr_tpu_torch.parallel import maybe_initialize_distributed
+    from tests.test_torch_dg_trajectory import replay_trainer
+
+    assert maybe_initialize_distributed("cpu")
+    try:
+        cfg = make_cfg(pathlib.Path(tmp), "Vanilla")
+        trainer = replay_trainer(dg.Vanilla, cfg)
+        assert trainer.axis.group is not None and trainer.loss_scale == 0.5
+        out, state = _two_steps(trainer)
+        torch.save({"loss": out["loss"], "state": state}, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_gloo_ranks_equal_one_program(tmp_path):
+    """One data shard a rank: the global BN statistics (all-reduced sums),
+    the row-mean losses' share and the summed gradients give the single
+    program's update on both ranks."""
+    from tests.test_torch_dg_trajectory import replay_trainer
+    from ovmr_tpu_torch.engine import dg
+
+    cfg = make_cfg(tmp_path, "Vanilla")
+    torch.manual_seed(0)
+    out1, s1 = _two_steps(replay_trainer(dg.Vanilla, cfg))
+    # each rank builds its net after the same seed
+    torch.manual_seed(0)
+    mp.spawn(_seeded_rank, args=(2, str(tmp_path)), nprocs=2, join=True)
+    a = _flat(s1)
+    for rank in range(2):
+        got = torch.load(tmp_path / f"rank{rank}.pt", weights_only=False)
+        assert got["loss"] == pytest.approx(out1["loss"], rel=1e-5)
+        b = _flat(got["state"])
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], atol=1e-4, rtol=0, err_msg=f"rank {rank} {k}")
+
+
+def _seeded_rank(rank, world, tmp):
+    torch.manual_seed(0)
+    _gloo_rank(rank, world, tmp)
+
+
+def test_trainers_refuse_cuda_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    cfg = make_cfg(tmp_path, "Vanilla")
+    cfg.CUDA.DEVICE = "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_trainer(cfg)
