@@ -233,6 +233,24 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    six runs through ``ovmr_tpu_torch.train.main`` at the published recipes
    (epochs cut), each with its warm step, epoch, data time, busy share,
    peak memory and no K1-K8 launch.
+21. The Dassl DA trainers, with torch's own TF32 flags: an Office-31 tree
+   (3 domains x 31 classes x 5 JPEGs at 256 px; amazon -> webcam) and a
+   Digit-5 tree (5 domains x 10 classes x 20 + 4 PNGs at 32 x 32; the other
+   four -> usps), then for each trainer two steps of
+   its recipe at a cut of its learning rate (a tenth, or where the card
+   drifts from itself at a tenth, a hundredth or a thousandth; CDAC's own)
+   on the card and on the CPU from one seeded state, two pairs of batches
+   and the same dropout masks (the ResNet-50 recipes at a batch of 8, from
+   a zero-residual start), held by phase 20's gates (M3SDA, DAEL and CDAC
+   at their JAX trajectory tests' tolerances), DANN's two local data shards
+   against its one program, and the controls that must fail those gates
+   (TF32 on; every gradient 20% off, or for AdaBN, which takes no gradient,
+   its statistics' reset skipped; per-shard BatchNorm); then the eleven runs
+   through ``ovmr_tpu_torch.train.main``: SourceOnly, ADDA and AdaBN (from
+   SourceOnly's checkpoint), DANN and DANN on 2 local data shards at
+   Office-31's recipe, MCD, MME and SE on Digit-5's SourceOnly recipe, and
+   M3SDA, DAEL and CDAC on their own (epochs cut), each with its warm step,
+   busy share, peak memory and no K1-K8 launch.
 
 In bf16 every K1, K2 and K8 launches the wgmma GEMM twice, every K5 twice
 a chunk, every K4 twice (its c_fc recompute and GELU' product are one
@@ -3950,32 +3968,42 @@ DG_RUNS = {
 
 
 def dg_run(torch, np, root: Path, tag: str):
-    """One PACS run through ``ovmr_tpu_torch.train.main`` on the card, its
-    first epoch profiled (``OVMR_PROFILE_DIR``): the warm median step, the
-    first epoch's wall, the last epoch's host data time, the card's busy
-    share of the first epoch (:func:`device_busy_ms`) and of its warm steps
-    (:func:`warm_busy_share`), peak memory and the
-    K1-K8 launches (the counts zeroed just before). The test pass prints
-    its ``=> result``."""
+    """One PACS run through ``ovmr_tpu_torch.train.main`` on the card
+    (:func:`dassl_entry_run`)."""
+    from ovmr_tpu_torch.engine import dassl_base, dg
+
+    name, yaml, opts = DG_RUNS[tag]
+    wraps = [(cls, "forward_backward") for cls in (dassl_base.DasslTrainer, dg.CrossGrad,
+                                                   dg.DDAIG, dg.DAELDG, dg.DomainMix)]
+    return dassl_entry_run(torch, "dg", tag, root / tag, wraps,
+                           dg_argv(root, root / tag, name, yaml, opts))
+
+
+def dassl_entry_run(torch, prefix: str, tag: str, out: Path, wraps, argv):
+    """One Dassl run through ``ovmr_tpu_torch.train.main`` on the card, its
+    first epoch profiled (``OVMR_PROFILE_DIR``): the warm median step (the
+    ``wraps``' methods, timed to a synchronise), the first epoch's wall, the
+    last epoch's host data time, the card's busy share of the first epoch
+    (:func:`device_busy_ms`) and of its warm steps (:func:`warm_busy_share`),
+    peak memory and the K1-K8 launches (the counts zeroed just before). The
+    test pass prints its ``=> result``."""
     import os
     import statistics
 
     from ovmr_tpu_torch import train as entry
-    from ovmr_tpu_torch.engine import dassl_base, dg
     from ovmr_tpu_torch.ops import cuda_lib
 
-    name, yaml, opts = DG_RUNS[tag]
     rec = Recorder(torch)
-    for cls in (dassl_base.DasslTrainer, dg.CrossGrad, dg.DDAIG, dg.DAELDG, dg.DomainMix):
-        rec.wrap(cls, "forward_backward", label="dg_step")
-    os.environ["OVMR_PROFILE_DIR"] = str(root / tag / "profile")
+    label = f"{prefix}_step"
+    for owner, method in wraps:
+        rec.wrap(owner, method, label=label)
+    os.environ["OVMR_PROFILE_DIR"] = str(out / "profile")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     t = time.perf_counter()
     try:
-        trainer = run_entry(entry.build_parser(), entry,
-                            dg_argv(root, root / tag, name, yaml, opts))
+        trainer = run_entry(entry.build_parser(), entry, argv)
     finally:
         os.environ.pop("OVMR_PROFILE_DIR")
         rec.restore()
@@ -3983,18 +4011,18 @@ def dg_run(torch, np, root: Path, tag: str):
     wall = time.perf_counter() - t
     launches, shapes = dict(cuda_lib.LAUNCHES), dict(cuda_lib.LAUNCH_SHAPES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    steps = rec.times.get("forward_backward", [])
+    steps = [v for method in dict.fromkeys(m for _, m in wraps) for v in rec.times.get(method, [])]
     if not steps:
-        raise AssertionError(f"[dg] {tag}: no training step ran")
+        raise AssertionError(f"[{prefix}] {tag}: no training step ran")
     if any(launches.values()):
-        raise AssertionError(f"[dg] {tag} launched K1-K8: {launches}")
+        raise AssertionError(f"[{prefix}] {tag} launched K1-K8: {launches}")
     prof, epoch_s = trainer.epoch_profile
     busy = device_busy_ms(torch, prof)
-    warm_busy = warm_busy_share(torch, prof, "dg_step")
+    warm_busy = warm_busy_share(torch, prof, label)
     per_epoch = trainer.num_batches
     # the first epoch's steps after its first (the profiler runs in all)
     warm = steps[1:per_epoch] if per_epoch > 1 else steps
-    print(f"[dg] {tag}: {len(steps)} steps ({per_epoch} an epoch), warm median step "
+    print(f"[{prefix}] {tag}: {len(steps)} steps ({per_epoch} an epoch), warm median step "
           f"{1e3 * statistics.median(warm):.1f} ms, first epoch {epoch_s:.2f} s (profiled), "
           f"last epoch's host data time {trainer.data_time.sum:.2f} s, card busy {busy:.0f} ms "
           f"= {100 * busy / (1e3 * epoch_s):.1f}% of the first epoch ("
@@ -4086,19 +4114,28 @@ _DG_WEIGHT_OF = {"bias": ("scale", "kernel"), "mean": ("var",)}
 
 
 def _dg_scale(np, leaf, want, start):
-    """A leaf's scale: its max |value|. A leaf that starts at zero (a bias, a
-    BN running mean) takes the larger of that and its module's weight's at
-    the start (the BN scale or the kernel beside a bias, the running
-    variance beside a mean), since its error adds to an output that weight
-    scales; its two updates alone are no scale (the card drifts from itself
-    by 5% of a BN bias's under a 1e-6 input change)."""
+    """A leaf's scale: its max |value|. A bias or a BN running mean takes
+    the larger of that and its module's weight's at the start (the BN scale
+    or the kernel beside a bias, the running variance beside a mean), since
+    its error adds to an output that weight scales: from a random start it
+    starts at zero, and its two updates alone are no scale (the card drifts
+    from itself by 5% of a BN bias's under a 1e-6 input change); from a
+    trained start a bias before a BatchNorm holds only ~1e-10 of noise, as
+    its gradient is zero but for rounding."""
+    def reference(name):
+        # a BatchNorm scale weighs its unit-variance output: its init, 1, is
+        # its scale where it starts below it (the DA gates' zero-residual
+        # start, DA_GATE_ZERO_RESIDUAL)
+        ref = float(np.abs(start[name]).max())
+        return max(ref, 1.0) if name.endswith("/scale") else ref
+
     scale = float(np.abs(want).max())
-    if np.any(start[leaf]):
-        return scale
     head, _, last = leaf.rpartition("/")
+    if last == "scale":
+        return max(scale, reference(leaf))
     for weight in _DG_WEIGHT_OF.get(last, ()):
         if f"{head}/{weight}" in start:
-            return max(scale, float(np.abs(start[f"{head}/{weight}"]).max()))
+            return max(scale, reference(f"{head}/{weight}"))
     return scale
 
 
@@ -4107,14 +4144,17 @@ def _dg_compare(np, run, ref, init, tag, chaotic=True):
     (worst loss over its gate, worst leaf over its gate, that leaf's name,
     its error, its scale, the largest error over a leaf's update size).
     A ratio above 1 fails."""
-    loss_gates, leaf_gate = DG_CHAOTIC.get(tag, ({"": (DG_LOSS_RTOL, 0.0)}, None))
+    loss_gates, leaf_gate = {**DG_CHAOTIC, **DA_CHAOTIC}.get(tag, ({"": (DG_LOSS_RTOL, 0.0)}, None))
     if not chaotic:
         loss_gates, leaf_gate = {"": (DG_LOSS_RTOL, 0.0)}, None
     loss_ratio = 0.0
     for got, want in zip(run[0], ref[0]):
         for key, value in want.items():
             rtol, atol = loss_gates.get(key, loss_gates.get("", (DG_LOSS_RTOL, 0.0)))
-            loss_ratio = max(loss_ratio, abs(got[key] - value) / (atol + rtol * abs(value)))
+            diff, gate = abs(got[key] - value), atol + rtol * abs(value)
+            # a loss that is exactly zero (SE's masked consistency) holds only zero
+            loss_ratio = max(loss_ratio, diff / gate if gate > 0 else (0.0 if diff == 0
+                                                                        else math.inf))
     leaf_ratio, top, upd = 0.0, ("", 0.0, 0.0), 0.0
     for name in ref[2]:
         start = dict(_dg_flat(init[name]))
@@ -4297,6 +4337,362 @@ def dg_phase(torch, np):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the Dassl DA trainers at Office-31's and Digit-5's recipes
+# ---------------------------------------------------------------------------
+
+OFFICE31_DOMAINS = ("amazon", "webcam", "dslr")
+OFFICE31_SHOTS = 5  # JPEGs a class a domain
+DIGIT5_DOMAINS = ("mnist", "mnist_m", "svhn", "syn", "usps")
+DIGIT5_TRAIN, DIGIT5_TEST = 20, 4  # PNGs a class a domain
+DA_SEED = 1
+# two of the published tasks: Office-31 A -> W, Digit-5 -> USPS (whose train
+# set the loader repeats 3x, here the target pool)
+OFFICE31_SOURCES, OFFICE31_TARGET = ("amazon",), "webcam"
+DIGIT5_SOURCES, DIGIT5_TARGET = ("mnist", "mnist_m", "svhn", "syn"), "usps"
+
+
+def write_da_trees(np, root: Path) -> int:
+    """An Office-31 tree (``office31/<domain>/<class>/*.jpg``, 31 classes at
+    256 x 256) and a Digit-5 tree (``digit5/<domain>/{train,test}_images/
+    <i>_<label>.png``, 10 classes at 32 x 32), drawn from :data:`DA_SEED`:
+    each class a colour and a stripe frequency, each domain a contrast, plus
+    noise. Returns the number of images."""
+    import concurrent.futures as cf
+
+    from PIL import Image
+
+    def save(pixels, path):
+        Image.fromarray(pixels).save(path, quality=90) if path.suffix == ".jpg" else \
+            Image.fromarray(pixels).save(path)
+
+    def image(rng, side, c, d, grid):
+        yy, xx = grid
+        hue = np.array([(c * 37) % 255, (c * 91) % 255, (c * 53) % 255]) / 255.0
+        stripes = np.sin((xx * (c % 7 + 2) + yy * (d + 1 + c // 7)) * 2 * np.pi)[..., None]
+        img = 0.5 + (0.15 + 0.1 * d) * stripes * hue + rng.normal(0, 0.08, (side, side, 3))
+        return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+    rng = np.random.default_rng(DA_SEED)
+    jobs = []
+    with cf.ThreadPoolExecutor(max_workers=8) as pool:  # the draws stay in order
+        grid = np.mgrid[0:256, 0:256] / 256.0
+        for d, domain in enumerate(OFFICE31_DOMAINS):
+            for c in range(31):
+                cdir = root / "office31" / domain / f"class_{c:02d}"
+                cdir.mkdir(parents=True, exist_ok=True)
+                for i in range(OFFICE31_SHOTS):
+                    jobs.append(pool.submit(save, image(rng, 256, c, d, grid), cdir / f"{i}.jpg"))
+        grid = np.mgrid[0:32, 0:32] / 32.0
+        for d, domain in enumerate(DIGIT5_DOMAINS):
+            for split, n in (("train_images", DIGIT5_TRAIN), ("test_images", DIGIT5_TEST)):
+                sdir = root / "digit5" / domain / split
+                sdir.mkdir(parents=True, exist_ok=True)
+                for c in range(10):
+                    for i in range(n):
+                        jobs.append(pool.submit(save, image(rng, 32, c, d, grid),
+                                                sdir / f"{c * n + i}_{c}.png"))
+        for job in jobs:
+            job.result()
+    return len(jobs)
+
+
+# run -> (trainer, dataset, the trainer's yaml, the cuts and the trainer's
+# own required settings as options). SE needs two views of an image
+# (K_TRANSFORMS 2), which Digit-5's SourceOnly yaml does not set.
+DA_RUNS = {
+    "source_only": ("SourceOnly", "office31", "source_only", ["OPTIM.MAX_EPOCH", "1"]),
+    "adda": ("ADDA", "office31", "source_only", ["OPTIM.MAX_EPOCH", "1"]),
+    "adabn": ("AdaBN", "office31", "source_only", ["OPTIM.MAX_EPOCH", "1"]),
+    "dann": ("DANN", "office31", "source_only", ["OPTIM.MAX_EPOCH", "1"]),
+    "dann_data2": ("DANN", "office31", "source_only",
+                   ["OPTIM.MAX_EPOCH", "1", "CUDA.MESH.DATA", "2"]),
+    "mcd": ("MCD", "digit5", "source_only", ["OPTIM.MAX_EPOCH", "1"]),
+    "mme": ("MME", "digit5", "source_only", ["OPTIM.MAX_EPOCH", "1"]),
+    "se": ("SE", "digit5", "source_only", ["OPTIM.MAX_EPOCH", "1", "DATALOADER.K_TRANSFORMS", "2"]),
+    "m3sda": ("M3SDA", "digit5", "m3sda", ["OPTIM.MAX_EPOCH", "1"]),
+    "dael": ("DAEL", "digit5", "dael", ["OPTIM.MAX_EPOCH", "1"]),
+    "cdac": ("CDAC", "digit5", "cdac", ["OPTIM.MAX_EPOCH", "1"]),
+}
+# ADDA and AdaBN start from the checkpoint SourceOnly's run wrote
+DA_FROM_SOURCE = ("adda", "adabn")
+
+
+def da_argv(root: Path, out: Path, tag: str, opts=()):
+    """``python -m ovmr_tpu_torch.train`` arguments of a DA run: the dataset
+    yaml, the trainer's yaml, the sources and the target, and the run's cuts
+    as options (ADDA and AdaBN also ``MODEL.INIT_WEIGHTS``: SourceOnly's
+    checkpoint under ``root``)."""
+    name, dataset, yaml, cuts = DA_RUNS[tag]
+    sources, target = ((OFFICE31_SOURCES, OFFICE31_TARGET) if dataset == "office31"
+                       else (DIGIT5_SOURCES, DIGIT5_TARGET))
+    cfg_dir = ROOT / "configs"
+    extra = []
+    if tag in DA_FROM_SOURCE:
+        extra = ["MODEL.INIT_WEIGHTS", str(root / "source_only" / "model" / "model-1.npz")]
+    return ["--root", str(root), "--seed", str(DA_SEED), "--trainer", name,
+            "--dataset-config-file", str(cfg_dir / "datasets" / "da" / f"{dataset}.yaml"),
+            "--config-file", str(cfg_dir / "trainers" / "da" / yaml / f"{dataset}.yaml"),
+            "--output-dir", str(out),
+            "DATASET.SOURCE_DOMAINS", repr(list(sources)),
+            "DATASET.TARGET_DOMAINS", repr([target]),
+            "DATALOADER.NUM_WORKERS", "8", *cuts, *extra, *opts]
+
+
+def da_run(torch, np, root: Path, tag: str):
+    """One DA run through ``ovmr_tpu_torch.train.main`` on the card
+    (:func:`dassl_entry_run`)."""
+    from ovmr_tpu_torch.engine import da
+
+    classes = {getattr(da, n) for n in ("SourceOnly", "DANN", "ADDA", "AdaBN", "MCD", "MME", "SE",
+                                        "M3SDA", "DAEL", "CDAC")}
+    wraps = [(cls, "forward_backward_xu") for cls in sorted(classes, key=lambda c: c.__name__)]
+    return dassl_entry_run(torch, "da", tag, root / tag, wraps, da_argv(root, root / tag, tag))
+
+
+# The gates: phase 20's (DG_LOSS_RTOL, DG_LEAF_SHARE, DG_GATE_LR times the
+# recipe's learning rate, DG_PERTURB), each trainer's losses read from the
+# keys that name a loss. M3SDA, DAEL and CDAC are held at their JAX
+# trajectory tests' tolerances (tests/test_trajectory_parity.py:1263-1275,
+# 1391-1407, 1525-1544: losses (rtol, atol), leaves (atol, rtol) element by
+# element): their losses span the whole batch and their trajectories hang
+# on max-pool near-ties (tests/test_torch_da_trajectory.py). The
+# ResNet-50 recipes step a batch of DA_GATE_BATCH, so the CPU replay stays
+# short.
+DA_CHAOTIC = {
+    "m3sda": ({"": (2e-4, 2e-5), "loss_step_C": (5e-4, 2e-5)}, (1e-4, 1e-3)),
+    "dael": ({"": (2e-4, 2e-5), "loss_cr": (5e-4, 2e-5), "loss_u": (5e-4, 2e-5)}, (1e-4, 1e-3)),
+    "cdac": ({"": (5e-4, 5e-5), "pl_loss": (1e-3, 5e-5), "cons_loss": (1e-3, 5e-5)},
+             (2e-4, 1e-3)),
+}
+DA_GATE_BATCH = 8
+# Each gate runs at a cut of its recipe's learning rate (1, 0.1, 0.01 or
+# 0.001) at which the card's own drift under a 1e-6 input change and the card
+# against the CPU stay well inside its gates while both controls fail them:
+# phase 20's tenth (DG_GATE_LR) for SourceOnly, ADDA and AdaBN; at a tenth
+# DANN's two local shards, DAEL, MME and SE drift to 0.4-2.5 of their gates
+# and MCD and M3SDA (their phases step F up to ten times) 1-23; CDAC's
+# recipe is at 1e-3, where a tenth leaves its gradient control at 1.2-2.1 of
+# its gates (tools/probe_torch_da_gates.py; PERF.md).
+DA_GATE_LR_CUT = {"dann": 0.01, "dael": 0.01, "mme": 0.01, "se": 0.01, "mcd": 0.001,
+                  "m3sda": 0.001, "cdac": 1.0}
+# The ResNet-50 recipes' gates start with every bottleneck's last BatchNorm
+# scale at zero (torchvision's ``zero_init_residual``), as the card and the
+# CPU can agree on two steps of a well-conditioned network only: from the
+# random init a 1e-6 change of the input moves the card's second step by
+# thousands of times the gates (tools/probe_torch_da_gates.py
+# --random-start; PERF.md).
+DA_GATE_ZERO_RESIDUAL = True
+
+
+def _zero_residual(init: dict) -> dict:
+    """``init`` with the last BatchNorm scale of each residual branch
+    (``bn3``) at zero."""
+    def walk(tree, path=()):
+        return {k: walk(v, path + (k,)) if isinstance(v, dict) else
+                (v * 0 if path[-1:] == ("bn3",) and k == "scale" else v)
+                for k, v in tree.items()}
+
+    return {name: walk(state) for name, state in init.items()}
+
+
+@contextlib.contextmanager
+def _host_draws(torch):
+    """Every trainer's step draws (dropout masks) from a CPU generator seeded
+    as its own would be, so the card's replays and the CPU's draw the same
+    masks; a trainer on the card draws from a generator on the card."""
+    from ovmr_tpu_torch.engine import dassl_base
+
+    orig = dassl_base.DasslTrainer.step_generator
+
+    def step_generator(self):
+        return torch.Generator().manual_seed(orig(self).initial_seed())
+
+    dassl_base.DasslTrainer.step_generator = step_generator
+    try:
+        yield
+    finally:
+        dassl_base.DasslTrainer.step_generator = orig
+
+
+def _two_batches(loader):
+    """A loader's first two batches, restarting it where it runs out first,
+    as :class:`TrainerXU`'s epoch does."""
+    out, stream = [], iter(loader)
+    while len(out) < 2:
+        try:
+            out.append(next(stream))
+        except StopIteration:
+            stream = iter(loader)
+    return out
+
+
+def _da_cfg(root, tag, device, extra=()):
+    from ovmr_tpu_torch import train as entry
+
+    argv = da_argv(root, root / f"{tag}-{device}", tag, ["CUDA.DEVICE", device, *extra])
+    return entry.setup_cfg(entry.build_parser().parse_args(argv))
+
+
+def _da_trainer(torch, root, tag, device, extra=()):
+    from ovmr_tpu_torch.engine.trainer import build_trainer
+    from ovmr_tpu_torch.utils.tools import set_random_seed
+
+    cfg = _da_cfg(root, tag, device, extra)
+    set_random_seed(cfg.SEED)  # as the entry point seeds before it builds
+    return build_trainer(cfg)
+
+
+def _da_replay(torch, np, trainer, init, batches, tag, scale=None):
+    """Two steps of ``trainer`` from ``init`` on ``batches`` (pairs of the
+    labelled and unlabelled batches; their images times ``1 + scale`` when
+    given), as the first two of an epoch of two: each step's losses, walls,
+    the states after."""
+    from ovmr_tpu_torch.convert import dassl_state_from_numpy
+
+    def scaled(b):
+        return {**b, **{k: (np.asarray(b[k], np.float32) * np.float32(1 + scale))
+                        for k in ("img", "img2") if k in b}}
+
+    if scale is not None:
+        batches = [(scaled(bx), scaled(bu)) for bx, bu in batches]
+    for name, state in init.items():
+        dassl_state_from_numpy(trainer._nets[name], state)
+    if tag == "se":  # the teacher starts as a copy of the student
+        trainer.copy_teacher()
+    trainer.epoch, trainer.max_epoch, trainer.num_batches = 0, 1, len(batches)
+    trainer.before_epoch()
+    losses, walls = [], []
+    for trainer.batch_idx, (bx, bu) in enumerate(batches):
+        t = time.perf_counter()
+        out = trainer.forward_backward_xu(bx, bu) or {}
+        if trainer.device.type == "cuda":  # AdaBN returns no loss to read
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append({k: v for k, v in out.items() if "loss" in k})
+    return losses, walls, {n: trainer.model_state(n) for n in trainer.get_model_names()}
+
+
+@contextlib.contextmanager
+def _no_statistics_reset(torch):
+    """Control (AdaBN, which takes no gradient): the source model's BN
+    statistics are not reset before they are re-estimated."""
+    from ovmr_tpu_torch.engine import da, dassl_base
+
+    saved = da.AdaBN.before_epoch
+    da.AdaBN.before_epoch = dassl_base.DasslTrainer.before_epoch
+    try:
+        yield
+    finally:
+        da.AdaBN.before_epoch = saved
+
+
+def da_card_vs_cpu(torch, np, root: Path, tag: str):
+    """The run's recipe, at the gates' learning rate, on the card and on the
+    CPU from one seeded initial state (the card's, carried to the CPU
+    trainer), the same first two pairs of batches (pulled once) and the same
+    dropout masks (:func:`_host_draws`), held by the gates above; the TF32
+    and gradient (AdaBN: statistics-reset) controls fail them; for DANN, the
+    same two steps on two local data shards against the card's one program,
+    and the per-shard BatchNorm control, which fails them."""
+    with _host_draws(torch):
+        _da_card_vs_cpu(torch, np, root, tag)
+
+
+def _da_card_vs_cpu(torch, np, root: Path, tag: str):
+    cut = DA_GATE_LR_CUT.get(tag, DG_GATE_LR)
+    lr = ["OPTIM.LR", repr(_da_cfg(root, tag, "cuda").OPTIM.LR * cut)]
+    if DA_RUNS[tag][1] == "office31":
+        lr += ["DATALOADER.TRAIN_X.BATCH_SIZE", str(DA_GATE_BATCH)]
+    card = _da_trainer(torch, root, tag, "cuda", lr)
+    init = {n: card.model_state(n) for n in card.get_model_names()}
+    if DA_RUNS[tag][1] == "office31" and DA_GATE_ZERO_RESIDUAL:
+        init = _zero_residual(init)
+    batches = list(zip(_two_batches(card.dm.train_loader_x),
+                       _two_batches(card.dm.train_loader_u)))
+
+    def replay(device="cuda", extra=lr, scale=None):
+        trainer = _da_trainer(torch, root, tag, device, extra)
+        return _da_replay(torch, np, trainer, init, batches, tag, scale=scale)
+
+    on_card = _da_replay(torch, np, card, init, batches, tag)
+    t = time.perf_counter()
+    on_cpu = replay("cpu")
+    cpu_s = time.perf_counter() - t
+    noise = _dg_compare(np, replay(scale=DG_PERTURB), on_card, init, tag)
+    with _tf32_steps(torch):
+        tf32 = _dg_compare(np, replay(), on_cpu, init, tag)
+    if tag == "adabn":
+        second, control = _no_statistics_reset(torch), "no statistics reset vs cpu"
+    else:
+        second, control = (_scaled_gradients(torch, DG_GRAD_FACTOR),
+                           f"gradients x {DG_GRAD_FACTOR} vs cpu")
+    with second:
+        other = _dg_compare(np, replay(), on_cpu, init, tag)
+    held = {"card vs cpu": _dg_compare(np, on_card, on_cpu, init, tag)}
+    controls = {"tf32 on vs cpu": tf32, control: other}
+    if tag == "dann":
+        shards = ["CUDA.MESH.DATA", "2", *lr]
+        held["2 local data shards vs one program"] = _dg_compare(
+            np, replay(extra=shards), on_card, init, tag, chaotic=False)
+        with _per_shard_batch_norm(torch):
+            controls["per-shard BN vs one program"] = _dg_compare(
+                np, replay(extra=shards), on_card, init, tag, chaotic=False)
+    first = on_card[0][0]
+    print(f"[da] {tag} gates (fp32, TF32 off in the steps, 2 steps at lr {lr[1]}, batch "
+          f"{len(batches[0][0]['label'])} + {len(batches[0][1]['label'])}; card losses "
+          f"{ {k: round(v, 6) for k, v in first.items()} }; the card's warm step "
+          f"{1e3 * on_card[1][1]:.1f} ms, unprofiled; the CPU's two {cpu_s:.1f} s): "
+          + "; ".join(_dg_line(k, r) for k, r in held.items())
+          + "; controls: " + "; ".join(_dg_line(k, r) for k, r in controls.items())
+          + "; " + _dg_line("noise (the card under a 1e-6 input change)", noise), flush=True)
+    for key, (loss_ratio, leaf_ratio, (leaf, err, scale), _) in held.items():
+        if loss_ratio > 1 or leaf_ratio > 1:
+            raise AssertionError(f"[da] {tag} {key}: losses at {loss_ratio:.3g} of their gate, "
+                                 f"{leaf} off by {err:.3g} (scale {scale:.3g}) at "
+                                 f"{leaf_ratio:.3g} of its gate")
+    for key, (loss_ratio, leaf_ratio, _, _) in controls.items():
+        if loss_ratio <= 1 and leaf_ratio <= 1:
+            raise AssertionError(f"[da] {tag} control {key} met every gate: the gates cannot "
+                                 f"tell it from the path")
+
+
+def da_phase(torch, np):
+    """Phase 21: an Office-31 and a Digit-5 tree, each trainer's card-vs-CPU
+    gate, then the eleven runs through the entry point. SourceOnly runs
+    first, since the gates and runs of ADDA and AdaBN start from its
+    checkpoint."""
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="ovmr_da_smoke_"))
+    # torch's own TF32 defaults, as a user's process has them, for the whole
+    # phase: the entry point and the Dassl steps must turn TF32 off themselves
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        n = write_da_trees(np, root)
+        print(f"[da] Office-31 and Digit-5 trees: {n} images in {time.perf_counter() - t0:.1f} s; "
+              f"Office-31 {list(OFFICE31_SOURCES)} -> {OFFICE31_TARGET}, Digit-5 "
+              f"{list(DIGIT5_SOURCES)} -> {DIGIT5_TARGET}", flush=True)
+        paths = {}
+        _, paths["da_source_only"] = da_run(torch, np, root, "source_only")
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        for tag in ("source_only", "adda", "adabn", "dann", "mcd", "mme", "se", "m3sda", "dael",
+                    "cdac"):
+            da_card_vs_cpu(torch, np, root, tag)
+            torch.cuda.empty_cache()
+        print(f"[da] the gates in {time.perf_counter() - t:.1f} s", flush=True)
+        for tag in DA_RUNS:
+            if tag != "source_only":
+                _, paths[f"da_{tag}"] = da_run(torch, np, root, tag)
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[da] phase 21 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
 def main() -> int:
     if not (ROOT / "ovmr_tpu_torch").is_dir():
         print("chip_smoke: the ovmr_tpu_torch package is not beside this script",
@@ -4451,6 +4847,8 @@ def main() -> int:
     lap("phases 14-19")
     paths.update(dg_phase(torch, np))  # phase 20: no K1-K8 launch on the DG paths
     lap("phase 20")
+    paths.update(da_phase(torch, np))  # phase 21: no K1-K8 launch on the DA paths
+    lap("phase 21")
 
     for entry in kernels:
         # launches: the wrapper's count over the three ViT-B/16 requests +

@@ -19,10 +19,13 @@ Loader lineup matches the reference (``data_manager.py:116-246``):
 multi-resolution collate of :mod:`ovmr_tpu_torch.data.multires` (raw
 decode, one drawn shape a batch). A trainer that passes
 ``tfm_train_strong`` (DAELDG) gets the strong view of every training image
-as ``img2``, drawn as the JAX loader draws it. Not ported yet, and refused by
-:class:`DataManager`: ``RETURN_IMG0`` and ``TEXT_ONLY`` batches, which the
-Dassl families use, and the unlabeled loader ``train_loader_u`` (ROADMAP
-Queue 1 item 7b).
+as ``img2``, drawn as the JAX loader draws it. ``train_loader_u`` is the
+unlabeled loader of the DA/SSL trainers (the target domain or the
+unlabeled pool: ``DATALOADER.TRAIN_U``, or TRAIN_X's settings with
+``TRAIN_U.SAME_AS_X``, seeded one past the labeled stream).
+``DATALOADER.RETURN_IMG0`` adds the un-augmented image (resized to SIZE,
+normalised where configured) as ``img0``; ``TEXT_ONLY`` train batches carry
+labels and paths and decode no image.
 
 The sliced decode (JAX ``:50-58``, ``:159-172``, ``:275-330``): under a
 process group whose mesh has a data axis > 1, a trainer that opts in
@@ -67,6 +70,9 @@ class HostDataLoader:
         local_block=None,
         local_multiple: int = 1,
         transform2=None,
+        text_only: bool = False,
+        return_img0: bool = False,
+        img0_transform=None,
     ):
         # (data shard, data axis size) of the sliced decode, None: every
         # process decodes the whole batch. local_multiple: the row multiple
@@ -91,7 +97,15 @@ class HostDataLoader:
         # second (strong) transform -> "img2" in every batch (DAEL's weak +
         # strong pairs); it follows K_TRANSFORMS as the primary one does
         self.transform2 = transform2
-        if multi_res is not None and (self.k_transforms > 1 or transform2 is not None):
+        # TEXT_ONLY (reference DatasetWrapper, ``data_manager.py:311-312``):
+        # batches of labels and paths, no image read
+        self.text_only = text_only
+        # RETURN_IMG0 (reference ``data_manager.py:330-331``): the
+        # un-augmented image too, under "img0"
+        self.return_img0 = return_img0
+        self.img0_transform = img0_transform
+        if multi_res is not None and (self.k_transforms > 1 or transform2 is not None
+                                      or return_img0 or text_only):
             raise ValueError(_MULTI_RES_EXCLUSIVE)
         self._epoch = 0
         self._seed = seed
@@ -140,7 +154,12 @@ class HostDataLoader:
                 ]
             else:
                 img2 = [self.transform2(img) for _ in range(self.k_transforms)]
-        return arrs, item.label, item.impath, item.domain, img2
+        img0 = None
+        if self.return_img0:
+            tfm0 = self.img0_transform
+            img0 = (tfm0(img) if tfm0 is not None
+                    else np.asarray(img, np.float32).transpose(2, 0, 1) / 255.0)
+        return arrs, item.label, item.impath, item.domain, img2, img0
 
     def _local_view(self, batch_idx):
         """This shard's contiguous block of a batch's indices:
@@ -159,6 +178,21 @@ class HostDataLoader:
         indices = self.sampler.epoch_indices(rng)
         self._epoch += 1
         epoch = self._epoch - 1
+
+        if self.text_only:
+            for start in range(0, len(indices), self.batch_size):
+                batch_idx = indices[start : start + self.batch_size]
+                if self.drop_last and len(batch_idx) < self.batch_size:
+                    break
+                sub_idx, _, is_local = self._local_view(batch_idx)
+                items = [self.data_source[i] for i in sub_idx]
+                yield {
+                    "label": np.asarray([it.label for it in items], np.int32),
+                    "impath": [it.impath for it in items],
+                    "index": np.asarray(sub_idx, np.int64),
+                    "_local": is_local,
+                }
+            return
 
         with cf.ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             for start in range(0, len(indices), self.batch_size):
@@ -200,6 +234,9 @@ class HostDataLoader:
                     # source-domain index (0 for the OVMR datasets)
                     "domain": np.repeat(np.asarray([r[3] for r in results], np.int32), k),
                 }
+                if self.return_img0:
+                    out["img0"] = np.repeat(
+                        np.stack([r[5] for r in results]).astype(np.float32, copy=False), k, axis=0)
                 if self.transform2 is not None:
                     out["img2"] = np.stack([a for r in results for a in r[4]]).astype(
                         np.float32, copy=False)
@@ -245,7 +282,8 @@ def local_block_of(cfg, allow_local_batches=False, local_model_axis: int = 1):
     from ovmr_tpu_torch.parallel.multihost import rank, world
 
     n = world()
-    if not allow_local_batches or n == 1 or not cfg.CUDA.MULTIHOST_SLICED_LOADER:
+    if (not allow_local_batches or n == 1 or not cfg.CUDA.MULTIHOST_SLICED_LOADER
+            or cfg.DATALOADER.RETURN_IMG0 or cfg.TEXT_ONLY):
         return None, 1
     model = max(int(local_model_axis), 1)
     data = int(cfg.CUDA.MESH.DATA)
@@ -266,14 +304,6 @@ class DataManager:
         self._local_block, self._local_multiple = local_block_of(
             cfg, allow_local_batches, local_model_axis)
         multi_res = build_multi_res(cfg)
-        for key, value in (
-            ("DATALOADER.RETURN_IMG0", cfg.DATALOADER.RETURN_IMG0),
-            ("TEXT_ONLY", cfg.TEXT_ONLY),
-        ):
-            if value:
-                raise NotImplementedError(
-                    f"{key} True is not ported yet (ROADMAP Queue 1 item 7b: the Dassl loaders)"
-                )
         self.dataset = dataset if dataset is not None else build_dataset(cfg)
 
         tfm_train = build_transform(cfg, is_train=True)
@@ -287,6 +317,11 @@ class DataManager:
         seed = max(cfg.SEED, 0)
 
         ds = self.dataset
+        img0_tfm = None
+        if cfg.DATALOADER.RETURN_IMG0:
+            from .transforms import to_tensor_transform
+
+            img0_tfm = to_tensor_transform(cfg)
         self.train_loader_x = HostDataLoader(
             ds.train_x,
             build_sampler(
@@ -305,12 +340,36 @@ class DataManager:
             local_block=self._local_block,
             local_multiple=self._local_multiple,
             transform2=tfm_train_strong,
+            text_only=bool(cfg.TEXT_ONLY),
+            return_img0=bool(cfg.DATALOADER.RETURN_IMG0),
+            img0_transform=img0_tfm,
             # reference: drop_last = is_train and len >= batch_size
             # (data_manager.py:107) — the ragged tail batch is dropped,
             # keeping step shapes static and the epoch counts and
             # iteration-annealed schedules reference-exact
             drop_last=len(ds.train_x) >= cfg.DATALOADER.TRAIN_X.BATCH_SIZE,
         ) if ds.train_x else None
+
+        # unlabeled loader (DA target domain / SSL unlabeled pool); the
+        # reference clones the TRAIN_X settings when SAME_AS_X (JAX
+        # ``manager.py:395-423``); drop_last keeps the step shapes static
+        loaders = cfg.DATALOADER
+        u_cfg = loaders.TRAIN_X if loaders.TRAIN_U.SAME_AS_X else loaders.TRAIN_U
+        self.train_loader_u = HostDataLoader(
+            ds.train_u,
+            build_sampler(u_cfg.SAMPLER, ds.train_u, u_cfg.BATCH_SIZE, u_cfg.N_INS,
+                          u_cfg.N_DOMAIN),
+            tfm_train,
+            u_cfg.BATCH_SIZE,
+            seed=seed + 1,  # decorrelated from the labeled stream
+            num_workers=nw,
+            drop_last=len(ds.train_u) >= u_cfg.BATCH_SIZE,
+            k_transforms=cfg.DATALOADER.K_TRANSFORMS,
+            transform2=tfm_train_strong,
+            local_block=self._local_block,
+            local_multiple=self._local_multiple,
+            multi_res=multi_res,
+        ) if getattr(ds, "train_u", None) else None
 
         self.val_loader = HostDataLoader(
             ds.val,

@@ -374,3 +374,34 @@ def instance_norm(arr: np.ndarray, eps: float = 1e-8) -> np.ndarray:
     mean_c = arr.mean(axis=(1, 2), keepdims=True)
     std_c = arr.std(axis=(1, 2), keepdims=True)
     return (arr - mean_c) / (std_c + eps)
+
+
+def to_tensor_transform(cfg) -> Transform:
+    """Resize-to-SIZE + tensorize(+normalize-if-configured), used for
+    RETURN_IMG0 (reference DatasetWrapper ``to_tensor``,
+    ``data_manager.py:288-297``)."""
+    mean, std = cfg.INPUT.PIXEL_MEAN, cfg.INPUT.PIXEL_STD
+    do_norm = "normalize" in cfg.INPUT.TRANSFORMS
+    th, tw = tuple(cfg.INPUT.SIZE)
+    interp = INTERP[cfg.INPUT.INTERPOLATION]
+
+    def fn(img) -> np.ndarray:
+        arr = to_chw_float(img.resize((tw, th), interp))
+        return normalize(arr, mean, std) if do_norm else arr
+
+    return Transform(fn, "img0 to_tensor")
+
+
+def resize_with_pad(img, size, interp=BICUBIC):
+    """Aspect-preserving resize padded to the target frame (reference
+    ResizeWithPad)."""
+    from PIL import Image
+
+    th, tw = size
+    w, h = img.size
+    scale = min(tw / w, th / h)
+    nw, nh = int(round(w * scale)), int(round(h * scale))
+    resized = img.resize((nw, nh), interp)
+    canvas = Image.new("RGB", (tw, th), (0, 0, 0))
+    canvas.paste(resized, ((tw - nw) // 2, (th - nh) // 2))
+    return canvas

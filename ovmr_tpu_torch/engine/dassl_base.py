@@ -205,6 +205,15 @@ def setup_dassl_mesh(cfg, label=""):
     return mesh
 
 
+def whole_batch_refusal(trainer: str) -> NotImplementedError:
+    """The refusal of a trainer whose losses span the whole batch (domain
+    groups, moments, pairwise similarities) under a process group, where a
+    rank holds a block of it (ROADMAP Queue 1 item 8)."""
+    return NotImplementedError(
+        f"{trainer}'s losses span the whole batch; run it on one process (CUDA.MESH.DATA n "
+        "runs n local shards there); several processes are ROADMAP Queue 1 item 8")
+
+
 def nchw(img) -> torch.Tensor:
     return torch.as_tensor(np.asarray(img, np.float32))
 
@@ -289,14 +298,14 @@ class DasslTrainer(TrainerBase):
         return torch.Generator(device=self.device).manual_seed(seed)
 
     @contextlib.contextmanager
-    def step_scope(self, rows: int):
+    def step_scope(self, *rows: int):
         """A step's context: fp32 without TF32, this step's generator for the
-        modules' draws, and the data axis for BatchNorm when the step's
-        ``rows`` split over its local shards (on one process a batch that
-        does not split runs as one program, which computes the same
-        statistics)."""
+        modules' draws, and the data axis for BatchNorm when each of the
+        step's batches (``rows``: the row counts its BatchNorms see) splits
+        over its local shards (on one process a batch that does not split
+        runs as one program, which computes the same statistics)."""
         axis = self.axis
-        if axis is not None and rows % len(axis.shards):
+        if axis is not None and any(r % len(axis.shards) for r in rows):
             if axis.group is not None:
                 raise ValueError(f"{rows} rows do not split over {len(axis.shards)} data shards")
             axis = None
@@ -426,7 +435,8 @@ class DasslTrainer(TrainerBase):
 
         if self.cfg.CUDA.CHECKPOINT_BACKEND != "npz":
             raise NotImplementedError(
-                "the Dassl trainers write npz checkpoints only (CUDA.CHECKPOINT_BACKEND npz)")
+                "the Dassl trainers write npz checkpoints only (CUDA.CHECKPOINT_BACKEND npz; "
+                "orbax is ROADMAP Queue 1 item 8)")
         for name in self._nets:
             subdir = osp.join(self.output_dir, name)
             fname = f"{model_name}.npz" if model_name else f"model-{epoch}.npz"

@@ -23,6 +23,7 @@ from ovmr_tpu_torch.engine.dassl_base import (
     StackedLinears,
     TrainerX,
     build_simplenet,
+    whole_batch_refusal,
 )
 from ovmr_tpu_torch.engine.schedule import lr_schedule_from_cfg
 from ovmr_tpu_torch.engine.trainer import TRAINER_REGISTRY
@@ -173,9 +174,7 @@ class DAELDG(TrainerX):
     def build_model(self):
         cfg = self.cfg
         if self.axis is not None and self.axis.group is not None:
-            raise NotImplementedError(
-                "DAELDG's domain groups span the whole batch; run it on one process "
-                "(CUDA.MESH.DATA n runs n local shards there)")
+            raise whole_batch_refusal("DAELDG")
         n_domain = cfg.DATALOADER.TRAIN_X.N_DOMAIN
         if n_domain <= 0:
             n_domain = self.num_source_domains

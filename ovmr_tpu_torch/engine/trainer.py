@@ -337,7 +337,7 @@ def mm_generate_classifiers(
 def build_trainer(cfg):
     # the trainers of other modules register themselves when imported (the
     # counterpart of the JAX package's ``register_all_trainers``)
-    from ovmr_tpu_torch.engine import coop, dg, zsclip  # noqa: F401
+    from ovmr_tpu_torch.engine import coop, da, dg, zsclip  # noqa: F401
 
     return TRAINER_REGISTRY.get(cfg.TRAINER.NAME)(cfg)
 

@@ -35,6 +35,15 @@ def mkdir_if_missing(dirname: str) -> None:
                 raise
 
 
+def check_isfile(fpath: str) -> bool:
+    """True iff `fpath` is an existing file; warns when a non-empty path
+    is not (reference ``dassl/utils/tools.py::check_isfile``)."""
+    isfile = osp.isfile(fpath)
+    if not isfile and fpath:
+        print(f'No file found at "{fpath}"')
+    return isfile
+
+
 def listdir_nohidden(path: str, sort: bool = False) -> List[str]:
     items = [f for f in os.listdir(path) if not f.startswith(".")]
     if sort:

@@ -250,9 +250,19 @@ def test_data_manager_on_synthetic(tmp_path, monkeypatch):
 
 
 def test_data_manager_refuses_what_waits(tmp_path):
-    # DATALOADER.MULTI_RES_COLLATE is ported (tests/test_torch_multires.py)
+    # nothing waits any more: DATALOADER.MULTI_RES_COLLATE is ported
+    # (tests/test_torch_multires.py), and RETURN_IMG0 and TEXT_ONLY build and
+    # give the JAX package's train batches (more in tests/test_torch_da_data.py)
     for key in ("DATALOADER.RETURN_IMG0", "TEXT_ONLY"):
-        cfg = get_cfg_default()
-        cfg.merge_from_list([key, "True"])
-        with pytest.raises(NotImplementedError, match=f"{key} True.*item 7"):
-            DataManager(cfg)
+        managers = []
+        for make, cls in ((get_cfg_default, DataManager), (j_cfg, JDataManager)):
+            cfg = _manager_cfg(make, DTD, "DescribableTextures", 8, FLAGSHIP, (32, 32), 16, 4, 16)
+            cfg.merge_from_list([key, "True"])
+            managers.append(cls(cfg))
+        port, jax_dm = managers
+        for a, b in zip(port.train_loader_x, jax_dm.train_loader_x):
+            assert sorted(a) == sorted(b) and a["impath"] == b["impath"]
+            for name in set(a) - {"impath", "_local"}:
+                np.testing.assert_array_equal(a[name], b[name], err_msg=f"{key} {name}")
+            assert ("img0" in a) == (key == "DATALOADER.RETURN_IMG0")
+            assert ("img" in a) == (key != "TEXT_ONLY")

@@ -43,7 +43,8 @@ def test_port_imports_no_jax_and_nothing_of_ovmr_tpu():
                    "models/exploratory.py", "modeling/__init__.py", "modeling/layers.py",
                    "modeling/ops.py", "modeling/backbones.py", "modeling/heads.py",
                    "modeling/networks.py", "engine/dassl_base.py", "engine/dg.py",
-                   "data/autoaugment.py", "data/datasets/dg.py", "data/datasets/da.py"):
+                   "data/autoaugment.py", "data/datasets/dg.py", "data/datasets/da.py",
+                   "engine/da.py"):
         assert f"ovmr_tpu_torch/{module}" in names, module
     bad = []
     for path in files:
