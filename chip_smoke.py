@@ -238,7 +238,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    Digit-5 tree (5 domains x 10 classes x 20 + 4 PNGs at 32 x 32; the other
    four -> usps), then for each trainer two steps of
    its recipe at a cut of its learning rate (a tenth, or where the card
-   drifts from itself at a tenth, a hundredth or a thousandth; CDAC's own)
+   drifts from itself or from the CPU at a tenth on some folder order, a
+   hundredth or a thousandth; CDAC's own)
    on the card and on the CPU from one seeded state, two pairs of batches
    and the same dropout masks (the ResNet-50 recipes at a batch of 8, from
    a zero-residual start), held by phase 20's gates (M3SDA, DAEL and CDAC
@@ -251,6 +252,24 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    Office-31's recipe, MCD, MME and SE on Digit-5's SourceOnly recipe, and
    M3SDA, DAEL and CDAC on their own (epochs cut), each with its warm step,
    busy share, peak memory and no K1-K8 launch.
+22. The Dassl SSL trainers, with torch's own TF32 flags: a CIFAR-10 tree
+   (10 classes x 400 + 20 PNGs at 32 x 32), then for FixMatch, SupBaseline,
+   EntMin, MeanTeacher and MixMatch two steps of CIFAR-10's FixMatch recipe
+   (WRN-28-2; the others on the same yamls) at a hundredth of its learning
+   rate (where the card's drift stays inside the gates) and a batch of
+   16 + 64 on the card and on the CPU from one seeded state, two pairs of
+   batches and the same draws, held by phase 20's gates (MeanTeacher's
+   teacher too), FixMatch's two local data shards against its one
+   program, and the controls that must fail those gates (TF32 on, every gradient 20% off,
+   per-shard BatchNorm); then the six runs through
+   ``ovmr_tpu_torch.train.main`` (FixMatch, FixMatch on 2 local data
+   shards, SupBaseline, EntMin, MeanTeacher, MixMatch; 250 labels, one
+   epoch), each with its warm step, busy share, peak memory and no K1-K8
+   launch; then lpclip's extractor (``ovmr_tpu_torch.lpclip``) over the
+   train and test splits of Synthetic 100 x 12 at 224 px with a random
+   ViT-B/16 in bf16: images a second, K1 and K2 12 + 12 a batch of 100 and
+   no other kernel, raw finite features, and the fp32 features card vs CPU
+   within 1e-4 of their scale.
 
 In bf16 every K1, K2 and K8 launches the wgmma GEMM twice, every K5 twice
 a chunk, every K4 twice (its c_fc recompute and GELU' product are one
@@ -4066,7 +4085,7 @@ def _dg_trainer(torch, root, tag, device, extra=()):
 # DG_GATE_LR times the recipe's learning rate, the JAX goldens' way of
 # keeping that drift well inside the gates: at the recipes' rates it reaches
 # 2.7x a gate (DAELDG's losses, DDAIG's leaves), at a tenth 0.12x
-# (tools/probe_torch_dg_gates.py; PERF.md).
+# (tools/probe_torch_dassl_gates.py --phase dg; PERF.md).
 DG_GATE_LR = 0.1  # times the recipe's learning rate
 DG_LOSS_RTOL, DG_LEAF_SHARE = 1e-5, 1e-4
 DG_CHAOTIC = {  # loss key -> (rtol, atol); leaves (atol, rtol) element by element
@@ -4157,7 +4176,8 @@ def _dg_compare(np, run, ref, init, tag, chaotic=True):
                                                                         else math.inf))
     leaf_ratio, top, upd = 0.0, ("", 0.0, 0.0), 0.0
     for name in ref[2]:
-        start = dict(_dg_flat(init[name]))
+        # a teacher starts as a copy of the student, "model"
+        start = dict(_dg_flat(init[name if name in init else "model"]))
         got = dict(_dg_flat(run[2][name]))
         for leaf, want in _dg_flat(ref[2][name]):
             diff = np.abs(got[leaf] - want)
@@ -4468,19 +4488,24 @@ DA_CHAOTIC = {
 DA_GATE_BATCH = 8
 # Each gate runs at a cut of its recipe's learning rate (1, 0.1, 0.01 or
 # 0.001) at which the card's own drift under a 1e-6 input change and the card
-# against the CPU stay well inside its gates while both controls fail them:
-# phase 20's tenth (DG_GATE_LR) for SourceOnly, ADDA and AdaBN; at a tenth
-# DANN's two local shards, DAEL, MME and SE drift to 0.4-2.5 of their gates
-# and MCD and M3SDA (their phases step F up to ten times) 1-23; CDAC's
-# recipe is at 1e-3, where a tenth leaves its gradient control at 1.2-2.1 of
-# its gates (tools/probe_torch_da_gates.py; PERF.md).
-DA_GATE_LR_CUT = {"dann": 0.01, "dael": 0.01, "mme": 0.01, "se": 0.01, "mcd": 0.001,
-                  "m3sda": 0.001, "cdac": 1.0}
+# against the CPU stay well inside its gates while both controls fail them,
+# whichever batches the trees' folder order gives (the loaders keep a
+# folder's listing unsorted, as the reference does, so each filesystem
+# draws others): phase 20's tenth (DG_GATE_LR) for ADDA and AdaBN; at a
+# tenth SourceOnly reads card vs CPU up to 1.45 of its gates on one
+# machine's order and 0.999 on one of eight shuffled ones (0.11 at 0.01,
+# where its controls read >= 1.53), DANN up to 1.31 and its two local
+# shards, DAEL, MME and SE 0.4-2.5, and MCD and M3SDA (their phases step F
+# up to ten times) 1-23; CDAC's recipe is at 1e-3, where a tenth leaves its
+# gradient control at 1.2-2.1 of its gates
+# (tools/probe_torch_dassl_gates.py --phase da [--orders N]; PERF.md).
+DA_GATE_LR_CUT = {"source_only": 0.01, "dann": 0.01, "dael": 0.01, "mme": 0.01, "se": 0.01,
+                  "mcd": 0.001, "m3sda": 0.001, "cdac": 1.0}
 # The ResNet-50 recipes' gates start with every bottleneck's last BatchNorm
 # scale at zero (torchvision's ``zero_init_residual``), as the card and the
 # CPU can agree on two steps of a well-conditioned network only: from the
 # random init a 1e-6 change of the input moves the card's second step by
-# thousands of times the gates (tools/probe_torch_da_gates.py
+# thousands of times the gates (tools/probe_torch_dassl_gates.py --phase da
 # --random-start; PERF.md).
 DA_GATE_ZERO_RESIDUAL = True
 
@@ -4548,7 +4573,7 @@ def _da_replay(torch, np, trainer, init, batches, tag, scale=None):
     labelled and unlabelled batches; their images times ``1 + scale`` when
     given), as the first two of an epoch of two: each step's losses, walls,
     the states after."""
-    from ovmr_tpu_torch.convert import dassl_state_from_numpy
+    from ovmr_tpu_torch.convert import dassl_state_from_numpy, dassl_state_to_numpy
 
     def scaled(b):
         return {**b, **{k: (np.asarray(b[k], np.float32) * np.float32(1 + scale))
@@ -4558,7 +4583,7 @@ def _da_replay(torch, np, trainer, init, batches, tag, scale=None):
         batches = [(scaled(bx), scaled(bu)) for bx, bu in batches]
     for name, state in init.items():
         dassl_state_from_numpy(trainer._nets[name], state)
-    if tag == "se":  # the teacher starts as a copy of the student
+    if hasattr(trainer, "copy_teacher"):  # SE's and MeanTeacher's: a copy of the student
         trainer.copy_teacher()
     trainer.epoch, trainer.max_epoch, trainer.num_batches = 0, 1, len(batches)
     trainer.before_epoch()
@@ -4569,8 +4594,12 @@ def _da_replay(torch, np, trainer, init, batches, tag, scale=None):
         if trainer.device.type == "cuda":  # AdaBN returns no loss to read
             torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
-        losses.append({k: v for k, v in out.items() if "loss" in k})
-    return losses, walls, {n: trainer.model_state(n) for n in trainer.get_model_names()}
+        # FixMatch's mask share too: a flipped pseudo-label shows there
+        losses.append({k: v for k, v in out.items() if "loss" in k or k == "y_u_pred_keep"})
+    states = {n: trainer.model_state(n) for n in trainer.get_model_names()}
+    if hasattr(trainer, "teacher"):  # SE's and MeanTeacher's: EMA'd, its own BN statistics
+        states["teacher"] = dassl_state_to_numpy(trainer.teacher)
+    return losses, walls, states
 
 
 @contextlib.contextmanager
@@ -4638,8 +4667,14 @@ def _da_card_vs_cpu(torch, np, root: Path, tag: str):
         with _per_shard_batch_norm(torch):
             controls["per-shard BN vs one program"] = _dg_compare(
                 np, replay(extra=shards), on_card, init, tag, chaotic=False)
+    _hold_gates("da", tag, lr[1], batches, on_card, cpu_s, held, controls, noise)
+
+
+def _hold_gates(prefix, tag, lr, batches, on_card, cpu_s, held, controls, noise):
+    """Print an XU trainer's gate readings; raise where the path misses a
+    gate or a control meets every gate."""
     first = on_card[0][0]
-    print(f"[da] {tag} gates (fp32, TF32 off in the steps, 2 steps at lr {lr[1]}, batch "
+    print(f"[{prefix}] {tag} gates (fp32, TF32 off in the steps, 2 steps at lr {lr}, batch "
           f"{len(batches[0][0]['label'])} + {len(batches[0][1]['label'])}; card losses "
           f"{ {k: round(v, 6) for k, v in first.items()} }; the card's warm step "
           f"{1e3 * on_card[1][1]:.1f} ms, unprofiled; the CPU's two {cpu_s:.1f} s): "
@@ -4648,13 +4683,13 @@ def _da_card_vs_cpu(torch, np, root: Path, tag: str):
           + "; " + _dg_line("noise (the card under a 1e-6 input change)", noise), flush=True)
     for key, (loss_ratio, leaf_ratio, (leaf, err, scale), _) in held.items():
         if loss_ratio > 1 or leaf_ratio > 1:
-            raise AssertionError(f"[da] {tag} {key}: losses at {loss_ratio:.3g} of their gate, "
-                                 f"{leaf} off by {err:.3g} (scale {scale:.3g}) at "
+            raise AssertionError(f"[{prefix}] {tag} {key}: losses at {loss_ratio:.3g} of their "
+                                 f"gate, {leaf} off by {err:.3g} (scale {scale:.3g}) at "
                                  f"{leaf_ratio:.3g} of its gate")
     for key, (loss_ratio, leaf_ratio, _, _) in controls.items():
         if loss_ratio <= 1 and leaf_ratio <= 1:
-            raise AssertionError(f"[da] {tag} control {key} met every gate: the gates cannot "
-                                 f"tell it from the path")
+            raise AssertionError(f"[{prefix}] {tag} control {key} met every gate: the gates "
+                                 f"cannot tell it from the path")
 
 
 def da_phase(torch, np):
@@ -4690,6 +4725,285 @@ def da_phase(torch, np):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
         shutil.rmtree(root, ignore_errors=True)
     print(f"[da] phase 21 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the Dassl SSL trainers at CIFAR-10's FixMatch recipe, and lpclip
+# ---------------------------------------------------------------------------
+
+CIFAR10_CLASSES = ("airplane", "automobile", "bird", "cat", "deer", "dog", "frog", "horse",
+                   "ship", "truck")
+CIFAR10_TRAIN, CIFAR10_TEST = 400, 20  # PNGs a class
+SSL_SEED = 1
+# the recipe's 4000 labels cut to FixMatch's own smallest CIFAR-10 setting
+SSL_CUTS = ["OPTIM.MAX_EPOCH", "1", "DATASET.NUM_LABELED", "250"]
+# run -> (trainer, its own settings as options): every trainer runs on
+# FixMatch's CIFAR-10 yamls with its name changed; MixMatch needs two views
+SSL_RUNS = {
+    "fixmatch": ("FixMatch", []),
+    "fixmatch_data2": ("FixMatch", ["CUDA.MESH.DATA", "2"]),
+    "sup_baseline": ("SupBaseline", []),
+    "entmin": ("EntMin", []),
+    "mean_teacher": ("MeanTeacher", []),
+    "mixmatch": ("MixMatch", ["DATALOADER.K_TRANSFORMS", "2"]),
+}
+
+
+def write_cifar10(np, root: Path) -> int:
+    """A CIFAR-10-layout tree (``cifar10/{train,test}/<class>/*.png`` at 32 x
+    32), drawn from :data:`SSL_SEED`: each class a colour and a stripe
+    frequency, plus noise. Returns the number of images."""
+    import concurrent.futures as cf
+
+    from PIL import Image
+
+    def save(pixels, path):
+        Image.fromarray(pixels).save(path)
+
+    rng = np.random.default_rng(SSL_SEED)
+    yy, xx = np.mgrid[0:32, 0:32] / 32.0
+    jobs = []
+    with cf.ThreadPoolExecutor(max_workers=8) as pool:  # the draws stay in order
+        for split, n in (("train", CIFAR10_TRAIN), ("test", CIFAR10_TEST)):
+            for c, cname in enumerate(CIFAR10_CLASSES):
+                cdir = root / "cifar10" / split / cname
+                cdir.mkdir(parents=True, exist_ok=True)
+                hue = np.array([(c * 37) % 255, (c * 91) % 255, (c * 53) % 255]) / 255.0
+                stripes = np.sin((xx * (c % 5 + 2) + yy * (c // 5 + 1)) * 2 * np.pi)[..., None]
+                for i in range(n):
+                    img = 0.5 + 0.3 * stripes * hue + rng.normal(0, 0.1, (32, 32, 3))
+                    jobs.append(pool.submit(save, (np.clip(img, 0, 1) * 255).astype(np.uint8),
+                                            cdir / f"{i:04d}.png"))
+        for job in jobs:
+            job.result()
+    return len(jobs)
+
+
+def ssl_argv(root: Path, out: Path, tag: str, opts=()):
+    """``python -m ovmr_tpu_torch.train`` arguments of an SSL run: CIFAR-10's
+    dataset yaml, FixMatch's CIFAR-10 yaml, the trainer, and the run's cuts
+    and settings as options."""
+    name, extra = SSL_RUNS[tag]
+    cfg_dir = ROOT / "configs"
+    return ["--root", str(root), "--seed", str(SSL_SEED), "--trainer", name,
+            "--dataset-config-file", str(cfg_dir / "datasets" / "ssl" / "cifar10.yaml"),
+            "--config-file", str(cfg_dir / "trainers" / "ssl" / "fixmatch" / "cifar10.yaml"),
+            "--output-dir", str(out), "DATALOADER.NUM_WORKERS", "8", *SSL_CUTS, *extra, *opts]
+
+
+def ssl_run(torch, np, root: Path, tag: str):
+    """One SSL run through ``ovmr_tpu_torch.train.main`` on the card
+    (:func:`dassl_entry_run`)."""
+    from ovmr_tpu_torch.engine import ssl
+
+    wraps = [(getattr(ssl, n), "forward_backward_xu")
+             for n in ("SupBaseline", "EntMin", "MeanTeacher", "MixMatch", "FixMatch")]
+    return dassl_entry_run(torch, "ssl", tag, root / tag, wraps, ssl_argv(root, root / tag, tag))
+
+
+# The gates: phase 21's (DG_LOSS_RTOL, DG_LEAF_SHARE, DG_PERTURB; the same
+# dropout masks on both sides), two steps of SSL_GATE_BATCH labelled +
+# unlabelled images (a cut of the recipe's 64 + 448, which bounds the CPU
+# replay) at SSL_GATE_LR times the recipe's lr, with SSL_GATE_OPTS.
+# MeanTeacher's teacher is held with the student. FixMatch on two local data
+# shards is held against the card's one program, and per-shard BatchNorm
+# must fail it. One cut holds all five trainers, as the card's drift from
+# itself under a 1e-6 input change and the card against the CPU stay at or
+# below half of every gate there alone, on every card the probe ran on,
+# while both controls fail every trainer: at a tenth they read 0.83-3.0 of
+# the leaf gate card vs CPU, at 0.03 0.36-0.97 (SupBaseline, EntMin and
+# MeanTeacher 0.41 on two cards, 0.93-0.97 on a third), at a hundredth
+# 0.04-0.13 (tools/probe_torch_dassl_gates.py --phase ssl; PERF.md).
+SSL_GATE_BATCH = (16, 64)
+SSL_GATE_LR = 0.01
+# FixMatch's confidence threshold in the gate: at 0.95 the random init keeps
+# no pseudo-label (its softmax peaks at 0.13-0.18 on the gate's first batch,
+# measured on the CPU), so the strong-view loss would be 0 on both sides;
+# at 0.15 about half the rows pass
+SSL_GATE_OPTS = {"fixmatch": ["TRAINER.FIXMATCH.CONF_THRE", "0.15"]}
+
+
+def _ssl_cfg(root, tag, device, extra=()):
+    from ovmr_tpu_torch import train as entry
+
+    argv = ssl_argv(root, root / f"{tag}-{device}", tag, ["CUDA.DEVICE", device, *extra])
+    return entry.setup_cfg(entry.build_parser().parse_args(argv))
+
+
+def _ssl_trainer(torch, root, tag, device, extra=()):
+    from ovmr_tpu_torch.engine.trainer import build_trainer
+    from ovmr_tpu_torch.utils.tools import set_random_seed
+
+    cfg = _ssl_cfg(root, tag, device, extra)
+    set_random_seed(cfg.SEED)  # as the entry point seeds before it builds
+    return build_trainer(cfg)
+
+
+def ssl_card_vs_cpu(torch, np, root: Path, tag: str):
+    """The run's recipe at the gates' lr and batch, on the card and on the
+    CPU from one seeded initial state (the card's, carried to the CPU
+    trainer), the same first two pairs of batches (pulled once) and the same
+    dropout masks (:func:`_host_draws`; MixMatch's shuffle and mixup
+    coefficients come from the step's seed on both), held by the gates
+    above; the TF32 and 20%-gradient controls fail them; for FixMatch, the
+    same two steps on two local data shards against the card's one program,
+    and the per-shard BatchNorm control, which fails them."""
+    with _host_draws(torch):
+        opts = ["OPTIM.LR", repr(_ssl_cfg(root, tag, "cuda").OPTIM.LR * SSL_GATE_LR),
+                "DATALOADER.TRAIN_X.BATCH_SIZE", str(SSL_GATE_BATCH[0]),
+                "DATALOADER.TRAIN_U.BATCH_SIZE", str(SSL_GATE_BATCH[1]),
+                *SSL_GATE_OPTS.get(tag, [])]
+        card = _ssl_trainer(torch, root, tag, "cuda", opts)
+        init = {n: card.model_state(n) for n in card.get_model_names()}
+        batches = list(zip(_two_batches(card.dm.train_loader_x),
+                           _two_batches(card.dm.train_loader_u)))
+
+        def replay(device="cuda", extra=opts, scale=None):
+            trainer = _ssl_trainer(torch, root, tag, device, extra)
+            return _da_replay(torch, np, trainer, init, batches, tag, scale=scale)
+
+        on_card = _da_replay(torch, np, card, init, batches, tag)
+        t = time.perf_counter()
+        on_cpu = replay("cpu")
+        cpu_s = time.perf_counter() - t
+        noise = _dg_compare(np, replay(scale=DG_PERTURB), on_card, init, tag)
+        with _tf32_steps(torch):
+            tf32 = _dg_compare(np, replay(), on_cpu, init, tag)
+        with _scaled_gradients(torch, DG_GRAD_FACTOR):
+            scaled = _dg_compare(np, replay(), on_cpu, init, tag)
+        held = {"card vs cpu": _dg_compare(np, on_card, on_cpu, init, tag)}
+        controls = {"tf32 on vs cpu": tf32, f"gradients x {DG_GRAD_FACTOR} vs cpu": scaled}
+        if tag == "fixmatch":
+            shards = ["CUDA.MESH.DATA", "2", *opts]
+            held["2 local data shards vs one program"] = _dg_compare(
+                np, replay(extra=shards), on_card, init, tag, chaotic=False)
+            with _per_shard_batch_norm(torch):
+                controls["per-shard BN vs one program"] = _dg_compare(
+                    np, replay(extra=shards), on_card, init, tag, chaotic=False)
+    _hold_gates("ssl", tag, opts[1], batches, on_card, cpu_s, held, controls, noise)
+
+
+# lpclip on the card: a seeded random ViT-B/16 tower (no CLIP weights here)
+# over Synthetic at 224 px, at the batch of the test pass phase 2 holds K1
+# and K2 at (``vision-test-100``); the fp32 features card vs CPU on a small
+# Synthetic set, held at 1e-4 of their scale (PERF.md §2 "features 1e-4")
+LPCLIP_SYNTHETIC, LPCLIP_FP32_SYNTHETIC = "100,12,224", "4,4,224"
+LPCLIP_BATCH = 100
+LPCLIP_FP32_TOL = 1e-4
+
+
+def lpclip_phase(torch, np, root: Path):
+    """``python -m ovmr_tpu_torch.lpclip``'s ``main`` (its ``build`` and
+    ``dump``) for the train and test splits in bf16 (images a second over the
+    dump, K1/K2 launches with the counts zeroed just before each build, 12 +
+    12 a batch, and no other kernel; raw finite features), then fp32 on the
+    card against the CPU. Returns the bf16 runs' (launches, shapes)."""
+    import os
+
+    from ovmr_tpu_torch.data.datasets.synthetic import Synthetic
+    from ovmr_tpu_torch.lpclip import feat_extractor as lp
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    def args(split, out, *opts):
+        return lp.build_parser().parse_args([
+            "--root", str(root / "data"), "--split", split, "--output-dir", str(out),
+            "--backbone", "ViT-B/16", "--seed", "1", "DATASET.NAME", "Synthetic",
+            "DATALOADER.NUM_WORKERS", "8", *opts])
+
+    saved = os.environ.get("OVMR_SYNTHETIC")
+    os.environ["OVMR_SYNTHETIC"] = LPCLIP_SYNTHETIC
+    try:
+        t = time.perf_counter()
+        Synthetic(lp.setup_cfg(args("train", root / "lp")))  # writes the PNGs
+        print(f"[lpclip] Synthetic {LPCLIP_SYNTHETIC} written in {time.perf_counter() - t:.1f} s",
+              flush=True)
+        batch = ["DATALOADER.TRAIN_X.BATCH_SIZE", str(LPCLIP_BATCH),
+                 "DATALOADER.TEST.BATCH_SIZE", str(LPCLIP_BATCH)]
+        launches, shapes = None, {}
+        for split in ("train", "test"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_lib.reset_launches()
+            setup = lp.build(args(split, root / "lp", *batch))
+            t = time.perf_counter()
+            path = lp.dump(*setup)  # the loader's decode and the encode
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got = dict(cuda_lib.LAUNCHES)
+            for key, n in cuda_lib.LAUNCH_SHAPES.items():
+                shapes[key] = shapes.get(key, 0) + n
+            launches = got if launches is None else {k: launches[k] + got[k] for k in got}
+            with np.load(path) as data:
+                feats, labels = data["feature_list"], data["label_list"]
+            n, batches = len(labels), -(-len(labels) // LPCLIP_BATCH)
+            # K1 and K2 once a block of the 12, no other kernel (the attention
+            # core and the GEMM launch inside them)
+            want = {"fused_attn_half": 12 * batches, "fused_mlp_half": 12 * batches}
+            if {k: v for k, v in got.items() if v and k not in ("attn_core", "gemm_wgmma")} != want:
+                raise AssertionError(f"[lpclip] {split}: launches {got}, expected {want}")
+            norms = np.linalg.norm(feats, axis=1)
+            if feats.shape != (n, 512) or not np.isfinite(feats).all() or np.allclose(norms, 1.0):
+                raise AssertionError(f"[lpclip] {split}: features {feats.shape}, norms "
+                                     f"{norms.min():.3g}-{norms.max():.3g}")
+            print(f"[lpclip] {split}: {n} images in {wall:.2f} s = {n / wall:.1f} images/s "
+                  f"(the loader's decode and the encode, to a synchronise; the tower's first "
+                  f"call in 'train'), {batches} batches of {LPCLIP_BATCH}, launches K1 "
+                  f"{got['fused_attn_half']} K2 {got['fused_mlp_half']} (12 + 12 a batch), peak "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, feature norms "
+                  f"{norms.min():.3g}-{norms.max():.3g}", flush=True)
+        os.environ["OVMR_SYNTHETIC"] = LPCLIP_FP32_SYNTHETIC
+        fp32 = {}
+        for device in ("cuda", "cpu"):
+            path = lp.main(args("test", root / f"lp-fp32-{device}", "CUDA.DEVICE", device,
+                                "CUDA.DTYPE", "float32", "DATALOADER.TEST.BATCH_SIZE", "4"))
+            with np.load(path) as data:
+                fp32[device] = data["feature_list"]
+        err = float(np.abs(fp32["cuda"] - fp32["cpu"]).max())
+        scale = float(np.abs(fp32["cpu"]).max())
+        print(f"[lpclip] fp32 features card vs cpu ({len(fp32['cpu'])} images): max abs err "
+              f"{err:.3g}, scale {scale:.3g}, {err / scale:.3g} of it (gate {LPCLIP_FP32_TOL})",
+              flush=True)
+        if not err <= LPCLIP_FP32_TOL * scale:
+            raise AssertionError(f"[lpclip] fp32 features off by {err:.3g} (scale {scale:.3g})")
+    finally:
+        if saved is None:
+            os.environ.pop("OVMR_SYNTHETIC", None)
+        else:
+            os.environ["OVMR_SYNTHETIC"] = saved
+    return launches, shapes
+
+
+def ssl_phase(torch, np):
+    """Phase 22: a CIFAR-10 tree, each SSL trainer's card-vs-CPU gate, the
+    six runs through the entry point, then lpclip's extractor. Returns every
+    run's (launches, shapes)."""
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="ovmr_ssl_smoke_"))
+    # torch's own TF32 defaults, as a user's process has them, for the whole
+    # phase: the entry points and the Dassl steps must turn TF32 off themselves
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        n = write_cifar10(np, root)
+        print(f"[ssl] CIFAR-10 tree: {n} images ({len(CIFAR10_CLASSES)} classes x "
+              f"{CIFAR10_TRAIN} + {CIFAR10_TEST}) in {time.perf_counter() - t0:.1f} s", flush=True)
+        t = time.perf_counter()
+        for tag in ("fixmatch", "sup_baseline", "entmin", "mean_teacher", "mixmatch"):
+            ssl_card_vs_cpu(torch, np, root, tag)
+            torch.cuda.empty_cache()
+        print(f"[ssl] the gates in {time.perf_counter() - t:.1f} s", flush=True)
+        paths = {}
+        for tag in SSL_RUNS:
+            _, paths[f"ssl_{tag}"] = ssl_run(torch, np, root, tag)
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    try:
+        paths["lpclip"] = lpclip_phase(torch, np, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[ssl] phase 22 in {time.perf_counter() - t0:.1f} s", flush=True)
     return paths
 
 
@@ -4849,6 +5163,11 @@ def main() -> int:
     lap("phase 20")
     paths.update(da_phase(torch, np))  # phase 21: no K1-K8 launch on the DA paths
     lap("phase 21")
+    # phase 22: no K1-K8 launch on the SSL paths; lpclip's K1/K2 at the
+    # test pass' shape phase 2 held
+    paths.update(ssl_phase(torch, np))
+    all_checked("lpclip", paths["lpclip"][1])
+    lap("phase 22")
 
     for entry in kernels:
         # launches: the wrapper's count over the three ViT-B/16 requests +

@@ -1,3 +1,3 @@
 """Importing this package registers every bundled dataset loader."""
 
-from . import da, detection, dg, fine_grained, imagenet, synthetic  # noqa: F401
+from . import da, detection, dg, fine_grained, imagenet, ssl, synthetic  # noqa: F401

@@ -7,9 +7,9 @@ written on first use, so the whole pipeline (loader -> transform -> encode
 files, paths and splits are the JAX package's, pixel for pixel: the random
 draws are taken in the same order from one ``default_rng(0)``, and only
 the arithmetic after them and the PNG writes run on a thread pool.
-``SyntheticDA`` (JAX ``:141``) is the domain-adaptation variant the DG
-trainers run on; the semi-supervised ``SyntheticSSL`` comes with the SSL
-trainers.
+``SyntheticSSL`` (JAX ``:120``) is the semi-supervised variant the SSL
+trainers run on, ``SyntheticDA`` (JAX ``:141``) the domain-adaptation one
+of the DG and DA trainers.
 """
 
 from __future__ import annotations
@@ -150,6 +150,28 @@ class Synthetic(DatasetBase):
             train, val, test, subsample=cfg.DATASET.SUBSAMPLE_CLASSES
         )
         super().__init__(train_x=train, val=val, test=test, eval_set=train)
+
+
+@DATASET_REGISTRY.register()
+class SyntheticSSL(Synthetic):
+    """Semi-supervised variant: the train split is divided into a labeled
+    part (``DATASET.NUM_LABELED`` items, default half) and an unlabeled
+    ``train_u`` pool, the shape of the reference SSL datasets
+    (``dassl/data/datasets/ssl/cifar.py``); ``ALL_AS_UNLABELED`` puts the
+    labeled part in the pool too."""
+
+    def __init__(self, cfg, **kwargs):
+        super().__init__(cfg, **kwargs)
+        full = self.train_x
+        n_labeled = cfg.DATASET.NUM_LABELED
+        if n_labeled <= 0:
+            n_labeled = len(full) // 2
+        self.train_x = full[:n_labeled]
+        self.train_u = [
+            Datum(impath=d.impath, label=d.label, classname=d.classname)
+            for d in (full if cfg.DATASET.ALL_AS_UNLABELED else full[n_labeled:])
+        ]
+        self.eval_set = self.train_x
 
 
 @DATASET_REGISTRY.register()

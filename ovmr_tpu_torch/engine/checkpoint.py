@@ -277,6 +277,7 @@ def save_checkpoint(
     is_best: bool = False,
     model_name: str = "",
     backend: str = "npz",
+    opt_params=None,
 ) -> str:
     """Write ``{directory}/{name}/model-{epoch}.npz`` + pointer file. With
     ``model_name`` the file is ``{model_name}.npz`` instead (the
@@ -284,13 +285,14 @@ def save_checkpoint(
     ``dassl/engine/trainer.py:448-455``); the pointer always tracks the
     latest write, matching ``torchtools.py:65-69``. ``backend="orbax"``
     sends an epoch save to :func:`ovmr_tpu_torch.engine.orbax_io.save_orbax`
-    instead."""
+    instead. ``opt_params`` names the optimizer's parameters where they are
+    not the leaves of ``params`` (a Dassl model's flax-layout leaves)."""
     if backend not in ("npz", "orbax"):
         raise ValueError(f"CHECKPOINT_BACKEND {backend!r}: expected 'npz' or 'orbax'")
     if backend == "orbax" and not model_name and not is_best:
         from ovmr_tpu_torch.engine.orbax_io import save_orbax
 
-        return save_orbax(directory, name, epoch, params, optimizer)
+        return save_orbax(directory, name, epoch, params, optimizer, opt_params=opt_params)
     from ovmr_tpu_torch.parallel.multihost import barrier, is_primary
 
     subdir = osp.join(directory, name)
@@ -303,8 +305,8 @@ def save_checkpoint(
     payload = {f"params{SEP}{k}": v.detach().cpu().numpy() for k, v in named_leaves(params)}
     payload["__epoch__"] = np.asarray(epoch)
     if optimizer is not None:
-        payload.update({f"opt{SEP}{k}": v
-                        for k, v in optimizer_state_arrays(optimizer, params).items()})
+        payload.update({f"opt{SEP}{k}": v for k, v in optimizer_state_arrays(
+            optimizer, params if opt_params is None else opt_params).items()})
     np.savez(path, **payload)
     with open(osp.join(subdir, "checkpoint"), "w") as f:
         f.write(osp.basename(path))

@@ -56,7 +56,7 @@ from ovmr_tpu_torch.engine.dassl_base import (
     StackedLinears,
     TrainerXU,
     build_simplenet,
-    whole_batch_refusal,
+    split_views,
 )
 from ovmr_tpu_torch.engine.optimizers import set_lr
 from ovmr_tpu_torch.engine.schedule import lr_schedule_from_cfg
@@ -70,12 +70,6 @@ def _bce_with_logits(logits, targets):
     """torch BCEWithLogitsLoss (mean reduction)."""
     return (logits.clamp_min(0) - logits * targets
             + torch.log1p(torch.exp(-logits.abs()))).mean()
-
-
-def _split_k(img, k: int) -> np.ndarray:
-    """``[B * k, ...]`` adjacent views of a host batch -> ``[B, k, ...]``."""
-    img = np.asarray(img, np.float32)
-    return img.reshape((img.shape[0] // k, k) + img.shape[1:])
 
 
 class _SeparateModels(TrainerXU):
@@ -99,10 +93,6 @@ class _SeparateModels(TrainerXU):
         self.net.eval()
         with exact_fp32_convolutions():
             return head(self.net(x)).float().cpu().numpy()
-
-    def refuse_process_group(self):
-        if self.axis is not None and self.axis.group is not None:
-            raise whole_batch_refusal(type(self).__name__)
 
 
 @TRAINER_REGISTRY.register()
@@ -339,9 +329,9 @@ class SE(TrainerXU):
         # labeled: only the first view is used; sliced batches hold whole
         # items, so the [B, k] split is exact per slice
         loc_x, loc_u = bool(batch_x.get("_local", False)), bool(batch_u.get("_local", False))
-        img_x = self.rows(np.ascontiguousarray(_split_k(batch_x["img"], k)[:, 0]), loc_x)
+        img_x = self.rows(np.ascontiguousarray(split_views(batch_x["img"], k)[:, 0]), loc_x)
         label_x = self.rows(np.asarray(batch_x["label"], np.int64)[::k], loc_x)
-        views_u = _split_k(batch_u["img"], k)
+        views_u = split_views(batch_u["img"], k)
         img_u1 = self.rows(np.ascontiguousarray(views_u[:, 0]), loc_u)
         img_u2 = self.rows(np.ascontiguousarray(views_u[:, 1]), loc_u)
         conf_thre = float(t_cfg.CONF_THRE)
@@ -612,10 +602,10 @@ class CDAC(_SeparateModels):
         set_lr(self._optims["C"], cfg.OPTIM.LR * float(t.CLASS_LR_MULTI) * factor)
         # sliced batches hold whole items: the [B, k] splits are exact
         loc_x, loc_u = bool(batch_x.get("_local", False)), bool(batch_u.get("_local", False))
-        img_x = self.rows(np.ascontiguousarray(_split_k(batch_x["img"], k)[:, 0]), loc_x)
+        img_x = self.rows(np.ascontiguousarray(split_views(batch_x["img"], k)[:, 0]), loc_x)
         label_x = self.rows(np.asarray(batch_x["label"], np.int64)[::k], loc_x)
-        img_u = self.rows(np.ascontiguousarray(_split_k(batch_u["img"], k)[:, 0]), loc_u)
-        strong = _split_k(batch_u["img2"], k)
+        img_u = self.rows(np.ascontiguousarray(split_views(batch_u["img"], k)[:, 0]), loc_u)
+        strong = split_views(batch_u["img2"], k)
         img_us = self.rows(np.ascontiguousarray(strong[:, 0]), loc_u)
         img_us2 = self.rows(np.ascontiguousarray(strong[:, 1]), loc_u)
         label_u = self.rows(np.asarray(batch_u["label"], np.int64)[::k], loc_u)

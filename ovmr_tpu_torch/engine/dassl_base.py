@@ -29,15 +29,16 @@ torch does them. The epoch loop, evaluation and checkpoint cadence are
   (:mod:`ovmr_tpu_torch.engine.checkpoint`): one subdirectory a model,
   ``params//params//...`` and ``params//batch_stats//...`` in the flax
   layout (:func:`ovmr_tpu_torch.convert.dassl_leaves`) and the optimizer
-  state in optax's, so either package resumes the other's run.
+  state in optax's, so either package resumes the other's run. With
+  ``CUDA.CHECKPOINT_BACKEND orbax`` each model's epoch saves go through
+  :mod:`ovmr_tpu_torch.engine.orbax_io` (orbax's layout, on every rank),
+  the same leaves and optimizer entries; named saves stay npz.
 """
 
 from __future__ import annotations
 
 import contextlib
 import datetime
-import os
-import os.path as osp
 import time
 from typing import Dict, Optional
 
@@ -205,17 +206,15 @@ def setup_dassl_mesh(cfg, label=""):
     return mesh
 
 
-def whole_batch_refusal(trainer: str) -> NotImplementedError:
-    """The refusal of a trainer whose losses span the whole batch (domain
-    groups, moments, pairwise similarities) under a process group, where a
-    rank holds a block of it (ROADMAP Queue 1 item 8)."""
-    return NotImplementedError(
-        f"{trainer}'s losses span the whole batch; run it on one process (CUDA.MESH.DATA n "
-        "runs n local shards there); several processes are ROADMAP Queue 1 item 8")
-
-
 def nchw(img) -> torch.Tensor:
     return torch.as_tensor(np.asarray(img, np.float32))
+
+
+def split_views(img, k: int) -> np.ndarray:
+    """``[B * k, ...]`` adjacent views of a host batch -> ``[B, k, ...]`` (a
+    sliced batch holds whole items, so the split is exact per slice)."""
+    img = np.asarray(img, np.float32)
+    return img.reshape((img.shape[0] // k, k) + img.shape[1:])
 
 
 class DasslTrainer(TrainerBase):
@@ -258,6 +257,17 @@ class DasslTrainer(TrainerBase):
     # -- hooks ------------------------------------------------------------
     def check_cfg(self, cfg):
         pass
+
+    def refuse_process_group(self):
+        """Refuse a process group, where a rank holds a block of the batch,
+        for a trainer whose losses span the whole batch (domain groups,
+        moments, pairwise similarities, a shuffle of the joint batch;
+        ROADMAP Queue 1 item 8)."""
+        if self.axis is not None and self.axis.group is not None:
+            raise NotImplementedError(
+                f"{type(self).__name__}'s losses span the whole batch; run it on one process "
+                "(CUDA.MESH.DATA n runs n local shards there); several processes are ROADMAP "
+                "Queue 1 item 8")
 
     @property
     def num_classes(self):
@@ -431,45 +441,31 @@ class DasslTrainer(TrainerBase):
                 for leaf in dassl_leaves(self._nets[name]) if leaf.collection == "params"]
 
     def save_model(self, epoch, model_name=""):
-        from ovmr_tpu_torch.parallel.multihost import barrier, is_primary
-
-        if self.cfg.CUDA.CHECKPOINT_BACKEND != "npz":
-            raise NotImplementedError(
-                "the Dassl trainers write npz checkpoints only (CUDA.CHECKPOINT_BACKEND npz; "
-                "orbax is ROADMAP Queue 1 item 8)")
         for name in self._nets:
-            subdir = osp.join(self.output_dir, name)
-            fname = f"{model_name}.npz" if model_name else f"model-{epoch}.npz"
-            if is_primary():
-                os.makedirs(subdir, exist_ok=True)
-                sep = ckpt.SEP
-                payload = {}
-                for coll, tree in self.model_state(name).items():
-                    for key, value in _flatten(tree):
-                        payload[f"params{sep}{coll}{sep}{key}"] = value
-                payload["__epoch__"] = np.asarray(epoch)
-                opt = self._optims[name]
-                if opt is not None:
-                    payload.update({f"opt{sep}{k}": v for k, v in ckpt.optimizer_state_arrays(
-                        opt, self._named_params(name)).items()})
-                path = osp.join(subdir, fname)
-                np.savez(path, **payload)
-                with open(osp.join(subdir, "checkpoint"), "w") as f:
-                    f.write(fname)
-                print(f"Checkpoint saved to {path}")
-            barrier()
+            ckpt.save_checkpoint(self.output_dir, name, epoch, self._state_tensors(name),
+                                 self._optims[name], model_name=model_name,
+                                 backend=self.cfg.CUDA.CHECKPOINT_BACKEND,
+                                 opt_params=self._named_params(name))
 
-    def _load(self, directory, name, epoch=None, prefer="best"):
-        template = {coll: _to_tensors(tree) for coll, tree in self.model_state(name).items()}
-        tree, opt, ep = ckpt.load_checkpoint(directory, name, template, epoch=epoch, prefer=prefer)
+    def _state_tensors(self, name):
+        """A registered model's flax state as CPU tensors."""
+        return {coll: _to_tensors(tree) for coll, tree in self.model_state(name).items()}
+
+    def _load(self, directory, name, epoch=None, prefer="best", backend="npz"):
+        tree, opt, ep = ckpt.load_checkpoint(directory, name, self._state_tensors(name),
+                                             epoch=epoch, prefer=prefer, backend=backend)
         dassl_state_from_numpy(self._nets[name], {c: _to_numpy(t) for c, t in tree.items()})
         return opt, ep
 
     def resume_model_if_exist(self, directory) -> int:
+        """Each registered model's latest checkpoint, its optimizer state
+        included: with ``CUDA.CHECKPOINT_BACKEND orbax`` the orbax pointer
+        first, then the npz one (JAX ``dassl_base.py:476-491``)."""
         start = 0
         for name in self._nets:
             try:
-                opt, epoch = self._load(directory, name, prefer="pointer")
+                opt, epoch = self._load(directory, name, prefer="pointer",
+                                        backend=self.cfg.CUDA.CHECKPOINT_BACKEND)
             except FileNotFoundError:
                 continue
             if self._optims[name] is not None and opt is not None:
@@ -498,15 +494,6 @@ def _param_tree(net: nn.Module) -> dict:
                 node = node.setdefault(p, {})
             node[leaf.path[-1]] = leaf.tensor
     return tree
-
-
-def _flatten(tree, prefix=""):
-    for key in sorted(tree):
-        path = f"{prefix}{ckpt.SEP}{key}" if prefix else key
-        if isinstance(tree[key], dict):
-            yield from _flatten(tree[key], path)
-        else:
-            yield path, tree[key]
 
 
 def _to_tensors(tree):

@@ -19,12 +19,7 @@ import torch
 
 from ovmr_tpu_torch.data.manager import DataManager
 from ovmr_tpu_torch.data.transforms import build_transform
-from ovmr_tpu_torch.engine.dassl_base import (
-    StackedLinears,
-    TrainerX,
-    build_simplenet,
-    whole_batch_refusal,
-)
+from ovmr_tpu_torch.engine.dassl_base import StackedLinears, TrainerX, build_simplenet
 from ovmr_tpu_torch.engine.schedule import lr_schedule_from_cfg
 from ovmr_tpu_torch.engine.trainer import TRAINER_REGISTRY
 from ovmr_tpu_torch.modeling import build_network
@@ -173,8 +168,7 @@ class DAELDG(TrainerX):
 
     def build_model(self):
         cfg = self.cfg
-        if self.axis is not None and self.axis.group is not None:
-            raise whole_batch_refusal("DAELDG")
+        self.refuse_process_group()
         n_domain = cfg.DATALOADER.TRAIN_X.N_DOMAIN
         if n_domain <= 0:
             n_domain = self.num_source_domains

@@ -33,9 +33,13 @@ import torch
 FORMAT = "torch.distributed.checkpoint"
 
 
-def save_orbax(directory: str, name: str, epoch: int, params: dict, optimizer=None) -> str:
+def save_orbax(directory: str, name: str, epoch: int, params: dict, optimizer=None,
+               opt_params=None) -> str:
     """Write ``{directory}/{name}/orbax-{epoch}/{params,opt_state}``, its
-    ``meta.json`` and the pointer; returns the checkpoint's directory."""
+    ``meta.json`` and the pointer; returns the checkpoint's directory.
+    ``opt_params`` names the optimizer's parameters where they are not the
+    leaves of ``params`` (a Dassl model's flax-layout leaves,
+    :func:`ovmr_tpu_torch.engine.checkpoint.optimizer_state_arrays`)."""
     import torch.distributed.checkpoint as dcp
 
     from ovmr_tpu_torch.engine.checkpoint import named_leaves, optimizer_state_arrays
@@ -47,7 +51,7 @@ def save_orbax(directory: str, name: str, epoch: int, params: dict, optimizer=No
     dcp.save({k: v.detach().cpu() for k, v in named_leaves(params)},
              checkpoint_id=osp.join(path, "params"))
     if optimizer is not None:
-        opt = optimizer_state_arrays(optimizer, params)
+        opt = optimizer_state_arrays(optimizer, params if opt_params is None else opt_params)
         dcp.save({k: torch.as_tensor(v) for k, v in opt.items()},
                  checkpoint_id=osp.join(path, "opt_state"))
     if is_primary():

@@ -188,15 +188,17 @@ def encode_features(
     mean: Sequence[float] = CLIP_MEAN,
     std: Sequence[float] = CLIP_STD,
     block_fn=fused_residual_block,
+    unit_norm: bool = True,
 ) -> torch.Tensor:
-    """Unit image features [n, D] in ``dtype``, on the device of
-    ``images``: a float NCHW batch is cast to ``dtype``, a uint8 NHWC batch
-    normalised with ``mean``/``std`` first."""
+    """Image features [n, D] in ``dtype``, on the device of ``images``,
+    L2-normalised unless ``unit_norm=False``: a float NCHW batch is cast to
+    ``dtype``, a uint8 NHWC batch normalised with ``mean``/``std`` first."""
     if images.dtype == torch.uint8:
         x = normalize_u8(images, tuple(mean), tuple(std), dtype).permute(0, 3, 1, 2)
     else:
         x = images.to(dtype)
-    return l2_normalize(tclip.encode_image(clip_params, clip_cfg, x, block_fn=block_fn))
+    feats = tclip.encode_image(clip_params, clip_cfg, x, block_fn=block_fn)
+    return l2_normalize(feats) if unit_norm else feats
 
 
 def make_feature_extractor(
@@ -209,9 +211,11 @@ def make_feature_extractor(
     u8_normalize: bool = True,
     tp_block_fn=None,
     mesh=None,
+    unit_norm: bool = True,
 ):
-    """Returns ``encode(clip_params, images) -> L2-normalised fp32 features
-    [n, D]`` (numpy), by :func:`encode_features`.
+    """Returns ``encode(clip_params, images) -> fp32 features [n, D]``
+    (numpy), by :func:`encode_features`: L2-normalised unless
+    ``unit_norm=False`` (the lpclip dump keeps the reference's raw features).
 
     ``images`` (numpy or tensor) is a float NCHW batch or a uint8 NHWC one,
     normalised on the device; with ``u8_normalize=False`` a uint8 batch is
@@ -245,7 +249,7 @@ def make_feature_extractor(
 
         def enc(x):
             return encode_features(clip_params, clip_cfg, x.to(device), dtype, mean, std,
-                                   block_fn=block_fn)
+                                   block_fn=block_fn, unit_norm=unit_norm)
 
         feats = enc(images) if mesh is None else map_data_shards(mesh, enc, images)
         return feats.float().cpu().numpy()[:n]
@@ -337,7 +341,7 @@ def mm_generate_classifiers(
 def build_trainer(cfg):
     # the trainers of other modules register themselves when imported (the
     # counterpart of the JAX package's ``register_all_trainers``)
-    from ovmr_tpu_torch.engine import coop, da, dg, zsclip  # noqa: F401
+    from ovmr_tpu_torch.engine import coop, da, dg, ssl, zsclip  # noqa: F401
 
     return TRAINER_REGISTRY.get(cfg.TRAINER.NAME)(cfg)
 

@@ -6,7 +6,8 @@ the two packages, and the data axis.
   (template: ``tests/test_dassl_trainers.py:125-252``); ADDA and AdaBN start
   from the checkpoint a SourceOnly run wrote, and AdaBN moves no parameter.
 - A DANN run (two models: the model and its critic) saved by the port
-  resumes in the JAX package, and the JAX run's next checkpoint in the port.
+  resumes in the JAX package, and the JAX run's next checkpoint in the port;
+  saved through ``CUDA.CHECKPOINT_BACKEND orbax`` it resumes in the port.
 - DANN on 2 local data shards (``CUDA.MESH.DATA 2``) equals the single
   program, and two gloo ranks, one shard each, equal it too (templates:
   ``tests/test_dassl_mesh.py:75``, ``tests/test_torch_dg_trainers.py``);
@@ -155,10 +156,13 @@ def test_dann_checkpoints_resume_across_the_packages(tmp_path):
 
 
 def test_dassl_orbax_refusal_names_item_8(tmp_path):
-    trainer = build_trainer(make_cfg(tmp_path, "SourceOnly",
-                                     **{"CUDA.CHECKPOINT_BACKEND": "orbax"}))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trainer.save_model(1)
+    """The orbax refusal (ROADMAP Queue 1 item 8) is lifted: DANN's two
+    models save through ``CUDA.CHECKPOINT_BACKEND orbax`` to the npz run's
+    state and resume from it, optimizer state included, bit for bit."""
+    from tests.test_torch_ssl_trainers import dassl_orbax_round_trip
+
+    resumed = dassl_orbax_round_trip(tmp_path, make_cfg, "DANN")
+    assert resumed.get_model_names() == ["model", "critic"]
 
 
 # --------------------------------------------------------------------------

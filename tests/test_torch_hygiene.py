@@ -44,13 +44,14 @@ def test_port_imports_no_jax_and_nothing_of_ovmr_tpu():
                    "modeling/ops.py", "modeling/backbones.py", "modeling/heads.py",
                    "modeling/networks.py", "engine/dassl_base.py", "engine/dg.py",
                    "data/autoaugment.py", "data/datasets/dg.py", "data/datasets/da.py",
-                   "engine/da.py"):
+                   "engine/da.py", "engine/ssl.py", "data/datasets/ssl.py",
+                   "lpclip/__init__.py", "lpclip/__main__.py", "lpclip/feat_extractor.py"):
         assert f"ovmr_tpu_torch/{module}" in names, module
     bad = []
     for path in files:
         for name in _imports(ast.parse(path.read_text(), str(path))):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "flax", "optax", "ovmr_tpu"):
+            if top in ("jax", "jaxlib", "flax", "optax", "ovmr_tpu", "lpclip"):
                 bad.append(f"{path.relative_to(ROOT)}: {name}")
     assert not bad, bad
 
