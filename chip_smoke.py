@@ -250,8 +250,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    through ``ovmr_tpu_torch.train.main``: SourceOnly, ADDA and AdaBN (from
    SourceOnly's checkpoint), DANN and DANN on 2 local data shards at
    Office-31's recipe, MCD, MME and SE on Digit-5's SourceOnly recipe, and
-   M3SDA, DAEL and CDAC on their own (epochs cut), each with its warm step,
-   busy share, peak memory and no K1-K8 launch.
+   M3SDA, DAEL and CDAC on their own (epochs cut; CDAC's to its 3
+   unlabelled batches), each with its warm step, busy share, peak memory
+   and no K1-K8 launch.
 22. The Dassl SSL trainers, with torch's own TF32 flags: a CIFAR-10 tree
    (10 classes x 400 + 20 PNGs at 32 x 32), then for FixMatch, SupBaseline,
    EntMin, MeanTeacher and MixMatch two steps of CIFAR-10's FixMatch recipe
@@ -264,12 +265,24 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    per-shard BatchNorm); then the six runs through
    ``ovmr_tpu_torch.train.main`` (FixMatch, FixMatch on 2 local data
    shards, SupBaseline, EntMin, MeanTeacher, MixMatch; 250 labels, one
-   epoch), each with its warm step, busy share, peak memory and no K1-K8
-   launch; then lpclip's extractor (``ovmr_tpu_torch.lpclip``) over the
-   train and test splits of Synthetic 100 x 12 at 224 px with a random
-   ViT-B/16 in bf16: images a second, K1 and K2 12 + 12 a batch of 100 and
-   no other kernel, raw finite features, and the fp32 features card vs CPU
-   within 1e-4 of their scale.
+   epoch of the labelled stream's 3 steps), each with its warm step, busy
+   share, peak memory and no K1-K8 launch; then lpclip's extractor
+   (``ovmr_tpu_torch.lpclip``) over the train and test splits of Synthetic
+   100 x 12 at 224 px with a random ViT-B/16 in bf16: images a second, K1
+   and K2 12 + 12 a batch of 100 and no other kernel, raw finite features,
+   and the fp32 features card vs CPU within 1e-4 of their scale.
+23. The whole-batch Dassl trainers under a process group, on phases
+   20-22's trees: DAELDG (PACS), M3SDA, DAEL, CDAC (Digit-5) and MixMatch
+   (CIFAR-10, two views) take their gates' two steps in one process on the
+   card, then on two gloo ranks sharing the card (NCCL refuses two ranks
+   on one card; the ranks start while the one process steps), each rank
+   holding its block of every batch, from the same state, batches and
+   host draws: each rank against the one process at phases 20-22's gates,
+   the two ranks bit for bit, and the rank-local control (its gathers,
+   blocks and domain groups of the rank's own rows), which must fail
+   them; then DAEL through ``ovmr_tpu_torch.train.main`` on the two ranks
+   with the sliced loader for two steps (equal losses, the npz by rank 0
+   alone); the two-rank and one-process walls, peak memory, no K1-K8.
 
 In bf16 every K1, K2 and K8 launches the wgmma GEMM twice, every K5 twice
 a chunk, every K4 twice (its c_fc recompute and GELU' product are one
@@ -4270,6 +4283,11 @@ def _dg_line(key, res):
             f"{upd:.3g} of its update")
 
 
+def _dg_gate_opts(root, tag):
+    """The options of ``tag``'s gate steps: its recipe at DG_GATE_LR."""
+    return ["OPTIM.LR", repr(_dg_cfg(root, tag, "cuda").OPTIM.LR * DG_GATE_LR)]
+
+
 def dg_card_vs_cpu(torch, np, root: Path, tag: str):
     """The run's recipe, at the gates' learning rate, on the card and on
     the CPU from one seeded initial state (the card's, carried to the CPU
@@ -4278,7 +4296,7 @@ def dg_card_vs_cpu(torch, np, root: Path, tag: str):
     same two steps on
     two local data shards against the card's one program, and the
     per-shard BatchNorm control, which fails them."""
-    lr = ["OPTIM.LR", repr(_dg_cfg(root, tag, "cuda").OPTIM.LR * DG_GATE_LR)]
+    lr = _dg_gate_opts(root, tag)
     card = _dg_trainer(torch, root, tag, "cuda", lr)
     init = {name: card.model_state(name) for name in card.get_model_names()}
     stream = iter(card.train_loader)
@@ -4324,12 +4342,12 @@ def dg_card_vs_cpu(torch, np, root: Path, tag: str):
                                  f"tell it from the path")
 
 
-def dg_phase(torch, np):
-    """Phase 20: a PACS-layout tree, then the published recipes on the card
-    through the entry point (Vanilla, DDAIG, DAELDG, CrossGrad, DomainMix,
-    Vanilla on 2 local data shards) and each one's card-vs-CPU gate."""
+def dg_phase(torch, np, root: Path):
+    """Phase 20: a PACS-layout tree under ``root``, then the published
+    recipes on the card through the entry point (Vanilla, DDAIG, DAELDG,
+    CrossGrad, DomainMix, Vanilla on 2 local data shards) and each one's
+    card-vs-CPU gate."""
     t0 = time.perf_counter()
-    root = Path(tempfile.mkdtemp(prefix="ovmr_dg_smoke_"))
     # torch's own TF32 defaults, as a user's process has them, for the whole
     # phase: the entry point and the Dassl steps must turn TF32 off themselves
     flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -4352,7 +4370,6 @@ def dg_phase(torch, np):
             torch.cuda.empty_cache()
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
-        shutil.rmtree(root, ignore_errors=True)
     print(f"[dg] phase 20 in {time.perf_counter() - t0:.1f} s", flush=True)
     return paths
 
@@ -4419,7 +4436,9 @@ def write_da_trees(np, root: Path) -> int:
 
 # run -> (trainer, dataset, the trainer's yaml, the cuts and the trainer's
 # own required settings as options). SE needs two views of an image
-# (K_TRANSFORMS 2), which Digit-5's SourceOnly yaml does not set.
+# (K_TRANSFORMS 2), which Digit-5's SourceOnly yaml does not set. CDAC's
+# epoch counts its unlabelled stream's 3 steps, not the labelled one's 12,
+# to keep the script inside its time limit (its gate steps on its own).
 DA_RUNS = {
     "source_only": ("SourceOnly", "office31", "source_only", ["OPTIM.MAX_EPOCH", "1"]),
     "adda": ("ADDA", "office31", "source_only", ["OPTIM.MAX_EPOCH", "1"]),
@@ -4432,7 +4451,7 @@ DA_RUNS = {
     "se": ("SE", "digit5", "source_only", ["OPTIM.MAX_EPOCH", "1", "DATALOADER.K_TRANSFORMS", "2"]),
     "m3sda": ("M3SDA", "digit5", "m3sda", ["OPTIM.MAX_EPOCH", "1"]),
     "dael": ("DAEL", "digit5", "dael", ["OPTIM.MAX_EPOCH", "1"]),
-    "cdac": ("CDAC", "digit5", "cdac", ["OPTIM.MAX_EPOCH", "1"]),
+    "cdac": ("CDAC", "digit5", "cdac", ["OPTIM.MAX_EPOCH", "1", "TRAIN.COUNT_ITER", "train_u"]),
 }
 # ADDA and AdaBN start from the checkpoint SourceOnly's run wrote
 DA_FROM_SOURCE = ("adda", "adabn")
@@ -4628,11 +4647,18 @@ def da_card_vs_cpu(torch, np, root: Path, tag: str):
         _da_card_vs_cpu(torch, np, root, tag)
 
 
-def _da_card_vs_cpu(torch, np, root: Path, tag: str):
+def _da_gate_opts(root, tag):
+    """The options of ``tag``'s gate steps: its recipe at its cut of the
+    learning rate, the ResNet-50 recipes at DA_GATE_BATCH."""
     cut = DA_GATE_LR_CUT.get(tag, DG_GATE_LR)
     lr = ["OPTIM.LR", repr(_da_cfg(root, tag, "cuda").OPTIM.LR * cut)]
     if DA_RUNS[tag][1] == "office31":
         lr += ["DATALOADER.TRAIN_X.BATCH_SIZE", str(DA_GATE_BATCH)]
+    return lr
+
+
+def _da_card_vs_cpu(torch, np, root: Path, tag: str):
+    lr = _da_gate_opts(root, tag)
     card = _da_trainer(torch, root, tag, "cuda", lr)
     init = {n: card.model_state(n) for n in card.get_model_names()}
     if DA_RUNS[tag][1] == "office31" and DA_GATE_ZERO_RESIDUAL:
@@ -4692,13 +4718,12 @@ def _hold_gates(prefix, tag, lr, batches, on_card, cpu_s, held, controls, noise)
                                  f"cannot tell it from the path")
 
 
-def da_phase(torch, np):
-    """Phase 21: an Office-31 and a Digit-5 tree, each trainer's card-vs-CPU
-    gate, then the eleven runs through the entry point. SourceOnly runs
-    first, since the gates and runs of ADDA and AdaBN start from its
-    checkpoint."""
+def da_phase(torch, np, root: Path):
+    """Phase 21: an Office-31 and a Digit-5 tree under ``root``, each
+    trainer's card-vs-CPU gate, then the eleven runs through the entry
+    point. SourceOnly runs first, since the gates and runs of ADDA and AdaBN
+    start from its checkpoint."""
     t0 = time.perf_counter()
-    root = Path(tempfile.mkdtemp(prefix="ovmr_da_smoke_"))
     # torch's own TF32 defaults, as a user's process has them, for the whole
     # phase: the entry point and the Dassl steps must turn TF32 off themselves
     flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -4723,7 +4748,6 @@ def da_phase(torch, np):
                 torch.cuda.empty_cache()
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
-        shutil.rmtree(root, ignore_errors=True)
     print(f"[da] phase 21 in {time.perf_counter() - t0:.1f} s", flush=True)
     return paths
 
@@ -4736,8 +4760,10 @@ CIFAR10_CLASSES = ("airplane", "automobile", "bird", "cat", "deer", "dog", "frog
                    "ship", "truck")
 CIFAR10_TRAIN, CIFAR10_TEST = 400, 20  # PNGs a class
 SSL_SEED = 1
-# the recipe's 4000 labels cut to FixMatch's own smallest CIFAR-10 setting
-SSL_CUTS = ["OPTIM.MAX_EPOCH", "1", "DATASET.NUM_LABELED", "250"]
+# the recipe's 4000 labels cut to FixMatch's own smallest CIFAR-10 setting;
+# an epoch counts the labelled stream's 3 steps, not the unlabelled one's 8,
+# to keep the script inside its time limit (the gates step on their own)
+SSL_CUTS = ["OPTIM.MAX_EPOCH", "1", "DATASET.NUM_LABELED", "250", "TRAIN.COUNT_ITER", "train_x"]
 # run -> (trainer, its own settings as options): every trainer runs on
 # FixMatch's CIFAR-10 yamls with its name changed; MixMatch needs two views
 SSL_RUNS = {
@@ -4840,6 +4866,15 @@ def _ssl_trainer(torch, root, tag, device, extra=()):
     return build_trainer(cfg)
 
 
+def _ssl_gate_opts(root, tag):
+    """The options of ``tag``'s gate steps: its recipe at SSL_GATE_LR and
+    SSL_GATE_BATCH, with SSL_GATE_OPTS."""
+    return ["OPTIM.LR", repr(_ssl_cfg(root, tag, "cuda").OPTIM.LR * SSL_GATE_LR),
+            "DATALOADER.TRAIN_X.BATCH_SIZE", str(SSL_GATE_BATCH[0]),
+            "DATALOADER.TRAIN_U.BATCH_SIZE", str(SSL_GATE_BATCH[1]),
+            *SSL_GATE_OPTS.get(tag, [])]
+
+
 def ssl_card_vs_cpu(torch, np, root: Path, tag: str):
     """The run's recipe at the gates' lr and batch, on the card and on the
     CPU from one seeded initial state (the card's, carried to the CPU
@@ -4850,10 +4885,7 @@ def ssl_card_vs_cpu(torch, np, root: Path, tag: str):
     same two steps on two local data shards against the card's one program,
     and the per-shard BatchNorm control, which fails them."""
     with _host_draws(torch):
-        opts = ["OPTIM.LR", repr(_ssl_cfg(root, tag, "cuda").OPTIM.LR * SSL_GATE_LR),
-                "DATALOADER.TRAIN_X.BATCH_SIZE", str(SSL_GATE_BATCH[0]),
-                "DATALOADER.TRAIN_U.BATCH_SIZE", str(SSL_GATE_BATCH[1]),
-                *SSL_GATE_OPTS.get(tag, [])]
+        opts = _ssl_gate_opts(root, tag)
         card = _ssl_trainer(torch, root, tag, "cuda", opts)
         init = {n: card.model_state(n) for n in card.get_model_names()}
         batches = list(zip(_two_batches(card.dm.train_loader_x),
@@ -4974,12 +5006,11 @@ def lpclip_phase(torch, np, root: Path):
     return launches, shapes
 
 
-def ssl_phase(torch, np):
-    """Phase 22: a CIFAR-10 tree, each SSL trainer's card-vs-CPU gate, the
-    six runs through the entry point, then lpclip's extractor. Returns every
-    run's (launches, shapes)."""
+def ssl_phase(torch, np, root: Path):
+    """Phase 22: a CIFAR-10 tree under ``root``, each SSL trainer's
+    card-vs-CPU gate, the six runs through the entry point, then lpclip's
+    extractor. Returns every run's (launches, shapes)."""
     t0 = time.perf_counter()
-    root = Path(tempfile.mkdtemp(prefix="ovmr_ssl_smoke_"))
     # torch's own TF32 defaults, as a user's process has them, for the whole
     # phase: the entry points and the Dassl steps must turn TF32 off themselves
     flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -4999,12 +5030,288 @@ def ssl_phase(torch, np):
             torch.cuda.empty_cache()
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
-    try:
-        paths["lpclip"] = lpclip_phase(torch, np, root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    paths["lpclip"] = lpclip_phase(torch, np, root)
     print(f"[ssl] phase 22 in {time.perf_counter() - t0:.1f} s", flush=True)
     return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the whole-batch Dassl trainers on two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# the trainers whose losses span the whole batch, each at its phase's gate
+# (the recipe, the gate's cut of the lr and its batches): DAELDG at PACS's
+# (phase 20), M3SDA, DAEL and CDAC at Digit-5's (phase 21), MixMatch at
+# CIFAR-10's FixMatch recipe with two views (phase 22)
+PG_TRAINERS = ("daeldg", "m3sda", "dael", "cdac", "mixmatch")
+# DAEL through the entry point on the two ranks: the Digit-5 tree's 200
+# images a source domain give the recipe's batch of 256 (4 x 64) three
+# steps an epoch, 384 (4 x 96) two
+PG_DAEL_BATCH = 384
+PG_WAIT_S = 600  # a rank's wait for the one-process run's states and batches
+
+
+def _pg_trainer(torch, root, tag, device="cuda"):
+    """``tag``'s gate trainer, as its phase builds it (under a process group
+    its data axis spans the ranks)."""
+    if tag in DG_RUNS:
+        return _dg_trainer(torch, root, tag, device, _dg_gate_opts(root, tag))
+    if tag in SSL_RUNS:
+        return _ssl_trainer(torch, root, tag, device, _ssl_gate_opts(root, tag))
+    return _da_trainer(torch, root, tag, device, _da_gate_opts(root, tag))
+
+
+def _pg_replay(torch, np, trainer, init, batches, tag):
+    if tag in DG_RUNS:
+        return _dg_replay(np, trainer, init, batches, tag)
+    return _da_replay(torch, np, trainer, init, batches, tag)
+
+
+def _pg_write(obj, path: Path) -> None:
+    """The states and batches the parent and the ranks hand each other
+    (numpy arrays in dicts, ~1 GB), pickled with protocol 5, which writes an
+    array's bytes as they are (``torch.save`` pickles numpy arrays through
+    protocol 2, far slower at this size)."""
+    import pickle
+
+    with open(path, "wb") as f:
+        pickle.dump(obj, f, protocol=5)
+
+
+def _pg_read(path: Path):
+    import pickle
+
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _rank_local(trainer):
+    """The control: ``trainer`` with its cross-rank step made rank-local.
+    Its gathers and blocks are this rank's rows and its domain groups a
+    reshape of its own block, so the moments, the similarities, the domain
+    groups and MixMatch's shuffle span this rank's rows only."""
+    trainer.gather_rows = lambda x: x
+    trainer.own_rows = lambda x: x
+    trainer.domain_groups = lambda x, n, split: [
+        (rows, 0) for rows in x.reshape((n, -1) + tuple(x.shape[1:]))]
+    return trainer
+
+
+def _pg_rank(rank, world, root):
+    """One rank of phase 23: joins a gloo group of ``world`` ranks on the one
+    card; replays each trainer's two gate steps from the one-process run's
+    state and batches (``refs.pt``) with the same draws, then its rank-local
+    control; then trains DAEL through ``ovmr_tpu_torch.train.main`` for
+    two steps with the sliced loader. Saves its readings for the parent."""
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ovmr_tpu_torch import train as entry
+    from ovmr_tpu_torch.engine import da
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    root = Path(root)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{root}/pg/rendezvous", rank=rank,
+                            world_size=world)
+    try:
+        cuda_lib.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        # each trainer and its control, built while the parent takes the
+        # one-process steps
+        trainers, builds = {}, {}
+        for tag in PG_TRAINERS:
+            t = time.perf_counter()
+            trainers[tag] = (_pg_trainer(torch, root, tag),
+                             _rank_local(_pg_trainer(torch, root, tag)))
+            builds[tag] = time.perf_counter() - t
+            if trainers[tag][0].axis is None or trainers[tag][0].axis.group is None:
+                raise AssertionError(f"[pg] rank {rank}: {tag} has no data axis over the ranks")
+        refs_path, deadline = root / "pg" / "refs.pt", time.perf_counter() + PG_WAIT_S
+        while not refs_path.exists():
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"[pg] rank {rank}: no {refs_path} after {PG_WAIT_S} s")
+            time.sleep(0.1)
+        refs = _pg_read(refs_path)
+        out = {}
+        with _host_draws(torch):
+            for tag in PG_TRAINERS:
+                init, batches, _ = refs[tag]
+                t = time.perf_counter()
+                run = _pg_replay(torch, np, trainers[tag][0], init, batches, tag)
+                walls = [builds[tag], time.perf_counter() - t]
+                control = _pg_replay(torch, np, trainers[tag][1], init, batches, tag)
+                walls.append(time.perf_counter() - t - walls[1])
+                out[tag] = {"run": run, "control": control, "walls": walls}
+                del trainers[tag]
+                torch.cuda.empty_cache()
+        launches = dict(cuda_lib.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        seen = []
+        orig = da.DAEL.forward_backward_xu
+
+        def recording(self, batch_x, batch_u):
+            result = orig(self, batch_x, batch_u)
+            seen.append((result["loss"], bool(batch_x.get("_local", False)),
+                         len(batch_x["label"])))
+            return result
+
+        da.DAEL.forward_backward_xu = recording
+        t = time.perf_counter()
+        argv = da_argv(root, root / "pg" / f"dael-rank{rank}", "dael", [
+            "DATALOADER.TRAIN_X.BATCH_SIZE", str(PG_DAEL_BATCH), "TEST.NO_TEST", "True",
+            "TRAIN.PRINT_FREQ", "1"])
+        run_entry(entry.build_parser(), entry, argv)
+        torch.cuda.synchronize()
+        entry_s = time.perf_counter() - t
+        _pg_write({"out": out, "launches": launches, "peak": peak, "seen": seen,
+                   "entry_s": entry_s, "entry_launches": dict(cuda_lib.LAUNCHES)},
+                  root / "pg" / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _states_equal(np, a, b) -> bool:
+    """Two runs' losses and states bit for bit."""
+    flat_a = {n: dict(_dg_flat(state)) for n, state in a[2].items()}
+    flat_b = {n: dict(_dg_flat(state)) for n, state in b[2].items()}
+    return a[0] == b[0] and all(
+        flat_a[n].keys() == flat_b[n].keys() and all(np.array_equal(v, flat_b[n][k])
+                                                     for k, v in flat_a[n].items())
+        for n in flat_a)
+
+
+def pg_phase(torch, np, root=None):
+    """Phase 23: phases 20-22's trees (under ``root``; written anew in a
+    directory of its own when None), then each whole-batch trainer's two
+    gate steps on the card in one process, the same steps on two gloo ranks
+    sharing the card (NCCL refuses two ranks on one card), each holding its
+    block of every batch, held against the one process at phases 20-22's
+    gates and bit for bit against each other, and the rank-local control,
+    which must fail them; then DAEL through ``ovmr_tpu_torch.train.main``
+    on the two ranks with the sliced loader (losses equal on both, the npz
+    written by rank 0 alone)."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    from ovmr_tpu_torch.ops import cuda_lib
+
+    t0 = time.perf_counter()
+    own = root is None
+    root = Path(tempfile.mkdtemp(prefix="ovmr_pg_smoke_")) if own else root
+    (root / "pg").mkdir()
+    # torch's own TF32 defaults, as in phases 20-22 (and in the ranks)
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        if own:
+            n = write_pacs(np, root) + write_da_trees(np, root) + write_cifar10(np, root)
+            print(f"[pg] PACS, Office-31, Digit-5 and CIFAR-10 trees: {n} images in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t = time.perf_counter()
+        # the two ranks' gloo traffic over the loopback interface, unless the
+        # caller chose one: on the card's machine a 64-float all-reduce takes
+        # 3.8-4.5 ms over the default interface, 1.2-1.5 ms over lo (PERF.md)
+        ifname = os.environ.get("GLOO_SOCKET_IFNAME")
+        os.environ["GLOO_SOCKET_IFNAME"] = ifname or "lo"
+        try:
+            # the ranks start (the imports, the card, the process group, the
+            # trainers) while this process takes the one-process steps, which
+            # they then read
+            ranks_run = mp.spawn(_pg_rank, args=(2, str(root)), nprocs=2, join=False)
+        finally:
+            if ifname is None:
+                os.environ.pop("GLOO_SOCKET_IFNAME")
+        try:
+            refs = {}
+            cuda_lib.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            with _host_draws(torch):
+                for tag in PG_TRAINERS:
+                    card = _pg_trainer(torch, root, tag)
+                    init = {name: card.model_state(name) for name in card.get_model_names()}
+                    if tag in DG_RUNS:
+                        batches = _two_batches(card.train_loader)
+                    else:
+                        batches = list(zip(_two_batches(card.dm.train_loader_x),
+                                           _two_batches(card.dm.train_loader_u)))
+                    refs[tag] = (init, batches, _pg_replay(torch, np, card, init, batches, tag))
+                    del card
+                    torch.cuda.empty_cache()
+            launches = dict(cuda_lib.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            _pg_write(refs, root / "pg" / "refs.part")
+            (root / "pg" / "refs.part").replace(root / "pg" / "refs.pt")
+            refs_s = time.perf_counter() - t
+            while not ranks_run.join():
+                pass
+        finally:
+            for proc in ranks_run.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join()
+        spawn_s = time.perf_counter() - t - refs_s
+        ranks = [_pg_read(root / "pg" / f"rank{r}.pt") for r in range(2)]
+        for tag in PG_TRAINERS:
+            init, batches, ref = refs[tag]
+            runs = [got["out"][tag]["run"] for got in ranks]
+            held = {f"rank {r} vs one process": _dg_compare(np, run, ref, init, tag)
+                    for r, run in enumerate(runs)}
+            controls = {f"rank {r} rank-local vs one process":
+                        _dg_compare(np, got["out"][tag]["control"], ref, init, tag)
+                        for r, got in enumerate(ranks)}
+            rows = (len(batches[0]["label"]) if tag in DG_RUNS else
+                    f"{len(batches[0][0]['label'])} + {len(batches[0][1]['label'])}")
+            build_s, run_s, control_s = ranks[0]["out"][tag]["walls"]
+            print(f"[pg] {tag} (batch {rows}, 2 steps; the warm step {1e3 * ref[1][1]:.1f} ms "
+                  f"in one process, {1e3 * runs[0][1][1]:.1f} / {1e3 * runs[1][1][1]:.1f} ms "
+                  f"on the two ranks, unprofiled; rank 0's builds of it and its control "
+                  f"{build_s:.1f} s, its steps {run_s:.1f} s, the control's {control_s:.1f} s): "
+                  + "; ".join(_dg_line(k, v) for k, v in held.items())
+                  + "; controls: " + "; ".join(_dg_line(k, v) for k, v in controls.items()),
+                  flush=True)
+            for key, (loss_ratio, leaf_ratio, (leaf, err, scale), _) in held.items():
+                if loss_ratio > 1 or leaf_ratio > 1:
+                    raise AssertionError(f"[pg] {tag} {key}: losses at {loss_ratio:.3g} of their "
+                                         f"gate, {leaf} off by {err:.3g} (scale {scale:.3g}) at "
+                                         f"{leaf_ratio:.3g} of its gate")
+            for key, (loss_ratio, leaf_ratio, _, _) in controls.items():
+                if loss_ratio <= 1 and leaf_ratio <= 1:
+                    raise AssertionError(f"[pg] {tag} control {key} met every gate: the gates "
+                                         f"cannot tell it from the path")
+            if not _states_equal(np, runs[0], runs[1]):
+                raise AssertionError(f"[pg] {tag}: the two ranks' losses or states differ")
+        for r, got in enumerate(ranks):
+            if any(got["launches"].values()) or any(got["entry_launches"].values()):
+                raise AssertionError(f"[pg] rank {r} launched K1-K8: {got['launches']}, "
+                                     f"{got['entry_launches']}")
+        if any(launches.values()):
+            raise AssertionError(f"[pg] the one-process steps launched K1-K8: {launches}")
+        half = PG_DAEL_BATCH // 2
+        for r, got in enumerate(ranks):
+            if [(local, rows) for _, local, rows in got["seen"]] != [(True, half)] * 2:
+                raise AssertionError(f"[pg] DAEL entry run, rank {r}: batches {got['seen']}")
+        losses = [[loss for loss, _, _ in got["seen"]] for got in ranks]
+        if losses[0] != losses[1] or not all(math.isfinite(v) for v in losses[0]):
+            raise AssertionError(f"[pg] DAEL entry run: losses differ across the ranks: {losses}")
+        written = [(root / "pg" / f"dael-rank{r}" / name / "model-1.npz").is_file()
+                   for r in range(2) for name in ("F", "E")]
+        if written != [True, True, False, False]:
+            raise AssertionError(f"[pg] DAEL entry run: npz written {written}, not by rank 0 alone")
+        print(f"[pg] DAEL through train.main on the two ranks, the sliced loader: 2 steps, "
+              f"{half} source rows a rank a step, losses {losses[0]} on both, npz by rank 0 "
+              f"alone, run wall {ranks[0]['entry_s']:.1f} s; the one-process steps with "
+              f"their builds and batches {refs_s:.1f} s (while the ranks started and built "
+              f"theirs), the ranks after them {spawn_s:.1f} s; peak memory {peak:.2f} GiB in one process, "
+              f"{ranks[0]['peak']:.2f} / {ranks[1]['peak']:.2f} GiB on the ranks; K1-K8 "
+              f"launches 0", flush=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+        shutil.rmtree(root if own else root / "pg", ignore_errors=True)
+    print(f"[pg] phase 23 in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -5159,15 +5466,23 @@ def main() -> int:
         all_checked(path, recorded[1])
     torch.cuda.empty_cache()
     lap("phases 14-19")
-    paths.update(dg_phase(torch, np))  # phase 20: no K1-K8 launch on the DG paths
-    lap("phase 20")
-    paths.update(da_phase(torch, np))  # phase 21: no K1-K8 launch on the DA paths
-    lap("phase 21")
-    # phase 22: no K1-K8 launch on the SSL paths; lpclip's K1/K2 at the
-    # test pass' shape phase 2 held
-    paths.update(ssl_phase(torch, np))
-    all_checked("lpclip", paths["lpclip"][1])
-    lap("phase 22")
+    # phases 20-22 write their trees under one root, which phase 23 reads
+    dassl_root = Path(tempfile.mkdtemp(prefix="ovmr_dassl_smoke_"))
+    try:
+        paths.update(dg_phase(torch, np, dassl_root))  # phase 20: no K1-K8 on the DG paths
+        lap("phase 20")
+        paths.update(da_phase(torch, np, dassl_root))  # phase 21: no K1-K8 on the DA paths
+        lap("phase 21")
+        # phase 22: no K1-K8 launch on the SSL paths; lpclip's K1/K2 at the
+        # test pass' shape phase 2 held
+        paths.update(ssl_phase(torch, np, dassl_root))
+        all_checked("lpclip", paths["lpclip"][1])
+        lap("phase 22")
+        # phase 23: no K1-K8 launch on the process-group Dassl paths
+        pg_phase(torch, np, dassl_root)
+        lap("phase 23")
+    finally:
+        shutil.rmtree(dassl_root, ignore_errors=True)
 
     for entry in kernels:
         # launches: the wrapper's count over the three ViT-B/16 requests +

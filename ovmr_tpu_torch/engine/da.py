@@ -33,8 +33,11 @@ from are those the JAX step threads into it; a forward under
   the experts.
 
 M3SDA, DAEL and CDAC compute losses over the whole batch (domain groups,
-moments, pairwise similarities): on local data shards they run as one
-program; under a process group they refuse (ROADMAP Queue 1 item 8).
+moments, pairwise similarities). Under a process group each rank forwards
+its rows of every domain group (:meth:`DasslTrainer.domain_groups`), and
+the moments and the pairs take every rank's rows through
+:meth:`DasslTrainer.gather_rows`, so every rank takes the single program's
+update.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from ovmr_tpu_torch.engine.dassl_base import (
     StackedLinears,
     TrainerXU,
     build_simplenet,
+    expert_losses,
     split_views,
 )
 from ovmr_tpu_torch.engine.optimizers import set_lr
@@ -392,7 +396,6 @@ class M3SDA(_SeparateModels):
         assert not cfg.DATALOADER.TRAIN_U.SAME_AS_X
 
     def build_model(self):
-        self.refuse_process_group()
         self.n_domain, self.split_batch = _domain_groups(self.cfg, self.num_source_domains)
         self.build_f()
         self.C = self.add_model("C", _PairClassifiers(self.num_source_domains, self.net.fdim,
@@ -403,16 +406,22 @@ class M3SDA(_SeparateModels):
         img_x, label_x, domain_x = self.parse_batch_train(batch_x)
         img_u, _, _ = self.parse_batch_train(batch_u)
         n, split = self.n_domain, self.split_batch
-        imgs = img_x.reshape((n, split) + img_x.shape[1:])
-        labels = label_x.reshape(n, split)
-        # a group's domain id from any of its rows (RandomDomainSampler
-        # groups the rows [n_domain, split])
-        doms = domain_x.reshape(n, split)[:, 0]
+        imgs = self.domain_groups(img_x, n, split)
+        labels = [y for y, _ in self.domain_groups(label_x, n, split)]
+        # a group's domain id from any of its rows of the whole batch
+        # (RandomDomainSampler groups the rows [n_domain, split])
+        doms = self.gather_rows(domain_x).reshape(n, -1)[:, 0]
         t = self.cfg.TRAINER.M3SDA
         lmda, n_step_f = float(t.LMDA), int(t.N_STEP_F)
-        netF, pair = self.net, self.C
+        netF, pair, s = self.net, self.C, self.loss_scale
 
         def moment_distance(feats, feat_u):
+            # the moments of every rank's rows: each rank computes them
+            # whole, its share loss_scale of them
+            feats = self.gather_rows(torch.cat(feats))
+            feats = feats.reshape((n, -1) + feats.shape[1:])
+            feat_u = self.gather_rows(feat_u)
+
             def pairwise(vs, u):
                 dist = sum((vs[i] - u).pow(2).sum().sqrt() for i in range(n))
                 count = n
@@ -424,13 +433,14 @@ class M3SDA(_SeparateModels):
 
             d1 = pairwise(feats.mean(1), feat_u.mean(0))
             d2 = pairwise(feats.var(1), feat_u.var(0))  # unbiased, as torch's default
-            return (d1 + d2) / 2
+            return (d1 + d2) / 2 * s
 
         def ce_pair(feats):
             loss = 0.0
             for g in range(n):
                 z1, z2 = pair(doms[g], feats[g])
-                loss = loss + F.cross_entropy(z1, labels[g]) + F.cross_entropy(z2, labels[g])
+                loss = loss + (F.cross_entropy(z1, labels[g], reduction="sum")
+                               + F.cross_entropy(z2, labels[g], reduction="sum")) / split
             return loss / n
 
         def dis_pair(feat_u):
@@ -438,13 +448,13 @@ class M3SDA(_SeparateModels):
             for g in range(n):
                 z1, z2 = pair(doms[g], feat_u)
                 loss = loss + (torch.softmax(z1, 1) - torch.softmax(z2, 1)).abs().mean()
-            return loss / n
+            return loss / n * s
 
         netF.train()
         with self.step_scope(split, img_u.shape[0]):
             # A: F once per source domain (each sub-batch normalised by its
             # own statistics), then the target batch
-            feats = torch.stack([netF(imgs[g]) for g in range(n)])
+            feats = self.forward_groups(netF, imgs, split)
             feat_u = netF(img_u)
             loss_a = ce_pair(feats) + moment_distance(feats, feat_u) * lmda
             self.backward_and_update(loss_a, ("F", "C"))
@@ -452,18 +462,17 @@ class M3SDA(_SeparateModels):
             # forwards: the target first, then each domain)
             with torch.no_grad():
                 feat_u = netF(img_u)
-                feats = torch.stack([netF(imgs[g]) for g in range(n)])
+                feats = self.forward_groups(netF, imgs, split)
             loss_b = ce_pair(feats) - dis_pair(feat_u)
             self.backward_and_update(loss_b, "C")
             # C: F minimises it
-            loss_c = torch.zeros(())
+            loss_c = torch.zeros((), device=img_u.device)
             for _ in range(n_step_f):
                 loss_c = dis_pair(netF(img_u))
                 self.backward_and_update(loss_c, "F")
-        out = {"loss_step_A": float(loss_a.detach()), "loss_step_B": float(loss_b.detach()),
-               "loss_step_C": float(loss_c.detach())}
-        out["loss"] = out["loss_step_A"]
-        return out
+        loss_a, loss_b, loss_c = self.global_sums(loss_a, loss_b, loss_c)
+        return {"loss_step_A": loss_a, "loss_step_B": loss_b, "loss_step_C": loss_c,
+                "loss": loss_a}
 
     @torch.no_grad()
     def model_inference(self, batch, scale_no=0):
@@ -490,7 +499,6 @@ class DAEL(_SeparateModels):
                            allow_local_batches=type(self).SUPPORTS_LOCAL_BATCHES)
 
     def build_model(self):
-        self.refuse_process_group()
         self.n_domain, self.split_batch = _domain_groups(self.cfg, self.num_source_domains)
         self.build_f()
         self.E = self.add_model("E", StackedLinears(self.num_source_domains, self.net.fdim,
@@ -500,22 +508,21 @@ class DAEL(_SeparateModels):
     def forward_backward_xu(self, batch_x, batch_u):
         t = self.cfg.TRAINER.DAEL
         conf_thre, weight_u = float(t.CONF_THRE), float(t.WEIGHT_U)
-        img_x = self.rows(np.asarray(batch_x["img"], np.float32))
-        img_x2 = self.rows(np.asarray(batch_x["img2"], np.float32))
-        label = self.rows(np.asarray(batch_x["label"], np.int64))
-        domain = self.rows(np.asarray(batch_x["domain"], np.int64))
-        img_u = self.rows(np.asarray(batch_u["img"], np.float32))
-        img_u2 = self.rows(np.asarray(batch_u["img2"], np.float32))
         n, split, n_src = self.n_domain, self.split_batch, self.num_source_domains
-        labels = F.create_onehot(label, self.num_classes).to(img_x.device).reshape(n, split, -1)
-        doms = domain.reshape(n, split)[:, 0]
-        imgs = img_x.reshape((n, split) + img_x.shape[1:])
-        imgs2 = img_x2.reshape((n, split) + img_x2.shape[1:])
+        imgs = self.domain_groups(self.batch_rows(batch_x, "img"), n, split)
+        imgs2 = self.domain_groups(self.batch_rows(batch_x, "img2"), n, split)
+        label = self.batch_rows(batch_x, "label", np.int64)
+        labels = [F.create_onehot(y, self.num_classes) for y, _ in self.domain_groups(label, n, split)]
+        # a group's domain id from any of its rows of the whole batch
+        doms = self.gather_rows(self.batch_rows(batch_x, "domain", np.int64)).reshape(n, -1)[:, 0]
+        img_u = self.batch_rows(batch_u, "img")
+        img_u2 = self.batch_rows(batch_u, "img2")
         netF, expert = self.net, self.E
         netF.train()
         with self.step_scope(split, img_u.shape[0]):
-            # pseudo-labels from the most confident expert; the forward
-            # advances F's statistics, which the update's forwards start from
+            # pseudo-labels from the most confident expert, row by row; the
+            # forward advances F's statistics, which the update's forwards
+            # start from
             with torch.no_grad():
                 feat_u0 = netF(img_u)
                 pred_u = torch.stack([expert(k, feat_u0) for k in range(n_src)])  # [K, B, C]
@@ -528,30 +535,17 @@ class DAEL(_SeparateModels):
                 mask_u = (experts_max_p.max(0).values >= conf_thre).float()
             # the reference's order: every weak source view, every strong
             # one, then the strong target view
-            feats = [netF(imgs[g]) for g in range(n)]
-            feats2 = [netF(imgs2[g]) for g in range(n)]
+            feats = self.forward_groups(netF, imgs, split)
+            feats2 = self.forward_groups(netF, imgs2, split)
             feat_u2 = netF(img_u2)
-            loss_x = loss_cr = acc = 0.0
-            for g in range(n):
-                pred_i = expert(doms[g], feats[g])
-                loss_x = loss_x + (-labels[g] * torch.log(pred_i + 1e-5)).sum(1).mean()
-                expert_label = pred_i.detach()
-                acc = acc + (pred_i.argmax(1) == labels[g].argmax(1)).float().mean() * 100.0
-                # consistency: the other domains' experts on the strong view
-                cr = torch.zeros_like(pred_i)
-                for h in range(n):
-                    if h != g:
-                        cr = cr + expert(doms[h], feats2[g])
-                cr = cr / (n - 1)
-                loss_cr = loss_cr + ((cr - expert_label) ** 2).sum(1).mean()
-            loss_x, loss_cr, acc = loss_x / n, loss_cr / n, acc / n
+            loss_x, loss_cr, acc = expert_losses(expert, doms, feats, feats2, labels, split)
             pred_u2 = torch.stack([expert(k, feat_u2) for k in range(n_src)]).mean(0)
             loss_u = ((-pseudo_1h * torch.log(pred_u2 + 1e-5)).sum(1) * mask_u).mean()
+            loss_u = loss_u * self.loss_scale
             self.backward_and_update(loss_x + loss_cr + loss_u * weight_u, ("F", "E"))
-        out = {"loss_x": float(loss_x.detach()), "acc_x": float(acc),
-               "loss_cr": float(loss_cr.detach()), "loss_u": float(loss_u.detach())}
-        out["loss"] = out["loss_x"]
-        return out
+        loss_x, acc, loss_cr, loss_u = self.global_sums(loss_x, acc, loss_cr, loss_u)
+        return {"loss_x": loss_x, "acc_x": acc, "loss_cr": loss_cr, "loss_u": loss_u,
+                "loss": loss_x}
 
     @torch.no_grad()
     def model_inference(self, batch, scale_no=0):
@@ -579,7 +573,6 @@ class CDAC(_SeparateModels):
                            allow_local_batches=type(self).SUPPORTS_LOCAL_BATCHES)
 
     def build_model(self):
-        self.refuse_process_group()
         self.build_f()
         self.C = self.add_model("C", Prototypes(self.net.fdim, self.num_classes))
         # the lr follows the per-iteration annealing, not the epoch table
@@ -611,44 +604,47 @@ class CDAC(_SeparateModels):
         label_u = self.rows(np.asarray(batch_u["label"], np.int64)[::k], loc_u)
         cons_multi = F.sigmoid_rampup(current_itr, int(t.RAMPUP_ITRS)) * float(t.RAMPUP_COEF)
         topk, p_thresh = int(t.TOPK_MATCH), float(t.P_THRESH)
-        netF, protC = self.net, self.C
+        netF, protC, s = self.net, self.C, self.loss_scale
         netF.train()
         with self.step_scope(img_x.shape[0], img_u.shape[0]):
             # supervised update
             logit_x = protC(netF(img_x))
-            loss_x = F.cross_entropy(logit_x, label_x)
+            loss_x = F.cross_entropy(logit_x, label_x) * s
             self.backward_and_update(loss_x, ("F", "C"))
             # unsupervised update
             feat_u, feat_us, feat_us2 = netF(img_u), netF(img_us), netF(img_us2)
             prob_u_r = torch.softmax(protC(feat_u, reverse=True), 1)
             prob_us_r = torch.softmax(protC(feat_us, reverse=True), 1)
             # rows match when their top-k feature-index sets are equal (a
-            # stable sort, reversed: ties order as in the JAX step)
+            # stable sort, reversed: ties order as in the JAX step); the
+            # pairs are this rank's rows against every rank's (their sets,
+            # and their probabilities with the gradient)
             order = torch.argsort(feat_u.detach(), dim=1, stable=True).flip(1)[:, :topk]
             top = torch.sort(order, dim=1).values
-            sim_mat = (top[:, None, :] == top[None, :, :]).all(-1).float()
-            p = prob_u_r @ prob_us_r.T
+            sim_mat = (top[:, None, :] == self.gather_rows(top)[None, :, :]).all(-1).float()
+            p = prob_u_r @ self.gather_rows(prob_us_r).T
             aac_loss = (sim_mat * torch.log(p + 1e-7)
-                        + (1.0 - sim_mat) * torch.log(1.0 - p + 1e-7)).mean()
+                        + (1.0 - sim_mat) * torch.log(1.0 - p + 1e-7)).mean() * s
             prob_u = torch.softmax(protC(feat_u), 1).detach()
             logit_us2 = protC(feat_us2)
             prob_us = torch.softmax(protC(feat_us), 1)
             prob_us2 = torch.softmax(logit_us2, 1)
             max_probs, max_idx = prob_u.max(1).values, prob_u.argmax(1)
             mask = (max_probs >= p_thresh).float()
-            pl_loss = (F.cross_entropy(logit_us2, max_idx, reduction="none") * mask).mean()
-            cons_loss = cons_multi * ((prob_us - prob_us2) ** 2).mean()
+            pl_loss = (F.cross_entropy(logit_us2, max_idx, reduction="none") * mask).mean() * s
+            cons_loss = cons_multi * ((prob_us - prob_us2) ** 2).mean() * s
             loss_u = aac_loss + pl_loss + cons_loss
             self.backward_and_update(loss_u, ("F", "C"))
+        # the pseudo-labels' quality, counted over every rank's rows
         hit = (max_idx == label_u).float()
-        acc = (logit_x.argmax(1) == label_x).float().mean() * 100.0
-        out = {"loss_x": float(loss_x.detach()), "acc_x": float(acc),
-               "loss_u": float(loss_u.detach()), "aac_loss": float(aac_loss.detach()),
-               "pl_loss": float(pl_loss.detach()), "cons_loss": float(cons_loss.detach()),
-               "p_u_pred_acc_thre": float((hit * mask).sum() / (mask.sum() + 1e-5)),
-               "p_u_pred_acc": float(hit.mean()), "p_u_pred_keep": float(mask.mean())}
-        out["loss"] = out["loss_x"]
-        return out
+        acc = (logit_x.argmax(1) == label_x).float().mean() * 100.0 * s
+        loss_x, acc, loss_u, aac_loss, pl_loss, cons_loss, hits_kept, n_kept, hits, n_u = (
+            self.global_sums(loss_x, acc, loss_u, aac_loss, pl_loss, cons_loss, (hit * mask).sum(),
+                             mask.sum(), hit.sum(), hit.new_tensor(float(hit.numel()))))
+        return {"loss_x": loss_x, "acc_x": acc, "loss_u": loss_u, "aac_loss": aac_loss,
+                "pl_loss": pl_loss, "cons_loss": cons_loss,
+                "p_u_pred_acc_thre": hits_kept / (n_kept + 1e-5),
+                "p_u_pred_acc": hits / n_u, "p_u_pred_keep": n_kept / n_u, "loss": loss_x}
 
     def model_inference(self, batch, scale_no=0):
         return self.infer(self.eval_images(batch), self.C)

@@ -24,7 +24,15 @@ torch does them. The epoch loop, evaluation and checkpoint cadence are
   global batch's, as the GSPMD program of the JAX package computes them.
   Under a process group each rank steps on its block of the batch, the
   row-mean losses are divided by the axis size and the gradients summed
-  over it, which gives every rank the single program's update.
+  over it, which gives every rank the single program's update. The
+  trainers whose losses span the whole batch take what crosses the ranks
+  from :meth:`DasslTrainer.gather_rows` (the data axis' all-gather, whose
+  backward sums the ranks' cotangents) and their domain groups from
+  :meth:`DasslTrainer.domain_groups` (a rank's block cuts across the
+  groups: each group's BatchNorm statistics are those of all its rows, a
+  loss over a group this rank's share of the group's sum); dropout draws
+  the mask of the whole batch and keeps this rank's rows
+  (:func:`ovmr_tpu_torch.modeling.ops.row_window`).
 - **Checkpoints** are the JAX package's npz files
   (:mod:`ovmr_tpu_torch.engine.checkpoint`): one subdirectory a model,
   ``params//params//...`` and ``params//batch_stats//...`` in the flax
@@ -163,6 +171,31 @@ class StackedLinears(nn.Module):
         return torch.softmax(out, dim=1) if self.softmax else out
 
 
+def expert_losses(expert: StackedLinears, doms, feats, feats2, labels, split: int):
+    """DAEL's losses over the domain groups (reference ``da/dael.py``,
+    ``dg/daeldg.py``): each group's expert's cross entropy on the weak view,
+    the squared distance of the other domains' experts' mean on the strong
+    view to that expert's (detached) prediction, and the expert's accuracy.
+    ``feats``, ``feats2`` and the one-hot ``labels`` are a group a list
+    (:meth:`DasslTrainer.domain_groups`' pieces); a group's row sum over its
+    ``split`` rows is this process's share of the group's mean. Returns
+    ``(loss_x, loss_cr, acc)``, each averaged over the groups."""
+    n = len(feats)
+    loss_x = loss_cr = acc = 0.0
+    for g in range(n):
+        pred_i = expert(doms[g], feats[g])
+        loss_x = loss_x + (-labels[g] * torch.log(pred_i + 1e-5)).sum(1).sum() / split
+        expert_label = pred_i.detach()
+        acc = acc + (pred_i.argmax(1) == labels[g].argmax(1)).float().sum() / split * 100.0
+        cr = torch.zeros_like(pred_i)
+        for h in range(n):
+            if h != g:
+                cr = cr + expert(doms[h], feats2[g])
+        cr = cr / (n - 1)
+        loss_cr = loss_cr + ((cr - expert_label) ** 2).sum(1).sum() / split
+    return loss_x / n, loss_cr / n, acc / n
+
+
 def load_init_weights(net: nn.Module, path: str) -> nn.Module:
     """Load ``MODEL.INIT_WEIGHTS`` (an npz of the JAX package's or the
     port's Dassl checkpoints: ``params//params//...`` and
@@ -258,17 +291,6 @@ class DasslTrainer(TrainerBase):
     def check_cfg(self, cfg):
         pass
 
-    def refuse_process_group(self):
-        """Refuse a process group, where a rank holds a block of the batch,
-        for a trainer whose losses span the whole batch (domain groups,
-        moments, pairwise similarities, a shuffle of the joint batch;
-        ROADMAP Queue 1 item 8)."""
-        if self.axis is not None and self.axis.group is not None:
-            raise NotImplementedError(
-                f"{type(self).__name__}'s losses span the whole batch; run it on one process "
-                "(CUDA.MESH.DATA n runs n local shards there); several processes are ROADMAP "
-                "Queue 1 item 8")
-
     @property
     def num_classes(self):
         return self.dm.num_classes
@@ -313,15 +335,21 @@ class DasslTrainer(TrainerBase):
         modules' draws, and the data axis for BatchNorm when each of the
         step's batches (``rows``: the row counts its BatchNorms see) splits
         over its local shards (on one process a batch that does not split
-        runs as one program, which computes the same statistics)."""
+        runs as one program, which computes the same statistics). Under a
+        process group a forward's rows are this rank's block of its batch,
+        whose dropout mask is drawn whole (:func:`F.row_window`), unless the
+        step says otherwise (:meth:`forward_groups`)."""
         axis = self.axis
-        if axis is not None and any(r % len(axis.shards) for r in rows):
-            if axis.group is not None:
-                raise ValueError(f"{rows} rows do not split over {len(axis.shards)} data shards")
+        if axis is not None and axis.group is None and any(r % len(axis.shards) for r in rows):
             axis = None
+        window = None
+        if axis is not None and axis.group is not None:
+            d, size = axis.shards[0], axis.size
+            window = lambda n: (d * n, size * n)  # noqa: E731
         with exact_fp32_convolutions(), F.rng_scope(self.step_generator()) as gen:
             with data_axis_scope(axis) if axis is not None else contextlib.nullcontext():
-                yield gen
+                with F.row_window(window):
+                    yield gen
 
     def sync_grads(self, *nets: nn.Module) -> None:
         """Sum the gradients over the data axis' process group (a no-op
@@ -336,10 +364,69 @@ class DasslTrainer(TrainerBase):
     def global_value(self, value: torch.Tensor) -> float:
         """A logged scalar over the whole batch: this rank's share summed
         over the group (a ``loss_scale``-weighted loss), else itself."""
-        value = value.detach().float().reshape(())
+        return self.global_sums(value)[0]
+
+    def global_sums(self, *values: torch.Tensor) -> list:
+        """Scalars summed over the data axis' process group (themselves
+        without one), in one all-reduce, as floats."""
+        sums = torch.stack([v.detach().float().reshape(()) for v in values])
         if self.axis is not None and self.axis.group is not None:
-            value = self.axis.sum_(value.clone())
-        return float(value)
+            sums = self.axis.sum_(sums)
+        return [float(v) for v in sums]
+
+    # -- rows across the data axis' ranks ----------------------------------
+    def row_offset(self, n_local: int) -> int:
+        """The batch index of the first of this process's ``n_local`` rows:
+        its data shard's block under a process group, 0 otherwise."""
+        if self.axis is None or self.axis.group is None:
+            return 0
+        return self.axis.shards[0] * n_local
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a batch whose block this process holds, in
+        the batch's order: under a process group the data axis' all-gather,
+        whose backward sums the cotangents over the ranks (so a loss that
+        every rank computes whole, scaled by ``loss_scale``, gives each
+        rank's rows their whole gradient); ``x`` itself otherwise."""
+        if self.axis is None or self.axis.group is None:
+            return x
+        return self.axis.gather([x])
+
+    def own_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's block of a batch it holds whole (the inverse of
+        :meth:`gather_rows`)."""
+        from ovmr_tpu_torch.parallel.mesh import shard_batch
+
+        return x if self.mesh is None else shard_batch(self.mesh, x)
+
+    def domain_groups(self, x: torch.Tensor, n_domain: int, split: int) -> list:
+        """This process's rows of each domain group of a
+        ``RandomDomainSampler`` batch (``[n_domain, split]`` rows of the
+        whole batch), in group order, each as ``(rows, offset)``: the rows
+        and the index of the first in its group. On one process these are
+        the groups; under a process group a rank's block cuts across them,
+        so a group's rows may be split over the ranks or none of them this
+        rank's (an empty piece: the rank still forwards it, joining the
+        group's BatchNorm collectives in the same order as the others)."""
+        lo = self.row_offset(x.shape[0])
+        hi = lo + x.shape[0]
+        pieces = []
+        for g in range(n_domain):
+            a = min(max(g * split, lo), hi)
+            b = max(min((g + 1) * split, hi), a)
+            pieces.append((x[a - lo:b - lo], a - g * split))
+        return pieces
+
+    @staticmethod
+    def forward_groups(net: nn.Module, pieces: list, split: int) -> list:
+        """``net`` on each of :meth:`domain_groups`' pieces in turn: within a
+        step's scope each group's BatchNorm statistics are those of all its
+        rows, and dropout draws the group's mask and keeps these rows."""
+        outs = []
+        for rows, offset in pieces:
+            with F.row_window(lambda n, offset=offset: (offset, split)):
+                outs.append(net(rows))
+        return outs
 
     def backward_and_update(self, loss: torch.Tensor, names) -> None:
         """One update of the models ``names`` from ``loss`` (this rank's
@@ -389,13 +476,16 @@ class DasslTrainer(TrainerBase):
                                "!= 1 or disable CUDA.MULTIHOST_SLICED_LOADER")
         return x.to(self.device, non_blocking=True)
 
+    def batch_rows(self, batch, key, dtype=np.float32) -> torch.Tensor:
+        """This process's rows of ``batch[key]`` on the device (a batch that
+        the sliced loader decoded, ``_local``, holds only them)."""
+        return self.rows(np.asarray(batch[key], dtype), bool(batch.get("_local", False)))
+
     def parse_batch_train(self, batch):
-        local = bool(batch.get("_local", False))
-        img = self.rows(np.asarray(batch["img"], np.float32), local)
-        label = self.rows(np.asarray(batch["label"], np.int64), local)
-        domain = self.rows(np.asarray(batch.get("domain", np.zeros_like(batch["label"])),
-                                      np.int64), local)
-        return img, label, domain
+        if "domain" not in batch:
+            batch = {**batch, "domain": np.zeros_like(batch["label"])}
+        return (self.batch_rows(batch, "img"), self.batch_rows(batch, "label", np.int64),
+                self.batch_rows(batch, "domain", np.int64))
 
     def forward_backward(self, batch):
         img, label, _ = self.parse_batch_train(batch)

@@ -19,7 +19,12 @@ import torch
 
 from ovmr_tpu_torch.data.manager import DataManager
 from ovmr_tpu_torch.data.transforms import build_transform
-from ovmr_tpu_torch.engine.dassl_base import StackedLinears, TrainerX, build_simplenet
+from ovmr_tpu_torch.engine.dassl_base import (
+    StackedLinears,
+    TrainerX,
+    build_simplenet,
+    expert_losses,
+)
 from ovmr_tpu_torch.engine.schedule import lr_schedule_from_cfg
 from ovmr_tpu_torch.engine.trainer import TRAINER_REGISTRY
 from ovmr_tpu_torch.modeling import build_network
@@ -151,9 +156,9 @@ class DDAIG(_FDTrainer):
 @TRAINER_REGISTRY.register()
 class DAELDG(TrainerX):
     """DAEL for DG, labeled sources only (reference ``dg/daeldg.py``):
-    per-domain experts + cross-expert consistency on the strong view. Its
-    per-domain groups are blocks of the whole batch, so under a process
-    group it refuses (on local data shards it is one program)."""
+    per-domain experts + cross-expert consistency on the strong view. Under
+    a process group each rank forwards its rows of every domain group
+    (:meth:`DasslTrainer.domain_groups`)."""
 
     def check_cfg(self, cfg):
         assert cfg.DATALOADER.TRAIN_X.SAMPLER == "RandomDomainSampler"
@@ -168,7 +173,6 @@ class DAELDG(TrainerX):
 
     def build_model(self):
         cfg = self.cfg
-        self.refuse_process_group()
         n_domain = cfg.DATALOADER.TRAIN_X.N_DOMAIN
         if n_domain <= 0:
             n_domain = self.num_source_domains
@@ -185,42 +189,24 @@ class DAELDG(TrainerX):
         self.lr_table = lr_schedule_from_cfg(cfg.OPTIM)
 
     def forward_backward(self, batch):
-        img = self.rows(np.asarray(batch["img"], np.float32))
-        img2 = self.rows(np.asarray(batch["img2"], np.float32))
-        label = self.rows(np.asarray(batch["label"], np.int64))
-        domain = self.rows(np.asarray(batch["domain"], np.int64))
         n, split = self.n_domain, self.split_batch
-        labels = F.create_onehot(label, self.num_classes).to(img.device).reshape(n, split, -1)
-        doms = domain.reshape(n, split)[:, 0]
-        imgs = img.reshape((n, split) + img.shape[1:])
-        imgs2 = img2.reshape((n, split) + img2.shape[1:])
-        netF, expert = self.net, self.E
+        img = self.domain_groups(self.batch_rows(batch, "img"), n, split)
+        img2 = self.domain_groups(self.batch_rows(batch, "img2"), n, split)
+        label = self.batch_rows(batch, "label", np.int64)
+        labels = [F.create_onehot(y, self.num_classes) for y, _ in self.domain_groups(label, n, split)]
+        # a group's domain id from any of its rows of the whole batch
+        doms = self.gather_rows(self.batch_rows(batch, "domain", np.int64)).reshape(n, -1)[:, 0]
+        netF = self.net
         netF.train()
         with self.step_scope(split):
             # the reference's order: every weak view, then every strong view
             # (BN running statistics depend on it)
-            feats = [netF(imgs[g]) for g in range(n)]
-            feats2 = [netF(imgs2[g]) for g in range(n)]
-            loss_x = loss_cr = acc = 0.0
-            for g in range(n):
-                pred_i = expert(doms[g], feats[g])
-                loss_x = loss_x + (-labels[g] * torch.log(pred_i + 1e-5)).sum(1).mean()
-                expert_label = pred_i.detach()
-                acc = acc + (pred_i.argmax(1) == labels[g].argmax(1)).float().mean() * 100.0
-                # consistency: the mean of the other domains' experts on
-                # the strong view
-                cr = torch.zeros_like(pred_i)
-                for h in range(n):
-                    if h != g:
-                        cr = cr + expert(doms[h], feats2[g])
-                cr = cr / (n - 1)
-                loss_cr = loss_cr + ((cr - expert_label) ** 2).sum(1).mean()
-            loss_x, loss_cr, acc = loss_x / n, loss_cr / n, acc / n
+            feats = self.forward_groups(netF, img, split)
+            feats2 = self.forward_groups(netF, img2, split)
+            loss_x, loss_cr, acc = expert_losses(self.E, doms, feats, feats2, labels, split)
             self.backward_and_update(loss_x + loss_cr, ("F", "E"))
-        out = {"loss_x": float(loss_x.detach()), "acc": float(acc),
-               "loss_cr": float(loss_cr.detach())}
-        out["loss"] = out["loss_x"]
-        return out
+        loss_x, acc, loss_cr = self.global_sums(loss_x, acc, loss_cr)
+        return {"loss_x": loss_x, "acc": acc, "loss_cr": loss_cr, "loss": loss_x}
 
     @torch.no_grad()
     def model_inference(self, batch, scale_no=0):

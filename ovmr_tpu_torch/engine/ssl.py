@@ -17,8 +17,9 @@ statistics each forward starts from are those the JAX step threads into it.
   with per-row coefficients. The permutation and the coefficients are drawn
   on the host from the step's seed (:meth:`MixMatch.mixup_draws`), so the
   card and the CPU draw the same ones and a caller can inject its own. They
-  span the whole batch: under a process group MixMatch refuses (ROADMAP
-  Queue 1 item 8); on local data shards it runs as one program.
+  span the whole batch: under a process group every rank builds the whole
+  joint batch from every rank's rows (the images and the guesses gathered)
+  and forwards its own block of the mixed rows.
 - FixMatch: confident pseudo-labels from a no-grad weak forward over
   ``cat(x, u)`` supervise the strong views ``cat(x2, u2)``; the strong views
   come from ``tfm_train_strong`` as ``img2`` (keyed on the global stream
@@ -122,10 +123,6 @@ class MixMatch(TrainerXU):
     def check_cfg(self, cfg):
         assert cfg.DATALOADER.K_TRANSFORMS > 1
 
-    def build_model(self):
-        self.refuse_process_group()
-        super().build_model()
-
     def mixup_draws(self, gen: torch.Generator, n_x: int, n_u: int):
         """The step's shuffle of the ``n_x + n_u`` joint rows and the
         coefficients of the labeled and the unlabeled mixup (``max(lam,
@@ -150,34 +147,37 @@ class MixMatch(TrainerXU):
         imgs_u = [self.rows(np.ascontiguousarray(views_u[:, v]), loc_u) for v in range(k)]
         global_step = self.batch_idx + self.epoch * self.num_batches
         weight_u = float(t_cfg.WEIGHT_U) * F.linear_rampup(global_step, int(t_cfg.RAMPUP))
-        n_x, n_u = img_x.shape[0], k * imgs_u[0].shape[0]
-        net, n_cls = self.net, self.num_classes
+        net, n_cls, s = self.net, self.num_classes, self.loss_scale
         net.train()
-        with self.step_scope(n_x, imgs_u[0].shape[0], n_u) as gen:
+        with self.step_scope(img_x.shape[0], imgs_u[0].shape[0], k * imgs_u[0].shape[0]) as gen:
+            # the joint batch of every rank's rows: [x; u view 0; u view 1; ...]
+            all_x = self.gather_rows(img_x)
+            input_u = torch.cat([self.gather_rows(img) for img in imgs_u])  # view by view
+            n_x, n_u = all_x.shape[0], input_u.shape[0]
             perm, lam_x, lam_u = self.mixup_draws(gen, n_x, n_u)
-            # the guesses: K train-mode forwards without gradients, each
-            # advancing the BN statistics the update's forwards start from
+            # the guesses: K train-mode forwards of this rank's rows without
+            # gradients, each advancing the BN statistics the update's
+            # forwards start from
             with torch.no_grad():
                 p_sum = sum(torch.softmax(net(img), 1) for img in imgs_u)
-                label_u = F.sharpen_prob(p_sum / k, temp)
-            input_u = torch.cat(imgs_u)  # [K * B, ...], view by view
+                label_u = self.gather_rows(F.sharpen_prob(p_sum / k, temp))
             label_u_rep = label_u.repeat(k, 1)
-            label_x_1h = F.create_onehot(label_x, n_cls).to(img_x.device)
+            label_x_1h = F.create_onehot(self.gather_rows(label_x), n_cls).to(img_x.device)
             perm = torch.as_tensor(np.asarray(perm), device=img_x.device)
-            input_xu = torch.cat([img_x, input_u])[perm]
+            input_xu = torch.cat([all_x, input_u])[perm]
             label_xu = torch.cat([label_x_1h, label_u_rep])[perm]
-            mixed_x, mlabel_x = F.mixup(img_x, input_xu[:n_x], label_x_1h, label_xu[:n_x], beta,
+            mixed_x, mlabel_x = F.mixup(all_x, input_xu[:n_x], label_x_1h, label_xu[:n_x], beta,
                                         preserve_order=True, lam=lam_x)
             mixed_u, mlabel_u = F.mixup(input_u, input_xu[n_x:], label_u_rep, label_xu[n_x:],
                                         beta, preserve_order=True, lam=lam_u)
-            p_x = torch.softmax(net(mixed_x), 1)
-            loss_x = (-mlabel_x * torch.log(p_x + 1e-5)).sum(1).mean()
-            p_u = torch.softmax(net(mixed_u), 1)
-            loss_u = ((mlabel_u - p_u) ** 2).mean()
+            # this rank's block of the mixed rows
+            p_x = torch.softmax(net(self.own_rows(mixed_x)), 1)
+            loss_x = (-self.own_rows(mlabel_x) * torch.log(p_x + 1e-5)).sum(1).mean() * s
+            p_u = torch.softmax(net(self.own_rows(mixed_u)), 1)
+            loss_u = ((self.own_rows(mlabel_u) - p_u) ** 2).mean() * s
             self.backward_and_update(loss_x + loss_u * weight_u, "model")
-        out = {"loss_x": float(loss_x.detach()), "loss_u": float(loss_u.detach())}
-        out["loss"] = out["loss_x"]
-        return out
+        loss_x, loss_u = self.global_sums(loss_x, loss_u)
+        return {"loss_x": loss_x, "loss_u": loss_u, "loss": loss_x}
 
 
 @TRAINER_REGISTRY.register()
@@ -199,13 +199,10 @@ class FixMatch(TrainerXU):
     def forward_backward_xu(self, batch_x, batch_u):
         t_cfg = self.cfg.TRAINER.FIXMATCH
         conf_thre, weight_u = float(t_cfg.CONF_THRE), float(t_cfg.WEIGHT_U)
-        loc_x, loc_u = bool(batch_x.get("_local", False)), bool(batch_u.get("_local", False))
-        img_x = self.rows(np.asarray(batch_x["img"], np.float32), loc_x)
-        img_x2 = self.rows(np.asarray(batch_x["img2"], np.float32), loc_x)
-        label_x = self.rows(np.asarray(batch_x["label"], np.int64), loc_x)
-        img_u = self.rows(np.asarray(batch_u["img"], np.float32), loc_u)
-        img_u2 = self.rows(np.asarray(batch_u["img2"], np.float32), loc_u)
-        label_u = self.rows(np.asarray(batch_u["label"], np.int64), loc_u)
+        img_x, img_x2 = self.batch_rows(batch_x, "img"), self.batch_rows(batch_x, "img2")
+        label_x = self.batch_rows(batch_x, "label", np.int64)
+        img_u, img_u2 = self.batch_rows(batch_u, "img"), self.batch_rows(batch_u, "img2")
+        label_u = self.batch_rows(batch_u, "label", np.int64)
         n_x, n_xu = img_x.shape[0], img_x.shape[0] + img_u.shape[0]
         net, s = self.net, self.loss_scale
         net.train()
@@ -225,16 +222,10 @@ class FixMatch(TrainerXU):
         # assess_y_pred_quality), summed over the data axis' ranks
         hit = (label_u_pred[n_x:] == label_u).float()
         kept = mask_u[n_x:]
-        sums = torch.stack([(hit * kept).sum(), kept.sum(), hit.sum(),
-                            torch.tensor(float(hit.numel()), device=hit.device)])
-        if self.axis is not None and self.axis.group is not None:
-            sums = self.axis.sum_(sums)
-        hits_kept, n_kept, hits, n_u = (float(v) for v in sums)
         acc = (out_x.argmax(1) == label_x).float().mean() * 100.0
-        out = {"loss_x": self.global_value(loss_x * s), "acc_x": self.global_value(acc * s),
-               "loss_u": self.global_value(loss_u * s),
-               "y_u_pred_acc_raw": hits / n_u,
-               "y_u_pred_acc_thre": hits_kept / (n_kept + 1e-5),
-               "y_u_pred_keep": n_kept / n_u}
-        out["loss"] = out["loss_x"]
-        return out
+        loss_x, acc, loss_u, hits_kept, n_kept, hits, n_u = self.global_sums(
+            loss_x * s, acc * s, loss_u * s, (hit * kept).sum(), kept.sum(), hit.sum(),
+            hit.new_tensor(float(hit.numel())))
+        return {"loss_x": loss_x, "acc_x": acc, "loss_u": loss_u,
+                "y_u_pred_acc_raw": hits / n_u, "y_u_pred_acc_thre": hits_kept / (n_kept + 1e-5),
+                "y_u_pred_keep": n_kept / n_u, "loss": loss_x}

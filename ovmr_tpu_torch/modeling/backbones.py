@@ -70,7 +70,7 @@ def _bn(c, momentum=0.1, eps=1e-5):
 
 def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
     """Flatten an NCHW map in the JAX package's NHWC order."""
-    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+    return x.permute(0, 2, 3, 1).flatten(1)
 
 
 def _same_pad(x, kernel: int, stride: int):
@@ -491,7 +491,7 @@ class _MBConv(nn.Module):
                 keep = 1.0 - self.drop_connect
                 gen = ops.current_generator()
                 gdev = gen.device if gen is not None else x.device
-                u = torch.rand((x.shape[0], 1, 1, 1), generator=gen, device=gdev).to(x.device)
+                u = ops.rand_rows((x.shape[0], 1, 1, 1), gen, gdev).to(x.device)
                 x = x / keep * torch.floor(keep + u).to(x.dtype)
             x = x + inputs
         return x

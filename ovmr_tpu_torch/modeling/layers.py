@@ -10,17 +10,19 @@ maps one state onto the other leaf by leaf.
 class's name says it copies torch: the running variance from the unbiased
 batch variance, momentum 0.1 on the batch statistic, which is flax's 0.9
 on the running one). Inside :func:`data_axis_scope` its batch statistics
-are those of the global batch: the count, the sum and the centred sum of
-squares of each local data shard's block of rows are added in shard order
-and all-reduced over the axis' process group, Bessel's correction taken
-over the global count (the GSPMD program of the JAX package computes the
-same global statistics). Its gradient flows through those reductions.
+are those of the global batch: on local data shards the sum and the
+centred sum of squares of each shard's block of rows are added in shard
+order; under a process group each rank's count, mean and centred sum of
+squares are all-gathered and combined; Bessel's correction is taken over
+the global count (the GSPMD program of the JAX package computes the same
+global statistics). Its gradient flows through those reductions.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from typing import Optional
 
 import torch
@@ -34,7 +36,8 @@ _DATA_AXIS: contextvars.ContextVar = contextvars.ContextVar("dassl_data_axis", d
 def data_axis_scope(axis):
     """Within the block, train-mode BatchNorm reduces its statistics over
     ``axis`` (a :class:`ovmr_tpu_torch.parallel.mesh.DataAxis`): the rows it
-    is given are this process's, one equal block a local shard."""
+    is given are this process's, one equal block a local shard; under a
+    process group the ranks' row counts may differ (none included)."""
     token = _DATA_AXIS.set(axis)
     try:
         yield axis
@@ -46,36 +49,11 @@ def current_data_axis():
     return _DATA_AXIS.get()
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """All-reduce (SUM) over a process group whose backward all-reduces the
-    cotangent: each rank's partial sum feeds every rank's statistics."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        import torch.distributed as dist
-
-        ctx.group = group
-        x = x.contiguous().clone()
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        import torch.distributed as dist
-
-        g = g.contiguous().clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
-        return g, None
-
-
-def axis_sum(parts, axis) -> torch.Tensor:
-    """The sum over the whole data axis of one partial a local shard: added
-    in shard order, then all-reduced over the group (differentiably)."""
+def shard_sum(parts) -> torch.Tensor:
+    """The sum of one partial a local data shard, added in shard order."""
     total = parts[0]
     for part in parts[1:]:
         total = total + part
-    if axis is not None and axis.group is not None:
-        total = _AllReduceSum.apply(total, axis.group)
     return total
 
 
@@ -110,18 +88,45 @@ class TorchBatchNorm(nn.Module):
     def _global_batch_norm(self, x, axis):
         dims = (0,) if x.ndim == 2 else (0, 2, 3)
         shape = (1, -1) if x.ndim == 2 else (1, -1, 1, 1)
-        blocks = axis.split(x)
-        n = x.numel() // x.shape[1] * axis.size // len(axis.shards)
-        mean = axis_sum([b.sum(dims) for b in blocks], axis) / n
-        centred = [b - mean.reshape(shape) for b in blocks]
-        var = axis_sum([(c * c).sum(dims) for c in centred], axis) / n
+        if axis.group is not None:
+            mean, var, n = self._rank_statistics(x, axis, dims, shape)
+            centred = [x - mean.reshape(shape)]
+            bessel = (n.double() / (n.double() - 1).clamp_min(1)).to(mean.dtype)
+        else:
+            blocks = axis.split(x)
+            n = x.numel() // x.shape[1]
+            mean = shard_sum([b.sum(dims) for b in blocks]) / n
+            centred = [b - mean.reshape(shape) for b in blocks]
+            var = shard_sum([(c * c).sum(dims) for c in centred]) / n
+            bessel = n / max(n - 1, 1)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1 - m).add_(m * mean.detach())
-            self.running_var.mul_(1 - m).add_(m * var.detach() * (n / max(n - 1, 1)))
+            self.running_var.mul_(1 - m).add_(m * var.detach() * bessel)
         inv = torch.rsqrt(var + self.eps)
         y = torch.cat(centred) * inv.reshape(shape)
         return y * self.weight.reshape(shape) + self.bias.reshape(shape)
+
+    @staticmethod
+    def _rank_statistics(x, axis, dims, shape):
+        """The whole batch's mean, biased variance and count from every
+        rank's rows, in one collective each way: each rank's count, mean and
+        centred sum of squares, all-gathered (its backward all-reduces the
+        cotangent) and combined in rank order (Chan et al.'s pairwise
+        update), so every rank computes the same statistics. The ranks may
+        hold unequal rows (a domain group's, or none)."""
+        c = x.shape[1]
+        per_row = math.prod(x.shape[2:])
+        local_mean = x.sum(dims) / max(x.shape[0] * per_row, 1)
+        local_m2 = ((x - local_mean.reshape(shape)) ** 2).sum(dims)
+        # the rows, not the elements, travel: a row count stays exact in fp32
+        stats = torch.cat([local_mean, local_m2, local_mean.new_full((1,), x.shape[0])])
+        stats = axis.gather([stats[None]])  # [ranks, 2C + 1]
+        counts = stats[:, -1:] * per_row
+        n = counts.sum()
+        mean = (counts * stats[:, :c]).sum(0) / n
+        m2 = stats[:, c:2 * c].sum(0) + (counts * (stats[:, :c] - mean) ** 2).sum(0)
+        return mean, m2 / n, n
 
 
 class Attention(nn.Module):

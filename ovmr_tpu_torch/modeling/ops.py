@@ -53,10 +53,13 @@ __all__ = [
     "ema_update",
     "rng_scope",
     "current_generator",
+    "row_window",
+    "rand_rows",
     "dropout",
 ]
 
 _GENERATOR: contextvars.ContextVar = contextvars.ContextVar("dassl_generator", default=None)
+_ROWS: contextvars.ContextVar = contextvars.ContextVar("dassl_row_window", default=None)
 
 
 @contextlib.contextmanager
@@ -72,6 +75,35 @@ def rng_scope(generator: Optional[torch.Generator]):
 
 def current_generator() -> Optional[torch.Generator]:
     return _GENERATOR.get()
+
+
+@contextlib.contextmanager
+def row_window(window):
+    """Within the block, ``window(n)`` is ``(offset, total)``: the ``n``
+    rows a module is given are rows ``[offset, offset + n)`` of a batch of
+    ``total`` rows that other processes hold the rest of, and the per-row
+    draws (:func:`rand_rows`: dropout's mask, drop-connect's) are the whole
+    batch's, of which the module keeps those rows (so each process draws
+    what one process would for the whole batch). None draws for the rows
+    given."""
+    token = _ROWS.set(window)
+    try:
+        yield window
+    finally:
+        _ROWS.reset(token)
+
+
+def rand_rows(shape, generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
+    """Uniform draws of ``shape`` (rows first) from ``generator`` on
+    ``device`` (the generator's by default); within :func:`row_window`, the
+    given rows of the whole batch's draw."""
+    device = device if device is not None else _gen_device(generator, "cpu")
+    window = _ROWS.get()
+    if window is None:
+        return torch.rand(shape, generator=generator, device=device)
+    offset, total = window(shape[0])
+    return torch.rand((total,) + tuple(shape[1:]), generator=generator,
+                      device=device)[offset:offset + shape[0]]
 
 
 def _gen_device(generator: Optional[torch.Generator], fallback) -> torch.device:
@@ -94,7 +126,7 @@ def dropout(x: torch.Tensor, p: float, train: bool = True,
     generator = generator if generator is not None else current_generator()
     if generator is None:
         return F.dropout(x, p, training=True)
-    keep = torch.rand(x.shape, generator=generator, device=generator.device).to(x.device) >= p
+    keep = rand_rows(x.shape, generator).to(x.device) >= p
     return x * keep.to(x.dtype) / (1.0 - p)
 
 

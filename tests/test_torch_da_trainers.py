@@ -10,8 +10,11 @@ the two packages, and the data axis.
   saved through ``CUDA.CHECKPOINT_BACKEND orbax`` it resumes in the port.
 - DANN on 2 local data shards (``CUDA.MESH.DATA 2``) equals the single
   program, and two gloo ranks, one shard each, equal it too (templates:
-  ``tests/test_dassl_mesh.py:75``, ``tests/test_torch_dg_trainers.py``);
-  under the process group M3SDA, DAEL and CDAC refuse, naming ROADMAP item 8.
+  ``tests/test_dassl_mesh.py:75``, ``tests/test_torch_dg_trainers.py``); so
+  do M3SDA, DAEL and CDAC, whose losses span the whole batch (domain groups
+  cut by the ranks' blocks, moments, pairwise similarities), with dropout in
+  their heads, and M3SDA's domain groups that do not split evenly; each
+  one's rank-local control misses the gates.
 """
 
 import os
@@ -26,7 +29,18 @@ import torch.multiprocessing as mp
 
 from ovmr_tpu_torch.engine import trainer as trainer_mod
 from ovmr_tpu_torch.engine.trainer import build_trainer
-from tests.test_torch_dg_trainers import _assert_states_equal, _flat, _jax_trainer, make_cfg
+from tests.test_torch_dg_trainers import (
+    FLOAT64_CASES,
+    _assert_ranks_hold,
+    _assert_states_equal,
+    _flat,
+    _jax_trainer,
+    domain_batches,
+    gate_readings,
+    make_cfg,
+    rank_local,
+    trainer_leaves,
+)
 
 
 class _NoWriter:
@@ -202,6 +216,64 @@ def test_dann_on_local_data_shards_equals_one_program(tmp_path):
         np.testing.assert_allclose(b[k], a[k], atol=1e-4, rtol=0, err_msg=k)
 
 
+def _xu_steps(trainer, batches):
+    trainer.epoch, trainer.max_epoch, trainer.num_batches = 0, 2, len(batches)
+    trainer.before_epoch()
+    for trainer.batch_idx, (batch_x, batch_u) in enumerate(batches):
+        out = trainer.forward_backward_xu(batch_x, batch_u)
+    return out, trainer_leaves(trainer)
+
+
+def _target(rng, rows):
+    return {"img": rng.standard_normal((rows, 3, 32, 32)).astype(np.float32),
+            "img2": rng.standard_normal((rows, 3, 32, 32)).astype(np.float32),
+            "label": rng.integers(0, 4, rows)}
+
+
+def _grouped_batches(n_domain, split):
+    rng = np.random.default_rng(5)
+    return [(x, _target(rng, 8)) for x in domain_batches(n_domain, split)]
+
+
+def _paired_batches():
+    """CDAC's batches: 8 items of two adjacent views a batch."""
+    rng = np.random.default_rng(5)
+
+    def views(batch):
+        return {k: np.repeat(v, 2, axis=0) for k, v in batch.items()}
+
+    return [(views(_target(rng, 8)), views(_target(rng, 8))) for _ in range(2)]
+
+
+LIVE_HEAD = {"MODEL.HEAD.DROPOUT": 0.5}  # the heads' dropout draws per global row
+# case -> (trainer, overrides, source domains, batches); three groups of 4
+# rows cut by the ranks' blocks of 6, or two of 3 that do not split evenly
+WHOLE_BATCH = {
+    "M3SDA": ("M3SDA", {**TRAINERS["M3SDA"][0], "DATALOADER.TRAIN_X.N_DOMAIN": 3,
+                        "DATALOADER.TRAIN_X.BATCH_SIZE": 12}, 3, lambda: _grouped_batches(3, 4)),
+    "M3SDA-uneven": ("M3SDA", {**TRAINERS["M3SDA"][0], "DATALOADER.TRAIN_X.BATCH_SIZE": 6}, 2,
+                     lambda: _grouped_batches(2, 3)),
+    "DAEL": ("DAEL", {**TRAINERS["DAEL"][0], "DATALOADER.TRAIN_X.N_DOMAIN": 3,
+                      "DATALOADER.TRAIN_X.BATCH_SIZE": 12, "TRAINER.DAEL.CONF_THRE": 0.3}, 3,
+             lambda: _grouped_batches(3, 4)),
+    "CDAC": ("CDAC", {**TRAINERS["CDAC"][0], "TRAINER.CDAC.P_THRESH": 0.3}, 2, _paired_batches),
+}
+CONTROLS = ("M3SDA", "DAEL", "CDAC")
+
+
+def _whole_batch_case(tmp, case, control=False):
+    from ovmr_tpu_torch.engine import da
+    from tests.test_torch_da_trajectory import _float64_trainers
+    from tests.test_torch_dg_trajectory import replay_trainer
+
+    name, overrides, n_src, batches = WHOLE_BATCH[case]
+    torch.manual_seed(0)  # one init for every run
+    with _float64_trainers(case in FLOAT64_CASES):
+        trainer = replay_trainer(getattr(da, name), make_cfg(tmp, name, **overrides, **LIVE_HEAD),
+                                 num_source_domains=n_src)
+        return _xu_steps(rank_local(trainer) if control else trainer, batches())
+
+
 def _gloo_rank(rank, world, tmp):
     os.environ.update(OVMR_COORDINATOR=f"file://{tmp}/rendezvous", OVMR_NUM_PROCESSES=str(world),
                       OVMR_PROCESS_ID=str(rank))
@@ -213,42 +285,69 @@ def _gloo_rank(rank, world, tmp):
     from ovmr_tpu_torch.parallel import maybe_initialize_distributed
     from tests.test_torch_dg_trajectory import replay_trainer
 
+    path = pathlib.Path(tmp)
     assert maybe_initialize_distributed("cpu")
     try:
-        trainer = replay_trainer(da.DANN, make_cfg(pathlib.Path(tmp), "DANN"))
+        trainer = replay_trainer(da.DANN, make_cfg(path, "DANN"))
         assert trainer.axis.group is not None and trainer.loss_scale == 0.5
         out, state = _two_steps(trainer)
-        refusals = {}
-        for name in ("M3SDA", "DAEL", "CDAC"):
-            try:
-                replay_trainer(getattr(da, name), make_cfg(pathlib.Path(tmp), name))
-            except NotImplementedError as e:
-                refusals[name] = str(e)
-        torch.save({"out": out, "state": state, "refusals": refusals}, f"{tmp}/rank{rank}.pt")
+        runs = {case: _whole_batch_case(path, case) for case in WHOLE_BATCH}
+        controls = {case: _whole_batch_case(path, case, control=True) for case in CONTROLS}
+        torch.save({"out": out, "state": state, "runs": runs, "controls": controls},
+                   f"{tmp}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def test_dann_two_gloo_ranks_equal_one_program(tmp_path):
-    """One data shard a rank: the global BN statistics of the model and the
-    critic, the row-mean losses' share and the summed gradients give the
-    single program's update on both ranks; the whole-batch trainers refuse."""
+@pytest.fixture(scope="module")
+def gloo_runs(tmp_path_factory):
+    """The one-process runs, then one spawn of two gloo ranks running them
+    again: DANN, M3SDA, DAEL and CDAC, and the controls."""
     from ovmr_tpu_torch.engine import da
     from tests.test_torch_dg_trajectory import replay_trainer
 
-    torch.manual_seed(0)
-    out1, s1 = _two_steps(replay_trainer(da.DANN, make_cfg(tmp_path, "DANN")))
-    mp.spawn(_gloo_rank, args=(2, str(tmp_path)), nprocs=2, join=True)
+    tmp = tmp_path_factory.mktemp("gloo")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        torch.manual_seed(0)
+        dann = _two_steps(replay_trainer(da.DANN, make_cfg(tmp, "DANN")))
+        refs = {case: _whole_batch_case(tmp, case) for case in WHOLE_BATCH}
+        mp.spawn(_gloo_rank, args=(2, str(tmp)), nprocs=2, join=True)
+    finally:
+        torch.set_num_threads(threads)
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    return {"dann": dann, "refs": refs, "ranks": ranks}
+
+
+def test_dann_two_gloo_ranks_equal_one_program(gloo_runs):
+    """One data shard a rank: the global BN statistics of the model and the
+    critic, the row-mean losses' share and the summed gradients give the
+    single program's update on both ranks."""
+    out1, s1 = gloo_runs["dann"]
     a = _flat(s1)
-    for rank in range(2):
-        got = torch.load(tmp_path / f"rank{rank}.pt", weights_only=False)
+    for rank, got in enumerate(gloo_runs["ranks"]):
         for key in ("loss_x", "loss_d", "acc_x"):
             assert got["out"][key] == pytest.approx(out1[key], rel=1e-5), key
         b = _flat(got["state"])
         assert a.keys() == b.keys()
         for k in a:
             np.testing.assert_allclose(b[k], a[k], atol=1e-4, rtol=0, err_msg=f"rank {rank} {k}")
-        assert sorted(got["refusals"]) == ["CDAC", "DAEL", "M3SDA"]
-        for name, message in got["refusals"].items():
-            assert message.startswith(f"{name}'s losses span the whole batch")
-            assert "ROADMAP Queue 1 item 8" in message
+
+
+@pytest.mark.parametrize("case", sorted(WHOLE_BATCH))
+def test_whole_batch_da_trainers_on_two_gloo_ranks_equal_one_program(gloo_runs, case):
+    """Each rank forwards its rows of every domain group and its block of
+    the target batch; the moments (M3SDA) and the pairs (CDAC) take every
+    rank's rows through the gather, the pseudo-label counts are summed: both
+    ranks take the single program's step, logged values within rel 1e-5 and
+    every params, batch_stats and optimizer leaf within 1e-4."""
+    _assert_ranks_hold(gloo_runs["refs"][case], [r["runs"][case] for r in gloo_runs["ranks"]])
+
+
+@pytest.mark.parametrize("case", CONTROLS)
+def test_whole_batch_da_rank_local_controls_fail_the_gates(gloo_runs, case):
+    """The controls: moments, similarities and domain groups over each
+    rank's own block miss the gates the cross-rank steps meet."""
+    for got in gloo_runs["ranks"]:
+        assert max(gate_readings(gloo_runs["refs"][case], got["controls"][case])) > 1

@@ -315,9 +315,117 @@ def test_local_data_shards_equal_one_program(tmp_path, name):
         np.testing.assert_allclose(b[k], a[k], atol=1e-4, rtol=0, err_msg=k)
 
 
+# --------------------------------------------------------------------------
+# two gloo ranks, one data shard each
+# --------------------------------------------------------------------------
+
+def rank_local(trainer):
+    """The control: ``trainer`` with its cross-rank step made rank-local.
+    Its gathers and blocks are this rank's rows and its domain groups a
+    reshape of its own block, so the moments, the similarities, the domain
+    groups and MixMatch's shuffle span this rank's rows only."""
+    trainer.gather_rows = lambda x: x
+    trainer.own_rows = lambda x: x
+    trainer.domain_groups = lambda x, n, split: [
+        (rows, 0) for rows in x.reshape((n, -1) + tuple(x.shape[1:]))]
+    return trainer
+
+
+def trainer_leaves(trainer):
+    """Every params, batch_stats and optimizer-state leaf of the trainer's
+    models, flat."""
+    out = {}
+    for name in trainer.get_model_names():
+        out.update({f"{name}/{k}": v for k, v in _flat(trainer.model_state(name)).items()})
+        opt = trainer._optims[name]
+        if opt is not None:
+            arrays = ckpt.optimizer_state_arrays(opt, trainer._named_params(name))
+            out.update({f"{name}/opt{k}": np.asarray(v) for k, v in arrays.items()})
+    return out
+
+
+def gate_readings(ref, got, rtol=1e-5, atol=1e-4):
+    """A run ``(logged values, leaves)`` against the one-process run: its
+    worst logged value over ``rel=rtol`` (``abs=1e-7``) and its worst leaf
+    over ``atol``. A reading above 1 fails its gate."""
+    (out_a, leaves_a), (out_b, leaves_b) = ref, got
+    assert out_a.keys() == out_b.keys() and leaves_a.keys() == leaves_b.keys()
+    loss = max(abs(out_b[k] - v) / max(rtol * abs(v), 1e-7) for k, v in out_a.items())
+    leaf = max(float(np.abs(leaves_b[k].astype(np.float64) - v).max(initial=0.0)) / atol
+               for k, v in leaves_a.items())
+    return loss, leaf
+
+
+def domain_batches(n_domain, split, steps=2, seed=3):
+    """``RandomDomainSampler``-shaped batches: ``n_domain`` groups of
+    ``split`` rows, a weak and a strong view."""
+    rng = np.random.default_rng(seed)
+    b = n_domain * split
+    return [{"img": rng.standard_normal((b, 3, 32, 32)).astype(np.float32),
+             "img2": rng.standard_normal((b, 3, 32, 32)).astype(np.float32),
+             "label": rng.integers(0, 4, b), "domain": np.repeat(np.arange(n_domain), split)}
+            for _ in range(steps)]
+
+
+def _daeldg_steps(trainer, batches):
+    trainer.epoch = 0
+    trainer.before_epoch()
+    for batch in batches:
+        out = trainer.forward_backward(batch)
+    return out, trainer_leaves(trainer)
+
+
+def _daeldg_cfg(tmp, n_domain, batch, **overrides):
+    return make_cfg(tmp, "DAELDG", **{**TRAINERS["DAELDG"][0],
+                                      "DATALOADER.TRAIN_X.N_DOMAIN": n_domain,
+                                      "DATALOADER.TRAIN_X.BATCH_SIZE": batch, **overrides})
+
+
+# DAELDG's domain groups over two ranks: three groups of 4 rows, a rank's
+# block of 6 cutting the middle one; two groups of 3, which do not split
+# evenly (each rank holds one group and none of the other).
+DAELDG_CASES = {"DAELDG": (3, 4), "DAELDG-uneven": (2, 3)}
+# Cases replayed in float64, at the same gates (as
+# tests/test_torch_da_trajectory.py replays M3SDA), since their float32 steps
+# amplify a reordered sum past the gates: BatchNorm over 3 rows (on one
+# process the data axis' sum-based statistics against torch's own read 0.95
+# of the leaf gate), M3SDA's two steps (7.7 and 31 of the loss and leaf
+# gates on two ranks in float32, 0.011 and 5e-6 in float64) and CDAC's pairs
+# of temperature-0.05 prototypes, whose log(1 - p) takes p within 1e-7 of 1
+# (150 and 996 in float32, 0.009 and 5e-9 in float64)
+FLOAT64_CASES = {"DAELDG-uneven", "M3SDA", "M3SDA-uneven", "CDAC"}
+SLICED_DAELDG = {"DATALOADER.NUM_WORKERS": 1}
+
+
+def _daeldg_case(tmp, case, control=False):
+    from ovmr_tpu_torch.engine import dg
+    from tests.test_torch_da_trajectory import _float64_trainers
+    from tests.test_torch_dg_trajectory import replay_trainer
+
+    n_domain, split = DAELDG_CASES[case]
+    torch.manual_seed(0)  # one init for every run
+    with _float64_trainers(case in FLOAT64_CASES):
+        trainer = replay_trainer(dg.DAELDG, _daeldg_cfg(tmp, n_domain, n_domain * split),
+                                 num_source_domains=n_domain)
+        return _daeldg_steps(rank_local(trainer) if control else trainer,
+                             domain_batches(n_domain, split))
+
+
+def _daeldg_loader_case(tmp, sliced):
+    """DAELDG on its loader's first two batches (``RandomDomainSampler``,
+    two domains of 4 rows), each rank decoding only its block when
+    ``sliced``."""
+    torch.manual_seed(0)
+    trainer = build_trainer(_daeldg_cfg(tmp, 2, 8, **SLICED_DAELDG,
+                                        **{"CUDA.MULTIHOST_SLICED_LOADER": sliced}))
+    stream = iter(trainer.dm.train_loader_x)
+    batches = [next(stream), next(stream)]
+    return [bool(b.get("_local", False)) for b in batches], _daeldg_steps(trainer, batches)
+
+
 def _gloo_rank(rank, world, tmp):
     os.environ.update(OVMR_COORDINATOR=f"file://{tmp}/rendezvous", OVMR_NUM_PROCESSES=str(world),
-                      OVMR_PROCESS_ID=str(rank))
+                      OVMR_PROCESS_ID=str(rank), OVMR_SYNTHETIC="4,8,32")
     torch.set_num_threads(1)
     import torch.distributed as dist
 
@@ -325,42 +433,97 @@ def _gloo_rank(rank, world, tmp):
     from ovmr_tpu_torch.parallel import maybe_initialize_distributed
     from tests.test_torch_dg_trajectory import replay_trainer
 
+    trainer_mod.TrainerBase.init_writer = lambda self: _NoWriter()
+    path = pathlib.Path(tmp)
     assert maybe_initialize_distributed("cpu")
     try:
-        cfg = make_cfg(pathlib.Path(tmp), "Vanilla")
-        trainer = replay_trainer(dg.Vanilla, cfg)
+        torch.manual_seed(0)
+        trainer = replay_trainer(dg.Vanilla, make_cfg(path, "Vanilla"))
         assert trainer.axis.group is not None and trainer.loss_scale == 0.5
         out, state = _two_steps(trainer)
-        torch.save({"loss": out["loss"], "state": state}, f"{tmp}/rank{rank}.pt")
+        runs = {case: _daeldg_case(path, case) for case in DAELDG_CASES}
+        controls = {"DAELDG": _daeldg_case(path, "DAELDG", control=True)}
+        loaders = {sliced: _daeldg_loader_case(path, sliced) for sliced in (True, False)}
+        torch.save({"loss": out["loss"], "state": state, "runs": runs, "controls": controls,
+                    "loaders": loaders}, f"{tmp}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def test_two_gloo_ranks_equal_one_program(tmp_path):
-    """One data shard a rank: the global BN statistics (all-reduced sums),
-    the row-mean losses' share and the summed gradients give the single
-    program's update on both ranks."""
+@pytest.fixture(scope="module")
+def gloo_runs(tmp_path_factory):
+    """The one-process runs, then one spawn of two gloo ranks running them
+    again: Vanilla, DAELDG (its domain groups cut by the ranks' blocks, and
+    not splitting evenly), its rank-local control, and DAELDG on its loader
+    with and without the sliced decode."""
     from tests.test_torch_dg_trajectory import replay_trainer
     from ovmr_tpu_torch.engine import dg
 
-    cfg = make_cfg(tmp_path, "Vanilla")
-    torch.manual_seed(0)
-    out1, s1 = _two_steps(replay_trainer(dg.Vanilla, cfg))
-    # each rank builds its net after the same seed
-    torch.manual_seed(0)
-    mp.spawn(_seeded_rank, args=(2, str(tmp_path)), nprocs=2, join=True)
+    tmp = tmp_path_factory.mktemp("gloo")
+    with pytest.MonkeyPatch.context() as mp_env:
+        mp_env.setenv("OVMR_SYNTHETIC", "4,8,32")
+        mp_env.setattr(trainer_mod.TrainerBase, "init_writer", lambda self: _NoWriter())
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            torch.manual_seed(0)
+            vanilla = _two_steps(replay_trainer(dg.Vanilla, make_cfg(tmp, "Vanilla")))
+            refs = {case: _daeldg_case(tmp, case) for case in DAELDG_CASES}
+            loader = _daeldg_loader_case(tmp, True)
+            mp.spawn(_gloo_rank, args=(2, str(tmp)), nprocs=2, join=True)
+        finally:
+            torch.set_num_threads(threads)
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    return {"vanilla": vanilla, "refs": refs, "loader": loader, "ranks": ranks}
+
+
+def test_two_gloo_ranks_equal_one_program(gloo_runs):
+    """One data shard a rank: the global BN statistics (all-reduced sums),
+    the row-mean losses' share and the summed gradients give the single
+    program's update on both ranks."""
+    out1, s1 = gloo_runs["vanilla"]
     a = _flat(s1)
-    for rank in range(2):
-        got = torch.load(tmp_path / f"rank{rank}.pt", weights_only=False)
+    for rank, got in enumerate(gloo_runs["ranks"]):
         assert got["loss"] == pytest.approx(out1["loss"], rel=1e-5)
         b = _flat(got["state"])
         for k in a:
             np.testing.assert_allclose(b[k], a[k], atol=1e-4, rtol=0, err_msg=f"rank {rank} {k}")
 
 
-def _seeded_rank(rank, world, tmp):
-    torch.manual_seed(0)
-    _gloo_rank(rank, world, tmp)
+def _assert_ranks_hold(ref, runs):
+    for rank, got in enumerate(runs):
+        loss, leaf = gate_readings(ref, got)
+        assert loss <= 1 and leaf <= 1, f"rank {rank}: losses {loss:.3g}, leaves {leaf:.3g}"
+    assert gate_readings(runs[0], runs[1], rtol=0, atol=1e-30) == (0.0, 0.0), "the ranks differ"
+
+
+@pytest.mark.parametrize("case", sorted(DAELDG_CASES))
+def test_daeldg_on_two_gloo_ranks_equals_one_program(gloo_runs, case):
+    """Each rank forwards its rows of every domain group (a group's
+    BatchNorm statistics over all its rows, an empty piece where the rank
+    holds none of it), the groups' domain ids gathered: both ranks take the
+    single program's step, losses within rel 1e-5 and every params,
+    batch_stats and optimizer leaf within 1e-4."""
+    _assert_ranks_hold(gloo_runs["refs"][case], [r["runs"][case] for r in gloo_runs["ranks"]])
+
+
+@pytest.mark.parametrize("sliced", [True, False], ids=["sliced", "full-decode"])
+def test_daeldg_on_two_gloo_ranks_with_its_loader_equals_one_program(gloo_runs, sliced):
+    """DAELDG's domain-grouped loader: each rank decoding only its block
+    (the strong views keyed on global positions) or the whole batch gives
+    the single program's step (``tests/multihost_worker.py:215-292``)."""
+    flags, ref = gloo_runs["loader"]
+    assert flags == [False, False]
+    for got in gloo_runs["ranks"]:
+        assert got["loaders"][sliced][0] == [sliced, sliced]
+    _assert_ranks_hold(ref, [r["loaders"][sliced][1] for r in gloo_runs["ranks"]])
+
+
+def test_daeldg_rank_local_control_fails_the_gates(gloo_runs):
+    """The control: domain groups taken over each rank's own block miss the
+    gates the cross-rank step meets."""
+    for got in gloo_runs["ranks"]:
+        assert max(gate_readings(gloo_runs["refs"]["DAELDG"], got["controls"]["DAELDG"])) > 1
 
 
 def test_trainers_refuse_cuda_without_a_card(tmp_path):

@@ -203,6 +203,24 @@ def test_dropout_draws_from_the_scope():
     assert F.dropout(x, 0.5, train=False) is x
 
 
+@pytest.mark.parametrize("draw", ["dropout", "rand_rows"])
+def test_row_window_draws_the_rows_of_the_whole_batch(draw):
+    """Within ``row_window`` a process's rows draw what one process draws
+    for the whole batch at those rows (dropout's mask; ``rand_rows``, as
+    drop-connect draws), a rank's equal block and an empty piece included."""
+    def sample(rows):
+        gen = torch.Generator().manual_seed(2)
+        if draw == "dropout":
+            return F.dropout(torch.ones(rows, 5), 0.5, generator=gen)
+        return F.rand_rows((rows, 5, 1), gen)
+
+    whole = sample(12)
+    for window, n, lo in ((lambda m: (m, 3 * m), 4, 4), (lambda m: (6, 12), 3, 6),
+                          (lambda m: (6, 12), 0, 6)):
+        with F.row_window(window):
+            assert torch.equal(sample(n), whole[lo:lo + n])
+
+
 # --------------------------------------------------------------------------
 # layers
 # --------------------------------------------------------------------------

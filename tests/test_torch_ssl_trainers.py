@@ -14,8 +14,9 @@ the two packages and through the orbax backend, and the data axis.
 - FixMatch on 2 local data shards equals the single program, and two gloo
   ranks with the sliced loader, each decoding its block of every batch, equal
   it too (templates: ``tests/test_torch_da_trainers.py``,
-  ``tests/multihost_worker.py:268-290``); under the process group MixMatch
-  refuses, naming ROADMAP item 8.
+  ``tests/multihost_worker.py:268-290``); so does MixMatch, whose shuffle
+  and mixup span the whole joint batch, with its draws injected, and its
+  rank-local control misses the gates.
 """
 
 import os
@@ -31,7 +32,15 @@ import torch.multiprocessing as mp
 from ovmr_tpu_torch.engine import checkpoint as ckpt
 from ovmr_tpu_torch.engine import trainer as trainer_mod
 from ovmr_tpu_torch.engine.trainer import build_trainer
-from tests.test_torch_dg_trainers import _assert_states_equal, _flat, _jax_trainer
+from tests.test_torch_dg_trainers import (
+    _assert_ranks_hold,
+    _assert_states_equal,
+    _flat,
+    _jax_trainer,
+    gate_readings,
+    rank_local,
+    trainer_leaves,
+)
 from tests.test_torch_dg_trainers import make_cfg as _make_cfg
 
 
@@ -280,48 +289,102 @@ def _loader_steps(trainer):
     return batches[0][0].get("_local", False), _steps(trainer, batches)
 
 
+def _mixmatch_draws(trainer):
+    """Injected MixMatch draws (as ``tests/test_torch_ssl_trajectory.py``
+    injects the recorded ones): a function of the step and the joint batch's
+    sizes only, so one process and every rank draw the same."""
+    def draws(gen, n_x, n_u):
+        rng = np.random.default_rng([trainer.batch_idx, n_x, n_u])
+        lam_x, lam_u = rng.beta(0.75, 0.75, n_x), rng.beta(0.75, 0.75, n_u)
+        return (rng.permutation(n_x + n_u), np.maximum(lam_x, 1 - lam_x).astype(np.float32),
+                np.maximum(lam_u, 1 - lam_u).astype(np.float32))
+
+    return draws
+
+
+def _mixmatch_batches():
+    """8 labeled and 8 unlabeled items a batch, two adjacent views each."""
+    rng = np.random.default_rng(3)
+
+    def views(n):
+        img = rng.standard_normal((n, 2, 3, 32, 32)).astype(np.float32)
+        return img.reshape(2 * n, 3, 32, 32)
+
+    return [({"img": views(8), "label": np.repeat(rng.integers(0, 4, 8), 2)},
+             {"img": views(8), "label": np.zeros(16, np.int64)}) for _ in range(2)]
+
+
+def _mixmatch_case(tmp, control=False):
+    from ovmr_tpu_torch.engine import ssl
+    from tests.test_torch_dg_trajectory import replay_trainer
+
+    torch.manual_seed(0)  # one init for every run
+    trainer = replay_trainer(ssl.MixMatch, make_cfg(tmp, "MixMatch", **{
+        "DATALOADER.K_TRANSFORMS": 2, "TRAINER.MIXMATCH.RAMPUP": 2}))
+    trainer.mixup_draws = _mixmatch_draws(trainer)
+    if control:
+        rank_local(trainer)
+    trainer.epoch, trainer.max_epoch, trainer.num_batches = 0, 2, 2
+    trainer.before_epoch()
+    for trainer.batch_idx, (batch_x, batch_u) in enumerate(_mixmatch_batches()):
+        out = trainer.forward_backward_xu(batch_x, batch_u)
+    return out, trainer_leaves(trainer)
+
+
 def _gloo_rank(rank, world, tmp):
     os.environ.update(OVMR_COORDINATOR=f"file://{tmp}/rendezvous", OVMR_NUM_PROCESSES=str(world),
                       OVMR_PROCESS_ID=str(rank), OVMR_SYNTHETIC="4,8,32")
     torch.set_num_threads(1)
     import torch.distributed as dist
 
-    from ovmr_tpu_torch.engine import ssl
     from ovmr_tpu_torch.parallel import maybe_initialize_distributed
-    from tests.test_torch_dg_trajectory import replay_trainer
 
     trainer_mod.TrainerBase.init_writer = lambda self: _NoWriter()
+    path = pathlib.Path(tmp)
     assert maybe_initialize_distributed("cpu")
     try:
         torch.manual_seed(0)  # each rank builds its net after the same seed
-        trainer = build_trainer(make_cfg(pathlib.Path(tmp), "FixMatch", **SLICED))
+        trainer = build_trainer(make_cfg(path, "FixMatch", **SLICED))
         assert trainer.axis.group is not None and trainer.loss_scale == 0.5
         local, (out, state) = _loader_steps(trainer)
-        try:
-            replay_trainer(ssl.MixMatch, make_cfg(pathlib.Path(tmp), "MixMatch",
-                                                  **{"DATALOADER.K_TRANSFORMS": 2}))
-            refusal = None
-        except NotImplementedError as e:
-            refusal = str(e)
-        torch.save({"local": local, "out": out, "state": state, "refusal": refusal},
-                   f"{tmp}/rank{rank}.pt")
+        torch.save({"local": local, "out": out, "state": state,
+                    "mixmatch": _mixmatch_case(path),
+                    "control": _mixmatch_case(path, control=True)}, f"{tmp}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def test_fixmatch_two_gloo_ranks_with_the_sliced_loader_equal_one_program(tmp_path):
+@pytest.fixture(scope="module")
+def gloo_runs(tmp_path_factory):
+    """The one-process runs, then one spawn of two gloo ranks running them
+    again: FixMatch on its sliced loader, MixMatch and its control."""
+    tmp = tmp_path_factory.mktemp("gloo")
+    with pytest.MonkeyPatch.context() as mp_env:
+        mp_env.setenv("OVMR_SYNTHETIC", "4,8,32")
+        mp_env.setattr(trainer_mod.TrainerBase, "init_writer", lambda self: _NoWriter())
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            torch.manual_seed(0)
+            fixmatch = _loader_steps(build_trainer(make_cfg(tmp, "FixMatch", **SLICED)))
+            mixmatch = _mixmatch_case(tmp)
+            mp.spawn(_gloo_rank, args=(2, str(tmp)), nprocs=2, join=True)
+        finally:
+            torch.set_num_threads(threads)
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    return {"fixmatch": fixmatch, "mixmatch": mixmatch, "ranks": ranks}
+
+
+def test_fixmatch_two_gloo_ranks_with_the_sliced_loader_equal_one_program(gloo_runs):
     """One data shard a rank, each decoding its block of every batch (the
     strong views keyed on the global stream position): the global BN
     statistics, the row-mean losses' share, the summed gradients and the
-    summed pseudo-label counts give the single program's step on both ranks;
-    MixMatch refuses."""
-    torch.manual_seed(0)
-    local, (out1, s1) = _loader_steps(build_trainer(make_cfg(tmp_path, "FixMatch", **SLICED)))
+    summed pseudo-label counts give the single program's step on both
+    ranks."""
+    local, (out1, s1) = gloo_runs["fixmatch"]
     assert not local
-    mp.spawn(_gloo_rank, args=(2, str(tmp_path)), nprocs=2, join=True)
     a = _flat(s1)
-    for rank in range(2):
-        got = torch.load(tmp_path / f"rank{rank}.pt", weights_only=False)
+    for rank, got in enumerate(gloo_runs["ranks"]):
         assert got["local"] is True
         for key in ("loss_x", "loss_u", "acc_x", "y_u_pred_acc_raw", "y_u_pred_acc_thre",
                     "y_u_pred_keep"):
@@ -330,5 +393,19 @@ def test_fixmatch_two_gloo_ranks_with_the_sliced_loader_equal_one_program(tmp_pa
         assert a.keys() == b.keys()
         for k in a:
             np.testing.assert_allclose(b[k], a[k], atol=1e-4, rtol=0, err_msg=f"rank {rank} {k}")
-        assert got["refusal"].startswith("MixMatch's losses span the whole batch")
-        assert "ROADMAP Queue 1 item 8" in got["refusal"]
+
+
+def test_mixmatch_on_two_gloo_ranks_equals_one_program(gloo_runs):
+    """The joint batch of every rank's rows ([x; u view 0; u view 1]), its
+    shuffle and coefficients drawn over the whole of it, each rank
+    forwarding its block of the mixed rows after its guesses: both ranks
+    take the single program's step, losses within rel 1e-5 and every
+    params, batch_stats and optimizer leaf within 1e-4."""
+    _assert_ranks_hold(gloo_runs["mixmatch"], [r["mixmatch"] for r in gloo_runs["ranks"]])
+
+
+def test_mixmatch_rank_local_control_fails_the_gates(gloo_runs):
+    """The control: the shuffle and the mixup over each rank's own block
+    miss the gates the cross-rank step meets."""
+    for got in gloo_runs["ranks"]:
+        assert max(gate_readings(gloo_runs["mixmatch"], got["control"])) > 1
