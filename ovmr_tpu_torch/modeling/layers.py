@@ -29,6 +29,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from . import ops
+
 _DATA_AXIS: contextvars.ContextVar = contextvars.ContextVar("dassl_data_axis", default=None)
 
 
@@ -110,23 +112,37 @@ class TorchBatchNorm(nn.Module):
     @staticmethod
     def _rank_statistics(x, axis, dims, shape):
         """The whole batch's mean, biased variance and count from every
-        rank's rows, in one collective each way: each rank's count, mean and
-        centred sum of squares, all-gathered (its backward all-reduces the
-        cotangent) and combined in rank order (Chan et al.'s pairwise
-        update), so every rank computes the same statistics. The ranks may
-        hold unequal rows (a domain group's, or none)."""
-        c = x.shape[1]
+        rank's rows, in one collective each way: each rank's
+        :func:`_local_moments`, all-gathered (its backward all-reduces the
+        cotangent) and combined in rank order (:func:`_combined_moments`),
+        so every rank computes the same statistics. The ranks may hold
+        unequal rows (a domain group's, or none)."""
         per_row = math.prod(x.shape[2:])
-        local_mean = x.sum(dims) / max(x.shape[0] * per_row, 1)
-        local_m2 = ((x - local_mean.reshape(shape)) ** 2).sum(dims)
-        # the rows, not the elements, travel: a row count stays exact in fp32
-        stats = torch.cat([local_mean, local_m2, local_mean.new_full((1,), x.shape[0])])
-        stats = axis.gather([stats[None]])  # [ranks, 2C + 1]
-        counts = stats[:, -1:] * per_row
-        n = counts.sum()
-        mean = (counts * stats[:, :c]).sum(0) / n
-        m2 = stats[:, c:2 * c].sum(0) + (counts * (stats[:, :c] - mean) ** 2).sum(0)
+        stats = axis.gather([_local_moments(x, dims, shape)[None]])  # [ranks, 2C + 1]
+        mean, m2, n = _combined_moments(stats, per_row)
         return mean, m2 / n, n
+
+
+def _local_moments(x, dims, shape) -> torch.Tensor:
+    """``[mean (C), centred sum of squares (C), rows (1)]`` of this rank's
+    rows of ``x`` (zeros for none)."""
+    per_row = math.prod(x.shape[2:])
+    local_mean = x.sum(dims) / max(x.shape[0] * per_row, 1)
+    local_m2 = ((x - local_mean.reshape(shape)) ** 2).sum(dims)
+    # the rows, not the elements, travel: a row count stays exact in fp32
+    return torch.cat([local_mean, local_m2, local_mean.new_full((1,), x.shape[0])])
+
+
+def _combined_moments(stats, per_row: int):
+    """The mean, centred sum of squares and element count of all the rows
+    from every rank's :func:`_local_moments` (``[ranks, 2C + 1]``),
+    combined in rank order (Chan et al.'s pairwise update)."""
+    c = (stats.shape[1] - 1) // 2
+    counts = stats[:, -1:] * per_row
+    n = counts.sum()
+    mean = (counts * stats[:, :c]).sum(0) / n
+    m2 = stats[:, c:2 * c].sum(0) + (counts * (stats[:, :c] - mean) ** 2).sum(0)
+    return mean, m2, n
 
 
 class Attention(nn.Module):
@@ -201,7 +217,10 @@ class TransNorm(nn.Module):
     normalises with its own statistics and the channel attention
     ``1 + alpha`` (detached) rescales the output. The running statistics
     keep the reference's inverted momentum ``running = m*running +
-    (1-m)*batch`` at m=0.1, as the JAX class does."""
+    (1-m)*batch`` at m=0.1, as the JAX class does. Under a process group's
+    data axis (the step's :func:`ops.row_window`) the halves are those of
+    the whole batch, their statistics over every rank's rows
+    (:meth:`_rank_halves`)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
                  adaptive_alpha: bool = True):
@@ -233,11 +252,15 @@ class TransNorm(nn.Module):
                                     self.running_mean_t, self.running_var_t)
                 out = (1.0 + alpha.reshape(shape)) * out
             return out
-        half = x.shape[0] // 2
-        x_s, x_t = x[:half], x[half:]
         dims = (0,) if x.ndim == 2 else (0, 2, 3)
-        m_s, v_s = x_s.mean(dims), x_s.var(dims, unbiased=True)
-        m_t, v_t = x_t.mean(dims), x_t.var(dims, unbiased=True)
+        axis, window = current_data_axis(), ops.current_window()
+        if axis is not None and axis.group is not None and window is not None:
+            (x_s, m_s, v_s), (x_t, m_t, v_t) = self._rank_halves(x, axis, window, dims, shape)
+        else:
+            half = x.shape[0] // 2
+            x_s, x_t = x[:half], x[half:]
+            m_s, v_s = x_s.mean(dims), x_s.var(dims, unbiased=True)
+            m_t, v_t = x_t.mean(dims), x_t.var(dims, unbiased=True)
         with torch.no_grad():
             mom = self.momentum
             for buf, new in ((self.running_mean_s, m_s), (self.running_var_s, v_s),
@@ -249,4 +272,22 @@ class TransNorm(nn.Module):
         if self.adaptive_alpha:
             alpha = self._alpha(m_s, v_s, m_t, v_t).detach()
             out = (1.0 + alpha.reshape(shape)) * out
+        return out
+
+    @staticmethod
+    def _rank_halves(x, axis, window, dims, shape):
+        """Under a process group: this rank's rows cut at the whole batch's
+        half boundary (``window``'s ``total // 2``), and each half's mean and
+        unbiased variance over every rank's rows of it, from one all-gather
+        of each rank's :func:`_local_moments` of both halves, combined in
+        rank order, so every rank computes the same statistics."""
+        offset, total = window(x.shape[0])
+        cut = min(max(total // 2 - offset, 0), x.shape[0])
+        halves = x[:cut], x[cut:]
+        per_row = math.prod(x.shape[2:])
+        stats = axis.gather([torch.cat([_local_moments(h, dims, shape) for h in halves])[None]])
+        out = []
+        for h, part in zip(halves, stats.chunk(2, dim=1)):
+            mean, m2, n = _combined_moments(part, per_row)
+            out.append((h, mean, m2 / (n - 1)))
         return out

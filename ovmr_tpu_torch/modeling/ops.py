@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 from typing import Optional
 
 import numpy as np
@@ -54,12 +55,15 @@ __all__ = [
     "rng_scope",
     "current_generator",
     "row_window",
+    "current_window",
+    "rank_local_mixing",
     "rand_rows",
     "dropout",
 ]
 
 _GENERATOR: contextvars.ContextVar = contextvars.ContextVar("dassl_generator", default=None)
 _ROWS: contextvars.ContextVar = contextvars.ContextVar("dassl_row_window", default=None)
+_LOCAL_MIX: contextvars.ContextVar = contextvars.ContextVar("dassl_local_mix", default=False)
 
 
 @contextlib.contextmanager
@@ -84,13 +88,33 @@ def row_window(window):
     ``total`` rows that other processes hold the rest of, and the per-row
     draws (:func:`rand_rows`: dropout's mask, drop-connect's) are the whole
     batch's, of which the module keeps those rows (so each process draws
-    what one process would for the whole batch). None draws for the rows
-    given."""
+    what one process would for the whole batch). MixStyle and EFDMix draw
+    the whole batch's weights and permutation and, under a process group's
+    data axis, mix each row with its partner on whichever rank holds it.
+    None draws for the rows given."""
     token = _ROWS.set(window)
     try:
         yield window
     finally:
         _ROWS.reset(token)
+
+
+def current_window():
+    """The window of the :func:`row_window` block in force (None outside one)."""
+    return _ROWS.get()
+
+
+@contextlib.contextmanager
+def rank_local_mixing():
+    """Within the block, MixStyle and EFDMix draw for and mix only the rows
+    they are given, whatever the window: under a process group each rank's
+    block on its own. The control of the process-group checks, which must
+    fail them."""
+    token = _LOCAL_MIX.set(True)
+    try:
+        yield
+    finally:
+        _LOCAL_MIX.reset(token)
 
 
 def rand_rows(shape, generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
@@ -251,18 +275,54 @@ def mix_permutation(generator, batch: int, mix: str, device="cpu") -> torch.Tens
 
 
 def _mix_draws(x, generator, p, alpha, mix, lmda, perm, apply):
-    """The three draws of one MixStyle/EFDMix call: the batch coin, the
-    Beta weights [B] and the permutation, each injectable."""
+    """The three draws of one MixStyle/EFDMix call, each injectable: the
+    batch coin, the Beta weights and the permutation of the rows the call
+    spans, which are the batch of :func:`row_window` (every process draws
+    what one process draws for it, an injected draw is the whole batch's),
+    else the rows given. Returns the coin, the given rows' weights and
+    partners (indices into the spanned rows), and ``span``: a per-row tensor
+    of the given rows -> the spanned rows' (under a process group's data
+    axis every rank's, :func:`_window_rows`)."""
     b = x.shape[0]
+    window = None if _LOCAL_MIX.get() else _ROWS.get()
+    offset, total = (0, b) if window is None else window(b)
     if apply is None:
         u = torch.rand((), generator=generator, device=_gen_device(generator, "cpu"))
         apply = bool(u < p)
     if lmda is None:
-        lmda = _np_rng(generator).beta(alpha, alpha, (b,)).astype(np.float32)
+        lmda = _np_rng(generator).beta(alpha, alpha, (total,)).astype(np.float32)
     if perm is None:
-        perm = mix_permutation(generator, b, mix, device=x.device)
+        perm = mix_permutation(generator, total, mix, device=x.device)
     lmda = torch.as_tensor(np.array(lmda, np.float32), device=x.device).to(x.dtype)
-    return bool(apply), lmda, torch.as_tensor(np.array(perm) if isinstance(perm, np.ndarray) else perm, device=x.device).long()
+    perm = torch.as_tensor(np.array(perm) if isinstance(perm, np.ndarray) else perm,
+                           device=x.device).long()
+    span = _same_rows
+    if window is not None:
+        from ovmr_tpu_torch.modeling.layers import current_data_axis  # layers imports ops
+
+        axis = current_data_axis()
+        if axis is not None and axis.group is not None:
+            span = functools.partial(_window_rows, axis=axis)
+    return bool(apply), lmda[offset:offset + b], perm[offset:offset + b], span
+
+
+def _same_rows(t):
+    return t
+
+
+def _window_rows(t, axis):
+    """Every rank's rows of a per-row tensor in row order, from this rank's:
+    the ranks' row counts all-gathered first (a domain group's pieces may be
+    unequal or empty), then each rank's rows padded to the largest count and
+    all-gathered through the data axis, whose backward returns each rank
+    its own rows' cotangent summed over the ranks."""
+    # a row count stays exact in the rows' floating type
+    counts = [int(n) for n in axis.gather([t.new_full((1,), t.shape[0])]).tolist()]
+    most = max(counts)
+    if t.shape[0] < most:
+        t = torch.cat([t, t.new_zeros((most - t.shape[0],) + tuple(t.shape[1:]))])
+    rows = axis.gather([t])
+    return torch.cat([rows[r * most:r * most + n] for r, n in enumerate(counts)])
 
 
 def mixstyle(x, generator=None, p: float = 0.5, alpha: float = 0.1, eps: float = 1e-6,
@@ -273,7 +333,7 @@ def mixstyle(x, generator=None, p: float = 0.5, alpha: float = 0.1, eps: float =
     whole batch with probability ``1 - p``."""
     if not train or p <= 0:
         return x
-    apply, lmda, perm = _mix_draws(x, generator, p, alpha, mix, lmda, perm, apply)
+    apply, lmda, perm, span = _mix_draws(x, generator, p, alpha, mix, lmda, perm, apply)
     if not apply:
         return x
     mu = x.mean(dim=(2, 3), keepdim=True).detach()
@@ -281,8 +341,9 @@ def mixstyle(x, generator=None, p: float = 0.5, alpha: float = 0.1, eps: float =
     sig = (var + eps).sqrt().detach()
     x_normed = (x - mu) / sig
     lm = lmda.reshape(-1, 1, 1, 1)
-    mu_mix = mu * lm + mu[perm] * (1.0 - lm)
-    sig_mix = sig * lm + sig[perm] * (1.0 - lm)
+    mu_all, sig_all = span(torch.cat([mu, sig], dim=1)).chunk(2, dim=1)
+    mu_mix = mu * lm + mu_all[perm] * (1.0 - lm)
+    sig_mix = sig * lm + sig_all[perm] * (1.0 - lm)
     return x_normed * sig_mix + mu_mix
 
 
@@ -291,17 +352,18 @@ def efdmix(x, generator=None, p: float = 0.5, alpha: float = 0.1, mix: str = "ra
     """EFDMix on an NCHW feature map: exact (sorted) feature distribution
     matching between each sample and a permuted partner, interpolated by a
     Beta draw; gradients reach both samples, as the reference's
-    ``x + (x_copy - x.detach()) * (1-lmda)``."""
+    ``x + (x_copy - x.detach()) * (1-lmda)`` (across the ranks under a
+    process group)."""
     if not train or p <= 0:
         return x
-    apply, lmda, perm = _mix_draws(x, generator, p, alpha, mix, lmda, perm, apply)
+    apply, lmda, perm, span = _mix_draws(x, generator, p, alpha, mix, lmda, perm, apply)
     if not apply:
         return x
     b, c, h, w = x.shape
     x_view = x.reshape(b, c, h * w)
     value_x, order = torch.sort(x_view, dim=-1, stable=True)
     inverse = torch.argsort(order, dim=-1)
-    x_copy = torch.gather(value_x[perm], -1, inverse)
+    x_copy = torch.gather(span(value_x)[perm], -1, inverse)
     new_x = x_view + (x_copy - x_view.detach()) * (1.0 - lmda.reshape(-1, 1, 1))
     return new_x.reshape(b, c, h, w)
 

@@ -27,6 +27,15 @@ TOL = {"mm_classifier": 1e-4, "vision_classifier": 1e-4, "text_classifier": 1e-4
 NAMES = ["red circle", "green square", "blue triangle", "café crème", "ski_mask"]
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread a test: the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def pair():
     key = jax.random.PRNGKey(0)

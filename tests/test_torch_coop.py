@@ -33,6 +33,7 @@ import jax
 import jax.numpy as jnp
 
 from ovmr_tpu_torch.engine import checkpoint as ckpt
+from ovmr_tpu_torch.engine import trainer as trainer_mod
 from ovmr_tpu_torch.engine.coop import CoOp, _ctx_from_torch
 from ovmr_tpu_torch.engine.optimizers import set_lr
 from ovmr_tpu_torch.models.import_torch import clip_params_from_state_dict
@@ -43,6 +44,27 @@ GOLDEN = osp.join(ROOT, "tests", "fixtures", "coop_tiny_golden.npz")
 TRAJ = osp.join(ROOT, "tests", "fixtures", "trajectory_coop_golden.npz")
 MM_CLS_YAML = osp.join(ROOT, "configs", "trainers", "MM_CLS", "vit_b16_c16_ep10_batch1.yaml")
 EPOCHS, BATCHES = 3, 2
+
+
+class _NoWriter:
+    def add_scalar(self, *a):
+        pass
+
+    def flush(self):
+        pass
+
+
+@pytest.fixture(autouse=True)
+def _one_thread(monkeypatch):
+    """One intra-op thread a test (the suite's workers share the cores) and
+    no tensorboard writer (its first import costs seconds; no check reads
+    it)."""
+    monkeypatch.setattr(trainer_mod.TrainerBase, "init_writer",
+                        lambda self: setattr(self, "_writer", _NoWriter()) or self._writer)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

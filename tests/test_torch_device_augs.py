@@ -45,6 +45,16 @@ from ovmr_tpu_torch.utils import get_cfg_default
 from test_torch_augment import jax_draws, to_torch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module's tests and fixtures: the suite's
+    workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _write_tree(root, n_cls=4, per_class=6):
     """PNGs of mixed sizes and aspects under ``root``: (impath, label) pairs."""
     rng = np.random.RandomState(0)

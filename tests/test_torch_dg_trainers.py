@@ -13,12 +13,17 @@ the two packages, and the data axis.
 - Vanilla on 2 local data shards (``CUDA.MESH.DATA 2``) equals the single
   program, BN statistics included (template: ``tests/test_dassl_mesh.py``),
   and two gloo ranks, one shard each, equal it too.
+- On two gloo ranks MixStyle, EFDMix and TransNorm span the whole batch:
+  the ops against the JAX functions on it, and Vanilla and DAELDG with
+  mixing ResNet-18s against one process.
 - The trainers run on ``CUDA.DEVICE`` and raise without a card.
 """
 
+import contextlib
 import os
 import os.path as osp
 import pathlib
+import pickle
 import shutil
 
 import numpy as np
@@ -30,6 +35,7 @@ from ovmr_tpu_torch.engine import checkpoint as ckpt
 from ovmr_tpu_torch.engine import trainer as trainer_mod
 from ovmr_tpu_torch.engine.optimizers import build_optimizer, set_lr
 from ovmr_tpu_torch.engine.trainer import build_trainer
+from ovmr_tpu_torch.modeling import ops as F
 from ovmr_tpu_torch.utils import get_cfg_default
 
 
@@ -321,13 +327,23 @@ def test_local_data_shards_equal_one_program(tmp_path, name):
 
 def rank_local(trainer):
     """The control: ``trainer`` with its cross-rank step made rank-local.
-    Its gathers and blocks are this rank's rows and its domain groups a
-    reshape of its own block, so the moments, the similarities, the domain
-    groups and MixMatch's shuffle span this rank's rows only."""
+    Its gathers and blocks are this rank's rows, its domain groups a
+    reshape of its own block and its step scope mixes features within the
+    rank (:func:`F.rank_local_mixing`), so the moments, the similarities,
+    the domain groups, MixMatch's shuffle and MixStyle/EFDMix span this
+    rank's rows only."""
     trainer.gather_rows = lambda x: x
     trainer.own_rows = lambda x: x
     trainer.domain_groups = lambda x, n, split: [
         (rows, 0) for rows in x.reshape((n, -1) + tuple(x.shape[1:]))]
+    scope = trainer.step_scope
+
+    @contextlib.contextmanager
+    def local_mixing_scope(*rows):
+        with scope(*rows) as gen, F.rank_local_mixing():
+            yield gen
+
+    trainer.step_scope = local_mixing_scope
     return trainer
 
 
@@ -367,7 +383,7 @@ def domain_batches(n_domain, split, steps=2, seed=3):
             for _ in range(steps)]
 
 
-def _daeldg_steps(trainer, batches):
+def _replay_steps(trainer, batches):
     trainer.epoch = 0
     trainer.before_epoch()
     for batch in batches:
@@ -392,8 +408,13 @@ DAELDG_CASES = {"DAELDG": (3, 4), "DAELDG-uneven": (2, 3)}
 # of the leaf gate), M3SDA's two steps (7.7 and 31 of the loss and leaf
 # gates on two ranks in float32, 0.011 and 5e-6 in float64) and CDAC's pairs
 # of temperature-0.05 prototypes, whose log(1 - p) takes p within 1e-7 of 1
-# (150 and 996 in float32, 0.009 and 5e-9 in float64)
-FLOAT64_CASES = {"DAELDG-uneven", "M3SDA", "M3SDA-uneven", "CDAC"}
+# (150 and 996 in float32, 0.009 and 5e-9 in float64), and the mixing
+# ResNet-18s at 32 px, whose gradients pass BatchNorm over a few values a
+# channel (layer4's map is 1 x 1) and EFDMix's sort (0.39-1.78e3 of the loss
+# gate and 2.6e3-3.8e4 of the leaf gate in float32, 0 and <= 2.4e-3 in
+# float64)
+FLOAT64_CASES = {"DAELDG-uneven", "M3SDA", "M3SDA-uneven", "CDAC", "DAELDG-ms", "Vanilla-ms",
+                 "Vanilla-efdmix"}
 SLICED_DAELDG = {"DATALOADER.NUM_WORKERS": 1}
 
 
@@ -407,7 +428,7 @@ def _daeldg_case(tmp, case, control=False):
     with _float64_trainers(case in FLOAT64_CASES):
         trainer = replay_trainer(dg.DAELDG, _daeldg_cfg(tmp, n_domain, n_domain * split),
                                  num_source_domains=n_domain)
-        return _daeldg_steps(rank_local(trainer) if control else trainer,
+        return _replay_steps(rank_local(trainer) if control else trainer,
                              domain_batches(n_domain, split))
 
 
@@ -420,7 +441,172 @@ def _daeldg_loader_case(tmp, sliced):
                                         **{"CUDA.MULTIHOST_SLICED_LOADER": sliced}))
     stream = iter(trainer.dm.train_loader_x)
     batches = [next(stream), next(stream)]
-    return [bool(b.get("_local", False)) for b in batches], _daeldg_steps(trainer, batches)
+    return [bool(b.get("_local", False)) for b in batches], _replay_steps(trainer, batches)
+
+
+# MixStyle/EFDMix and TransNorm on two ranks, each holding its rows of a
+# batch of 8: rank 0 the first ``cut`` rows, as a step's blocks (4 + 4) and
+# as a domain group's uneven pieces (3 + 5) hold them
+OP_CUTS = {"even": 4, "uneven": 3}
+MIX_OPS = [(op, mix) for op in ("mixstyle", "efdmix") for mix in ("random", "crossdomain")]
+
+
+def _nchw(a):
+    return np.ascontiguousarray(np.transpose(np.asarray(a), (0, 3, 1, 2)))
+
+
+def _jax_op_refs():
+    """JAX MixStyle and EFDMix and TransNorm (its source half the batch's first
+    four rows, its state drawn) on the whole batch, in one jitted function:
+    the inputs, a cotangent, MixStyle's and EFDMix's draws (recomputed from
+    their key, as ``tests/test_torch_modeling_ops.py::_jax_mix_draws`` does),
+    the outputs, the input gradients and TransNorm's statistics after, NCHW."""
+    import jax
+    import jax.numpy as jnp
+
+    from ovmr_tpu.modeling import layers as jlayers
+    from ovmr_tpu.modeling import ops as JF
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((8, 5, 5, 3)).astype(np.float32) * 2.0 + 1.0
+    cot = rng.standard_normal((8, 5, 5, 3)).astype(np.float32)
+    xs = x.copy()
+    xs[4:] += 3.0
+    key = jax.random.PRNGKey(11)
+    jt = jlayers.TransNorm(3)
+    state = {"params": {"weight": 1.0 + 0.1 * rng.standard_normal(3),
+                        "bias": 0.1 * rng.standard_normal(3)},
+             "batch_stats": {"running_mean_s": rng.standard_normal(3),
+                             "running_var_s": 1.0 + rng.random(3),
+                             "running_mean_t": rng.standard_normal(3),
+                             "running_var_t": 1.0 + rng.random(3)}}
+    state = jax.tree_util.tree_map(lambda v: np.asarray(v, np.float32), state)
+
+    @jax.jit
+    def refs(v, c, v_s):
+        k_apply, k_lmda, k_perm = jax.random.split(key, 3)
+        out = {"lmda": jax.random.beta(k_lmda, 0.1, 0.1, (8,)),
+               "apply": jax.random.bernoulli(k_apply, 1.0)}
+        for op, mix in MIX_OPS:
+            want, vjp = jax.vjp(lambda u: getattr(JF, op)(u, key, p=1.0, alpha=0.1, mix=mix), v)
+            out[f"{op}-{mix}"] = (want, vjp(c)[0])
+            out[f"perm-{mix}"] = JF._mix_permutation(k_perm, 8, mix)
+        (want, upd), vjp = jax.vjp(
+            lambda u: jt.apply(state, u, train=True, mutable=["batch_stats"]), v_s)
+        grad = vjp((c, jax.tree_util.tree_map(jnp.zeros_like, upd)))[0]
+        out["transnorm"] = (want, upd["batch_stats"], grad)
+        return out
+
+    got = jax.tree_util.tree_map(np.asarray, refs(jnp.asarray(x), jnp.asarray(cot),
+                                                  jnp.asarray(xs)))
+    assert got["apply"]
+    want, stats, grad = got["transnorm"]
+    return {"x": _nchw(x), "cot": _nchw(cot),
+            "mix": {(op, mix): (got["lmda"], got[f"perm-{mix}"], _nchw(got[f"{op}-{mix}"][0]),
+                                _nchw(got[f"{op}-{mix}"][1])) for op, mix in MIX_OPS},
+            "transnorm": {"x": _nchw(xs), "state": state, "want": _nchw(want),
+                          "grad": _nchw(grad), "stats": stats}}
+
+
+def _ops_on_rank(rank, refs):
+    """This rank's rows of the batch through MixStyle/EFDMix (JAX's whole-batch
+    draws injected) and TransNorm, within the data axis and the window of
+    the rows it holds: the outputs and input gradients (and TransNorm's
+    statistics after) for each cut."""
+    from ovmr_tpu_torch.convert import dassl_state_from_numpy, dassl_state_to_numpy
+    from ovmr_tpu_torch.modeling import layers
+    from ovmr_tpu_torch.parallel.mesh import DataAxis
+
+    axis = DataAxis.from_process_group()
+    out = {}
+    for name, cut in OP_CUTS.items():
+        lo, hi = (0, cut) if rank == 0 else (cut, 8)
+
+        def run(fn, x):
+            xt = torch.tensor(x[lo:hi], requires_grad=True)
+            with layers.data_axis_scope(axis), F.row_window(lambda n: (lo, 8)):
+                got = fn(xt)
+            got.backward(torch.as_tensor(refs["cot"][lo:hi]))
+            return got.detach().numpy(), xt.grad.numpy()
+
+        for (op, mix), (lmda, perm, _, _) in refs["mix"].items():
+            out[op, mix, name] = run(lambda v: getattr(F, op)(
+                v, p=1.0, alpha=0.1, mix=mix, lmda=lmda, perm=perm, apply=True), refs["x"])
+        tn = layers.TransNorm(3)
+        dassl_state_from_numpy(tn, refs["transnorm"]["state"])
+        tn.train()
+        out["transnorm", name] = (*run(tn, refs["transnorm"]["x"]),
+                                  dassl_state_to_numpy(tn)["batch_stats"])
+    return out
+
+
+# Vanilla and DAELDG with mixing ResNet-18s (32 px), their coin at 1: case ->
+# (trainer, backbone, mixing calls in two steps: Vanilla's three layers a
+# forward; DAELDG's one a domain group's forward, three groups of 4 rows
+# (DAELDG_CASES["DAELDG"]), a weak and a strong view)
+MIXING_CASES = {"Vanilla-ms": ("Vanilla", "resnet18_ms_l123", 6),
+                "Vanilla-efdmix": ("Vanilla", "resnet18_efdmix_l123", 6),
+                "DAELDG-ms": ("DAELDG", "resnet18_ms_l1", 12)}
+
+
+@contextlib.contextmanager
+def _applied_mixes():
+    """Whether each MixStyle/EFDMix call of the block mixed (a skipped call
+    returns its input)."""
+    applied = []
+    saved = F.mixstyle, F.efdmix
+
+    def counted(fn):
+        def call(x, *args, **kwargs):
+            out = fn(x, *args, **kwargs)
+            applied.append(out is not x)
+            return out
+        return call
+
+    F.mixstyle, F.efdmix = counted(saved[0]), counted(saved[1])
+    try:
+        yield applied
+    finally:
+        F.mixstyle, F.efdmix = saved
+
+
+def _mixing_case(tmp, case, control=False):
+    """Two steps of ``case`` from one init (``ms_p`` 1 on the built backbone):
+    the logged values and leaves, and whether each mixing call mixed."""
+    from ovmr_tpu_torch.engine import dg
+    from tests.test_torch_dg_trajectory import replay_trainer
+
+    from tests.test_torch_da_trajectory import _float64_trainers
+
+    name, backbone, _ = MIXING_CASES[case]
+    torch.manual_seed(0)  # one init for every run
+    with _float64_trainers(case in FLOAT64_CASES), _applied_mixes() as applied:
+        if name == "DAELDG":
+            n_domain, split = DAELDG_CASES["DAELDG"]
+            trainer = replay_trainer(dg.DAELDG, _daeldg_cfg(tmp, n_domain, n_domain * split, **{
+                "MODEL.BACKBONE.NAME": backbone}), num_source_domains=n_domain)
+            batches = domain_batches(n_domain, split)
+        else:
+            trainer = replay_trainer(dg.Vanilla, make_cfg(tmp, name, **{
+                "MODEL.BACKBONE.NAME": backbone}))
+            batches = domain_batches(2, 4)
+        trainer.net.backbone.ms_p = 1.0
+        result = _replay_steps(rank_local(trainer) if control else trainer, batches)
+    return result, applied
+
+
+def _dump(obj, path):
+    """What the ranks and the parent hand each other (numpy leaves of
+    ResNet-18s, ~0.5 GB a rank), pickled with protocol 5, which writes an
+    array's bytes as they are (``torch.save`` pickles numpy arrays through
+    protocol 2, seconds slower at this size)."""
+    with open(path, "wb") as f:
+        pickle.dump(obj, f, protocol=5)
+
+
+def _load(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 def _gloo_rank(rank, world, tmp):
@@ -444,8 +630,12 @@ def _gloo_rank(rank, world, tmp):
         runs = {case: _daeldg_case(path, case) for case in DAELDG_CASES}
         controls = {"DAELDG": _daeldg_case(path, "DAELDG", control=True)}
         loaders = {sliced: _daeldg_loader_case(path, sliced) for sliced in (True, False)}
-        torch.save({"loss": out["loss"], "state": state, "runs": runs, "controls": controls,
-                    "loaders": loaders}, f"{tmp}/rank{rank}.pt")
+        ops = _ops_on_rank(rank, _load(path / "op_refs.pkl"))
+        mixing = {case: _mixing_case(path, case) for case in MIXING_CASES}
+        controls.update({case: _mixing_case(path, case, control=True)[0]
+                         for case in MIXING_CASES})
+        _dump({"loss": out["loss"], "state": state, "runs": runs, "controls": controls,
+               "loaders": loaders, "ops": ops, "mixing": mixing}, path / f"rank{rank}.pkl")
     finally:
         dist.destroy_process_group()
 
@@ -454,8 +644,10 @@ def _gloo_rank(rank, world, tmp):
 def gloo_runs(tmp_path_factory):
     """The one-process runs, then one spawn of two gloo ranks running them
     again: Vanilla, DAELDG (its domain groups cut by the ranks' blocks, and
-    not splitting evenly), its rank-local control, and DAELDG on its loader
-    with and without the sliced decode."""
+    not splitting evenly), its rank-local control, DAELDG on its loader
+    with and without the sliced decode, MixStyle/EFDMix and TransNorm on the
+    ranks' rows of JAX's whole batch, and Vanilla and DAELDG with mixing
+    backbones and their rank-local controls."""
     from tests.test_torch_dg_trajectory import replay_trainer
     from ovmr_tpu_torch.engine import dg
 
@@ -470,11 +662,15 @@ def gloo_runs(tmp_path_factory):
             vanilla = _two_steps(replay_trainer(dg.Vanilla, make_cfg(tmp, "Vanilla")))
             refs = {case: _daeldg_case(tmp, case) for case in DAELDG_CASES}
             loader = _daeldg_loader_case(tmp, True)
+            mixing = {case: _mixing_case(tmp, case) for case in MIXING_CASES}
+            op_refs = _jax_op_refs()
+            _dump(op_refs, tmp / "op_refs.pkl")
             mp.spawn(_gloo_rank, args=(2, str(tmp)), nprocs=2, join=True)
         finally:
             torch.set_num_threads(threads)
-    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
-    return {"vanilla": vanilla, "refs": refs, "loader": loader, "ranks": ranks}
+    ranks = [_load(tmp / f"rank{r}.pkl") for r in range(2)]
+    return {"vanilla": vanilla, "refs": refs, "loader": loader, "ranks": ranks,
+            "mixing": mixing, "op_refs": op_refs}
 
 
 def test_two_gloo_ranks_equal_one_program(gloo_runs):
@@ -524,6 +720,57 @@ def test_daeldg_rank_local_control_fails_the_gates(gloo_runs):
     gates the cross-rank step meets."""
     for got in gloo_runs["ranks"]:
         assert max(gate_readings(gloo_runs["refs"]["DAELDG"], got["controls"]["DAELDG"])) > 1
+
+
+@pytest.mark.parametrize("cut", sorted(OP_CUTS))
+@pytest.mark.parametrize("op,mix", MIX_OPS)
+def test_feature_mixing_on_two_gloo_ranks_matches_jax_on_the_whole_batch(gloo_runs, op, mix,
+                                                                         cut):
+    """Each rank mixes its rows with their partners wherever they are, at
+    the whole batch's weights: the ranks' rows, in order, are the JAX
+    function's on the whole batch (fp32 1e-5), and EFDMix's input gradient
+    reaches the partners across the ranks (1e-4), for a step's even blocks
+    and a domain group's uneven pieces."""
+    _, _, want, grad = gloo_runs["op_refs"]["mix"][op, mix]
+    got = [r["ops"][op, mix, cut] for r in gloo_runs["ranks"]]
+    np.testing.assert_allclose(np.concatenate([g[0] for g in got]), want, atol=1e-5)
+    np.testing.assert_allclose(np.concatenate([g[1] for g in got]), grad, atol=1e-4)
+
+
+@pytest.mark.parametrize("cut", sorted(OP_CUTS))
+def test_transnorm_on_two_gloo_ranks_matches_jax_on_the_whole_batch(gloo_runs, cut):
+    """The halves are the whole batch's (rank 0 may hold only source rows),
+    their statistics over both ranks' rows: the outputs and each rank's
+    running statistics (1e-5) and the input gradient (1e-4) are JAX's."""
+    ref = gloo_runs["op_refs"]["transnorm"]
+    got = [r["ops"]["transnorm", cut] for r in gloo_runs["ranks"]]
+    np.testing.assert_allclose(np.concatenate([g[0] for g in got]), ref["want"], atol=1e-5)
+    np.testing.assert_allclose(np.concatenate([g[1] for g in got]), ref["grad"], atol=1e-4)
+    for rank, (_, _, stats) in enumerate(got):
+        for k, v in ref["stats"].items():
+            np.testing.assert_allclose(stats[k], v, atol=1e-5, err_msg=f"rank {rank} {k}")
+
+
+@pytest.mark.parametrize("case", sorted(MIXING_CASES))
+def test_feature_mixing_trainers_on_two_gloo_ranks_equal_one_program(gloo_runs, case):
+    """Vanilla and DAELDG whose backbones mix every forward (the coin at 1,
+    every mixing call mixed): each rank draws the whole batch's weights and
+    permutation and mixes across the ranks, so both take the single
+    program's step at the gates, bit for bit alike."""
+    ref, applied = gloo_runs["mixing"][case]
+    calls = MIXING_CASES[case][2]
+    assert applied == [True] * calls
+    for got in gloo_runs["ranks"]:
+        assert got["mixing"][case][1] == [True] * calls
+    _assert_ranks_hold(ref, [r["mixing"][case][0] for r in gloo_runs["ranks"]])
+
+
+@pytest.mark.parametrize("case", sorted(MIXING_CASES))
+def test_feature_mixing_rank_local_controls_fail_the_gates(gloo_runs, case):
+    """The control: the mixing within each rank's block, drawn for its rows
+    alone, misses the gates the cross-rank step meets."""
+    for got in gloo_runs["ranks"]:
+        assert max(gate_readings(gloo_runs["mixing"][case][0], got["controls"][case])) > 1
 
 
 def test_trainers_refuse_cuda_without_a_card(tmp_path):

@@ -28,6 +28,16 @@ FIXTURE = osp.join(osp.dirname(osp.abspath(__file__)), "fixtures", "exploratory_
 ATOL = 3e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module's tests and fixtures: the suite's
+    workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def golden():
     data = np.load(FIXTURE)

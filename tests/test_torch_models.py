@@ -45,6 +45,16 @@ BLOCK_FNS = {"torch_math": residual_attention_block, "fused": fused_residual_blo
 ATTN_FNS = {"plain": attention_plain, "fused": fused_attention}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module's tests and fixtures: the suite's
+    workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

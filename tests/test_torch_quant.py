@@ -61,6 +61,16 @@ ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TRAJ = osp.join(ROOT, "tests", "fixtures", "trajectory_coop_golden.npz")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module's tests and fixtures: the suite's
+    workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     """TINY towers as numpy leaves in the JAX layout (the port's seeded

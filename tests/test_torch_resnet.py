@@ -43,6 +43,16 @@ ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 GOLDEN = osp.join(ROOT, "tests", "fixtures", "clip_rn_tiny_golden.npz")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module's tests and fixtures: the suite's
+    workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def golden():
     data = np.load(GOLDEN)

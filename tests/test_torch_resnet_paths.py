@@ -35,6 +35,16 @@ from ovmr_tpu_torch.utils import get_cfg_default
 NAMES = ["red circle", "green square", "blue triangle", "ski_mask"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module's tests and fixtures: the suite's
+    workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _reference_state_dict(params) -> dict:
     """A JAX CLIP tree with a ModifiedResNet image tower (numpy leaves) ->
     the reference OpenAI state dict (torch tensors, linear weights

@@ -44,6 +44,16 @@ DTYPES = {"fp32": (jnp.float32, torch.float32, 1e-5), "bf16": (jnp.bfloat16, tor
 L, D = 17, 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module's tests and fixtures: the suite's
+    workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

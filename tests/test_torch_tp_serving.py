@@ -41,6 +41,16 @@ NAMES = ["red circle", "green square", "café crème"]
 KEYS = ("mm_classifier", "vision_classifier", "text_classifier", "visual_tokens", "fusion_weight")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module's tests and fixtures: the suite's
+    workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

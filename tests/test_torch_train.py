@@ -50,6 +50,15 @@ FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 BLOCK_FNS = {"fused": fused_residual_block, "torch_math": residual_attention_block}
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread a test: the suite's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _sd(data, prefix):
     return {k[len(prefix) + 1:]: data[k] for k in data.files if k.startswith(prefix + ".")}
 

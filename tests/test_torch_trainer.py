@@ -41,6 +41,27 @@ EPOCHS, BATCHES = 3, 2
 SIZE = 224
 
 
+class _NoWriter:
+    def add_scalar(self, *a):
+        pass
+
+    def flush(self):
+        pass
+
+
+@pytest.fixture(autouse=True)
+def _one_thread(monkeypatch):
+    """One intra-op thread a test (the suite's workers share the cores) and
+    no tensorboard writer (its first import costs seconds; no check reads
+    it)."""
+    monkeypatch.setattr(trainer_mod.TrainerBase, "init_writer",
+                        lambda self: setattr(self, "_writer", _NoWriter()) or self._writer)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class _SplitReplay:
     """Replays the recorded reference split draws through the
     ``sample_split_point`` seam."""

@@ -31,6 +31,16 @@ TRAJ = osp.join(ROOT, "tests", "fixtures", "trajectory_coop_golden.npz")
 CLASSNAMES = ["red_panda", "golden retriever", "sports car", "tabby cat", "fire truck"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module's tests and fixtures: the suite's
+    workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def clip_pt(tmp_path_factory):
     data = np.load(TRAJ)

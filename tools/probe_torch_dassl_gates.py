@@ -127,6 +127,7 @@ def main() -> int:
         return 1
     print(f"[device] {smoke.nvidia_smi_line()}; torch {torch.__version__}", flush=True)
     smoke.DG_GRAD_FACTOR = args.grad_factor
+    smoke.GATE_DRIFT = True
     smoke.DA_GATE_ZERO_RESIDUAL = not args.random_start
     root = Path(tempfile.mkdtemp(prefix=f"ovmr_{args.phase}_gates_"))
     # torch's own TF32 defaults, as the phases set them
