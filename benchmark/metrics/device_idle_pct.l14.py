@@ -1,0 +1,8 @@
+"""Share of the traced window in which the device idled; in
+clip_vit_l14_336.generate."""
+
+from benchmark.harness import readers
+
+
+def read(ctx):
+    return readers.device_idle_pct(ctx)
