@@ -38,6 +38,7 @@ from ovmr_tpu_torch.engine.trainer import encode_features, mm_generate_classifie
 from ovmr_tpu_torch.models import clip as tclip
 from ovmr_tpu_torch.models import ovmr
 from ovmr_tpu_torch.models.aggregator import init_aggregator
+from ovmr_tpu_torch.utils import trace
 
 
 def resolve_device(device) -> torch.device:
@@ -114,11 +115,12 @@ class OVMRGenerator:
         """Unit image features [B, D] in the compute dtype, on the device,
         encoded ``batch_size`` images at a time."""
         images = torch.as_tensor(images)
-        parts = [
-            encode_features(self.clip_params, self.clip_cfg,
-                            images[s : s + batch_size].to(self.device), self.dtype)
-            for s in range(0, images.shape[0], batch_size)
-        ]
+        parts = []
+        for s in range(0, images.shape[0], batch_size):
+            with trace.span("encode"):
+                parts.append(encode_features(self.clip_params, self.clip_cfg,
+                                             images[s : s + batch_size].to(self.device),
+                                             self.dtype))
         return torch.cat(parts)
 
     @torch.inference_mode()
@@ -132,12 +134,13 @@ class OVMRGenerator:
         self, classnames: Sequence[str], exemplar_images, eval_tau: float = 10.0
     ) -> Dict[str, np.ndarray]:
         """classnames [N] + exemplar images [N, K, 3, H, W] -> classifiers."""
-        exemplar_images = torch.as_tensor(exemplar_images)
-        n, k = exemplar_images.shape[:2]
-        feats = self._encode(
-            exemplar_images.reshape(n * k, *exemplar_images.shape[2:]), 1024
-        ).reshape(n, k, -1)
-        return self.generate_from_features(classnames, feats, eval_tau=eval_tau)
+        with trace.span("generate"):
+            exemplar_images = torch.as_tensor(exemplar_images)
+            n, k = exemplar_images.shape[:2]
+            feats = self._encode(
+                exemplar_images.reshape(n * k, *exemplar_images.shape[2:]), 1024
+            ).reshape(n, k, -1)
+            return self._classifiers(classnames, feats, eval_tau, 2048, None)
 
     @torch.inference_mode()
     def generate_from_features(
@@ -157,6 +160,11 @@ class OVMRGenerator:
         set. ``max_text_classes`` mirrors the reference's >=5000-class
         guard: at or above it the frozen text head and the fusion are
         skipped (keys absent from the result)."""
+        with trace.span("generate_from_features"):
+            return self._classifiers(classnames, exemplar_feats, eval_tau, chunk_size,
+                                     max_text_classes)
+
+    def _classifiers(self, classnames, exemplar_feats, eval_tau, chunk_size, max_text_classes):
         ptok, eot, vtok = ovmr.build_prompt_tokens(classnames)
         limit = ovmr.TEXT_CLS_MAX_CLASSES if max_text_classes is None else int(max_text_classes)
         return mm_generate_classifiers(

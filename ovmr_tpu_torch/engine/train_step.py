@@ -50,6 +50,7 @@ from ovmr_tpu_torch.ops.layers import (
     residual_attention_block,
     residual_block_remat,
 )
+from ovmr_tpu_torch.utils import trace
 
 
 def _text_tower_block_fn(block_fn):
@@ -173,23 +174,29 @@ def make_train_step(
 
     def train_step(agg_params, optimizer, clip_params, images, prompt_tokens, eot_idx,
                    vis_tokens, generator, split_point: int, augment_draws=None):
-        layout = "NCHW"
-        if augment is not None:
-            with torch.no_grad():
-                images = augment_images(images, augment, generator, augment_draws)
-            layout = "NHWC"
-        frozen = frozen_features(
-            clip_params, clip_cfg, images, prompt_tokens, vis_tokens, split_point,
-            block_fn=block_fn, layout=layout,
-        )
-        optimizer.zero_grad(set_to_none=True)
-        loss = classifier_loss(
-            clip_params, clip_cfg, agg_params, frozen, eot_idx, dropout=dropout,
-            generator=generator, attn_fn=attn_fn, block_fn=block_fn,
-        )
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        with trace.span("step"):
+            layout = "NCHW"
+            if augment is not None:
+                with torch.no_grad(), trace.span("augment"):
+                    images = augment_images(images, augment, generator, augment_draws)
+                layout = "NHWC"
+            with trace.span("frozen"):
+                frozen = frozen_features(
+                    clip_params, clip_cfg, images, prompt_tokens, vis_tokens, split_point,
+                    block_fn=block_fn, layout=layout,
+                )
+            with trace.span("optimizer"):
+                optimizer.zero_grad(set_to_none=True)
+            with trace.span("heads"):
+                loss = classifier_loss(
+                    clip_params, clip_cfg, agg_params, frozen, eot_idx, dropout=dropout,
+                    generator=generator, attn_fn=attn_fn, block_fn=block_fn,
+                )
+            with trace.span("backward"):
+                loss.backward()
+            with trace.span("optimizer"):
+                optimizer.step()
+            return loss.detach()
 
     return train_step
 
@@ -243,6 +250,12 @@ def make_sharded_train_step(
 
     def step(agg_params, optimizer, clip_params, images, prompt_tokens, eot_idx, vis_tokens,
              seed, split_point: int, augment_draws=None):
+        with trace.span("step"):
+            return _step(agg_params, optimizer, clip_params, images, prompt_tokens, eot_idx,
+                         vis_tokens, seed, split_point, augment_draws)
+
+    def _step(agg_params, optimizer, clip_params, images, prompt_tokens, eot_idx, vis_tokens,
+              seed, split_point, augment_draws):
         n_local = len(data.shards)
         local_cls = images.shape[0] // n_local
         blocks = list(zip(data.split(images), data.split(prompt_tokens), data.split(eot_idx)))
@@ -255,29 +268,34 @@ def make_sharded_train_step(
             layout = "NCHW"
             if augment is not None:
                 draws = None if augment_draws is None else augment_draws[i]
-                with torch.no_grad():
+                with torch.no_grad(), trace.span("augment"):
                     imgs = augment_images(imgs, augment, gen, draws)
                 layout = "NHWC"
-            frozen.append(frozen_features(
-                clip_params, clip_cfg, imgs, ptok, vis_tokens, split_point,
-                block_fn=block_fn, layout=layout, label_offset=d * local_cls,
-            ))
-        optimizer.zero_grad(set_to_none=True)
+            with trace.span("frozen"):
+                frozen.append(frozen_features(
+                    clip_params, clip_cfg, imgs, ptok, vis_tokens, split_point,
+                    block_fn=block_fn, layout=layout, label_offset=d * local_cls,
+                ))
+        with trace.span("optimizer"):
+            optimizer.zero_grad(set_to_none=True)
         # the dropout masks of a shard follow its augment draws, as in the
         # single-program step
-        heads = [_heads(clip_params, clip_cfg, agg_params, fr, eot, dropout, gen, attn_fn,
-                        block_fn)
-                 for fr, gen, (_, _, eot) in zip(frozen, gens, blocks)]
+        with trace.span("heads"):
+            heads = [_heads(clip_params, clip_cfg, agg_params, fr, eot, dropout, gen, attn_fn,
+                            block_fn)
+                     for fr, gen, (_, _, eot) in zip(frozen, gens, blocks)]
         width = heads[0][0].shape[-1]
         both = data.gather([torch.cat(h, dim=-1) for h in heads])
         mm_all, v_all = both[:, :width], both[:, width:]
         loss = sum(_ce_pair(fr, mm_all, v_all) for fr in frozen)
-        loss.backward()
+        with trace.span("backward"):
+            loss.backward()
         with torch.no_grad():
             for leaf in param_leaves(agg_params):
                 if leaf.grad is not None:
                     data.sum_(leaf.grad).div_(data.size)
-        optimizer.step()
+        with trace.span("optimizer"):
+            optimizer.step()
         return data.sum_(loss.detach().clone()) / data.size
 
     return step

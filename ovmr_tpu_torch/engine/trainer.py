@@ -89,7 +89,7 @@ from ovmr_tpu_torch.parallel.mesh import (
     shard_batch,
 )
 from ovmr_tpu_torch.parallel.multihost import is_primary, world
-from ovmr_tpu_torch.utils import AverageMeter, MetricMeter, Registry
+from ovmr_tpu_torch.utils import AverageMeter, MetricMeter, Registry, trace
 
 TRAINER_REGISTRY = Registry("TRAINER")
 
@@ -307,7 +307,10 @@ def mm_generate_classifiers(
     token_embedding = clip_params["text"]["token_embedding"]
     device = token_embedding.device
     feats = torch.as_tensor(exemplar_feats, device=device).to(token_embedding.dtype)
-    vis = torch.as_tensor(np.asarray(vis_tokens), device=device)
+    # a blocking copy from pageable host memory waits for the stream: here,
+    # for the whole encode queued before it
+    with trace.span("tokens", wait=True):
+        vis = torch.as_tensor(np.asarray(vis_tokens), device=device)
 
     def heads_fn(f, pt, et):
         pe, ve = ovmr.prompt_embeddings(clip_params, f, pt, vis)
@@ -326,7 +329,8 @@ def mm_generate_classifiers(
             feats, out["mm_classifier"], out["vision_classifier"], out["text_classifier"],
             clip_params["logit_scale"].float().exp(), float(eval_tau), mesh=mesh,
         ).float()
-    out = {k: v.cpu().numpy() for k, v in out.items()}
+    with trace.span("result", wait=True):
+        out = {k: v.cpu().numpy() for k, v in out.items()}
     if output_dir is not None:
         from ovmr_tpu_torch.engine.checkpoint import export_classifiers_torch
 

@@ -30,6 +30,7 @@ from ovmr_tpu_torch.ops.layers import (
     quick_gelu,
     split_heads,
 )
+from ovmr_tpu_torch.utils import trace
 
 
 def init_aggregator(
@@ -128,13 +129,14 @@ def generate_vokens(
     queries, run the blocks, keep the first n_ctx positions
     (reference ``trainers/mm_classifier_one_prompt.py:167-169``). Dropout is
     active only with a ``generator`` and ``dropout`` > 0."""
-    n, _, d = exemplar_feats.shape
-    cls = params["cls_token"].to(exemplar_feats.dtype)
-    n_ctx = cls.shape[0]
-    x = torch.cat([cls[None].expand(n, n_ctx, d), exemplar_feats], dim=1)
-    blocks = params["blocks"]
-    for i in range(blocks["w_qkv"].shape[0]):
-        x = _dropout_block(
-            x, {k: v[i] for k, v in blocks.items()}, d // 64, dropout, generator, attn_fn
-        )
-    return x[:, :n_ctx, :]
+    with trace.span("generator"):
+        n, _, d = exemplar_feats.shape
+        cls = params["cls_token"].to(exemplar_feats.dtype)
+        n_ctx = cls.shape[0]
+        x = torch.cat([cls[None].expand(n, n_ctx, d), exemplar_feats], dim=1)
+        blocks = params["blocks"]
+        for i in range(blocks["w_qkv"].shape[0]):
+            x = _dropout_block(
+                x, {k: v[i] for k, v in blocks.items()}, d // 64, dropout, generator, attn_fn
+            )
+        return x[:, :n_ctx, :]

@@ -29,6 +29,7 @@ import torch
 from ovmr_tpu_torch.ops.block_fused import fused_residual_block
 from ovmr_tpu_torch.ops.layers import causal_mask, l2_normalize, layer_norm, matmul_f32
 from ovmr_tpu_torch.ops.quant import QUANT_KEYS
+from ovmr_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -369,15 +370,16 @@ def encode_text_embeds(
     """Prompt-side text forward on embeddings [B, L, D]: positional
     embedding sliced to L, causal mask, explicit EOT gather index
     (reference ``trainers/mm_classifier_one_prompt.py:63-91``)."""
-    t = params["text"]
-    dtype = embeds.dtype
-    length = embeds.shape[1]
-    x = embeds + t["positional_embedding"][:length].to(dtype)
-    mask = causal_mask(length, device=x.device)
-    x = run_blocks(x, t["blocks"], cfg.transformer_heads, mask=mask, block_fn=block_fn)
-    x = layer_norm(x, t["ln_final_scale"], t["ln_final_bias"])
-    pooled = x[torch.arange(x.shape[0], device=x.device), eos_index.long()]
-    return matmul_f32(pooled, t["text_projection"].to(dtype)).to(dtype)
+    with trace.span("text_tower"):
+        t = params["text"]
+        dtype = embeds.dtype
+        length = embeds.shape[1]
+        x = embeds + t["positional_embedding"][:length].to(dtype)
+        mask = causal_mask(length, device=x.device)
+        x = run_blocks(x, t["blocks"], cfg.transformer_heads, mask=mask, block_fn=block_fn)
+        x = layer_norm(x, t["ln_final_scale"], t["ln_final_bias"])
+        pooled = x[torch.arange(x.shape[0], device=x.device), eos_index.long()]
+        return matmul_f32(pooled, t["text_projection"].to(dtype)).to(dtype)
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,7 @@ from ovmr_tpu_torch.ops.fusion import (
 from ovmr_tpu_torch.ops.attention import fused_attention
 from ovmr_tpu_torch.ops.block_fused import fused_residual_block
 from ovmr_tpu_torch.ops.layers import l2_normalize
+from ovmr_tpu_torch.utils import trace
 
 # The reference skips the frozen zero-shot text classifier at >= 5000
 # classes (``mm_…:118-126``); ``max_text_classes`` overrides it upward.
@@ -48,11 +49,12 @@ def build_prompt_tokens(classnames) -> Tuple[np.ndarray, np.ndarray, np.ndarray]
     int32); underscores become spaces (reference ``mm_…:109``)."""
     from ovmr_tpu_torch.text import eot_indices, tokenize
 
-    names = [str(n).replace("_", " ") for n in classnames]
-    prompt_tokens = tokenize([f"a {n}." for n in names])
-    eot_idx = eot_indices(prompt_tokens).astype(np.int32)
-    vis_tokens = tokenize(["a ."])[0]
-    return prompt_tokens, eot_idx, vis_tokens
+    with trace.span("prompt"):
+        names = [str(n).replace("_", " ") for n in classnames]
+        prompt_tokens = tokenize([f"a {n}." for n in names])
+        eot_idx = eot_indices(prompt_tokens).astype(np.int32)
+        vis_tokens = tokenize(["a ."])[0]
+        return prompt_tokens, eot_idx, vis_tokens
 
 
 def splice_prompts(prompt_embeds: torch.Tensor, vokens: torch.Tensor) -> torch.Tensor:
@@ -191,36 +193,37 @@ def fusion_from_classifiers(
     With a ``mesh`` whose data axis is > 1 the streamed rows shard over it
     (:func:`ovmr_tpu_torch.ops.fusion.streaming_fusion_weights_sharded`,
     JAX :242-281): the same bits."""
-    n, k, d = exemplar_feats.shape
-    m = n * k
-    labels = torch.arange(n, device=exemplar_feats.device).repeat_interleave(k)
-    scale = torch.as_tensor(logit_scale, dtype=torch.float32, device=exemplar_feats.device)
-    if mesh is not None and mesh.data.size > 1 and m > row_chunk:
-        from ovmr_tpu_torch.ops.fusion import streaming_fusion_weights_sharded
+    with trace.span("fusion"):
+        n, k, d = exemplar_feats.shape
+        m = n * k
+        labels = torch.arange(n, device=exemplar_feats.device).repeat_interleave(k)
+        scale = torch.as_tensor(logit_scale, dtype=torch.float32, device=exemplar_feats.device)
+        if mesh is not None and mesh.data.size > 1 and m > row_chunk:
+            from ovmr_tpu_torch.ops.fusion import streaming_fusion_weights_sharded
 
-        return streaming_fusion_weights_sharded(
-            mesh.data, exemplar_feats.reshape(m, d), labels, (mm_cls, v_cls, t_cls), scale,
-            eval_tau, class_mask=class_mask, row_chunk=row_chunk,
+            return streaming_fusion_weights_sharded(
+                mesh.data, exemplar_feats.reshape(m, d), labels, (mm_cls, v_cls, t_cls), scale,
+                eval_tau, class_mask=class_mask, row_chunk=row_chunk,
+            )
+        if m > row_chunk:
+            return streaming_fusion_weights(
+                exemplar_feats.reshape(m, d), labels, (mm_cls, v_cls, t_cls), scale,
+                eval_tau, class_mask=class_mask, row_chunk=row_chunk,
+            )
+        flat = exemplar_feats.reshape(m, d).float()
+
+        def cls_logits(cls_matrix):
+            logits = scale * flat @ cls_matrix.float().T
+            if class_mask is not None:
+                logits = torch.where(class_mask[None, :], logits, float("-inf"))
+            return logits
+
+        return fusion_weights_from_f1(
+            multiclass_f1(cls_logits(mm_cls), labels, n),
+            multiclass_f1(cls_logits(v_cls), labels, n),
+            multiclass_f1(cls_logits(t_cls), labels, n),
+            eval_tau,
         )
-    if m > row_chunk:
-        return streaming_fusion_weights(
-            exemplar_feats.reshape(m, d), labels, (mm_cls, v_cls, t_cls), scale,
-            eval_tau, class_mask=class_mask, row_chunk=row_chunk,
-        )
-    flat = exemplar_feats.reshape(m, d).float()
-
-    def cls_logits(cls_matrix):
-        logits = scale * flat @ cls_matrix.float().T
-        if class_mask is not None:
-            logits = torch.where(class_mask[None, :], logits, float("-inf"))
-        return logits
-
-    return fusion_weights_from_f1(
-        multiclass_f1(cls_logits(mm_cls), labels, n),
-        multiclass_f1(cls_logits(v_cls), labels, n),
-        multiclass_f1(cls_logits(t_cls), labels, n),
-        eval_tau,
-    )
 
 
 def generate_classifiers_chunked(
@@ -247,51 +250,54 @@ def generate_classifiers_chunked(
     the callables' outputs gather to every rank (JAX :323-340)."""
     from ovmr_tpu_torch.text import eot_indices
 
-    device = exemplar_feats.device
-    n_cls = exemplar_feats.shape[0]
-    vis = np.asarray(vis_tokens)
-    pad_n = -chunk * (-n_cls // chunk)
-    ptok_p = np.tile(vis, (pad_n, 1)).astype(np.int32)
-    ptok_p[:n_cls] = np.asarray(prompt_tokens)
-    eot_p = np.full(pad_n, int(eot_indices(vis[None])[0]), np.int32)
-    eot_p[:n_cls] = np.asarray(eot_idx)
-    feats_p = exemplar_feats
-    if pad_n > n_cls:
-        feats_p = torch.nn.functional.pad(
-            feats_p, (0, 0) * (feats_p.dim() - 1) + (0, pad_n - n_cls)
-        )
+    with trace.span("heads"):
+        device = exemplar_feats.device
+        n_cls = exemplar_feats.shape[0]
+        vis = np.asarray(vis_tokens)
+        pad_n = -chunk * (-n_cls // chunk)
+        ptok_p = np.tile(vis, (pad_n, 1)).astype(np.int32)
+        ptok_p[:n_cls] = np.asarray(prompt_tokens)
+        eot_p = np.full(pad_n, int(eot_indices(vis[None])[0]), np.int32)
+        eot_p[:n_cls] = np.asarray(eot_idx)
+        feats_p = exemplar_feats
+        if pad_n > n_cls:
+            feats_p = torch.nn.functional.pad(
+                feats_p, (0, 0) * (feats_p.dim() - 1) + (0, pad_n - n_cls)
+            )
 
-    def run(fn, *arrays):
-        if mesh is None:
-            return fn(*arrays)
-        from ovmr_tpu_torch.parallel.mesh import map_data_shards
+        def run(fn, *arrays):
+            if mesh is None:
+                return fn(*arrays)
+            from ovmr_tpu_torch.parallel.mesh import map_data_shards
 
-        return map_data_shards(mesh, fn, *arrays)
+            return map_data_shards(mesh, fn, *arrays)
 
-    mm_parts, v_parts, vt_parts, t_parts = [], [], [], []
-    for start in range(0, pad_n, chunk):
-        sl = slice(start, start + chunk)
-        ptok_c = torch.as_tensor(ptok_p[sl], device=device)
+        mm_parts, v_parts, vt_parts, t_parts = [], [], [], []
+        for start in range(0, pad_n, chunk):
+            sl = slice(start, start + chunk)
+            # each copy of token ids to the device waits for the stream
+            with trace.span("tokens", wait=True):
+                ptok_c = torch.as_tensor(ptok_p[sl], device=device)
+            if text_fn is not None:
+                t_parts.append(run(text_fn, ptok_c))
+            with trace.span("tokens", wait=True):
+                eot_c = torch.as_tensor(eot_p[sl], device=device)
+            mm_c, v_c, vt_c = run(heads_fn, feats_p[sl], ptok_c, eot_c)
+            mm_parts.append(mm_c)
+            v_parts.append(v_c)
+            vt_parts.append(vt_c)
+
+        def cat(parts):
+            return torch.cat(parts).float()[:n_cls]
+
+        out = {
+            "mm_classifier": cat(mm_parts),
+            "vision_classifier": cat(v_parts),
+            "visual_tokens": cat(vt_parts),
+        }
         if text_fn is not None:
-            t_parts.append(run(text_fn, ptok_c))
-        mm_c, v_c, vt_c = run(
-            heads_fn, feats_p[sl], ptok_c, torch.as_tensor(eot_p[sl], device=device)
-        )
-        mm_parts.append(mm_c)
-        v_parts.append(v_c)
-        vt_parts.append(vt_c)
-
-    def cat(parts):
-        return torch.cat(parts).float()[:n_cls]
-
-    out = {
-        "mm_classifier": cat(mm_parts),
-        "vision_classifier": cat(v_parts),
-        "visual_tokens": cat(vt_parts),
-    }
-    if text_fn is not None:
-        out["text_classifier"] = cat(t_parts)
-    return out
+            out["text_classifier"] = cat(t_parts)
+        return out
 
 
 def _require_text_head(classifiers: dict, mode: str) -> None:

@@ -20,6 +20,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ovmr_tpu_torch.utils import trace
+
 
 def f1_from_counts(
     tp: torch.Tensor, pred_count: torch.Tensor, label_count: torch.Tensor
@@ -35,7 +37,9 @@ def _weighted_count(idx: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
     ``torch.bincount`` grows instead of clamping, so count into n + 1
     bins (n = the padding/miss marker) and keep the first n."""
     idx = torch.clamp(idx.long(), max=n)
-    return torch.bincount(idx, weights=w, minlength=n + 1)[:n].float()
+    with trace.span("fusion.count", wait=True):  # on CUDA bincount reads its length back
+        counts = torch.bincount(idx, weights=w, minlength=n + 1)
+    return counts[:n].float()
 
 
 def f1_counts_from_preds(

@@ -31,6 +31,8 @@ import re
 import unicodedata
 from typing import Dict, List, Tuple
 
+from ovmr_tpu_torch.utils import trace
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 DEFAULT_BPE_PATH = os.path.join(_HERE, "assets", "bpe_simple_vocab_16e6.txt.gz")
 
@@ -222,10 +224,12 @@ class ClipTokenizer:
     # -- public API ---------------------------------------------------------
     def encode(self, text: str) -> List[int]:
         ids: List[int] = []
-        text = _clean_text(text).lower()
-        for raw in pretokenize(text):
-            mapped = "".join(self._b2u[b] for b in raw.encode("utf-8"))
-            ids.extend(self.encoder[piece] for piece in self._merge_word(mapped))
+        with trace.span("prompt.clean", host_only=True):
+            text = _clean_text(text).lower()
+        with trace.span("prompt.bpe", host_only=True):
+            for raw in pretokenize(text):
+                mapped = "".join(self._b2u[b] for b in raw.encode("utf-8"))
+                ids.extend(self.encoder[piece] for piece in self._merge_word(mapped))
         return ids
 
     def decode(self, ids: List[int]) -> str:
